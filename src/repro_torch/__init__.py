@@ -1,0 +1,50 @@
+"""repro_torch — the PyTorch/CUDA port of the FedQCS system in ``repro``.
+
+Mirrors ``repro``'s layout module for module (``core/``, ``kernels/``,
+``fed/``, ``optim/``, ``data/``, ``paper/``) and keeps its public names, so
+every ported module has exactly one reference module.  The port imports
+``torch``, numpy and the standard library only; it never imports ``jax`` or
+anything of ``repro``.
+
+Slice 1 covers one barrier round of the paper's Sec. VI experiment on the
+kernel route (``use_kernels=True``, ``gamp_variance_mode="scalar"``): the
+fused BQCS encoder, the AE (``gamp_step``) and packed EA (``qgamp_step``)
+GAMP decoders, the ``lloyd_max`` codebook, the ``ideal`` channel, the
+``full`` scheduler and the FedAdam server.  The three kernels are CUDA C++
+for ``sm_90a`` under ``csrc/``, built at first use (``kernels/build.py``).
+Routes outside the slice raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
+
+Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run the
+plain PyTorch versions of the kernels.  There is no fallback from one to
+the other.
+"""
+
+import torch
+
+ROADMAP_OUT_OF_SLICE = "ROADMAP.md queue 1"
+
+
+def not_in_slice(what: str, item: str) -> NotImplementedError:
+    """The error every route outside the ported slice raises."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet ({ROADMAP_OUT_OF_SLICE}, {item})"
+    )
+
+
+def entry_device(device) -> torch.device:
+    """Resolves an entry point's ``device`` argument.
+
+    A CUDA device with no card raises (there is no fallback to the CPU).
+    Matrix products run in IEEE fp32: TF32 keeps ~3 decimal digits and would
+    flip codes at the quantizer thresholds, so both TF32 switches go off.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} requested but torch.cuda.is_available() is False "
+            "(pass device='cpu' to run the plain versions)"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev

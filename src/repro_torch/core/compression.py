@@ -1,0 +1,299 @@
+"""BQCS end-to-end gradient codec (port of ``repro.core.compression``).
+
+Pipeline per step, per client (paper Sec. III):
+
+    grads (dict of tensors) --flatten+pad--> (nblocks, N) blocks
+      + residual (error feedback, eq. 8)
+      -> block top-S sparsify (residual out, eq. 7)
+      -> project with shared A, scale alpha = sqrt(M)/||.||  (eq. 9)
+      -> Lloyd-Max encode (eq. 10)
+      -> bit-pack codes into uint32 words (the wire payload)
+
+On the kernel route the whole pipeline is ONE launch of the fused encoder
+(``kernels/bqcs_encode_fused.py``).  Wire words are ``torch.uint32``
+tensors in the reference's lane-group layout, so words packed by either
+package unpack identically in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import entry_device, not_in_slice
+from repro_torch.core import sensing
+from repro_torch.core.codebook import ScalarCodebook, make_codebook
+
+__all__ = [
+    "FedQCSConfig",
+    "BQCSCodec",
+    "Layout",
+    "flatten_to_blocks",
+    "blocks_to_tree",
+    "pack_codes",
+    "unpack_codes",
+    "decode_packed",
+    "packed_width",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class FedQCSConfig:
+    """Protocol parameters shared by every worker and the PS (same fields
+    and defaults as the reference)."""
+
+    block_size: int = 1024  # N
+    reduction_ratio: int = 4  # R = N / M
+    bits: int = 2  # Q: index bits per code
+    codebook: str = "lloyd_max"
+    vq_dim: int = 2
+    vq_levels: int = 0
+    s_ratio: float = 0.1  # S = floor(s_ratio * N) kept per block
+    gamp_iters: int = 25
+    gamp_components: int = 3  # L
+    gamp_variance_mode: str = "exact"
+    sparsifier: str = "topk"
+    seed: int = 1234  # sensing-matrix seed (protocol constant)
+    use_kernels: bool = False
+    wire_mode: str = "gather_codes"
+    recon_mode: str = "ae"
+    recon_chunk: int = 0
+
+    def validate(self) -> "FedQCSConfig":
+        """Raises ValueError on incoherent knob combinations (the reference's
+        checks, message for message in substance); returns self."""
+        if self.block_size < 1 or self.reduction_ratio < 1:
+            raise ValueError(
+                f"block_size={self.block_size} and reduction_ratio="
+                f"{self.reduction_ratio} must both be >= 1"
+            )
+        if self.m < 1:
+            raise ValueError(
+                f"reduction_ratio={self.reduction_ratio} leaves no measurements "
+                f"(M = {self.block_size} // {self.reduction_ratio} = 0); use "
+                f"reduction_ratio <= block_size"
+            )
+        if not (1 <= self.bits <= 8):
+            raise ValueError(f"bits must be in [1, 8], got {self.bits}")
+        if not (0.0 < self.s_ratio <= 1.0):
+            raise ValueError(f"s_ratio must be in (0, 1], got {self.s_ratio}")
+        if self.wire_mode not in ("gather_codes", "psum_dequant"):
+            raise ValueError(
+                f"unknown wire_mode {self.wire_mode!r} "
+                "(choose 'gather_codes' or 'psum_dequant')"
+            )
+        if self.recon_mode not in ("ae", "ea"):
+            raise ValueError(
+                f"unknown recon_mode {self.recon_mode!r} (choose 'ae' or 'ea')"
+            )
+        if self.recon_mode == "ea" and self.wire_mode != "gather_codes":
+            raise ValueError(
+                "recon_mode='ea' needs the per-worker codes on the PS side, "
+                "i.e. wire_mode='gather_codes'; "
+                f"got wire_mode={self.wire_mode!r}"
+            )
+        if self.recon_chunk < 0:
+            raise ValueError(f"recon_chunk must be >= 0, got {self.recon_chunk}")
+        if self.gamp_variance_mode not in ("exact", "scalar"):
+            raise ValueError(
+                f"unknown gamp_variance_mode {self.gamp_variance_mode!r} "
+                "(choose 'exact' or 'scalar')"
+            )
+        if self.codebook == "vq" and self.m % self.vq_dim:
+            raise ValueError(
+                f"vq_dim={self.vq_dim} must divide M={self.m} "
+                f"(= block_size // reduction_ratio)"
+            )
+        return self
+
+    @property
+    def m(self) -> int:
+        return self.block_size // self.reduction_ratio
+
+    @property
+    def s(self) -> int:
+        return max(1, int(self.s_ratio * self.block_size))
+
+    @property
+    def bits_per_entry(self) -> float:
+        return self.bits / self.reduction_ratio
+
+
+# ---------------------------------------------------------------------------
+# parameter dict <-> blocks (the monolithic layout)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Monolithic block geometry of a parameter dict.
+
+    The reference flattens a dict pytree in SORTED key order (``b1, b2, w1,
+    w2`` for the paper's MLP): that order is the wire layout of the block
+    grid, so the port sorts too rather than following insertion order.
+    Leaves are flattened row-major, concatenated, zero-padded once at the
+    end to ``rows * n``.
+    """
+
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    n: int
+
+    @property
+    def sizes(self) -> Tuple[int, ...]:
+        return tuple(math.prod(shape) for shape in self.shapes)
+
+    @property
+    def nbar(self) -> int:
+        return sum(self.sizes)
+
+    @property
+    def rows(self) -> int:
+        return -(-self.nbar // self.n)
+
+    @classmethod
+    def monolithic(cls, tree: Dict[str, torch.Tensor], n: int) -> "Layout":
+        names = tuple(sorted(tree))
+        return cls(names, tuple(tuple(tree[k].shape) for k in names), n)
+
+    def to_blocks_batched(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Every leaf carries a leading batch axis -> (batch, rows, N)."""
+        batch = tree[self.names[0]].shape[0]
+        flat = torch.cat([tree[k].reshape(batch, -1) for k in self.names], dim=1)
+        pad = self.rows * self.n - self.nbar
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        return flat.reshape(batch, self.rows, self.n)
+
+    def to_blocks(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.to_blocks_batched({k: v[None] for k, v in tree.items()})[0]
+
+    def tree_from_blocks(self, blocks: torch.Tensor) -> Dict[str, torch.Tensor]:
+        flat = blocks.reshape(-1)[: self.nbar]
+        out, off = {}, 0
+        for name, shape, size in zip(self.names, self.shapes, self.sizes):
+            out[name] = flat[off : off + size].reshape(shape)
+            off += size
+        return out
+
+
+def flatten_to_blocks(tree: Dict[str, torch.Tensor], n: int):
+    """(blocks (rows, N), layout, nbar) -- the reference's monolithic flatten."""
+    layout = Layout.monolithic(tree, n)
+    return layout.to_blocks(tree), layout, layout.nbar
+
+
+def blocks_to_tree(blocks: torch.Tensor, layout: Layout) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`flatten_to_blocks`."""
+    return layout.tree_from_blocks(blocks)
+
+
+# ---------------------------------------------------------------------------
+# bit packing (wire format)
+# ---------------------------------------------------------------------------
+
+
+def packed_width(m: int, bits: int) -> int:
+    """uint32 words per block row on the wire: W = ceil(lanes / (32 // Q))."""
+    return -(-m // (32 // bits))
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Packs Q-bit indices into uint32 words, the canonical lane-group layout:
+    measurement ``c`` lives in word ``c % W`` at bit ``(c // W) * Q``.
+    (nb, M) integer codes -> (nb, W) uint32.  torch has no uint32 shifts,
+    so the words are assembled in int64 and narrowed once."""
+    per_word = 32 // bits
+    nb, m = codes.shape
+    w = packed_width(m, bits)
+    grouped = torch.zeros((nb, w * per_word), dtype=torch.int64, device=codes.device)
+    grouped[:, :m] = codes.to(torch.int64)
+    grouped = grouped.reshape(nb, per_word, w)
+    shifts = (torch.arange(per_word, device=codes.device) * bits)[None, :, None]
+    return torch.sum(grouped << shifts, dim=1).to(torch.uint32)
+
+
+def _unpack_groups(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., W) uint32 -> (..., per_word, W) int64 lane groups."""
+    per_word = 32 // bits
+    shifts = (torch.arange(per_word, device=words.device) * bits).reshape(
+        (1,) * (words.dim() - 1) + (per_word, 1)
+    )
+    return (words.to(torch.int64)[..., None, :] >> shifts) & ((1 << bits) - 1)
+
+
+def unpack_codes(words: torch.Tensor, bits: int, m: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`: (..., W) uint32 -> (..., m) uint8."""
+    out = _unpack_groups(words, bits).to(torch.uint8)
+    return out.reshape(words.shape[:-1] + (-1,))[..., :m]
+
+
+def decode_packed(
+    words: torch.Tensor, bits: int, m: int, levels: torch.Tensor
+) -> torch.Tensor:
+    """Dequantize straight from packed words: (..., W) uint32 -> (..., m) f32."""
+    deq = levels[_unpack_groups(words, bits)]
+    return deq.reshape(words.shape[:-1] + (-1,))[..., :m]
+
+
+# ---------------------------------------------------------------------------
+# The codec
+# ---------------------------------------------------------------------------
+
+
+class BQCSCodec:
+    """BQCS encoder/decoder bound to a FedQCSConfig, on one device.
+
+    ``a`` injects the sensing matrix (M, N) instead of drawing it from the
+    config seed -- the way the tests hand the reference's matrix across
+    (see ``convert.from_reference``).
+    """
+
+    def __init__(self, cfg: FedQCSConfig, a: Optional[torch.Tensor] = None, device="cuda"):
+        self.cfg = cfg.validate()
+        if not cfg.use_kernels:
+            raise not_in_slice("use_kernels=False (the XLA-algorithm routes)", "item 1")
+        self.device = entry_device(device)
+        self.codebook: ScalarCodebook = make_codebook(cfg)
+        if a is None:
+            a = sensing.sensing_matrix(cfg.seed, cfg.m, cfg.block_size, self.device)
+        if tuple(a.shape) != (cfg.m, cfg.block_size):
+            raise ValueError(f"a has shape {tuple(a.shape)}, want {(cfg.m, cfg.block_size)}")
+        self._a = a.to(self.device, torch.float32).contiguous()
+        from repro_torch.kernels import ops as kops
+
+        self._a_t = kops.encoder_a_t(self._a, self.codebook.bits)
+        self._taus = self.codebook.thresholds_t(self.device)
+
+    @property
+    def a(self) -> torch.Tensor:
+        return self._a
+
+    @property
+    def n_codes(self) -> int:
+        return self.codebook.n_codes(self.cfg.m)
+
+    def compress_blocks_packed(
+        self, blocks: torch.Tensor, residual: torch.Tensor, s: Optional[int] = None
+    ):
+        """(blocks + residual) -> (words, alpha, new_residual), eqs. 7-10 plus
+        the wire packing, in one launch of the fused encoder."""
+        from repro_torch.kernels import ops as kops
+
+        return kops.bqcs_encode_fused(
+            blocks, residual, self._a, self.codebook, self.cfg.s if s is None else s,
+            a_t=self._a_t, taus=self._taus,
+        )
+
+    def compress_blocks(
+        self, blocks: torch.Tensor, residual: torch.Tensor, s: Optional[int] = None
+    ):
+        """Unpacked uint8-index view of :meth:`compress_blocks_packed`."""
+        words, alpha, new_residual = self.compress_blocks_packed(blocks, residual, s)
+        return self.unpack(words), alpha, new_residual
+
+    def unpack(self, words: torch.Tensor) -> torch.Tensor:
+        return unpack_codes(words, self.codebook.bits, self.n_codes)

@@ -1,0 +1,31 @@
+"""Sensing matrices for the dimension-reduction stage (paper Sec. III-A).
+
+The paper draws A in R^{M x N} iid N(0, 1/M) and shares it across all
+devices, blocks and steps.  The reference draws it with ``jax.random``; the
+port draws it from a CPU ``torch.Generator`` seeded with the protocol seed
+and then moves it to the device, so the CPU and the card hold the same A.
+The two draws differ from each other: to hold the port against the
+reference, pass the reference's matrix in (``convert.from_reference``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["sensing_matrix", "scale_factor"]
+
+
+def sensing_matrix(seed: int, m: int, n: int, device="cuda") -> torch.Tensor:
+    """A in R^{m x n}, entries iid N(0, 1/m), drawn on the CPU from ``seed``."""
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    a = torch.randn((m, n), generator=gen, dtype=torch.float32)
+    a = a / torch.sqrt(torch.tensor(float(m), dtype=torch.float32))
+    return a.to(device)
+
+
+def scale_factor(blocks: torch.Tensor, m: int, eps: float = 1e-20) -> torch.Tensor:
+    """alpha per block: sqrt(M) / ||g_block|| (0 for zero blocks), (nblocks,)."""
+    norms = torch.linalg.vector_norm(blocks, dim=-1)
+    root_m = float(np.sqrt(np.float32(m)))
+    return torch.where(norms > eps, root_m / norms, torch.zeros_like(norms))

@@ -1,0 +1,156 @@
+// Input side shared by the two GAMP step kernels: the Bernoulli
+// Gaussian-mixture posterior (paper eq. 11) and the EM hyperparameter
+// refresh (eq. 17), on the packed theta layout
+//
+//     theta = [lam0 | lam_1..L | mu_1..L | phi_1..L]   (1 + 3L floats per row).
+//
+// Replaces repro/kernels/gm_prior.py (gm_input_channel, em_refresh), whose
+// functions the Pallas kernels inline.  The steps and clamps follow the
+// plain version (repro_torch/kernels/gm_prior.py) line for line: lam0 in
+// [1e-6, 1 - 1e-6], lam >= 1e-8, phi >= 1e-12, and the EM variance is the
+// scatter around the SAME-STEP refreshed mean mu_new.  Sums over N run in
+// another order than the plain version's, so results agree to float
+// rounding, not bit for bit.
+#pragma once
+
+#include "common.cuh"
+
+namespace fedqcs {
+
+constexpr int kMaxComponents = 8;  // L <= 8 (the paper uses L = 3)
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+struct GmRow {
+  int L;
+  float v;  // nu_r, the scalar input-channel variance of this row
+  float lam0, lam[kMaxComponents], mu[kMaxComponents], phi[kMaxComponents];
+  float var[kMaxComponents];    // max(v + phi_l, eps)
+  float coef[kMaxComponents];   // lam_l / sqrt(2 pi var_l)
+  float coef0;                  // lam0 / sqrt(2 pi v)
+
+  __device__ __forceinline__ void load(const float* th, int L_, float v_) {
+    L = L_;
+    v = v_;
+    lam0 = th[0];
+    coef0 = lam0 * (kInvSqrt2Pi * rsqrtf(v));
+#pragma unroll
+    for (int l = 0; l < kMaxComponents; ++l) {
+      if (l < L) {
+        lam[l] = th[1 + l];
+        mu[l] = th[1 + L + l];
+        phi[l] = th[1 + 2 * L + l];
+        var[l] = fmaxf(v + phi[l], kEps);
+        coef[l] = lam[l] * (kInvSqrt2Pi * rsqrtf(var[l]));
+      }
+    }
+  }
+
+  // Posterior of one entry: weights lp0/lp_l, component means mp_l and
+  // variances pp_l given rhat = r.
+  __device__ __forceinline__ void posterior(float r, float& lp0, float (&lp)[kMaxComponents],
+                                            float (&mp)[kMaxComponents],
+                                            float (&pp)[kMaxComponents]) const {
+    const float beta0 = coef0 * expf(-0.5f * r * r / v);
+    float bsum = 0.f;
+#pragma unroll
+    for (int l = 0; l < kMaxComponents; ++l) {
+      if (l < L) {
+        const float d = r - mu[l];
+        lp[l] = coef[l] * expf(-0.5f * d * d / var[l]);
+        bsum += lp[l];
+      }
+    }
+    const float denom = fmaxf(beta0 + bsum, kEps);
+    lp0 = beta0 / denom;
+#pragma unroll
+    for (int l = 0; l < kMaxComponents; ++l) {
+      if (l < L) {
+        lp[l] = lp[l] / denom;
+        mp[l] = (r * phi[l] + mu[l] * v) / var[l];
+        pp[l] = v * phi[l] / var[l];
+      }
+    }
+  }
+};
+
+// GM input channel + EM refresh for one block-row, run by the whole block.
+// rhat: the row's n r-hat values in shared memory.  Writes ghat_out/nug_out
+// (n floats) and theta_out (1 + 3L floats) when `store` is set.
+__device__ __forceinline__ void gm_input_and_em(const float* rhat, float v, const float* theta,
+                                                int n, int L, bool em, bool store,
+                                                float* __restrict__ ghat_out,
+                                                float* __restrict__ nug_out,
+                                                float* __restrict__ theta_out, float* scratch) {
+  GmRow row;
+  row.load(theta, L, v);
+  constexpr int NV = 1 + 2 * kMaxComponents;
+  float acc[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
+  float lp0, lp[kMaxComponents], mp[kMaxComponents], pp[kMaxComponents];
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    row.posterior(rhat[i], lp0, lp, mp, pp);
+    float gh = 0.f, second = 0.f;
+#pragma unroll
+    for (int l = 0; l < kMaxComponents; ++l) {
+      if (l < L) {
+        gh += lp[l] * mp[l];
+        second += lp[l] * (pp[l] + mp[l] * mp[l]);
+        acc[1 + l] += lp[l];
+        acc[1 + kMaxComponents + l] += lp[l] * mp[l];
+      }
+    }
+    acc[0] += lp0;
+    if (store) {
+      ghat_out[i] = gh;
+      nug_out[i] = fmaxf(second - gh * gh, kEps);
+    }
+  }
+  const int tl = 1 + 3 * L;
+  if (!em) {
+    if (store && threadIdx.x < tl) theta_out[threadIdx.x] = theta[threadIdx.x];
+    return;
+  }
+  block_sum<NV>(acc, scratch);
+  float mu_new[kMaxComponents], safe[kMaxComponents];
+#pragma unroll
+  for (int l = 0; l < kMaxComponents; ++l) {
+    if (l < L) {
+      safe[l] = fmaxf(acc[1 + l], kEps);
+      mu_new[l] = acc[1 + kMaxComponents + l] / safe[l];
+    }
+  }
+  // Second pass: the scatter around mu_new needs mu_new first.
+  float sc[kMaxComponents];
+#pragma unroll
+  for (int l = 0; l < kMaxComponents; ++l) sc[l] = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    row.posterior(rhat[i], lp0, lp, mp, pp);
+#pragma unroll
+    for (int l = 0; l < kMaxComponents; ++l) {
+      if (l < L) {
+        const float d = mu_new[l] - mp[l];
+        sc[l] += lp[l] * (d * d + pp[l]);
+      }
+    }
+  }
+  block_sum<kMaxComponents>(sc, scratch);
+  if (store && threadIdx.x == 0) {
+    const float nf = (float)n;
+    float lam0_new = fminf(fmaxf(acc[0] / nf, 1e-6f), 1.0f - 1e-6f);
+    float lam_new[kMaxComponents], total_lam = 0.f;
+    for (int l = 0; l < L; ++l) {
+      lam_new[l] = fmaxf(acc[1 + l] / nf, 1e-8f);
+      total_lam += lam_new[l];
+    }
+    const float total = fmaxf(lam0_new + total_lam, kEps);
+    theta_out[0] = lam0_new / total;
+    for (int l = 0; l < L; ++l) {
+      theta_out[1 + l] = lam_new[l] / total;
+      theta_out[1 + L + l] = mu_new[l];
+      theta_out[1 + 2 * L + l] = fmaxf(sc[l] / safe[l], kEps);
+    }
+  }
+}
+
+}  // namespace fedqcs

@@ -1,0 +1,125 @@
+"""Drivers around the kernels (port of ``repro.kernels.ops``).
+
+``bqcs_encode_fused`` pads A^T's columns once to the word multiple and
+calls the fused encoder; ``qgamp_ea_run_packed`` and ``gamp_ae_run`` are the
+fixed-trip-count GAMP solves: the reference's ``lax.scan`` becomes a Python
+loop of kernel launches.  The kernels mask their own ragged row tiles, so no
+row padding is needed.  On CPU tensors every kernel call takes its plain
+version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.compression import packed_width
+from repro_torch.core.gamp import block_prior_energy, norm_guard, tau_tables
+from repro_torch.kernels import gm_prior as _gm
+from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused as _encode
+from repro_torch.kernels.gamp_step import gamp_step
+from repro_torch.kernels.qgamp_step import qgamp_step
+
+__all__ = [
+    "encoder_a_t",
+    "bqcs_encode_fused",
+    "qgamp_step",
+    "gamp_step",
+    "qgamp_ea_run_packed",
+    "gamp_ae_run",
+]
+
+
+def encoder_a_t(a: torch.Tensor, bits: int) -> torch.Tensor:
+    """A (M, N) -> A^T (N, Mp) with zero columns out to the word multiple
+    Mp = W * (32 // Q) -- the encoder's operand layout (codecs cache it)."""
+    m, n = a.shape
+    mp = packed_width(m, bits) * (32 // bits)
+    a_t = torch.zeros((n, mp), dtype=torch.float32, device=a.device)
+    a_t[:, :m] = a.T
+    return a_t
+
+
+def bqcs_encode_fused(blocks, residual, a, codebook, s, a_t=None, taus=None):
+    """Fused encoder: error feedback -> top-S -> scale/project/encode ->
+    uint32 wire packing.  blocks/residual (nb, N), a (M, N).  Returns
+    (words uint32 (nb, W), alpha (nb,), new_residual (nb, N))."""
+    m = a.shape[0]
+    if a_t is None:
+        a_t = encoder_a_t(a, codebook.bits)
+    if taus is None:
+        taus = codebook.thresholds_t(blocks.device)
+    return _encode(
+        blocks.to(torch.float32).contiguous(), residual.to(torch.float32).contiguous(),
+        a_t, taus, s=s, m=m, bits=codebook.bits,
+    )
+
+
+def _init_state(init_var: torch.Tensor, n: int, m: int, L: int, lam0: float):
+    nb = init_var.shape[0]
+    theta = _gm.pack_init_theta(nb, L, init_var, lam0)
+    ghat = torch.zeros((nb, n), dtype=torch.float32, device=init_var.device)
+    nu_g = torch.clamp(init_var, min=1e-12)[:, None].expand(nb, n).contiguous()
+    shat = torch.zeros((nb, m), dtype=torch.float32, device=init_var.device)
+    return ghat, nu_g, shat, theta
+
+
+def qgamp_ea_run_packed(
+    words: torch.Tensor,  # (nb, W) uint32 packed wire words
+    alpha: torch.Tensor,  # (nb,) transmitted scales (0 = dead block)
+    a: torch.Tensor,  # (M, N)
+    taus: torch.Tensor,  # (2^Q - 1,) interior Lloyd-Max thresholds
+    bits: int,
+    m: int,
+    n_components: int = 3,
+    iters: int = 25,
+    em: bool = True,
+    lam0: float = 0.9,
+) -> torch.Tensor:
+    """Packed-domain EA reconstruction: ``iters`` launches of qgamp_step on
+    the wire words.  Dead rows (alpha == 0) run with alpha = 1 and come out
+    exactly zero; the final norm guard clips against the transmitted norm
+    sqrt(M)/alpha.  Returns (nb, N)."""
+    n = a.shape[1]
+    lo_tau, hi_tau = tau_tables(taus)
+    alpha = alpha.to(torch.float32)
+    alive = alpha > 0.0
+    safe_alpha = torch.where(alive, alpha, torch.ones_like(alpha))
+    init_var = block_prior_energy(alpha, m, n)
+    ghat, nu_g, shat, theta = _init_state(init_var, n, m, n_components, lam0)
+    alpha2d = safe_alpha[:, None].contiguous()
+    words = words.contiguous()
+    for _ in range(iters):
+        ghat, nu_g, shat, theta = qgamp_step(
+            ghat, nu_g, shat, theta, words, alpha2d, lo_tau, hi_tau, a,
+            n_components=n_components, em=em, bits=bits,
+        )
+    ghat = torch.where(alive[:, None], ghat, torch.zeros_like(ghat))
+    root_m = float(np.sqrt(np.float32(m)))
+    true_norm = torch.where(alive, root_m / safe_alpha, torch.zeros_like(alpha))
+    return norm_guard(ghat, true_norm)
+
+
+def gamp_ae_run(
+    y: torch.Tensor,  # (nb, M) Bussgang-aggregated observations
+    nu_d: torch.Tensor,  # (nb,) effective AWGN variance (eq. 24)
+    a: torch.Tensor,  # (M, N)
+    init_var: torch.Tensor,  # (nb,) per-entry signal energy
+    n_components: int = 3,
+    iters: int = 25,
+    em: bool = True,
+    lam0: float = 0.9,
+) -> torch.Tensor:
+    """AE reconstruction: ``iters`` launches of gamp_step, then the norm
+    guard against the expected aggregate norm sqrt(init_var * N)."""
+    m = y.shape[1]
+    n = a.shape[1]
+    init_var = init_var.to(torch.float32)
+    ghat, nu_g, shat, theta = _init_state(init_var, n, m, n_components, lam0)
+    y = y.to(torch.float32).contiguous()
+    nud2 = nu_d.to(torch.float32)[:, None].contiguous()
+    for _ in range(iters):
+        ghat, nu_g, shat, theta = gamp_step(
+            ghat, nu_g, shat, theta, y, nud2, a, n_components=n_components, em=em
+        )
+    return norm_guard(ghat, torch.sqrt(torch.clamp(init_var * n, min=0.0)))

@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's main path on one NVIDIA card and checks it.
+"""Drives the PyTorch port's paths on one NVIDIA card and checks them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
 
  1. Device: the card's name and count, ``nvidia-smi``'s name and power limit,
-    torch/CUDA versions, and the build of the CUDA kernels from
-    ``src/repro_torch/csrc`` (timed).
- 2. Each kernel against its plain PyTorch version at the main path's shapes,
-    on the card, inputs from a seed: the fused encoder (300 x 1591, S=159,
-    Q=3), one qgamp_step and the 25-step EA driver (300 rows), one gamp_step
-    and the 25-step AE driver (10 rows).
- 3. The main path: ``paper.mlp.run_federated`` for fedqcs-ae and fedqcs-ea at
-    full width (K=30, N=1591, M=530, Q=3), 3 rounds each, with every launch
-    count set to 0 just before each run and read just after.  Then one round
-    of each from the same A and initial weights with the plain versions
-    swapped in; the decoded gradients must agree to NMSE <= 1e-3.
- 4. ``torch.profiler`` traces per method: a steady round's device busy time
-    beside its wall time (the idle share), and the top device events.
- 5. Times with CUDA events (warm-up, then many back-to-back launches queued
-    behind a sleep kernel so host launch cost stays out): each kernel, its
-    plain version, and where one exists the PyTorch call for the same work;
-    the step kernels at 1 and 2 rows per block ([tune]).
+    torch/CUDA versions, and the build of the five CUDA kernels from
+    ``src/repro_torch/csrc`` (one nvcc per source, all started together;
+    timed).
+ 2. [kernels] Each kernel against its plain PyTorch version at the paths'
+    shapes, on the card, inputs from a seed: the fused encoder's scalar,
+    dither and vq branches (300 x 1591, S=159, Q=3), block_topk
+    (bit-identical) and the staged bqcs_encode, one qgamp_step and the
+    25-step EA driver (300 rows), one gamp_step and the 25-step AE driver
+    (10 rows), and one gamp_step at 300 rows (the vq EA decode's shape).
+ 3. [staged] The staged encode path of ``kernels/ops.py``
+    (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
+    counts set to 0 just before and read just after, held against the
+    fused encoder's wire from the same input.
+ 4. [main] ``paper.mlp.run_federated`` at full width (K=30, N=1591, M=530,
+    Q=3) for fedqcs-ae and fedqcs-ea with the lloyd_max codebook (3
+    rounds), the dithered_uniform and vq codebooks (2 rounds each), and one
+    lloyd_max EA round with exact-variance GAMP; every launch count is set
+    to 0 just before each run and read just after, and checked per round.
+    Then one round of each configuration from the same A and initial
+    weights with the plain versions swapped in; the decoded gradients must
+    agree to NMSE <= 1e-3.
+ 5. [profile] ``torch.profiler`` traces per configuration: a steady round's
+    device busy time beside its wall time (the idle share), and the top
+    device events.
+ 6. [time] Times with CUDA events (warm-up, then many back-to-back launches
+    queued behind a sleep kernel so host launch cost stays out): each kernel,
+    its plain version, and where one exists the PyTorch call for the same
+    work; the step kernels at 1 and 2 rows per block ([tune]).
 
 The next-to-last lines are the kernels JSON and ``nvidia-smi``'s name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -33,6 +44,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,7 +59,33 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 K, N, M, Q, S, ITERS = 30, 1591, 530, 3, 159, 25
-ROUNDS = 3
+
+# The main-path runs: (method, codebook, GAMP variance mode, rounds, the
+# launches per round of each kernel module).  The dithered EA decode and the
+# exact-variance decode run the reference's GAMP loop as plain PyTorch (no
+# step kernel); the vq EA decode runs gamp_step over all K x 10 rows.
+MAIN_RUNS = (
+    ("fedqcs-ae", "lloyd_max", "scalar", 3, dict(encode=1, gamp=ITERS, qgamp=0)),
+    ("fedqcs-ea", "lloyd_max", "scalar", 3, dict(encode=1, gamp=0, qgamp=ITERS)),
+    ("fedqcs-ae", "dithered_uniform", "scalar", 2, dict(encode=1, gamp=ITERS, qgamp=0)),
+    ("fedqcs-ea", "dithered_uniform", "scalar", 2, dict(encode=1, gamp=0, qgamp=0)),
+    ("fedqcs-ae", "vq", "scalar", 2, dict(encode=1, gamp=ITERS, qgamp=0)),
+    ("fedqcs-ea", "vq", "scalar", 2, dict(encode=1, gamp=ITERS, qgamp=0)),
+    ("fedqcs-ea", "lloyd_max", "exact", 1, dict(encode=1, gamp=0, qgamp=0)),
+)
+
+
+def fed_cfg(codebook: str = "lloyd_max", variance: str = "scalar"):
+    """The paper's experiment config (``run_federated``'s default) with the
+    codebook family and GAMP variance mode swapped."""
+    from repro_torch.core.compression import FedQCSConfig
+
+    return FedQCSConfig(reduction_ratio=3, bits=Q, s_ratio=0.1, gamp_iters=ITERS,
+                        use_kernels=True, gamp_variance_mode=variance, codebook=codebook)
+
+
+def run_label(method: str, codebook: str, variance: str) -> str:
+    return f"{method} {codebook}" + ("" if variance == "scalar" else f" {variance}-variance")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -112,16 +150,20 @@ class GpuTimer:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swaps the plain PyTorch versions in for the three kernels inside the
-    drivers, for comparison runs on the card (the wrappers themselves always
-    launch their kernel on CUDA tensors)."""
+    """Swaps the plain PyTorch versions in for the kernels inside the drivers
+    of ``kernels/ops.py``, for comparison runs on the card (the wrappers
+    themselves always launch their kernel on CUDA tensors)."""
     from repro_torch.core.compression import unpack_codes
     from repro_torch.kernels import ops, ref
 
-    saved = (ops._encode, ops.qgamp_step, ops.gamp_step)
+    saved = (ops._encode, ops.qgamp_step, ops.gamp_step, ops._topk, ops._staged_encode)
 
-    def encode(blocks, residual, a_t, taus, s, m, bits):
-        return ref.bqcs_encode_fused_ref(blocks, residual, a_t[:, :m], taus, s, bits)
+    def encode(blocks, residual, a_t, tab, s, m, bits, dither=None, half_norms=None):
+        if tab.dim() == 2:
+            return ref.bqcs_encode_fused_ref(blocks, residual, a_t, None, s, bits,
+                                             centroids=tab, half_norms=half_norms)
+        return ref.bqcs_encode_fused_ref(blocks, residual, a_t[:, :m], tab, s, bits,
+                                         dither=None if dither is None else dither[:m])
 
     def qstep(ghat, nu_g, shat, theta, obs, alpha, lo, hi, a, n_components=3, em=True, bits=0):
         codes = unpack_codes(obs, bits, shat.shape[1]) if bits else obs
@@ -132,10 +174,29 @@ def plain_kernels():
         return ref.gamp_step_ref(ghat, nu_g, shat, theta, y, nu_d, a, n_components, em)
 
     ops._encode, ops.qgamp_step, ops.gamp_step = encode, qstep, gstep
+    ops._topk, ops._staged_encode = ref.block_topk_ref, ref.bqcs_encode_ref
     try:
         yield
     finally:
-        ops._encode, ops.qgamp_step, ops.gamp_step = saved
+        ops._encode, ops.qgamp_step, ops.gamp_step, ops._topk, ops._staged_encode = saved
+
+
+def kernel_modules():
+    """name -> the wrapper module whose ``launches`` counts that kernel."""
+    from repro_torch.kernels import block_topk, bqcs_encode, bqcs_encode_fused, gamp_step
+    from repro_torch.kernels import qgamp_step
+
+    return {"encode": bqcs_encode_fused, "qgamp": qgamp_step, "gamp": gamp_step,
+            "topk": block_topk, "staged": bqcs_encode}
+
+
+def zero_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: mod.launches for k, mod in kernel_modules().items()}
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -170,13 +231,17 @@ def phase_kernels(dev):
 
     from repro_torch.core import bussgang
     from repro_torch.core.codebook import make_codebook
-    from repro_torch.core.compression import FedQCSConfig, pack_codes, unpack_codes
-    from repro_torch.core.gamp import tau_tables
+    from repro_torch.core.compression import pack_codes, packed_width, unpack_codes
+    from repro_torch.core.gamp import GampConfig, qem_gamp_packed, tau_tables
     from repro_torch.core.sensing import sensing_matrix
+    from repro_torch.kernels import block_topk as t_mod
+    from repro_torch.kernels import bqcs_encode as s_mod
     from repro_torch.kernels import bqcs_encode_fused as enc_mod
     from repro_torch.kernels import gamp_step as g_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import qgamp_step as q_mod
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.bqcs_encode import bqcs_encode
     from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
     from repro_torch.kernels.gamp_step import gamp_step
     from repro_torch.kernels.qgamp_step import qgamp_step
@@ -187,11 +252,7 @@ def phase_kernels(dev):
         return n
 
     out = {}
-    cfg = FedQCSConfig(block_size=N, reduction_ratio=3, bits=Q, use_kernels=True)
-    cb = make_codebook(cfg)
-    taus = cb.thresholds_t(dev)
-    a = sensing_matrix(cfg.seed, M, N, dev)
-    a_t = ops.encoder_a_t(a, Q)
+    a = sensing_matrix(fed_cfg().seed, M, N, dev)
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = K * 10
     blocks = (0.05 * torch.randn((rows, N), generator=gen)).to(dev)
@@ -199,31 +260,95 @@ def phase_kernels(dev):
     blocks[7] = 0.0
     resid0[7] = 0.0  # one dead row
 
-    # -- fused encoder --------------------------------------------------------
-    n0 = enc_mod.launches
-    words, alpha, resid = bqcs_encode_fused(blocks, resid0, a_t, taus, S, M, Q)
-    n_enc = launched(enc_mod, n0, 1)
-    w_p, al_p, res_p = ref.bqcs_encode_fused_ref(blocks, resid0, a_t[:, :M], taus, S, Q)
-    torch.cuda.synchronize()
-    check(torch.equal(resid, res_p), "encoder resid must be bit-identical")
-    rel = float(torch.max(torch.abs(alpha - al_p) / torch.clamp(torch.abs(al_p), min=1e-30)))
-    check(rel <= 1e-6, f"encoder alpha rtol {rel:.3g} > 1e-6")
-    codes, codes_p = unpack_codes(words, Q, M), unpack_codes(w_p, Q, M)
-    diff = codes != codes_p
+    # -- fused encoder, one branch per codebook family ---------------------------
+    enc_out = {}
     sparse, _ = ref.block_topk_ref(blocks + resid0, S)
-    y = (sparse * al_p[:, None]) @ a.T
+    kept = sparse != 0
+    for key, family in (("encode", "lloyd_max"), ("encode_dither", "dithered_uniform"),
+                        ("encode_vq", "vq")):
+        cb = make_codebook(dataclasses.replace(fed_cfg(family), block_size=N))
+        a_t = ops.encoder_a_t(a, cb)
+        tab = ops.encoder_tables(cb, M, dev)
+        kw = dict(dither=tab.dither, half_norms=tab.half_norms)
+        n0 = enc_mod.launches
+        words, alpha, resid = bqcs_encode_fused(blocks, resid0, a_t, tab.tab, S, M, Q, **kw)
+        n_enc = launched(enc_mod, n0, 1)
+        if cb.dim > 1:
+            w_p, al_p, res_p = ref.bqcs_encode_fused_ref(
+                blocks, resid0, a_t, None, S, Q, centroids=tab.tab, half_norms=tab.half_norms)
+        else:
+            w_p, al_p, res_p = ref.bqcs_encode_fused_ref(
+                blocks, resid0, a_t[:, :M], tab.tab, S, Q,
+                dither=None if tab.dither is None else tab.dither[:M])
+        torch.cuda.synchronize()
+        check(torch.equal(resid, res_p), f"{family} encoder resid must be bit-identical")
+        rel = float(torch.max(torch.abs(alpha - al_p) / torch.clamp(torch.abs(al_p), min=1e-30)))
+        check(rel <= 1e-6, f"{family} encoder alpha rtol {rel:.3g} > 1e-6")
+        lanes = cb.n_codes(M)
+        check(tuple(words.shape) == (rows, packed_width(lanes, Q)), f"{family} word count")
+        codes, codes_p = unpack_codes(words, Q, lanes), unpack_codes(w_p, Q, lanes)
+        diff = codes != codes_p
+        y = (sparse * al_p[:, None]) @ a.T
+        if cb.dim > 1:  # the gap between the two centroid scores the codes took
+            c = tab.tab
+            sc = torch.einsum("rjg,lj->rgl", y.reshape(rows, cb.dim, -1), c) - tab.half_norms
+            pick = lambda k: torch.gather(sc, 2, k.long()[..., None])[..., 0]
+            gap = torch.abs(pick(codes) - pick(codes_p))
+        else:
+            yd = y if tab.dither is None else y + tab.dither[:M]
+            gap = torch.amin(torch.abs(yd[..., None] - tab.tab), dim=-1)
+        n_diff = int(diff.sum())
+        if n_diff:
+            check(float(gap[diff].max()) < 1e-5, f"{family}: a differing code lane is not "
+                  "within 1e-5 of a decision")
+        full = unpack_codes(words, Q, words.shape[1] * (32 // Q))
+        check(not bool(full[:, lanes:].any()), f"{family}: pad lanes must carry code 0")
+        out[key] = dict(
+            max_abs_err=float(torch.max(torch.abs(alpha - al_p))), kept=int(kept.sum()),
+            a_rows=int(kept.any(dim=0).sum()), args=(blocks, resid0, a_t, tab.tab, S, M, Q),
+            kwargs=kw, words=words.shape[1],
+        )
+        print(f"[encode] {family}: 300x1591 S=159 Q=3 -> {lanes} code lanes in "
+              f"{words.shape[1]} words: resid bit-identical, alpha max rel err {rel:.3g}, "
+              f"{n_diff} differing code lanes of {codes.numel()} (each within 1e-5 of a "
+              f"decision), dead row alpha {float(alpha[7])}; launches {n_enc}")
+        enc_out[family] = (words, alpha, cb)
+        if family == "lloyd_max":
+            taus = tab.tab
+
+    # -- block_topk (bit-identical) and the staged bqcs_encode -------------------
+    carry = blocks + resid0
+    n0 = t_mod.launches
+    sp_k, res_k = block_topk(carry, S)
+    n_t = launched(t_mod, n0, 1)
+    sp_p, res_p = ref.block_topk_ref(carry, S)
+    torch.cuda.synchronize()
+    check(torch.equal(sp_k, sp_p) and torch.equal(res_k, res_p),
+          "block_topk sparse and resid must be bit-identical")
+    out["topk"] = dict(max_abs_err=0.0, args=(carry, S))
+    print(f"[block_topk] 300x1591 S=159: sparse and resid bit-identical; launches {n_t}")
+    a_tt = a.T.contiguous()
+    n0 = s_mod.launches
+    st_codes, st_alpha = bqcs_encode(sparse, a_tt, taus)
+    n_s = launched(s_mod, n0, 1)
+    st_codes_p, st_alpha_p = ref.bqcs_encode_ref(sparse, a_tt, taus)
+    torch.cuda.synchronize()
+    rel = float(torch.max(torch.abs(st_alpha - st_alpha_p)
+                          / torch.clamp(torch.abs(st_alpha_p), min=1e-30)))
+    check(rel <= 1e-6, f"bqcs_encode alpha rtol {rel:.3g} > 1e-6")
+    diff = st_codes != st_codes_p
+    y = (sparse * st_alpha_p[:, None]) @ a_tt
     gap = torch.amin(torch.abs(y[..., None] - taus), dim=-1)
     n_diff = int(diff.sum())
     if n_diff:
-        check(float(gap[diff].max()) < 1e-5, "a differing code lane is not near a threshold")
-    kept = sparse != 0
-    out["encode"] = dict(
-        max_abs_err=float(torch.max(torch.abs(alpha - al_p))), kept=int(kept.sum()),
-        a_rows=int(kept.any(dim=0).sum()), args=(blocks, resid0, a_t, taus, S, M, Q),
-    )
-    print(f"[encode] 300x1591 S=159 Q=3: resid bit-identical, alpha max rel err {rel:.3g}, "
-          f"{n_diff} differing code lanes of {codes.numel()} (each within 1e-5 of a threshold), "
-          f"dead row alpha {float(alpha[7])}; launches {n_enc}")
+        check(float(gap[diff].max()) < 1e-5, "bqcs_encode: a differing code lane is not near "
+              "a threshold")
+    out["staged"] = dict(max_abs_err=float(torch.max(torch.abs(st_alpha - st_alpha_p))),
+                         args=(sparse, a_tt, taus))
+    print(f"[bqcs_encode] 300x1591 -> 530 Q=3 (the top-S blocks): alpha max rel err {rel:.3g}, "
+          f"{n_diff} differing code lanes of {st_codes.numel()} (each within 1e-5 of a "
+          f"threshold); launches {n_s}")
+    words, alpha, cb = enc_out["lloyd_max"]
 
     lo, hi = tau_tables(taus)
     L = 3
@@ -295,49 +420,128 @@ def phase_kernels(dev):
     print(f"[gamp_step] one step, 10 rows: allclose rtol 2e-4 atol 1e-6, max abs err "
           f"{max(errs):.3g}; 25-step AE driver on the Bussgang aggregate of the encoder's "
           f"words: NMSE {e_ae:.3g} (<= 1e-4); launches {n_g}")
+
+    # -- one gamp_step on 300 rows, then the vq EA decode over K x 10 rows -------
+    y300 = t(rng.normal(0, 1, (rows, M)))
+    nud300 = t(np.full((rows, 1), 0.05))
+    args300 = (ghat, nug, shat, theta, y300, nud300, a, L, True)
+    n0 = g_mod.launches
+    step_k = gamp_step(*args300)
+    step_p = ref.gamp_step_ref(*args300)
+    torch.cuda.synchronize()
+    errs = []
+    for name, k_, p_ in zip(("ghat", "nu_g", "shat", "theta"), step_k, step_p):
+        torch.testing.assert_close(k_, p_, rtol=2e-4, atol=1e-6, msg=f"gamp_step 300 {name}")
+        errs.append(float(torch.max(torch.abs(k_ - p_))))
+    vq_words, vq_alpha, vq_cb = enc_out["vq"]
+    gcfg = GampConfig(variance_mode="scalar")
+    vq_k = qem_gamp_packed(vq_words, vq_alpha, a, vq_cb, gcfg, M, use_kernels=True)
+    with plain_kernels():
+        vq_p = qem_gamp_packed(vq_words, vq_alpha, a, vq_cb, gcfg, M, use_kernels=True)
+    e_vq = nmse(vq_k, vq_p)
+    check(e_vq <= 1e-4, f"vq EA decode NMSE {e_vq:.3g} > 1e-4")
+    check(not bool(vq_k[7].any()), "dead row must decode to exactly zero")
+    n_g = launched(g_mod, n0, 1 + ITERS)
+    out["gamp300"] = dict(max_abs_err=max(errs), args=args300, gemm=(ghat, shat, a))
+    print(f"[gamp_step] one step, 300 rows: allclose rtol 2e-4 atol 1e-6, max abs err "
+          f"{max(errs):.3g}; 25-step vq EA decode on the vq encoder's words: NMSE {e_vq:.3g} "
+          f"(<= 1e-4); launches {n_g}")
     return out
 
 
+def phase_staged(dev):
+    """The staged encode path (the reference's unfused baseline) through the
+    drivers a user calls, with its launch counts set to 0 just before and
+    read just after, held against the fused encoder's wire."""
+    import torch
+
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.core.compression import pack_codes, unpack_codes
+    from repro_torch.core.sensing import sensing_matrix
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(fed_cfg(), block_size=N)
+    cb = make_codebook(cfg)
+    a = sensing_matrix(cfg.seed, M, N, dev)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    blocks = (0.05 * torch.randn((K * 10, N), generator=gen)).to(dev)
+    resid0 = (0.01 * torch.randn((K * 10, N), generator=gen)).to(dev)
+    zero_counts()
+    sparse, res_s = ops.block_sparsify(blocks + resid0, S)
+    codes_s, alpha_s = ops.bqcs_encode(sparse, a, cb)
+    words_s = pack_codes(codes_s, Q)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == dict(encode=0, qgamp=0, gamp=0, topk=1, staged=1),
+          f"staged path launches {counts}")
+    words_f, alpha_f, res_f = ops.bqcs_encode_fused(blocks, resid0, a, cb, S)
+    torch.cuda.synchronize()
+    check(torch.equal(res_s, res_f), "staged resid must equal the fused encoder's bit for bit")
+    rel = float(torch.max(torch.abs(alpha_s - alpha_f) / torch.clamp(alpha_f.abs(), min=1e-30)))
+    check(rel <= 1e-6, f"staged alpha rtol {rel:.3g} > 1e-6")
+    check(words_s.shape == words_f.shape, "staged and fused word counts")
+    # a code may differ only on a lane within float rounding of a threshold
+    gap = torch.amin(torch.abs(((sparse * alpha_f[:, None]) @ a.T)[..., None]
+                               - cb.thresholds_t(dev)), dim=-1)
+
+    def near_threshold(diff, what):
+        if bool(diff.any()):
+            check(float(gap[diff].max()) < 1e-5, f"staged vs {what}: a differing lane is not "
+                  "near a threshold")
+        return int(diff.sum())
+
+    diff = unpack_codes(words_s, Q, M) != unpack_codes(words_f, Q, M)
+    n_diff = near_threshold(diff, "the fused encoder")
+    with plain_kernels():
+        sp_p, _ = ops.block_sparsify(blocks + resid0, S)
+        codes_p, _ = ops.bqcs_encode(sp_p, a, cb)
+    check(torch.equal(sp_p, sparse), "staged sparse vs the plain staged path")
+    n_plain = near_threshold(codes_p != codes_s, "the plain staged path")
+    print(f"[staged] block_sparsify -> bqcs_encode -> pack_codes, 300x1591 -> 530 Q=3: "
+          f"launches {counts}; vs the fused encoder's wire: resid bit-identical, alpha max rel "
+          f"err {rel:.3g}, {n_diff} of {diff.numel()} code lanes differ (each within 1e-5 of a "
+          f"threshold); vs the plain staged path: {n_plain} code lanes differ (each near a "
+          f"threshold)")
+    return {"block_topk": counts["topk"], "bqcs_encode": counts["staged"]}
+
+
 def phase_main_path(dev):
+    """Each MAIN_RUNS configuration through ``run_federated``, counts set to 0
+    just before and read just after; then kernels vs plain versions."""
     import numpy as np
 
-    from repro_torch.kernels import bqcs_encode_fused as enc
-    from repro_torch.kernels import gamp_step as gs
-    from repro_torch.kernels import qgamp_step as qs
     from repro_torch.paper.mlp import run_federated
 
-    mods = {"bqcs_encode_fused": enc, "qgamp_step": qs, "gamp_step": gs}
-    launches = {k: 0 for k in mods}
-    round_ms = {}
-    for method, decoder in (("fedqcs-ae", "gamp_step"), ("fedqcs-ea", "qgamp_step")):
-        for mod in mods.values():
-            mod.launches = 0
-        res = run_federated(method, steps=ROUNDS, eval_every=1, device=dev)
-        counts = {k: mod.launches for k, mod in mods.items()}
-        other = "qgamp_step" if decoder == "gamp_step" else "gamp_step"
-        print(f"[main] {method}: nmse {[round(v, 6) for v in res.nmses]} accuracy "
+    per_run, round_ms = {}, {}
+    for method, codebook, variance, rounds, per_round in MAIN_RUNS:
+        label = run_label(method, codebook, variance)
+        zero_counts()
+        res = run_federated(method, steps=rounds, eval_every=1, device=dev,
+                            fed_cfg=fed_cfg(codebook, variance))
+        counts = read_counts()
+        print(f"[main] {label}: nmse {[round(v, 6) for v in res.nmses]} accuracy "
               f"{[round(v, 4) for v in res.accs]} round ms {[round(v, 2) for v in res.round_ms]} "
-              f"launches {counts}")
-        check(all(np.isfinite(res.nmses)) and max(res.nmses) < 1.0, f"{method} nmse {res.nmses}")
-        check(all(0.0 <= v <= 1.0 for v in res.accs), f"{method} accuracy {res.accs}")
-        check(counts["bqcs_encode_fused"] == ROUNDS, f"{method}: 1 encode launch per round")
-        check(counts[decoder] == ITERS * ROUNDS, f"{method}: {ITERS} {decoder} launches per round")
-        check(counts[other] == 0, f"{method}: no {other} launches")
-        for k in mods:
-            launches[k] += counts[k]
-        round_ms[method] = res.round_ms
+              f"bits/entry {res.bits_per_entry} launches {counts}")
+        check(all(np.isfinite(res.nmses)) and max(res.nmses) < 1.0, f"{label} nmse {res.nmses}")
+        check(all(0.0 <= v <= 1.0 for v in res.accs), f"{label} accuracy {res.accs}")
+        want = dict({k: v * rounds for k, v in per_round.items()}, topk=0, staged=0)
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        per_run[(method, codebook, variance)] = counts
+        round_ms[(method, codebook, variance)] = res.round_ms
 
     # the same round from the same A and init, kernels vs plain versions
-    for method in ("fedqcs-ae", "fedqcs-ea"):
-        res_k = run_federated(method, steps=1, device=dev)
+    for method, codebook, variance, _, _ in MAIN_RUNS:
+        label = run_label(method, codebook, variance)
+        cfg = fed_cfg(codebook, variance)
+        res_k = run_federated(method, steps=1, device=dev, fed_cfg=cfg)
         with plain_kernels():
-            res_p = run_federated(method, steps=1, device=dev)
+            res_p = run_federated(method, steps=1, device=dev, fed_cfg=cfg)
         e = nmse(res_k.last_ghat, res_p.last_ghat)
-        print(f"[main] {method} round 0, kernels vs plain versions on the card: decoded "
+        print(f"[main] {label} round 0, kernels vs plain versions on the card: decoded "
               f"gradient NMSE {e:.3g} (<= 1e-3); nmse stat {res_k.nmses[0]:.6f} vs "
               f"{res_p.nmses[0]:.6f}")
-        check(e <= 1e-3, f"{method}: kernel round vs plain round NMSE {e:.3g} > 1e-3")
-    return launches, round_ms
+        check(e <= 1e-3, f"{label}: kernel round vs plain round NMSE {e:.3g} > 1e-3")
+    return per_run, round_ms
 
 
 def _device_ms(fn) -> dict:
@@ -355,33 +559,58 @@ def _device_ms(fn) -> dict:
 
 
 def phase_profile(round_ms, dev):
-    """Device busy time of a steady round per method, beside its unprofiled
-    wall time.  ``run_federated`` with 3 steps minus 1 step is two rounds
-    and one evaluation, without the set-up (data and weights to the card)
-    that both calls share; halved, it is one round."""
+    """Device busy time of a steady round per configuration, beside its
+    unprofiled wall time.  ``run_federated`` with 3 steps minus 1 step is two
+    rounds and one evaluation, without the set-up (data and weights to the
+    card) that both calls share; halved, it is one round."""
     from repro_torch.paper.mlp import run_federated
 
-    for method, ms in round_ms.items():
-        one = _device_ms(lambda: run_federated(method, steps=1, device=dev))
-        three = _device_ms(lambda: run_federated(method, steps=3, device=dev))
+    for (method, codebook, variance), ms in round_ms.items():
+        if len(ms) < 2:
+            continue
+        label = run_label(method, codebook, variance)
+        cfg = fed_cfg(codebook, variance)
+        one = _device_ms(lambda: run_federated(method, steps=1, device=dev, fed_cfg=cfg))
+        three = _device_ms(lambda: run_federated(method, steps=3, device=dev, fed_cfg=cfg))
         per_round = {k: ((c - one.get(k, [0, 0.0])[0]) / 2, (t - one.get(k, [0, 0.0])[1]) / 2)
                      for k, (c, t) in three.items()}
         busy = sum(t for _, t in per_round.values())
         wall = sum(ms[1:]) / (len(ms) - 1)
         if busy <= 0.0:
-            print(f"[profile] {method}: the trace holds no device time (not measured)")
+            print(f"[profile] {label}: the trace holds no device time (not measured)")
             continue
         top = sorted(per_round.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"[profile] {method}: device busy {busy:.4f} ms per round vs round wall "
+        print(f"[profile] {label}: device busy {busy:.4f} ms per round vs round wall "
               f"{wall:.4f} ms, idle share {1.0 - busy / wall:.3f}; per round: "
               + "; ".join(f"{k[:48]} x{c:g} {t:.4f} ms" for k, (c, t) in top))
+
+
+def encoder_bound(k: dict, rows: int):
+    """Each input read once and each output written once: blocks, residual,
+    resid, the rows of A^T the kept entries touch, the dither, the words and
+    alpha; FLOPs of the sparse product over the kept entries."""
+    blocks, resid0, a_t, tab, s, m, q = k["args"]
+    mp = a_t.shape[1]
+    dither = k["kwargs"]["dither"]
+    nbytes = (4 * (3 * rows * N + k["a_rows"] * mp) + 4 * rows * (k["words"] + 1)
+              + 4 * tab.numel() + (0 if dither is None else 4 * dither.numel()))
+    return bound_ms(nbytes, 2 * k["kept"] * m)
+
+
+def gamp_step_bound(nb: int, L: int = 3):
+    """The step's state in and out, A, y and nu_d; four products' FLOPs."""
+    state = 4 * nb * (2 * N + M + 1 + 3 * L)
+    return bound_ms(2 * state + 4 * M * N + 4 * nb * M + 4 * nb, 4 * nb * N * M)
 
 
 def phase_times(dev, k_in):
     import torch
 
+    from repro_torch.core.compression import unpack_codes
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.bqcs_encode import bqcs_encode
+    from repro_torch.kernels.bqcs_encode_fused import BISECT_ITERS, bqcs_encode_fused
     from repro_torch.kernels.gamp_step import gamp_step
     from repro_torch.kernels.qgamp_step import qgamp_step
 
@@ -389,17 +618,44 @@ def phase_times(dev, k_in):
     rows = K * 10
     res = {}
 
-    blocks, resid0, a_t, taus, s, m, q = k_in["encode"]["args"]
-    w = a_t.shape[1] // (32 // q)
-    nbytes = 4 * (3 * rows * N + k_in["encode"]["a_rows"] * a_t.shape[1]) + 4 * rows * (w + 1)
-    b_ms, b_by = bound_ms(nbytes, 2 * k_in["encode"]["kept"] * m)
-    res["bqcs_encode_fused"] = dict(
-        ms=timer(lambda: bqcs_encode_fused(*k_in["encode"]["args"])),
-        plain_ms=timer(lambda: ref.bqcs_encode_fused_ref(blocks, resid0, a_t[:, :m], taus, s, q)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    for name, key in (("bqcs_encode_fused", "encode"), ("bqcs_encode_fused[dither]",
+                                                          "encode_dither"),
+                      ("bqcs_encode_fused[vq]", "encode_vq")):
+        k = k_in[key]
+        blocks, resid0, a_t, tab, s, m, q = k["args"]
+        kw = k["kwargs"]
+        if tab.dim() == 2:
+            plain = lambda: ref.bqcs_encode_fused_ref(  # noqa: E731
+                blocks, resid0, a_t, None, s, q, centroids=tab, half_norms=kw["half_norms"])
+        else:
+            dith = None if kw["dither"] is None else kw["dither"][:m]
+            plain = lambda: ref.bqcs_encode_fused_ref(  # noqa: E731
+                blocks, resid0, a_t[:, :m], tab, s, q, dither=dith)
+        b_ms, b_by = encoder_bound(k, rows)
+        res[name] = dict(ms=timer(lambda: bqcs_encode_fused(*k["args"], **kw)),
+                         plain_ms=timer(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    from repro_torch.core.compression import unpack_codes
+    carry, s = k_in["topk"]["args"]
+
+    def topk_library():
+        idx = torch.topk(carry.abs(), s, dim=1).indices
+        sparse = torch.zeros_like(carry).scatter_(1, idx, torch.gather(carry, 1, idx))
+        return sparse, carry - sparse
+
+    b_ms, b_by = bound_ms(4 * 3 * rows * N, 2 * BISECT_ITERS * rows * N)
+    res["block_topk"] = dict(ms=timer(lambda: block_topk(carry, s)),
+                             plain_ms=timer(lambda: ref.block_topk_ref(carry, s)),
+                             bound_ms=b_ms, bound_by=b_by, library_ms=timer(topk_library),
+                             library="torch.topk + scatter")
+
+    x, a_tt, taus = k_in["staged"]["args"]
+    b_ms, b_by = bound_ms(4 * rows * N + 4 * N * M + rows * M + 4 * rows + 4 * taus.numel(),
+                          2 * rows * N * M)
+    res["bqcs_encode"] = dict(ms=timer(lambda: bqcs_encode(x, a_tt, taus)),
+                              plain_ms=timer(lambda: ref.bqcs_encode_ref(x, a_tt, taus)),
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=timer(lambda: torch.matmul(x, a_tt)),
+                              library="GEMM only")
 
     qa = k_in["qgamp"]["args"]
     ghat, nug, shat, theta, words, al, lo, hi, a, L, em, bits = qa
@@ -414,24 +670,25 @@ def phase_times(dev, k_in):
                                                   L, em)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timer(lambda: (torch.matmul(g1, a1.T), torch.matmul(s1, a1))),
+        library="GEMMs only",
     )
 
-    ga = k_in["gamp"]["args"]
-    nb = ga[0].shape[0]
-    state = 4 * nb * (2 * N + M + 1 + 3 * 3)
-    nbytes = 2 * state + 4 * M * N + 4 * nb * M + 4 * nb
-    b_ms, b_by = bound_ms(nbytes, 4 * nb * N * M)
-    g2, s2, a2 = k_in["gamp"]["gemm"]
-    res["gamp_step"] = dict(
-        ms=timer(lambda: gamp_step(*ga)),
-        plain_ms=timer(lambda: ref.gamp_step_ref(*ga)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer(lambda: (torch.matmul(g2, a2.T), torch.matmul(s2, a2))),
-    )
+    for name, key in (("gamp_step", "gamp"), ("gamp_step[300 rows]", "gamp300")):
+        ga = k_in[key]["args"]
+        b_ms, b_by = gamp_step_bound(ga[0].shape[0])
+        g2, s2, a2 = k_in[key]["gemm"]
+        res[name] = dict(
+            ms=timer(lambda: gamp_step(*ga)),
+            plain_ms=timer(lambda: ref.gamp_step_ref(*ga)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer(lambda: (torch.matmul(g2, a2.T), torch.matmul(s2, a2))),
+            library="GEMMs only",
+        )
     # rows of a tile sharing one pass over A: fewer rows fill more SMs, more
     # rows read A from L2 fewer times (the wrappers' qgamp_step.rows_per_cta)
     from repro_torch.kernels.qgamp_step import rows_per_cta
 
+    ga = k_in["gamp"]["args"]
     for nb_, step, args in ((rows, qgamp_step, qa), (ga[0].shape[0], gamp_step, ga)):
         auto = rows_per_cta(nb_, dev)
         for r in (1, 2):
@@ -439,10 +696,40 @@ def phase_times(dev, k_in):
             print(f"[tune] {step.__name__} {nb_} rows, {r} rows per block: {ms:.4f} ms"
                   + (" (the wrapper's choice)" if r == auto else ""))
     for name, r in res.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} (GEMMs only)"
+        lib = ("null" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ({r['library']})")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | library {lib}")
     return res
+
+
+# JSON name -> (source, the Pallas site it replaces, phase_kernels key)
+KERNELS = {
+    "bqcs_encode_fused": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode"),
+    "bqcs_encode_fused[dither]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                  "encode_dither"),
+    "bqcs_encode_fused[vq]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_vq"),
+    "block_topk": ("block_topk.cu", "block_topk.py:64", "topk"),
+    "bqcs_encode": ("bqcs_encode.cu", "bqcs_encode.py:67", "staged"),
+    "qgamp_step": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp"),
+    "gamp_step": ("gamp_step.cu", "gamp_step.py:108", "gamp"),
+    "gamp_step[300 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp300"),
+}
+
+
+def main_path_launches(per_run: dict, staged: dict) -> dict:
+    """The JSON's launch counts per entry, from the runs that drive each:
+    the encoder's branches by codebook, gamp_step by decode width (10 AE
+    rows, 300 vq EA rows), the staged kernels from the staged path."""
+    out = {name: 0 for name in KERNELS}
+    branch = {"lloyd_max": "bqcs_encode_fused", "dithered_uniform": "bqcs_encode_fused[dither]",
+              "vq": "bqcs_encode_fused[vq]"}
+    for (method, codebook, _), counts in per_run.items():
+        out[branch[codebook]] += counts["encode"]
+        out["qgamp_step"] += counts["qgamp"]
+        out["gamp_step" if method == "fedqcs-ae" else "gamp_step[300 rows]"] += counts["gamp"]
+    out.update(staged)
+    return out
 
 
 def main() -> int:
@@ -464,28 +751,25 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device()
     k_in = phase_kernels(dev)
-    launches, round_ms = phase_main_path(dev)
+    staged = phase_staged(dev)
+    per_run, round_ms = phase_main_path(dev)
     phase_profile(round_ms, dev)
     times = phase_times(dev, k_in)
-    for method, ms in round_ms.items():
-        print(f"[round] {method}: wall ms per round {[round(v, 3) for v in ms]}, "
-              f"mean of rounds 1..{ROUNDS - 1}: {sum(ms[1:]) / (len(ms) - 1):.3f}")
-    meta = {
-        "bqcs_encode_fused": ("cuda", "src/repro_torch/csrc/bqcs_encode_fused.cu",
-                              "src/repro/kernels/bqcs_encode_fused.py:194", "encode"),
-        "qgamp_step": ("cuda", "src/repro_torch/csrc/qgamp_step.cu",
-                       "src/repro/kernels/qgamp_step.py:180", "qgamp"),
-        "gamp_step": ("cuda", "src/repro_torch/csrc/gamp_step.cu",
-                      "src/repro/kernels/gamp_step.py:108", "gamp"),
-    }
+    for key, ms in round_ms.items():
+        steady = sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else float("nan")
+        print(f"[round] {run_label(*key)}: wall ms per round {[round(v, 3) for v in ms]}, "
+              f"mean of rounds 1..{len(ms) - 1}: {steady:.3f}")
+    launches = main_path_launches(per_run, staged)
     kernels = []
-    for kname, (route, source, replaces, key) in meta.items():
+    for kname, (source, replaces, key) in KERNELS.items():
         tm = times[kname]
+        check(launches[kname] > 0, f"{kname} was not launched on its path")
         kernels.append({
-            "name": kname, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": k_in[key]["max_abs_err"],
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+            "name": kname, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launches[kname],
+            "max_abs_err": k_in[key]["max_abs_err"], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
         })
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,14 +6,16 @@ every ported module has exactly one reference module.  The port imports
 ``torch``, numpy and the standard library only; it never imports ``jax`` or
 anything of ``repro``.
 
-Slice 1 covers one barrier round of the paper's Sec. VI experiment on the
-kernel route (``use_kernels=True``, ``gamp_variance_mode="scalar"``): the
-fused BQCS encoder, the AE (``gamp_step``) and packed EA (``qgamp_step``)
-GAMP decoders, the ``lloyd_max`` codebook, the ``ideal`` channel, the
-``full`` scheduler and the FedAdam server.  The three kernels are CUDA C++
-for ``sm_90a`` under ``csrc/``, built at first use (``kernels/build.py``).
-Routes outside the slice raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+Slices 1 and 2 cover one barrier round of the paper's Sec. VI experiment:
+the ``lloyd_max``, ``dithered_uniform`` and ``vq`` codebooks, the fused
+BQCS encoder and the staged one (``block_sparsify`` -> ``bqcs_encode`` ->
+``pack_codes``), the AE (``gamp_step``) and packed EA (``qgamp_step``)
+GAMP kernel routes, the reference's GAMP loop as plain PyTorch (exact or
+scalar variance, damping, early freeze; the dithered EA decode), the
+``ideal`` channel, the ``full`` scheduler and the FedAdam server.  The five
+kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
+(``kernels/build.py``).  Routes outside the slices raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels.  There is no fallback from one to

@@ -1,7 +1,8 @@
 """Bussgang linearization and aggregate-and-estimate combining (Sec. IV-B),
 port of ``repro.core.bussgang``.
 
-Proposition 1: for a codebook designed for the standard normal,
+Proposition 1: for a codebook designed for the standard normal (any
+family: gamma and psi are per dimension for vq),
 Q(x) = gamma_Q x + d with d uncorrelated with x, so the weighted sum of
 dequantized codes
 
@@ -35,9 +36,11 @@ def bussgang_weight(rho: torch.Tensor, alpha: torch.Tensor, quantizer) -> torch.
     return torch.where(alpha > 0, w, torch.zeros_like(w))
 
 
-def aggregate_codes(codes, alphas, rhos, quantizer) -> torch.Tensor:
-    """q_tilde (nb, M) from (K, nb, M) codes: the Bussgang aggregate of eq. 23."""
-    deq = quantizer.decode(codes)
+def aggregate_codes(codes, alphas, rhos, quantizer, m=None) -> torch.Tensor:
+    """q_tilde (nb, M) from (K, nb, n_codes) codes: the Bussgang aggregate of
+    eq. 23.  The codebook decodes the n_codes = M / dim lanes to the M
+    measurements (vq: centroid dimension j of group g to lane j*G + g)."""
+    deq = quantizer.decode(codes, m)
     w = bussgang_weight(rhos[:, None], alphas, quantizer)
     return torch.sum(w[..., None] * deq, dim=0)
 

@@ -6,26 +6,28 @@ Pipeline per step, per client (paper Sec. III):
       + residual (error feedback, eq. 8)
       -> block top-S sparsify (residual out, eq. 7)
       -> project with shared A, scale alpha = sqrt(M)/||.||  (eq. 9)
-      -> Lloyd-Max encode (eq. 10)
+      -> codebook encode (eq. 10): lloyd_max, dithered_uniform or vq
       -> bit-pack codes into uint32 words (the wire payload)
 
 On the kernel route the whole pipeline is ONE launch of the fused encoder
-(``kernels/bqcs_encode_fused.py``).  Wire words are ``torch.uint32``
-tensors in the reference's lane-group layout, so words packed by either
-package unpack identically in the other.
+(``kernels/bqcs_encode_fused.py``).  The words carry ``n_codes = M / dim``
+index lanes of ``bits`` each (scalar families: n_codes == M).  Wire words
+are ``torch.uint32`` tensors in the reference's lane-group layout, so words
+packed by either package unpack identically in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import entry_device, not_in_slice
 from repro_torch.core import sensing
-from repro_torch.core.codebook import ScalarCodebook, make_codebook
+from repro_torch.core.codebook import Codebook, index_bits, make_codebook
 
 __all__ = [
     "FedQCSConfig",
@@ -119,6 +121,11 @@ class FedQCSConfig:
 
     @property
     def bits_per_entry(self) -> float:
+        """Wire index bits per gradient entry (excl. the alphas): Q/R for the
+        scalar families, ceil(log2 L)/(d*R) for vq."""
+        if self.codebook == "vq":
+            width = index_bits(self.vq_levels or (1 << self.bits))
+            return width / (self.vq_dim * self.reduction_ratio)
         return self.bits / self.reduction_ratio
 
 
@@ -197,7 +204,8 @@ def blocks_to_tree(blocks: torch.Tensor, layout: Layout) -> Dict[str, torch.Tens
 
 
 def packed_width(m: int, bits: int) -> int:
-    """uint32 words per block row on the wire: W = ceil(lanes / (32 // Q))."""
+    """uint32 words per block row on the wire: W = ceil(lanes / (32 // Q)).
+    ``m`` counts code lanes: M for the scalar families, M / d for vq."""
     return -(-m // (32 // bits))
 
 
@@ -244,6 +252,31 @@ def decode_packed(
 # ---------------------------------------------------------------------------
 
 
+_KERNEL_BYPASS_WARNED = False
+
+
+def _warn_kernel_bypass_once(cfg: FedQCSConfig) -> None:
+    """use_kernels=True with gamp_variance_mode='exact' (the default) keeps
+    every GAMP solve on the plain loop -- the step kernels implement
+    scalar-variance GAMP only.  Name the conflict once per process, as the
+    reference does; the fused encoder is unaffected."""
+    global _KERNEL_BYPASS_WARNED
+    if _KERNEL_BYPASS_WARNED:
+        return
+    if cfg.use_kernels and cfg.gamp_variance_mode == "exact":
+        _KERNEL_BYPASS_WARNED = True
+        warnings.warn(
+            "FedQCSConfig(use_kernels=True, gamp_variance_mode='exact'): the "
+            "GAMP step kernels implement scalar-variance GAMP, so every GAMP "
+            "reconstruction will run the plain PyTorch loop despite "
+            "use_kernels=True (the fused encoder still runs).  Set "
+            "gamp_variance_mode='scalar' to route reconstruction through the "
+            "kernels.",
+            UserWarning,
+            stacklevel=3,
+        )
+
+
 class BQCSCodec:
     """BQCS encoder/decoder bound to a FedQCSConfig, on one device.
 
@@ -256,8 +289,9 @@ class BQCSCodec:
         self.cfg = cfg.validate()
         if not cfg.use_kernels:
             raise not_in_slice("use_kernels=False (the XLA-algorithm routes)", "item 1")
+        _warn_kernel_bypass_once(cfg)
         self.device = entry_device(device)
-        self.codebook: ScalarCodebook = make_codebook(cfg)
+        self.codebook: Codebook = make_codebook(cfg)
         if a is None:
             a = sensing.sensing_matrix(cfg.seed, cfg.m, cfg.block_size, self.device)
         if tuple(a.shape) != (cfg.m, cfg.block_size):
@@ -265,8 +299,11 @@ class BQCSCodec:
         self._a = a.to(self.device, torch.float32).contiguous()
         from repro_torch.kernels import ops as kops
 
-        self._a_t = kops.encoder_a_t(self._a, self.codebook.bits)
-        self._taus = self.codebook.thresholds_t(self.device)
+        # the encoder's operands, made once: A^T (word-padded for the scalar
+        # families) and the family's tables (thresholds and dither, or
+        # centroids and their half squared norms)
+        self._a_t = kops.encoder_a_t(self._a, self.codebook)
+        self._tables = kops.encoder_tables(self.codebook, cfg.m, self.device)
 
     @property
     def a(self) -> torch.Tensor:
@@ -285,7 +322,7 @@ class BQCSCodec:
 
         return kops.bqcs_encode_fused(
             blocks, residual, self._a, self.codebook, self.cfg.s if s is None else s,
-            a_t=self._a_t, taus=self._taus,
+            a_t=self._a_t, tables=self._tables,
         )
 
     def compress_blocks(

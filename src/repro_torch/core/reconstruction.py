@@ -4,7 +4,10 @@ port of ``repro.core.reconstruction``.
   * estimate_and_aggregate_packed (FedQCS-EA, steps 12-14): Q-EM-GAMP per
     (worker, block) straight from the packed wire words, then the
     rho-weighted sum.  This is the reference's monolithic (``chunk=0``)
-    ``recon_engine.ea_decode`` inlined: K*nb rows, one solve.
+    ``recon_engine.ea_decode`` inlined: K*nb rows, one solve, dispatched per
+    codebook family as the reference does (lloyd_max -> ``qgamp_step``,
+    vq -> ``gamp_step`` on the Bussgang AWGN fallback, dithered_uniform ->
+    the plain GAMP loop, whose channel shifts the cell edges per lane).
   * aggregate_and_estimate (FedQCS-AE, steps 16-20): Bussgang-combine all K
     workers, one EM-GAMP solve.  The reference's G > 1 groups are not ported.
 
@@ -60,7 +63,7 @@ def estimate_and_aggregate_packed(
 
 def aggregate_and_estimate(
     codec,
-    codes: torch.Tensor,  # (K, nb, M)
+    codes: torch.Tensor,  # (K, nb, n_codes)
     alphas: torch.Tensor,  # (K, nb)
     rhos: torch.Tensor,  # (K,)
     groups: int = 1,
@@ -75,7 +78,7 @@ def aggregate_and_estimate(
         use_kernels = codec.cfg.use_kernels
     q = codec.codebook
     return em_gamp(
-        bussgang.aggregate_codes(codes, alphas, rhos, q),
+        bussgang.aggregate_codes(codes, alphas, rhos, q, codec.cfg.m),
         bussgang.effective_noise_var(alphas, rhos, q),
         codec.a, gamp,
         init_var=bussgang.signal_energy(alphas, rhos, codec.cfg.m, codec.cfg.block_size),

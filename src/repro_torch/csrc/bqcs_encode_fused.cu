@@ -2,33 +2,38 @@
 // eqs. 7-10, plus the uint32 wire packing), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/bqcs_encode_fused.py
-// (_fused_kernel, launched by bqcs_encode_fused_pallas), scalar undithered
-// branch.  Per block-row:
+// (_fused_kernel, launched by bqcs_encode_fused_pallas), all three codebook
+// branches.  Per block-row:
 //   carry  = blocks + residual
-//   26-step bisection of [0, max|carry|] for the top-S threshold hi:
-//       mid = 0.5f * (lo + hi); count(|carry| >= mid) > S ? lo = mid : hi = mid
-//   keep   = |carry| >= hi  |  |carry| == max|carry|      (ties and the max)
+//   hi     = topk_threshold(|carry|)  (26-step bisection, common.cuh)
+//   keep   = topk_keep(carry, hi, max|carry|)                (ties and the max)
 //   resid  = carry - (keep ? carry : 0)                    (bit-identical)
 //   alpha  = sqrt(M) / ||sparse||, 0 for a dead row
 //   y_j    = sum_k (alpha * carry_k) * A^T[k, j] over the kept k
-//   code_j = #{tau < y_j} (0 on the pad lanes j >= M)
-//   word_w = OR_g code[g * W + w] << (g * Q)   (lane c -> word c % W, bit (c / W) Q)
+//   scalar: code_j = #{tau < y_j (+ dither_j)}, 0 on the pad lanes j >= M
+//   vq:     code_g = first argmax_l  y_g c_l0 - cn_l + sum_{j>=1} y_{jG+g} c_lj
+//           over the G = M / d code lanes (j-major layout), 0 on lanes g >= G
+//   word_w = OR_p code[p * W + w] << (p * Q)   (lane c -> word c % W, bit (c / W) Q)
 //
 // What bounds it on the card: the data must move once -- blocks, residual
-// and resid (3 x rows x N x 4 B) plus A^T (N x Mp x 4 B), ~9.2 MB at the
-// paper's 300 x 1591 (~2.7 us at 3.35 TB/s); the sparse product is only
-// 2 x S x M FLOPs per row.  Design: A^T (3.4 MB) cannot sit in shared memory
-// the way it sat in VMEM, but it stays in the 50 MB L2 across blocks.  One
-// block per row keeps the carry row in shared memory through the 26 counting
-// passes (each a block reduction), compacts the kept entries in ascending
-// index order (warp ballots + a prefix over the warps), and then each thread
-// computes whole projected lanes y_j from the compacted list, reading rows
-// of A^T that neighbouring threads share (coalesced).  The projected row
-// must be complete before the pack, since word w gathers lanes g * W + w
-// from across the row.  The bisection is the plain version's exact fp32
-// arithmetic, so the kept set and resid are bit-identical; alpha and y are
-// sums in another order (alpha to ~1e-7 relative; a code can differ only on
-// a lane within float rounding of a threshold).
+// and resid (3 x rows x N x 4 B) plus the rows of A^T the kept entries touch,
+// ~9.2 MB at the paper's 300 x 1591 (~2.7 us at 3.35 TB/s); the sparse
+// product is only 2 x S x M FLOPs per row.  Design: A^T (3.4 MB) cannot sit
+// in shared memory the way it sat in VMEM, but it stays in the 50 MB L2
+// across blocks.  One block per row keeps the carry row in shared memory
+// through the 26 counting passes (each a block reduction), compacts the kept
+// entries in ascending index order (warp ballots + a prefix over the warps),
+// and then each thread computes whole projected lanes y_j from the compacted
+// list, reading rows of A^T that neighbouring threads share (coalesced).  The
+// projected row must be complete before the encode and the pack: a vq code
+// reads d lanes G apart, and word w gathers lanes p * W + w from across the
+// row.  The bisection is the plain version's exact fp32 arithmetic, so the
+// kept set and resid are bit-identical; alpha and y are sums in another
+// order (alpha to ~1e-7 relative; a code can differ only on a lane within
+// float rounding of a threshold or of a tie between two centroids).  The
+// dither add and the vq score are written with __fadd_rn/__fmul_rn so nvcc
+// cannot contract them into FMAs: on identical y they round as the plain
+// version's separate PyTorch ops do.
 
 #include "common.cuh"
 
@@ -38,16 +43,18 @@ namespace {
 
 __global__ void __launch_bounds__(kThreads)
 bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restrict__ residual,
-                         const float* __restrict__ a_t, const float* __restrict__ taus_g,
+                         const float* __restrict__ a_t, const float* __restrict__ tab_g,
+                         const float* __restrict__ cn_g, const float* __restrict__ dither,
                          uint32_t* __restrict__ words, float* __restrict__ alpha_out,
                          float* __restrict__ resid, int n, int mp, int m, int s, int bits,
-                         int n_taus, int iters) {
+                         int n_tab, int vq_d, int iters) {
   extern __shared__ float smem[];
   float* carry = smem;                          // n
   int* kidx = reinterpret_cast<int*>(carry + n);  // n: kept indices, ascending
   float* kval = reinterpret_cast<float*>(kidx + n);  // n: kept values (then * alpha)
   float* y = kval + n;                          // mp projected lanes
-  float* taus = y + mp;                         // n_taus thresholds
+  float* tab = y + mp;                          // scalar: n_tab thresholds;
+                                                // vq: n_tab x vq_d centroids, then n_tab cn
   __shared__ float scratch[kWarps];
   __shared__ int wcount[kWarps];
 
@@ -63,18 +70,14 @@ bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restri
     carry[i] = c;
     mx = fmaxf(mx, fabsf(c));
   }
-  for (int i = tid; i < n_taus; i += kThreads) taus[i] = taus_g[i];
-  mx = block_max(mx, scratch);  // its barriers also publish carry and taus
-
-  // Bisection for the top-S threshold (uniform across the block).
-  float lo = 0.f, hi = mx;
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    float cnt = 0.f;  // counts <= n are exact in fp32
-    for (int i = tid; i < n; i += kThreads) cnt += fabsf(carry[i]) >= mid ? 1.f : 0.f;
-    cnt = block_sum1(cnt, scratch);
-    if (cnt > (float)s) lo = mid; else hi = mid;
+  const int tab_len = vq_d > 1 ? n_tab * vq_d : n_tab;
+  for (int i = tid; i < tab_len; i += kThreads) tab[i] = tab_g[i];
+  if (vq_d > 1) {
+    for (int i = tid; i < n_tab; i += kThreads) tab[tab_len + i] = cn_g[i];
   }
+  mx = block_max(mx, scratch);  // its barriers also publish carry and the tables
+
+  const float hi = topk_threshold(carry, n, s, iters, mx, scratch);
 
   // Keep set, new residual, and the ordered compaction of the kept entries.
   int base = 0;
@@ -85,8 +88,7 @@ bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restri
     float c = 0.f;
     if (i < n) {
       c = carry[i];
-      const float mag = fabsf(c);
-      keep = (mag >= hi) | (mag == mx);
+      keep = topk_keep(c, hi, mx);
       res_out[i] = c - (keep ? c : 0.f);
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, keep);
@@ -124,19 +126,35 @@ bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restri
   }
   __syncthreads();
 
-  // Threshold bucketize + lane-group packing.
+  // Encode + lane-group packing.  Scalar: n_codes = M over Mp = W * per_word
+  // lanes; vq: n_codes = G = M / d over W * per_word lanes.
   const int per_word = 32 / bits;
-  const int w_count = mp / per_word;
+  const int g_codes = vq_d > 1 ? m / vq_d : m;
+  const int w_count = vq_d > 1 ? (g_codes + per_word - 1) / per_word : mp / per_word;
+  const float* cn = tab + tab_len;
   for (int w = tid; w < w_count; w += kThreads) {
     uint32_t word = 0u;
-    for (int grp = 0; grp < per_word; ++grp) {
-      const int c = grp * w_count + w;
+    for (int p = 0; p < per_word; ++p) {
+      const int c = p * w_count + w;
       uint32_t code = 0u;
-      if (c < m) {
-        const float v = y[c];
-        for (int l = 0; l < n_taus; ++l) code += v > taus[l] ? 1u : 0u;
+      if (c < g_codes) {
+        if (vq_d > 1) {
+          float best = 0.f;
+          for (int l = 0; l < n_tab; ++l) {
+            const float* cl = tab + l * vq_d;
+            float sc = __fsub_rn(__fmul_rn(y[c], cl[0]), cn[l]);
+            for (int j = 1; j < vq_d; ++j) sc = __fadd_rn(sc, __fmul_rn(y[j * g_codes + c], cl[j]));
+            if (l == 0 || sc > best) {  // strict: the lowest index wins a tie
+              best = sc;
+              code = (uint32_t)l;
+            }
+          }
+        } else {
+          const float v = dither != nullptr ? __fadd_rn(y[c], __ldg(dither + c)) : y[c];
+          for (int l = 0; l < n_tab; ++l) code += v > tab[l] ? 1u : 0u;
+        }
       }
-      word |= code << (grp * bits);
+      word |= code << (p * bits);
     }
     words[row * w_count + w] = word;
   }
@@ -149,21 +167,30 @@ extern "C" const char* fedqcs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Scalar families: tab = the (n_tab,) thresholds, cn = null, dither = the
+// (mp,) per-lane dither (zero past m) or null, vq_d = 1, mp a multiple of
+// 32 / bits.  vq: tab = the (n_tab, vq_d) centroids row-major, cn = their
+// (n_tab,) half squared norms, dither = null, mp = m, m % vq_d == 0.
 extern "C" int bqcs_encode_fused_launch(const float* blocks, const float* residual,
-                                        const float* a_t, const float* taus, uint32_t* words,
-                                        float* alpha, float* resid, int nb, int n, int mp, int m,
-                                        int s, int bits, int n_taus, int iters,
+                                        const float* a_t, const float* tab, const float* cn,
+                                        const float* dither, uint32_t* words, float* alpha,
+                                        float* resid, int nb, int n, int mp, int m, int s,
+                                        int bits, int n_tab, int vq_d, int iters,
                                         cudaStream_t stream) {
   if (nb <= 0) return 0;
-  if (bits < 1 || bits > 8 || mp % (32 / bits) != 0 || m > mp) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (3 * (size_t)n + mp + n_taus);
+  if (bits < 1 || bits > 8 || m > mp || vq_d < 1) return (int)cudaErrorInvalidValue;
+  if (vq_d == 1 && mp % (32 / bits) != 0) return (int)cudaErrorInvalidValue;
+  if (vq_d > 1 && (mp != m || m % vq_d != 0 || cn == nullptr || dither != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t tab_floats = vq_d > 1 ? (size_t)n_tab * (vq_d + 1) : (size_t)n_tab;
+  const size_t smem = sizeof(float) * (3 * (size_t)n + mp + tab_floats);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(bqcs_encode_fused_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bqcs_encode_fused_kernel<<<nb, kThreads, smem, stream>>>(blocks, residual, a_t, taus, words,
-                                                            alpha, resid, n, mp, m, s, bits,
-                                                            n_taus, iters);
+  bqcs_encode_fused_kernel<<<nb, kThreads, smem, stream>>>(blocks, residual, a_t, tab, cn, dither,
+                                                            words, alpha, resid, n, mp, m, s,
+                                                            bits, n_tab, vq_d, iters);
   return (int)cudaGetLastError();
 }

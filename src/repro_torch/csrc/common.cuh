@@ -1,5 +1,6 @@
-// Shared device helpers of the FedQCS kernels: block-wide reductions and the
-// two row-times-A products of a GAMP step.
+// Shared device helpers of the FedQCS kernels: block-wide reductions, the
+// bisection top-S threshold and keep rule of the two encoders, and the two
+// row-times-A products of a GAMP step.
 //
 // Every kernel here runs 256 threads per block (8 warps).  Reductions go
 // warp shuffle -> shared scratch -> every thread sums the 8 warp partials in
@@ -64,6 +65,32 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   float m = scratch[0];
   for (int w = 1; w < kWarps; ++w) m = fmaxf(m, scratch[w]);
   return m;
+}
+
+// Top-S threshold of one row held in shared memory, by the plain version's
+// exact fp32 bisection (kernels/ref.py::block_topk_ref): iters halvings of
+// [0, mx], mid = 0.5f * (lo + hi), and count(|x| >= mid) > S moves lo up,
+// else hi down.  Counts <= n are exact in fp32.  Returns hi, the same on
+// every thread.  Both encoders (bqcs_encode_fused.cu, block_topk.cu) call
+// it, so their kept sets are the same bits.
+__device__ __forceinline__ float topk_threshold(const float* row, int n, int s, int iters,
+                                                float mx, float* scratch) {
+  float lo = 0.f, hi = mx;
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float cnt = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) cnt += fabsf(row[i]) >= mid ? 1.f : 0.f;
+    cnt = block_sum1(cnt, scratch);
+    if (cnt > (float)s) lo = mid; else hi = mid;
+  }
+  return hi;
+}
+
+// The keep rule after the bisection: |x| >= hi, plus the row max (so ties
+// and the max survive).
+__device__ __forceinline__ bool topk_keep(float x, float hi, float mx) {
+  const float mag = fabsf(x);
+  return (mag >= hi) | (mag == mx);
 }
 
 // out[r * m + j] = <g[r * n : (r+1) * n], A[j, :]> for the TB rows of a tile

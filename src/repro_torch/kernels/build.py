@@ -24,7 +24,9 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("bqcs_encode_fused.cu", "qgamp_step.cu", "gamp_step.cu")
+SOURCES = (
+    "bqcs_encode_fused.cu", "qgamp_step.cu", "gamp_step.cu", "block_topk.cu", "bqcs_encode.cu",
+)
 HEADERS = ("common.cuh", "gm_prior.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,9 +37,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every launcher returns cudaGetLastError()).
 _SIGNATURES = {
-    # blocks, residual, a_t, taus, words, alpha, resid, nb, n, mp, m, s, bits,
-    # n_taus, iters, stream
-    "bqcs_encode_fused_launch": [_P] * 7 + [_I] * 8 + [_P],
+    # blocks, residual, a_t, tab, cn, dither, words, alpha, resid, nb, n, mp,
+    # m, s, bits, n_tab, vq_d, iters, stream
+    "bqcs_encode_fused_launch": [_P] * 9 + [_I] * 9 + [_P],
+    # x, sparse, resid, nb, n, s, iters, stream
+    "block_topk_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # x, a_t, taus, codes, alpha, nb, n, m, n_taus, stream
+    "bqcs_encode_launch": [_P] * 5 + [_I] * 4 + [_P],
     # ghat, nu_g, shat, theta, obs, alpha, lo_tau, hi_tau, a,
     # ghat_out, nug_out, shat_out, theta_out, nb, n, m, L, em, bits, obs_w,
     # n_lev, rows_per_cta, stream

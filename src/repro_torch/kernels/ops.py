@@ -1,7 +1,9 @@
 """Drivers around the kernels (port of ``repro.kernels.ops``).
 
-``bqcs_encode_fused`` pads A^T's columns once to the word multiple and
-calls the fused encoder; ``qgamp_ea_run_packed`` and ``gamp_ae_run`` are the
+``bqcs_encode_fused`` builds the encoder's operands once per codec (A^T
+padded for the scalar families, the codebook's tables) and calls the fused
+encoder; ``block_sparsify`` and ``bqcs_encode`` are the staged encoder's
+two kernels; ``qgamp_ea_run_packed`` and ``gamp_ae_run`` are the
 fixed-trip-count GAMP solves: the reference's ``lax.scan`` becomes a Python
 loop of kernel launches.  The kernels mask their own ragged row tiles, so no
 row padding is needed.  On CPU tensors every kernel call takes its plain
@@ -10,19 +12,27 @@ version.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
 from repro_torch.core.compression import packed_width
 from repro_torch.core.gamp import block_prior_energy, norm_guard, tau_tables
 from repro_torch.kernels import gm_prior as _gm
+from repro_torch.kernels.block_topk import block_topk as _topk
+from repro_torch.kernels.bqcs_encode import bqcs_encode as _staged_encode
 from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused as _encode
 from repro_torch.kernels.gamp_step import gamp_step
 from repro_torch.kernels.qgamp_step import qgamp_step
 
 __all__ = [
+    "EncoderTables",
     "encoder_a_t",
+    "encoder_tables",
     "bqcs_encode_fused",
+    "block_sparsify",
+    "bqcs_encode",
     "qgamp_step",
     "gamp_step",
     "qgamp_ea_run_packed",
@@ -30,28 +40,72 @@ __all__ = [
 ]
 
 
-def encoder_a_t(a: torch.Tensor, bits: int) -> torch.Tensor:
-    """A (M, N) -> A^T (N, Mp) with zero columns out to the word multiple
-    Mp = W * (32 // Q) -- the encoder's operand layout (codecs cache it)."""
+def encoder_a_t(a: torch.Tensor, codebook) -> torch.Tensor:
+    """A (M, N) -> the fused encoder's A^T operand (codecs cache it).  The
+    scalar families take zero columns out to the word multiple
+    Mp = W * (32 // Q) (the pad lanes are masked to code 0); vq takes A^T
+    unpadded (Mp = M: every measurement lane is real, and the padding is
+    at the code-lane level, G -> W * (32 // Q))."""
     m, n = a.shape
+    if codebook.dim > 1:
+        return a.T.contiguous()
+    bits = codebook.bits
     mp = packed_width(m, bits) * (32 // bits)
     a_t = torch.zeros((n, mp), dtype=torch.float32, device=a.device)
     a_t[:, :m] = a.T
     return a_t
 
 
-def bqcs_encode_fused(blocks, residual, a, codebook, s, a_t=None, taus=None):
+class EncoderTables(NamedTuple):
+    """The fused encoder's codebook operands on one device."""
+
+    tab: torch.Tensor  # scalar: (L - 1,) thresholds; vq: (L, d) centroids
+    half_norms: Optional[torch.Tensor]  # vq: (L,) 0.5 * ||c_l||^2
+    dither: Optional[torch.Tensor]  # dithered: (Mp,) dither, zero past M
+
+
+def encoder_tables(codebook, m: int, device) -> EncoderTables:
+    if codebook.dim > 1:
+        return EncoderTables(codebook.centroids_t(device), codebook.half_norms_t(device), None)
+    dither = codebook.dither_t(device)
+    if dither is not None:
+        mp = packed_width(m, codebook.bits) * (32 // codebook.bits)
+        dither = torch.nn.functional.pad(dither, (0, mp - m))
+    return EncoderTables(codebook.thresholds_t(device), None, dither)
+
+
+def bqcs_encode_fused(blocks, residual, a, codebook, s, a_t=None, tables=None):
     """Fused encoder: error feedback -> top-S -> scale/project/encode ->
-    uint32 wire packing.  blocks/residual (nb, N), a (M, N).  Returns
-    (words uint32 (nb, W), alpha (nb,), new_residual (nb, N))."""
+    uint32 wire packing, for any codebook family.  blocks/residual (nb, N),
+    a (M, N).  Returns (words uint32 (nb, W), alpha (nb,), new_residual
+    (nb, N)) with W = ceil(n_codes / (32 // Q))."""
     m = a.shape[0]
     if a_t is None:
-        a_t = encoder_a_t(a, codebook.bits)
-    if taus is None:
-        taus = codebook.thresholds_t(blocks.device)
+        a_t = encoder_a_t(a, codebook)
+    if tables is None:
+        tables = encoder_tables(codebook, m, blocks.device)
     return _encode(
         blocks.to(torch.float32).contiguous(), residual.to(torch.float32).contiguous(),
-        a_t, taus, s=s, m=m, bits=codebook.bits,
+        a_t, tables.tab, s=s, m=m, bits=codebook.bits,
+        dither=tables.dither, half_norms=tables.half_norms,
+    )
+
+
+def block_sparsify(blocks: torch.Tensor, s: int):
+    """Bisection top-S sparsify (the staged encoder's first kernel).
+    Returns (sparse, residual)."""
+    return _topk(blocks.to(torch.float32).contiguous(), s)
+
+
+def bqcs_encode(blocks: torch.Tensor, a: torch.Tensor, codebook):
+    """Staged scale + project + quantize for an undithered scalar codebook
+    (the reference's ``ops.bqcs_encode``); bf16/f16 blocks are upcast to
+    f32.  blocks (nb, N), a (M, N).  Returns (codes uint8 (nb, M), alpha)."""
+    if codebook.dim != 1 or getattr(codebook, "dither", None) is not None:
+        raise ValueError("the staged encoder takes an undithered scalar codebook")
+    return _staged_encode(
+        blocks.to(torch.float32).contiguous(), a.T.contiguous(),
+        codebook.thresholds_t(blocks.device)
     )
 
 

@@ -45,24 +45,43 @@ def block_topk_ref(blocks: torch.Tensor, s: int, iters: int = 26):
     return sparse, blocks - sparse
 
 
+def bqcs_encode_ref(blocks: torch.Tensor, a_t: torch.Tensor, taus: torch.Tensor):
+    """Staged encoder oracle: scale -> dense project -> threshold bucketize.
+    (nb, N), (N, M), (L - 1,) -> (codes uint8 (nb, M), alpha (nb,))."""
+    y, alpha = _scale_project_ref(blocks, a_t)
+    codes = torch.sum(y[:, :, None] > taus[None, None, :], dim=-1)
+    return codes.to(torch.uint8), alpha
+
+
 def bqcs_encode_fused_ref(
     blocks: torch.Tensor,
     residual: torch.Tensor,
     a_t: torch.Tensor,  # (N, M)
-    taus: torch.Tensor,  # (L - 1,)
+    taus: torch.Tensor,  # (L - 1,) thresholds; unused when centroids are given
     s: int,
     bits: int,
     iters: int = 26,
+    dither: torch.Tensor = None,  # (M,) per-lane subtractive dither
+    centroids: torch.Tensor = None,  # (L, d): nearest-centroid encode
+    half_norms: torch.Tensor = None,  # (L,) 0.5 * ||c_l||^2 for the vq score
 ):
     """Fused encoder oracle: error-feedback add -> bisection top-S ->
-    scale/project -> threshold bucketize -> lane-group uint32 packing.
-    Returns (words uint32 (nb, W), alpha (nb,), new_residual (nb, N))."""
-    from repro_torch.core.compression import pack_codes  # layering
+    scale/project -> encode -> lane-group uint32 packing.  The encode is the
+    threshold bucketize of ``y + dither`` for the scalar families, or the
+    nearest centroid (``core.codebook.vq_nearest``) when ``centroids`` is
+    given.  Returns (words uint32 (nb, W), alpha (nb,), new_residual (nb, N))."""
+    from repro_torch.core.codebook import vq_nearest  # layering
+    from repro_torch.core.compression import pack_codes
 
     carry = blocks + residual
     sparse, resid = block_topk_ref(carry, s, iters=iters)
     y, alpha = _scale_project_ref(sparse, a_t)
-    codes = torch.sum(y[:, :, None] > taus[None, None, :], dim=-1)
+    if centroids is not None:
+        codes = vq_nearest(y, centroids, half_norms)
+    else:
+        if dither is not None:
+            y = y + dither[None, :]
+        codes = torch.sum(y[:, :, None] > taus[None, None, :], dim=-1)
     return pack_codes(codes, bits), alpha, resid
 
 

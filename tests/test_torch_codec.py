@@ -14,6 +14,7 @@ runs the plain versions its wrappers take for CPU tensors.  Contracts:
 
 import dataclasses
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -217,12 +218,27 @@ def test_config_validation_matches_reference(bad):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernels=False), "item 1"),
-    (dict(use_kernels=True, codebook="vq"), "item 4"),
-    (dict(use_kernels=True, codebook="dithered_uniform"), "item 4"),
+    (dict(use_kernels=False, codebook="vq"), "item 1"),
+    (dict(use_kernels=False, codebook="dithered_uniform"), "item 1"),
 ])
 def test_routes_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tcomp.BQCSCodec(tcomp.FedQCSConfig(block_size=64, reduction_ratio=2, **kw), device="cpu")
+
+
+def test_exact_variance_on_the_kernel_route_warns_once(monkeypatch):
+    """use_kernels=True with the default exact variance decodes on the plain
+    GAMP loop; the codec says so once per process, as the reference does."""
+    monkeypatch.setattr(tcomp, "_KERNEL_BYPASS_WARNED", False)
+    kw = dict(block_size=64, reduction_ratio=2, use_kernels=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tcomp.BQCSCodec(tcomp.FedQCSConfig(gamp_variance_mode="scalar", **kw), device="cpu")
+    with pytest.warns(UserWarning, match="gamp_variance_mode='scalar'"):
+        tcomp.BQCSCodec(tcomp.FedQCSConfig(**kw), device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tcomp.BQCSCodec(tcomp.FedQCSConfig(**kw), device="cpu")
 
 
 def test_cuda_without_a_card_raises():

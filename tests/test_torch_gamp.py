@@ -279,11 +279,16 @@ def test_fedadam_server_update_matches_reference(step):
         _close(st["v"][k], sj["v"][k], 1e-6, 0)
 
 
+@pytest.mark.parametrize("use_kernels", [True, False])
 @pytest.mark.parametrize("kw,item", [
-    (dict(variance_mode="exact"), "item 1"),
     (dict(variance_mode="scalar", early_stop=True), "item 2"),
+    (dict(variance_mode="exact", early_stop=True), "item 2"),
 ])
-def test_gamp_routes_outside_the_slice_raise(kw, item):
+def test_gamp_routes_outside_the_slice_raise(kw, item, use_kernels):
+    """early_stop=True (the reference's data-dependent trip count) is not
+    ported, on either route: the kernel route never takes it and the plain
+    loop raises."""
     a = torch.zeros((4, 12))
     with pytest.raises(NotImplementedError, match=item):
-        tgamp.em_gamp(torch.ones((2, 4)), torch.ones(2), a, tgamp.GampConfig(**kw))
+        tgamp.em_gamp(torch.ones((2, 4)), torch.ones(2), a, tgamp.GampConfig(**kw),
+                      use_kernels=use_kernels)

@@ -15,7 +15,13 @@ Tolerances, each with its reason:
     CUDA erfcf/expf a few ulps from PyTorch's).
   * 25-step drivers: NMSE <= 1e-4 against the plain drivers (the
     DESIGN.md #Kernels contract).
+  * the encoder's dither and vq branches: as the scalar branch; a vq code
+    may differ only where its two candidate centroid scores lie within
+    1e-5 of each other.  block_topk: bit-identical.  bqcs_encode (staged):
+    alpha rtol 1e-6, codes as the encoder's.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -61,7 +67,7 @@ def check_encoder(blocks, residual, a, taus, s, bits):
     """Kernel vs plain version on the same CUDA inputs; returns the count of
     differing code lanes (each within 1e-5 of a threshold)."""
     m = a.shape[0]
-    a_t = ops.encoder_a_t(a, bits)
+    a_t = ops.encoder_a_t(a, _codebook("lloyd_max", 3 * m, bits))
     words, alpha, resid = bqcs_encode_fused(blocks, residual, a_t, taus, s, m, bits)
     w_r, al_r, res_r = ref.bqcs_encode_fused_ref(blocks, residual, a.T.contiguous(), taus, s, bits)
     torch.cuda.synchronize()
@@ -167,7 +173,8 @@ def test_ea_driver_nmse(cuda):
     including a dead row: NMSE <= 1e-4 and the dead row exactly zero."""
     nb, n, m, q, s = 40, 1591, 530, 3, 159
     blocks, resid, a, taus = _encode_inputs(nb, n, m, q, seed=3, dev=cuda)
-    words, alpha, _ = bqcs_encode_fused(blocks, resid, ops.encoder_a_t(a, q), taus, s, m, q)
+    a_t = ops.encoder_a_t(a, _codebook("lloyd_max", n, q))
+    words, alpha, _ = bqcs_encode_fused(blocks, resid, a_t, taus, s, m, q)
     ghat_k = ops.qgamp_ea_run_packed(words, alpha, a, taus, bits=q, m=m)
     ghat_r = _plain_ea_run(words, alpha, a, taus, q, m, 25)
     # the driver's norm guard only clips diverged rows; compare before it
@@ -202,3 +209,157 @@ def test_round_on_the_card(cuda, method):
     res = run_federated(method, steps=1, device="cuda")
     assert len(res.nmses) == 1 and np.isfinite(res.nmses[0]) and res.nmses[0] < 1.0
     assert 0.0 <= res.accs[0] <= 1.0
+
+
+# -- slice 2: the encoder's dither and vq branches, the staged encoder ----------
+
+
+@functools.lru_cache(maxsize=None)
+def _codebook(family, n, bits, vq_dim=2):
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.core.compression import FedQCSConfig
+
+    return make_codebook(FedQCSConfig(block_size=n, reduction_ratio=3, bits=bits,
+                                      codebook=family, vq_dim=vq_dim))
+
+
+def _vq_score_gap(y, cb, codes_a, codes_b):
+    """|score(code_a) - score(code_b)| of each lane, scored on the same y."""
+    c = cb.centroids_t(y.device)
+    n_lev, d = c.shape
+    y3 = y.reshape(y.shape[0], d, -1)
+    sc = torch.einsum("rjg,lj->rgl", y3, c) - cb.half_norms_t(y.device)
+    pick = lambda codes: torch.gather(sc, 2, codes.long()[..., None])[..., 0]
+    return torch.abs(pick(codes_a) - pick(codes_b))
+
+
+def check_encoder_family(blocks, residual, a, cb, s):
+    """Fused kernel vs its plain version for any codebook family; returns
+    the count of differing code lanes (each within 1e-5 of a decision)."""
+    m = a.shape[0]
+    a_t = ops.encoder_a_t(a, cb)
+    tables = ops.encoder_tables(cb, m, a.device)
+    words, alpha, resid = bqcs_encode_fused(blocks, residual, a_t, tables.tab, s, m, cb.bits,
+                                            dither=tables.dither, half_norms=tables.half_norms)
+    if cb.dim > 1:
+        w_r, al_r, res_r = ref.bqcs_encode_fused_ref(
+            blocks, residual, a_t, None, s, cb.bits, centroids=tables.tab,
+            half_norms=tables.half_norms)
+    else:
+        w_r, al_r, res_r = ref.bqcs_encode_fused_ref(
+            blocks, residual, a.T.contiguous(), tables.tab, s, cb.bits,
+            dither=tables.dither[:m])
+    torch.cuda.synchronize()
+    assert torch.equal(resid, res_r)
+    torch.testing.assert_close(alpha, al_r, rtol=1e-6, atol=0.0)
+    lanes = cb.n_codes(m)
+    assert words.shape == w_r.shape == (blocks.shape[0], packed_width(lanes, cb.bits))
+    codes, codes_r = unpack_codes(words, cb.bits, lanes), unpack_codes(w_r, cb.bits, lanes)
+    diff = codes != codes_r
+    if diff.any():
+        sparse, _ = ref.block_topk_ref(blocks + residual, s)
+        y = (sparse * al_r[:, None]) @ a.T
+        if cb.dim > 1:
+            gap = _vq_score_gap(y, cb, codes, codes_r)
+        else:
+            gap = torch.amin(torch.abs((y + tables.dither[:m])[..., None] - tables.tab), dim=-1)
+        assert float(gap[diff].max()) < 1e-5
+    full = unpack_codes(words, cb.bits, words.shape[1] * (32 // cb.bits))
+    assert not full[:, lanes:].any()
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("family,n,bits,vq_dim", [
+    ("dithered_uniform", 300, 3, 2), ("dithered_uniform", 256, 4, 2),
+    ("dithered_uniform", 1591, 3, 2),
+    ("vq", 258, 3, 2), ("vq", 300, 4, 2), ("vq", 240, 3, 4), ("vq", 1591, 3, 2),
+])
+def test_encoder_dither_and_vq_branches(cuda, family, n, bits, vq_dim):
+    m = n // 3
+    nb = 300 if n == 1591 else 37
+    blocks, resid, a, _ = _encode_inputs(nb, n, m, bits, seed=n + bits, dev=cuda)
+    check_encoder_family(blocks, resid, a, _codebook(family, n, bits, vq_dim), max(1, n // 10))
+
+
+@pytest.mark.parametrize("nb,n,s", [(37, 300, 30), (300, 1591, 159), (5, 7000, 700)])
+def test_block_topk_bit_identical(cuda, nb, n, s):
+    from repro_torch.kernels.block_topk import block_topk
+
+    blocks, resid, _, _ = _encode_inputs(nb, n, 3, 3, seed=nb, dev=cuda)
+    x = blocks + resid
+    x[1, :4] = 0.25  # a tie at the row max
+    sparse, res = block_topk(x, s)
+    sp_r, res_r = ref.block_topk_ref(x, s)
+    torch.cuda.synchronize()
+    assert torch.equal(sparse, sp_r) and torch.equal(res, res_r)
+
+
+@pytest.mark.parametrize("nb,n,m,q", [(37, 300, 100, 3), (300, 1591, 530, 3), (19, 129, 65, 2)])
+def test_staged_encode_matches_plain(cuda, nb, n, m, q):
+    from repro_torch.kernels.bqcs_encode import bqcs_encode
+
+    blocks, _, a, taus = _encode_inputs(nb, n, m, q, seed=m, dev=cuda)
+    a_t = a.T.contiguous()
+    codes, alpha = bqcs_encode(blocks, a_t, taus)
+    codes_r, alpha_r = ref.bqcs_encode_ref(blocks, a_t, taus)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(alpha, alpha_r, rtol=1e-6, atol=0.0)
+    assert float(alpha[0]) == 0.0
+    diff = codes != codes_r
+    if diff.any():
+        y = (blocks * alpha_r[:, None]) @ a_t
+        gap = torch.amin(torch.abs(y[..., None] - taus), dim=-1)
+        assert float(gap[diff].max()) < 1e-5
+
+
+def test_staged_path_matches_fused_wire(cuda):
+    cb = _codebook("lloyd_max", 1591, 3)
+    blocks, resid, a, taus = _encode_inputs(300, 1591, 530, 3, seed=8, dev=cuda)
+    words_f, alpha_f, res_f = ops.bqcs_encode_fused(blocks, resid, a, cb, 159)
+    sparse, res_s = ops.block_sparsify(blocks + resid, 159)
+    codes_s, alpha_s = ops.bqcs_encode(sparse, a, cb)
+    from repro_torch.core.compression import pack_codes
+
+    words_s = pack_codes(codes_s, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(res_s, res_f)
+    torch.testing.assert_close(alpha_s, alpha_f, rtol=1e-6, atol=0.0)
+    diff = unpack_codes(words_s, 3, 530) != unpack_codes(words_f, 3, 530)
+    if diff.any():
+        y = (sparse * alpha_f[:, None]) @ a.T
+        gap = torch.amin(torch.abs(y[..., None] - taus), dim=-1)
+        assert float(gap[diff].max()) < 1e-5
+
+
+@pytest.mark.parametrize("family", ["dithered_uniform", "vq"])
+@pytest.mark.parametrize("method", ["fedqcs-ae", "fedqcs-ea"])
+def test_codebook_round_on_the_card(cuda, method, family):
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.paper.mlp import run_federated
+
+    cfg = FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25, use_kernels=True,
+                       gamp_variance_mode="scalar", codebook=family)
+    res = run_federated(method, steps=1, device="cuda", fed_cfg=cfg)
+    assert len(res.nmses) == 1 and np.isfinite(res.nmses[0]) and res.nmses[0] < 1.0
+    assert res.bits_per_entry == {"vq": 0.5, "dithered_uniform": 1.0}[family]
+
+
+def test_gamp_loop_on_the_card_matches_the_cpu(cuda):
+    """The plain GAMP loop (exact variance, early freeze) on CUDA tensors
+    against the same loop on the CPU: the same algorithm, sums in another
+    order, so NMSE <= 1e-4 and iteration counts equal on >= 99% of blocks."""
+    from repro_torch.core import gamp
+
+    rng = np.random.default_rng(12)
+    nb, n, m = 300, 384, 128
+    a = (rng.standard_normal((m, n)) / np.sqrt(m)).astype(np.float32)
+    g = np.where(rng.random((nb, n)) < 0.1, rng.normal(0, 0.1, (nb, n)), 0.0).astype(np.float32)
+    y = g @ a.T + rng.normal(0, 0.01, (nb, m)).astype(np.float32)
+    nu = np.full((nb,), 1e-4, np.float32)
+    cfg = gamp.GampConfig(variance_mode="exact")
+    outs = [gamp.em_gamp(torch.as_tensor(y, device=d), torch.as_tensor(nu, device=d),
+                         torch.as_tensor(a, device=d), cfg, with_info=True)
+            for d in (cuda, torch.device("cpu"))]
+    (g_c, info_c), (g_p, info_p) = outs
+    assert _nmse(g_c.cpu(), g_p) <= 1e-4
+    assert float((info_c.iters.cpu() == info_p.iters).float().mean()) >= 0.99

@@ -13,8 +13,9 @@ Phases (any failure raises and the script exits non-zero):
     shapes, on the card, inputs from a seed: the fused encoder's scalar,
     dither and vq branches (300 x 1591, S=159, Q=3), block_topk
     (bit-identical) and the staged bqcs_encode, one qgamp_step and the
-    25-step EA driver (300 rows), one gamp_step and the 25-step AE driver
-    (10 rows), and one gamp_step at 300 rows (the vq EA decode's shape).
+    25-step EA driver (300 rows), gamp_step at the chooser's (rows per tile,
+    cluster) and at cluster 1 and the 25-step AE driver (10 rows), and the
+    same two gamp_step shapes at 300 rows (the vq EA decode's shape).
  3. [staged] The staged encode path of ``kernels/ops.py``
     (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
     counts set to 0 just before and read just after, held against the
@@ -33,7 +34,10 @@ Phases (any failure raises and the script exits non-zero):
  6. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
-    work; the step kernels at 1 and 2 rows per block ([tune]).
+    work.  [tune]: qgamp_step at 1 and 2 rows per block; gamp_step at every
+    (rows per tile, blocks per cluster) at 10 and 300 rows, each held against
+    the plain step first, with the chooser's pick marked, and at the pick
+    without the EM refresh.
 
 The next-to-last lines are the kernels JSON and ``nvidia-smi``'s name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -224,6 +228,34 @@ def phase_device():
     return name, smi
 
 
+def gamp_step_vs_plain(args, dev, shapes=None):
+    """gamp_step at each (rows per tile, cluster) of ``shapes`` against the
+    plain step on the same inputs: allclose rtol 2e-4 / atol 1e-6.  By default
+    the chooser's pick and the same rows at cluster 1 (the whole-row form).
+    Returns (max abs err per output over all shapes, the shapes run)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gamp_step import gamp_step, launch_shape
+
+    if shapes is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rows, cluster = launch_shape(args[0].shape[0], sms)
+        shapes = [(rows, cluster)] + ([(rows, 1)] if cluster > 1 else [])
+    want = ref.gamp_step_ref(*args)
+    errs = [0.0] * 4
+    for rows, cluster in shapes:
+        got = gamp_step(*args, _rows=rows, _cluster=cluster)
+        torch.cuda.synchronize()
+        for i, (name, k_, p_) in enumerate(zip(("ghat", "nu_g", "shat", "theta"), got, want)):
+            torch.testing.assert_close(
+                k_, p_, rtol=2e-4, atol=1e-6,
+                msg=f"gamp_step {args[0].shape[0]} rows at {rows} rows per tile, cluster "
+                    f"{cluster}: {name}")
+            errs[i] = max(errs[i], float(torch.max(torch.abs(k_ - p_))))
+    return errs, shapes
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version at the main path's shapes."""
     import numpy as np
@@ -243,7 +275,6 @@ def phase_kernels(dev):
     from repro_torch.kernels.block_topk import block_topk
     from repro_torch.kernels.bqcs_encode import bqcs_encode
     from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
-    from repro_torch.kernels.gamp_step import gamp_step
     from repro_torch.kernels.qgamp_step import qgamp_step
 
     def launched(mod, since: int, want: int) -> int:
@@ -396,14 +427,9 @@ def phase_kernels(dev):
         theta[:nb].contiguous()
     y10 = t(rng.normal(0, 1, (nb, M)))
     nud10 = t(np.full((nb, 1), 0.05))
+    args10 = (g10, n10, s10, th10, y10, nud10, a, L, True)
     n0 = g_mod.launches
-    step_k = gamp_step(g10, n10, s10, th10, y10, nud10, a, L, True)
-    step_p = ref.gamp_step_ref(g10, n10, s10, th10, y10, nud10, a, L, True)
-    torch.cuda.synchronize()
-    errs = []
-    for name, k_, p_ in zip(("ghat", "nu_g", "shat", "theta"), step_k, step_p):
-        torch.testing.assert_close(k_, p_, rtol=2e-4, atol=1e-6, msg=f"gamp_step {name}")
-        errs.append(float(torch.max(torch.abs(k_ - p_))))
+    errs, shapes = gamp_step_vs_plain(args10, dev)
     w3, a3 = words.reshape(K, 10, -1), alpha.reshape(K, 10)
     rhos = torch.full((K,), 1.0 / K, device=dev)
     y_ae = bussgang.aggregate_packed(w3, a3, rhos, cb, M)
@@ -414,25 +440,18 @@ def phase_kernels(dev):
         ae_p = ops.gamp_ae_run(y_ae, nu_ae, a, e_ae_in)
     e_ae = nmse(ae_k, ae_p)
     check(e_ae <= 1e-4, f"AE driver NMSE {e_ae:.3g} > 1e-4")
-    n_g = launched(g_mod, n0, 1 + ITERS)
-    out["gamp"] = dict(max_abs_err=max(errs), args=(g10, n10, s10, th10, y10, nud10, a, L, True),
-                       gemm=(g10, s10, a))
-    print(f"[gamp_step] one step, 10 rows: allclose rtol 2e-4 atol 1e-6, max abs err "
-          f"{max(errs):.3g}; 25-step AE driver on the Bussgang aggregate of the encoder's "
-          f"words: NMSE {e_ae:.3g} (<= 1e-4); launches {n_g}")
+    n_g = launched(g_mod, n0, len(shapes) + ITERS)
+    out["gamp"] = dict(max_abs_err=max(errs), args=args10, gemm=(g10, s10, a))
+    print(f"[gamp_step] one step, 10 rows, (rows per tile, cluster) {shapes}: allclose rtol "
+          f"2e-4 atol 1e-6, max abs err {max(errs):.3g}; 25-step AE driver on the Bussgang "
+          f"aggregate of the encoder's words: NMSE {e_ae:.3g} (<= 1e-4); launches {n_g}")
 
     # -- one gamp_step on 300 rows, then the vq EA decode over K x 10 rows -------
     y300 = t(rng.normal(0, 1, (rows, M)))
     nud300 = t(np.full((rows, 1), 0.05))
     args300 = (ghat, nug, shat, theta, y300, nud300, a, L, True)
     n0 = g_mod.launches
-    step_k = gamp_step(*args300)
-    step_p = ref.gamp_step_ref(*args300)
-    torch.cuda.synchronize()
-    errs = []
-    for name, k_, p_ in zip(("ghat", "nu_g", "shat", "theta"), step_k, step_p):
-        torch.testing.assert_close(k_, p_, rtol=2e-4, atol=1e-6, msg=f"gamp_step 300 {name}")
-        errs.append(float(torch.max(torch.abs(k_ - p_))))
+    errs, shapes = gamp_step_vs_plain(args300, dev)
     vq_words, vq_alpha, vq_cb = enc_out["vq"]
     gcfg = GampConfig(variance_mode="scalar")
     vq_k = qem_gamp_packed(vq_words, vq_alpha, a, vq_cb, gcfg, M, use_kernels=True)
@@ -441,11 +460,11 @@ def phase_kernels(dev):
     e_vq = nmse(vq_k, vq_p)
     check(e_vq <= 1e-4, f"vq EA decode NMSE {e_vq:.3g} > 1e-4")
     check(not bool(vq_k[7].any()), "dead row must decode to exactly zero")
-    n_g = launched(g_mod, n0, 1 + ITERS)
+    n_g = launched(g_mod, n0, len(shapes) + ITERS)
     out["gamp300"] = dict(max_abs_err=max(errs), args=args300, gemm=(ghat, shat, a))
-    print(f"[gamp_step] one step, 300 rows: allclose rtol 2e-4 atol 1e-6, max abs err "
-          f"{max(errs):.3g}; 25-step vq EA decode on the vq encoder's words: NMSE {e_vq:.3g} "
-          f"(<= 1e-4); launches {n_g}")
+    print(f"[gamp_step] one step, 300 rows, (rows per tile, cluster) {shapes}: allclose rtol "
+          f"2e-4 atol 1e-6, max abs err {max(errs):.3g}; 25-step vq EA decode on the vq "
+          f"encoder's words: NMSE {e_vq:.3g} (<= 1e-4); launches {n_g}")
     return out
 
 
@@ -685,16 +704,35 @@ def phase_times(dev, k_in):
             library="GEMMs only",
         )
     # rows of a tile sharing one pass over A: fewer rows fill more SMs, more
-    # rows read A from L2 fewer times (the wrappers' qgamp_step.rows_per_cta)
+    # rows read A from L2 fewer times (qgamp_step.rows_per_cta)
+    from repro_torch.kernels.gamp_step import CLUSTERS, ROWS, launch_shape
     from repro_torch.kernels.qgamp_step import rows_per_cta
 
-    ga = k_in["gamp"]["args"]
-    for nb_, step, args in ((rows, qgamp_step, qa), (ga[0].shape[0], gamp_step, ga)):
-        auto = rows_per_cta(nb_, dev)
-        for r in (1, 2):
-            ms = timer(lambda: step(*args, _rows=r))
-            print(f"[tune] {step.__name__} {nb_} rows, {r} rows per block: {ms:.4f} ms"
-                  + (" (the wrapper's choice)" if r == auto else ""))
+    auto = rows_per_cta(rows, dev)
+    for r in (1, 2):
+        ms = timer(lambda: qgamp_step(*qa, _rows=r))
+        print(f"[tune] qgamp_step {rows} rows, {r} rows per block: {ms:.4f} ms"
+              + (" (the wrapper's choice)" if r == auto else ""))
+    # gamp_step: every (rows per tile, blocks per cluster), each first held
+    # against the plain step, then timed
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key in ("gamp", "gamp300"):
+        ga = k_in[key]["args"]
+        nb_ = ga[0].shape[0]
+        pick = launch_shape(nb_, sms)
+        for r in ROWS:
+            for c in CLUSTERS:
+                errs, _ = gamp_step_vs_plain(ga, dev, [(r, c)])
+                ms = timer(lambda: gamp_step(*ga, _rows=r, _cluster=c))
+                print(f"[tune] gamp_step {nb_} rows, {r} rows per tile, cluster {c} "
+                      f"({-(-nb_ // r) * c} blocks): {ms:.4f} ms, max abs err {max(errs):.3g}"
+                      + (" (the chooser's pick)" if (r, c) == pick else ""))
+        # what the EM refresh's two cluster reductions cost at the pick
+        no_em = ga[:-1] + (False,)
+        gamp_step_vs_plain(no_em, dev, [pick])
+        ms = timer(lambda: gamp_step(*no_em, _rows=pick[0], _cluster=pick[1]))
+        print(f"[tune] gamp_step {nb_} rows at the chooser's pick {pick} without the EM "
+              f"refresh (em=False): {ms:.4f} ms")
     for name, r in res.items():
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ({r['library']})")

@@ -1,13 +1,16 @@
-// Shared device helpers of the FedQCS kernels: block-wide reductions, the
-// bisection top-S threshold and keep rule of the two encoders, and the two
-// row-times-A products of a GAMP step.
+// Shared device helpers of the FedQCS kernels: block-wide and cluster-wide
+// reductions, the bisection top-S threshold and keep rule of the two
+// encoders, and the row-times-A products of a GAMP step (whole rows, and the
+// column-slice forms of a step split over a thread-block cluster).
 //
 // Every kernel here runs 256 threads per block (8 warps).  Reductions go
 // warp shuffle -> shared scratch -> every thread sums the 8 warp partials in
 // the same order, so all threads hold identical totals and control flow that
-// depends on them stays uniform.
+// depends on them stays uniform.  The cluster reduction keeps the same rule:
+// every block sums the ranks' partials in rank order 0..C-1.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -139,6 +142,156 @@ __device__ __forceinline__ void rows_times_a_into(const float* s, const float* _
     }
 #pragma unroll
     for (int r = 0; r < TB; ++r) g[r * n + i] = g[r * n + i] + nu_r[r] * (alpha[r] * acc[r]);
+  }
+}
+
+// tot[k] = sum of part[k] over the blocks of this cluster, k < cnt, read
+// through distributed shared memory in rank order 0..C-1, so every block
+// gets bit-identical totals.  part lies at the same shared-memory offset in
+// every block.  Call it after a cluster.sync() that follows the writes of
+// part; the caller syncs the block before reading tot, and the cluster again
+// before a block may exit (another block may still be reading its part).
+constexpr int kMaxCluster = 16;  // the largest cluster a kernel here launches (non-portable)
+
+__device__ __forceinline__ void cluster_sum(const float* part, int cnt, float* tot) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  for (int k = threadIdx.x; k < cnt; k += kThreads) {
+    float v[kMaxCluster];  // all C remote loads in flight at once
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) v[q] = q < c ? cluster.map_shared_rank(part, q)[k] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) s += v[q];  // + 0 past C leaves s exact
+    tot[k] = s;
+  }
+}
+
+// The column-slice products stream A in tiles of kSliceRows rows x kColTile
+// columns: each thread keeps 32 independent scalar loads in flight (rows of
+// A are 1591 floats at the paper's width, so not 16-byte aligned), and the
+// lanes of a warp read 128 contiguous bytes per load.  8 rows beat 4 on the
+// H100 (PERF.md).
+constexpr int kSliceRows = 8;
+constexpr int kColLoads = 4;
+constexpr int kColTile = 32 * kColLoads;
+
+// out[r * m + j] = <g[r * ld : r * ld + ns], A[j, 0:ns]> for the TB rows of a
+// tile: product 1 of a GAMP step over one column slice (a points at the
+// slice's first column, row stride n; g and out in shared memory).  A warp
+// owns groups of kSliceRows outputs j and sums over the slice with shuffles.
+template <int TB>
+__device__ __forceinline__ void slice_dot_a(const float* g, int ld, const float* __restrict__ a,
+                                            int m, int n, int ns, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j0 = warp * kSliceRows; j0 < m; j0 += kWarps * kSliceRows) {
+    const float* arow[kSliceRows];
+#pragma unroll
+    for (int b = 0; b < kSliceRows; ++b) arow[b] = a + (size_t)min(j0 + b, m - 1) * n;
+    float acc[kSliceRows][TB];
+#pragma unroll
+    for (int b = 0; b < kSliceRows; ++b)
+#pragma unroll
+      for (int r = 0; r < TB; ++r) acc[b][r] = 0.f;
+    for (int ib = 0; ib < ns; ib += kColTile) {
+      float av[kSliceRows][kColLoads];
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u) {
+        const int i = ib + lane + 32 * u;
+#pragma unroll
+        for (int b = 0; b < kSliceRows; ++b) av[b][u] = i < ns ? __ldg(arow[b] + i) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u) {
+        const int i = ib + lane + 32 * u;
+#pragma unroll
+        for (int r = 0; r < TB; ++r) {
+          const float gv = i < ns ? g[r * ld + i] : 0.f;
+#pragma unroll
+          for (int b = 0; b < kSliceRows; ++b) acc[b][r] = fmaf(gv, av[b][u], acc[b][r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kSliceRows; ++b)
+#pragma unroll
+      for (int r = 0; r < TB; ++r) {
+        const float s = warp_sum(acc[b][r]);
+        if (lane == 0 && j0 + b < m) out[r * m + j0 + b] = s;
+      }
+  }
+}
+
+// g[r * ld + i] += nu_r[r] * <s[r * m : (r+1) * m], A[:, i]> for i < ns: the
+// r-hat update of a GAMP step over one column slice (a at the slice's first
+// column, row stride n), in place over the tile's ghat slice.  Warp w sums a
+// contiguous eighth of the m rows of A for kColTile columns at a time; the 8
+// warp partials meet in red (kWarps * TB * kColTile floats of shared memory)
+// and are added in warp order.
+template <int TB>
+__device__ __forceinline__ void slice_times_a_into(const float* s, const float* __restrict__ a,
+                                                   int m, int n, int ns, const float* nu_r,
+                                                   float* g, int ld, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (m + kWarps - 1) / kWarps;
+  const int jlo = min(m, warp * per), jhi = min(m, jlo + per);
+  for (int ib = 0; ib < ns; ib += kColTile) {
+    bool ok[kColLoads];
+    const float* col[kColLoads];
+#pragma unroll
+    for (int u = 0; u < kColLoads; ++u) {
+      ok[u] = ib + lane + 32 * u < ns;
+      col[u] = a + ib + lane + 32 * u;
+    }
+    float acc[TB][kColLoads];
+#pragma unroll
+    for (int r = 0; r < TB; ++r)
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u) acc[r][u] = 0.f;
+    int j = jlo;
+    for (; j + kSliceRows <= jhi; j += kSliceRows) {
+      float av[kSliceRows][kColLoads];
+#pragma unroll
+      for (int b = 0; b < kSliceRows; ++b)
+#pragma unroll
+        for (int u = 0; u < kColLoads; ++u)
+          av[b][u] = ok[u] ? __ldg(col[u] + (size_t)(j + b) * n) : 0.f;
+#pragma unroll
+      for (int b = 0; b < kSliceRows; ++b)
+#pragma unroll
+        for (int r = 0; r < TB; ++r) {
+          const float sv = s[r * m + j + b];
+#pragma unroll
+          for (int u = 0; u < kColLoads; ++u) acc[r][u] = fmaf(sv, av[b][u], acc[r][u]);
+        }
+    }
+    for (; j < jhi; ++j) {
+      float av[kColLoads];
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u) av[u] = ok[u] ? __ldg(col[u] + (size_t)j * n) : 0.f;
+#pragma unroll
+      for (int r = 0; r < TB; ++r) {
+        const float sv = s[r * m + j];
+#pragma unroll
+        for (int u = 0; u < kColLoads; ++u) acc[r][u] = fmaf(sv, av[u], acc[r][u]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TB; ++r)
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u)
+        red[(warp * TB + r) * kColTile + lane + 32 * u] = acc[r][u];
+    __syncthreads();
+    for (int k = threadIdx.x; k < TB * kColTile; k += kThreads) {
+      const int r = k / kColTile, c = k % kColTile;
+      if (ib + c < ns) {
+        float t = 0.f;
+        for (int w = 0; w < kWarps; ++w) t += red[(w * TB + r) * kColTile + c];
+        g[r * ld + ib + c] += nu_r[r] * t;
+      }
+    }
+    __syncthreads();
   }
 }
 

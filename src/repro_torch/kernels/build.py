@@ -49,8 +49,8 @@ _SIGNATURES = {
     # n_lev, rows_per_cta, stream
     "qgamp_step_launch": [_P] * 13 + [_I] * 9 + [_P],
     # ghat, nu_g, shat, theta, y, nu_d, a, ghat_out, nug_out, shat_out,
-    # theta_out, nb, n, m, L, em, rows_per_cta, stream
-    "gamp_step_launch": [_P] * 11 + [_I] * 6 + [_P],
+    # theta_out, nb, n, m, L, em, rows_per_cta, cluster, stream
+    "gamp_step_launch": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 

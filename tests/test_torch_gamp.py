@@ -39,6 +39,7 @@ from repro_torch.core import reconstruction as trec  # noqa: E402
 from repro_torch.fed import server_opt as tsrv  # noqa: E402
 from repro_torch.kernels import gm_prior as tgm  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.gamp_step import CLUSTERS, ROWS, launch_shape  # noqa: E402
 from repro_torch.kernels.gamp_step import gamp_step as t_gamp_step  # noqa: E402
 from repro_torch.kernels.qgamp_step import qgamp_step as t_qgamp_step  # noqa: E402
 
@@ -167,6 +168,37 @@ def test_gamp_step_matches_reference(nb, n, r, L):
     out_t = t_gamp_step(T(ghat), T(nug), T(shat), T(theta), T(y), T(nud), T(a), n_components=L)
     for t_, j_ in zip(out_t, out_j):
         _close(t_, j_, 2e-4, 1e-6)
+
+
+@pytest.mark.parametrize("L,em", [(1, True), (8, True), (3, False)])
+def test_gamp_step_components_and_em_match_reference(L, em):
+    """The fewest and most mixture components the kernels take, and a step
+    without the EM refresh (theta passes through)."""
+    nb, n, m = 8, 256, 64
+    rng, ghat, nug, shat, theta, a = _state(nb, n, m, L, 100 + L)
+    y = rng.normal(0, 1, (nb, m)).astype(np.float32)
+    nud = np.full((nb, 1), 0.05, np.float32)
+    out_j = jops.gamp_step(J(ghat), J(nug), J(shat), J(theta), J(y), J(nud), J(a),
+                           n_components=L, em=em)
+    out_t = t_gamp_step(T(ghat), T(nug), T(shat), T(theta), T(y), T(nud), T(a),
+                        n_components=L, em=em)
+    for t_, j_ in zip(out_t, out_j):
+        _close(t_, j_, 2e-4, 1e-6)
+    if not em:
+        assert torch.equal(out_t[3], T(theta))
+
+
+@pytest.mark.parametrize("nb", [1, 10, 300, 3000])
+def test_gamp_launch_shape_is_legal(nb):
+    """The chooser's (rows per tile, blocks per cluster) on a 132-SM H100:
+    shapes the kernel instantiates, and at the AE decode's 10 rows a grid of
+    at least 64 blocks (the whole-row form used 10)."""
+    rows, cluster = launch_shape(nb, 132)
+    assert rows in ROWS and cluster in CLUSTERS
+    blocks = -(-nb // rows) * cluster
+    if nb == 10:
+        assert blocks >= 64
+    assert launch_shape(nb, 132) == (rows, cluster)  # a pure function
 
 
 def _sparse_blocks(rng, nb, n, s):

@@ -10,9 +10,11 @@ Tolerances, each with its reason:
   * encoder: resid and the kept set are bit-identical (the bisection is the
     same fp32 arithmetic); alpha to rtol 1e-6 and a differing code only on a
     lane whose y lies within 1e-5 of a threshold (sums in another order).
-  * one GAMP step: allclose rtol 1e-3 / atol 1e-5 (the reference's own
-    kernel-vs-oracle tolerance; products and row sums in another order,
-    CUDA erfcf/expf a few ulps from PyTorch's).
+  * one GAMP step: allclose rtol 1e-3 / atol 1e-5 for qgamp_step, rtol 2e-4
+    / atol 1e-6 for gamp_step (the reference's own kernel-vs-oracle
+    tolerances; products and row sums in another order, CUDA erfcf/expf a
+    few ulps from PyTorch's); gamp_step at every (rows, cluster) shape, and
+    bit-identical from one launch to the next (no atomics).
   * 25-step drivers: NMSE <= 1e-4 against the plain drivers (the
     DESIGN.md #Kernels contract).
   * the encoder's dither and vq branches: as the scalar branch; a vq code
@@ -33,6 +35,8 @@ from repro_torch.core.gamp import tau_tables  # noqa: E402
 from repro_torch.core.quantizer import design_lloyd_max  # noqa: E402
 from repro_torch.kernels import gm_prior, ops, ref  # noqa: E402
 from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused  # noqa: E402
+from repro_torch.kernels.gamp_step import CLUSTERS as GAMP_CLUSTERS  # noqa: E402
+from repro_torch.kernels.gamp_step import ROWS as GAMP_ROWS  # noqa: E402
 from repro_torch.kernels.gamp_step import gamp_step  # noqa: E402
 from repro_torch.kernels.qgamp_step import qgamp_step  # noqa: E402
 
@@ -138,16 +142,37 @@ def test_qgamp_step_matches_plain(cuda, nb, n, m, q, packed):
         torch.testing.assert_close(k, r, rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("nb,n,m", [(8, 256, 64), (10, 1591, 530), (301, 300, 100)])
-def test_gamp_step_matches_plain(cuda, nb, n, m):
-    L = 3
-    rng, ghat, nug, shat, theta, a = _gamp_state(nb, n, m, L, nb, cuda)
+# every (rows per tile, blocks per cluster) the kernel takes, and the
+# chooser's own pick (None, None); N = 1591 and 300 split unevenly over
+# every cluster size > 1
+@pytest.mark.parametrize("rows,cluster", [(None, None)] + [
+    (r, c) for r in GAMP_ROWS for c in GAMP_CLUSTERS])
+@pytest.mark.parametrize("nb,n,m,L,em", [
+    (8, 256, 64, 3, True), (10, 1591, 530, 3, True), (301, 300, 100, 3, True),
+    (1, 1591, 530, 3, True), (300, 1591, 530, 3, True), (10, 300, 100, 1, True),
+    (10, 300, 100, 8, True), (10, 1591, 530, 3, False),
+])
+def test_gamp_step_matches_plain(cuda, nb, n, m, L, em, rows, cluster):
+    rng, ghat, nug, shat, theta, a = _gamp_state(nb, n, m, L, nb + L, cuda)
     y = torch.as_tensor(rng.normal(0, 1, (nb, m)).astype(np.float32), device=cuda)
     nud = torch.full((nb, 1), 0.05, device=cuda)
-    out_k = gamp_step(ghat, nug, shat, theta, y, nud, a, L, True)
-    out_r = ref.gamp_step_ref(ghat, nug, shat, theta, y, nud, a, L, True)
+    out_k = gamp_step(ghat, nug, shat, theta, y, nud, a, L, em, _rows=rows, _cluster=cluster)
+    out_r = ref.gamp_step_ref(ghat, nug, shat, theta, y, nud, a, L, em)
     for k, r in zip(out_k, out_r):
         torch.testing.assert_close(k, r, rtol=2e-4, atol=1e-6)
+    # no atomics: a second launch gives the same bits
+    again = gamp_step(ghat, nug, shat, theta, y, nud, a, L, em, _rows=rows, _cluster=cluster)
+    assert all(torch.equal(k, k2) for k, k2 in zip(out_k, again))
+
+
+@pytest.mark.parametrize("rows,cluster", [(3, 1), (1, 3), (1, 32)])
+def test_gamp_step_refused_shape_raises(cuda, rows, cluster):
+    """A shape the kernel does not take raises; nothing falls back."""
+    rng, ghat, nug, shat, theta, a = _gamp_state(10, 300, 100, 3, 0, cuda)
+    y = torch.zeros((10, 100), device=cuda)
+    nud = torch.full((10, 1), 0.05, device=cuda)
+    with pytest.raises(RuntimeError, match="gamp_step_launch failed"):
+        gamp_step(ghat, nug, shat, theta, y, nud, a, 3, True, _rows=rows, _cluster=cluster)
 
 
 def _plain_ea_run(words, alpha, a, taus, bits, m, iters):

@@ -12,10 +12,10 @@ Phases (any failure raises and the script exits non-zero):
  2. [kernels] Each kernel against its plain PyTorch version at the paths'
     shapes, on the card, inputs from a seed: the fused encoder's scalar,
     dither and vq branches (300 x 1591, S=159, Q=3), block_topk
-    (bit-identical) and the staged bqcs_encode, one qgamp_step and the
-    25-step EA driver (300 rows), gamp_step at the chooser's (rows per tile,
-    cluster) and at cluster 1 and the 25-step AE driver (10 rows), and the
-    same two gamp_step shapes at 300 rows (the vq EA decode's shape).
+    (bit-identical) and the staged bqcs_encode, qgamp_step at the chooser's
+    (rows per tile, cluster) and at cluster 1 and the 25-step EA driver (300
+    rows), gamp_step at the same two shapes and the 25-step AE driver (10
+    rows), and gamp_step's two shapes at 300 rows (the vq EA decode's).
  3. [staged] The staged encode path of ``kernels/ops.py``
     (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
     counts set to 0 just before and read just after, held against the
@@ -34,9 +34,9 @@ Phases (any failure raises and the script exits non-zero):
  6. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
-    work.  [tune]: qgamp_step at 1 and 2 rows per block; gamp_step at every
-    (rows per tile, blocks per cluster) at 10 and 300 rows, each held against
-    the plain step first, with the chooser's pick marked, and at the pick
+    work.  [tune]: qgamp_step at 300 rows and gamp_step at 10 and 300 rows,
+    at every (rows per tile, blocks per cluster), each held against the
+    plain step first, with the chooser's pick marked, and at the pick
     without the EM refresh.
 
 The next-to-last lines are the kernels JSON and ``nvidia-smi``'s name and
@@ -228,29 +228,40 @@ def phase_device():
     return name, smi
 
 
-def gamp_step_vs_plain(args, dev, shapes=None):
-    """gamp_step at each (rows per tile, cluster) of ``shapes`` against the
-    plain step on the same inputs: allclose rtol 2e-4 / atol 1e-6.  By default
-    the chooser's pick and the same rows at cluster 1 (the whole-row form).
-    Returns (max abs err per output over all shapes, the shapes run)."""
+def step_vs_plain(kind: str, args, dev, shapes=None):
+    """One GAMP step kernel (``kind`` "gamp" or "qgamp") at each (rows per
+    tile, cluster) of ``shapes`` against its plain step on the same inputs:
+    allclose rtol 2e-4 / atol 1e-6 for gamp_step, rtol 1e-3 / atol 1e-5 for
+    qgamp_step (the tests' tolerances).  By default the chooser's pick and
+    the same rows at cluster 1 (the whole-row form).  Returns (max abs err
+    per output over all shapes, the shapes run)."""
     import torch
 
+    from repro_torch.core.compression import unpack_codes
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import qgamp_step as q_mod
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gamp_step import gamp_step, launch_shape
 
+    if kind == "qgamp":
+        ghat, nug, shat, theta, obs, alpha, lo, hi, a, L, em, bits = args
+        codes = unpack_codes(obs, bits, shat.shape[1]) if bits else obs
+        want = ref.qgamp_step_ref(ghat, nug, shat, theta, codes, alpha, lo, hi, a, L, em)
+        step, launch_shape, rtol, atol = q_mod.qgamp_step, q_mod.launch_shape, 1e-3, 1e-5
+    else:
+        want = ref.gamp_step_ref(*args)
+        step, launch_shape, rtol, atol = g_mod.gamp_step, g_mod.launch_shape, 2e-4, 1e-6
     if shapes is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         rows, cluster = launch_shape(args[0].shape[0], sms)
         shapes = [(rows, cluster)] + ([(rows, 1)] if cluster > 1 else [])
-    want = ref.gamp_step_ref(*args)
     errs = [0.0] * 4
     for rows, cluster in shapes:
-        got = gamp_step(*args, _rows=rows, _cluster=cluster)
+        got = step(*args, _rows=rows, _cluster=cluster)
         torch.cuda.synchronize()
         for i, (name, k_, p_) in enumerate(zip(("ghat", "nu_g", "shat", "theta"), got, want)):
             torch.testing.assert_close(
-                k_, p_, rtol=2e-4, atol=1e-6,
-                msg=f"gamp_step {args[0].shape[0]} rows at {rows} rows per tile, cluster "
+                k_, p_, rtol=rtol, atol=atol,
+                msg=f"{kind}_step {args[0].shape[0]} rows at {rows} rows per tile, cluster "
                     f"{cluster}: {name}")
             errs[i] = max(errs[i], float(torch.max(torch.abs(k_ - p_))))
     return errs, shapes
@@ -275,7 +286,6 @@ def phase_kernels(dev):
     from repro_torch.kernels.block_topk import block_topk
     from repro_torch.kernels.bqcs_encode import bqcs_encode
     from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
-    from repro_torch.kernels.qgamp_step import qgamp_step
 
     def launched(mod, since: int, want: int) -> int:
         n = mod.launches - since
@@ -398,14 +408,9 @@ def phase_kernels(dev):
     x = al2 * (ghat @ a.T) + t(rng.normal(0, 0.1, (rows, M)))
     qcodes = torch.searchsorted(taus, x.contiguous()).to(torch.int32)
     qwords = pack_codes(qcodes, Q)
+    qargs = (ghat, nug, shat, theta, qwords, al2, lo, hi, a, L, True, Q)
     n0 = q_mod.launches
-    step_k = qgamp_step(ghat, nug, shat, theta, qwords, al2, lo, hi, a, L, True, Q)
-    step_p = ref.qgamp_step_ref(ghat, nug, shat, theta, qcodes, al2, lo, hi, a, L, True)
-    torch.cuda.synchronize()
-    errs = []
-    for name, k_, p_ in zip(("ghat", "nu_g", "shat", "theta"), step_k, step_p):
-        torch.testing.assert_close(k_, p_, rtol=1e-3, atol=1e-5, msg=f"qgamp_step {name}")
-        errs.append(float(torch.max(torch.abs(k_ - p_))))
+    errs, shapes = step_vs_plain("qgamp", qargs, dev)
     # -- the 25-step EA driver on the encoder's words (incl. the dead row) -------
     ea_k = ops.qgamp_ea_run_packed(words, alpha, a, taus, bits=Q, m=M)
     with plain_kernels():
@@ -413,13 +418,11 @@ def phase_kernels(dev):
     e_ea = nmse(ea_k, ea_p)
     check(e_ea <= 1e-4, f"EA driver NMSE {e_ea:.3g} > 1e-4")
     check(not bool(ea_k[7].any()), "dead row must decode to exactly zero")
-    n_q = launched(q_mod, n0, 1 + ITERS)
-    out["qgamp"] = dict(max_abs_err=max(errs),
-                        args=(ghat, nug, shat, theta, qwords, al2, lo, hi, a, L, True, Q),
-                        gemm=(ghat, shat, a))
-    print(f"[qgamp_step] one step, 300 rows: allclose rtol 1e-3 atol 1e-5, max abs err "
-          f"{max(errs):.3g}; 25-step EA driver on the encoder's words: NMSE {e_ea:.3g} "
-          f"(<= 1e-4); launches {n_q}")
+    n_q = launched(q_mod, n0, len(shapes) + ITERS)
+    out["qgamp"] = dict(max_abs_err=max(errs), args=qargs, gemm=(ghat, shat, a))
+    print(f"[qgamp_step] one step, 300 rows, (rows per tile, cluster) {shapes}: allclose rtol "
+          f"1e-3 atol 1e-5, max abs err {max(errs):.3g}; 25-step EA driver on the encoder's "
+          f"words: NMSE {e_ea:.3g} (<= 1e-4); launches {n_q}")
 
     # -- one gamp_step on 10 rows, then the 25-step AE driver --------------------
     nb = 10
@@ -429,7 +432,7 @@ def phase_kernels(dev):
     nud10 = t(np.full((nb, 1), 0.05))
     args10 = (g10, n10, s10, th10, y10, nud10, a, L, True)
     n0 = g_mod.launches
-    errs, shapes = gamp_step_vs_plain(args10, dev)
+    errs, shapes = step_vs_plain("gamp", args10, dev)
     w3, a3 = words.reshape(K, 10, -1), alpha.reshape(K, 10)
     rhos = torch.full((K,), 1.0 / K, device=dev)
     y_ae = bussgang.aggregate_packed(w3, a3, rhos, cb, M)
@@ -451,7 +454,7 @@ def phase_kernels(dev):
     nud300 = t(np.full((rows, 1), 0.05))
     args300 = (ghat, nug, shat, theta, y300, nud300, a, L, True)
     n0 = g_mod.launches
-    errs, shapes = gamp_step_vs_plain(args300, dev)
+    errs, shapes = step_vs_plain("gamp", args300, dev)
     vq_words, vq_alpha, vq_cb = enc_out["vq"]
     gcfg = GampConfig(variance_mode="scalar")
     vq_k = qem_gamp_packed(vq_words, vq_alpha, a, vq_cb, gcfg, M, use_kernels=True)
@@ -703,35 +706,33 @@ def phase_times(dev, k_in):
             library_ms=timer(lambda: (torch.matmul(g2, a2.T), torch.matmul(s2, a2))),
             library="GEMMs only",
         )
-    # rows of a tile sharing one pass over A: fewer rows fill more SMs, more
-    # rows read A from L2 fewer times (qgamp_step.rows_per_cta)
-    from repro_torch.kernels.gamp_step import CLUSTERS, ROWS, launch_shape
-    from repro_torch.kernels.qgamp_step import rows_per_cta
+    # every (rows per tile, blocks per cluster) of both step kernels, each
+    # first held against its plain step, then timed; then the chooser's pick
+    # without the EM refresh
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import qgamp_step as q_mod
+    from repro_torch.kernels.gamp_step import CLUSTERS, ROWS
 
-    auto = rows_per_cta(rows, dev)
-    for r in (1, 2):
-        ms = timer(lambda: qgamp_step(*qa, _rows=r))
-        print(f"[tune] qgamp_step {rows} rows, {r} rows per block: {ms:.4f} ms"
-              + (" (the wrapper's choice)" if r == auto else ""))
-    # gamp_step: every (rows per tile, blocks per cluster), each first held
-    # against the plain step, then timed
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for key in ("gamp", "gamp300"):
-        ga = k_in[key]["args"]
-        nb_ = ga[0].shape[0]
-        pick = launch_shape(nb_, sms)
+    for kind, key, mod in (("qgamp", "qgamp", q_mod), ("gamp", "gamp", g_mod),
+                           ("gamp", "gamp300", g_mod)):
+        step = getattr(mod, f"{kind}_step")
+        args = k_in[key]["args"]
+        nb_ = args[0].shape[0]
+        pick = mod.launch_shape(nb_, sms)
         for r in ROWS:
             for c in CLUSTERS:
-                errs, _ = gamp_step_vs_plain(ga, dev, [(r, c)])
-                ms = timer(lambda: gamp_step(*ga, _rows=r, _cluster=c))
-                print(f"[tune] gamp_step {nb_} rows, {r} rows per tile, cluster {c} "
+                errs, _ = step_vs_plain(kind, args, dev, [(r, c)])
+                ms = timer(lambda: step(*args, _rows=r, _cluster=c))
+                print(f"[tune] {kind}_step {nb_} rows, {r} rows per tile, cluster {c} "
                       f"({-(-nb_ // r) * c} blocks): {ms:.4f} ms, max abs err {max(errs):.3g}"
                       + (" (the chooser's pick)" if (r, c) == pick else ""))
-        # what the EM refresh's two cluster reductions cost at the pick
-        no_em = ga[:-1] + (False,)
-        gamp_step_vs_plain(no_em, dev, [pick])
-        ms = timer(lambda: gamp_step(*no_em, _rows=pick[0], _cluster=pick[1]))
-        print(f"[tune] gamp_step {nb_} rows at the chooser's pick {pick} without the EM "
+        # the em flag is the last argument of gamp_step's and next to last of
+        # qgamp_step's (before bits)
+        no_em = args[:-1] + (False,) if kind == "gamp" else args[:-2] + (False, args[-1])
+        step_vs_plain(kind, no_em, dev, [pick])
+        ms = timer(lambda: step(*no_em, _rows=pick[0], _cluster=pick[1]))
+        print(f"[tune] {kind}_step {nb_} rows at the chooser's pick {pick} without the EM "
               f"refresh (em=False): {ms:.4f} ms")
     for name, r in res.items():
         lib = ("null" if r["library_ms"] is None

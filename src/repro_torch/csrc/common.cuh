@@ -1,7 +1,7 @@
 // Shared device helpers of the FedQCS kernels: block-wide and cluster-wide
 // reductions, the bisection top-S threshold and keep rule of the two
-// encoders, and the row-times-A products of a GAMP step (whole rows, and the
-// column-slice forms of a step split over a thread-block cluster).
+// encoders, and the row-times-A products of a GAMP step split by columns over
+// a thread-block cluster.
 //
 // Every kernel here runs 256 threads per block (8 warps).  Reductions go
 // warp shuffle -> shared scratch -> every thread sums the 8 warp partials in
@@ -96,55 +96,6 @@ __device__ __forceinline__ bool topk_keep(float x, float hi, float mx) {
   return (mag >= hi) | (mag == mx);
 }
 
-// out[r * m + j] = <g[r * n : (r+1) * n], A[j, :]> for the TB rows of a tile
-// (g and out in shared memory, A (m, n) row-major in device memory).  One
-// warp per output j: lanes stride the contiguous A row, so each load is one
-// coalesced 128-byte line, and one pass over A serves all TB rows.
-template <int TB>
-__device__ __forceinline__ void rows_dot_a(const float* g, const float* __restrict__ a,
-                                           int m, int n, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = warp; j < m; j += kWarps) {
-    const float* arow = a + (size_t)j * n;
-    float acc[TB];
-#pragma unroll
-    for (int r = 0; r < TB; ++r) acc[r] = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float av = __ldg(arow + i);
-#pragma unroll
-      for (int r = 0; r < TB; ++r) acc[r] = fmaf(g[r * n + i], av, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < TB; ++r) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0) out[r * m + j] = s;
-    }
-  }
-}
-
-// g[r * n + i] += nu_r[r] * (alpha[r] * <s[r * m : (r+1) * m], A[:, i]>):
-// the r-hat update of a GAMP step, in place over the tile's ghat rows.  One
-// thread per output i, looping over the m rows of A: neighbouring threads
-// read neighbouring addresses, and s[r * m + j] is a shared-memory broadcast.
-template <int TB>
-__device__ __forceinline__ void rows_times_a_into(const float* s, const float* __restrict__ a,
-                                                  int m, int n, const float* nu_r,
-                                                  const float* alpha, float* g) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float acc[TB];
-#pragma unroll
-    for (int r = 0; r < TB; ++r) acc[r] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < m; ++j) {
-      const float av = __ldg(a + (size_t)j * n + i);
-#pragma unroll
-      for (int r = 0; r < TB; ++r) acc[r] = fmaf(s[r * m + j], av, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < TB; ++r) g[r * n + i] = g[r * n + i] + nu_r[r] * (alpha[r] * acc[r]);
-  }
-}
-
 // tot[k] = sum of part[k] over the blocks of this cluster, k < cnt, read
 // through distributed shared memory in rank order 0..C-1, so every block
 // gets bit-identical totals.  part lies at the same shared-memory offset in
@@ -225,14 +176,16 @@ __device__ __forceinline__ void slice_dot_a(const float* g, int ld, const float*
 
 // g[r * ld + i] += nu_r[r] * <s[r * m : (r+1) * m], A[:, i]> for i < ns: the
 // r-hat update of a GAMP step over one column slice (a at the slice's first
-// column, row stride n), in place over the tile's ghat slice.  Warp w sums a
-// contiguous eighth of the m rows of A for kColTile columns at a time; the 8
-// warp partials meet in red (kWarps * TB * kColTile floats of shared memory)
-// and are added in warp order.
+// column, row stride n), in place over the tile's ghat slice; with alpha,
+// g += nu_r[r] * (alpha[r] * <...>), the quantized step's update.  Warp w
+// sums a contiguous eighth of the m rows of A for kColTile columns at a
+// time; the 8 warp partials meet in red (kWarps * TB * kColTile floats of
+// shared memory) and are added in warp order.
 template <int TB>
 __device__ __forceinline__ void slice_times_a_into(const float* s, const float* __restrict__ a,
                                                    int m, int n, int ns, const float* nu_r,
-                                                   float* g, int ld, float* red) {
+                                                   float* g, int ld, float* red,
+                                                   const float* alpha = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = (m + kWarps - 1) / kWarps;
   const int jlo = min(m, warp * per), jhi = min(m, jlo + per);
@@ -288,7 +241,7 @@ __device__ __forceinline__ void slice_times_a_into(const float* s, const float* 
       if (ib + c < ns) {
         float t = 0.f;
         for (int w = 0; w < kWarps; ++w) t += red[(w * TB + r) * kColTile + c];
-        g[r * ld + ib + c] += nu_r[r] * t;
+        g[r * ld + ib + c] += nu_r[r] * (alpha ? alpha[r] * t : t);
       }
     }
     __syncthreads();

@@ -73,91 +73,11 @@ struct GmRow {
   }
 };
 
-// GM input channel + EM refresh for one block-row, run by the whole block.
-// rhat: the row's n r-hat values in shared memory.  Writes ghat_out/nug_out
-// (n floats) and theta_out (1 + 3L floats) when `store` is set.
-__device__ __forceinline__ void gm_input_and_em(const float* rhat, float v, const float* theta,
-                                                int n, int L, bool em, bool store,
-                                                float* __restrict__ ghat_out,
-                                                float* __restrict__ nug_out,
-                                                float* __restrict__ theta_out, float* scratch) {
-  GmRow row;
-  row.load(theta, L, v);
-  constexpr int NV = 1 + 2 * kMaxComponents;
-  float acc[NV];
-#pragma unroll
-  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
-  float lp0, lp[kMaxComponents], mp[kMaxComponents], pp[kMaxComponents];
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    row.posterior(rhat[i], lp0, lp, mp, pp);
-    float gh = 0.f, second = 0.f;
-#pragma unroll
-    for (int l = 0; l < kMaxComponents; ++l) {
-      if (l < L) {
-        gh += lp[l] * mp[l];
-        second += lp[l] * (pp[l] + mp[l] * mp[l]);
-        acc[1 + l] += lp[l];
-        acc[1 + kMaxComponents + l] += lp[l] * mp[l];
-      }
-    }
-    acc[0] += lp0;
-    if (store) {
-      ghat_out[i] = gh;
-      nug_out[i] = fmaxf(second - gh * gh, kEps);
-    }
-  }
-  const int tl = 1 + 3 * L;
-  if (!em) {
-    if (store && threadIdx.x < tl) theta_out[threadIdx.x] = theta[threadIdx.x];
-    return;
-  }
-  block_sum<NV>(acc, scratch);
-  float mu_new[kMaxComponents], safe[kMaxComponents];
-#pragma unroll
-  for (int l = 0; l < kMaxComponents; ++l) {
-    if (l < L) {
-      safe[l] = fmaxf(acc[1 + l], kEps);
-      mu_new[l] = acc[1 + kMaxComponents + l] / safe[l];
-    }
-  }
-  // Second pass: the scatter around mu_new needs mu_new first.
-  float sc[kMaxComponents];
-#pragma unroll
-  for (int l = 0; l < kMaxComponents; ++l) sc[l] = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    row.posterior(rhat[i], lp0, lp, mp, pp);
-#pragma unroll
-    for (int l = 0; l < kMaxComponents; ++l) {
-      if (l < L) {
-        const float d = mu_new[l] - mp[l];
-        sc[l] += lp[l] * (d * d + pp[l]);
-      }
-    }
-  }
-  block_sum<kMaxComponents>(sc, scratch);
-  if (store && threadIdx.x == 0) {
-    const float nf = (float)n;
-    float lam0_new = fminf(fmaxf(acc[0] / nf, 1e-6f), 1.0f - 1e-6f);
-    float lam_new[kMaxComponents], total_lam = 0.f;
-    for (int l = 0; l < L; ++l) {
-      lam_new[l] = fmaxf(acc[1 + l] / nf, 1e-8f);
-      total_lam += lam_new[l];
-    }
-    const float total = fmaxf(lam0_new + total_lam, kEps);
-    theta_out[0] = lam0_new / total;
-    for (int l = 0; l < L; ++l) {
-      theta_out[1 + l] = lam_new[l] / total;
-      theta_out[1 + L + l] = mu_new[l];
-      theta_out[1 + 2 * L + l] = fmaxf(sc[l] / safe[l], kEps);
-    }
-  }
-}
-
-// --- The same input side for a row split over a thread-block cluster --------
+// --- The input side of a row split over a thread-block cluster -------------
 // Each block of the cluster holds one column slice of the row.  The EM
 // refresh needs two row sums, each one cluster reduction (common.cuh
 // cluster_sum) of the blocks' partials: the em sums below, then the scatter
-// around mu_new.  gm_input_and_em above stays the whole-row form.
+// around mu_new.  With a cluster of one block the slice is the whole row.
 
 constexpr int kEmSums = 1 + 2 * kMaxComponents;  // [sum lp0 | sum lp_l | sum lp_l mp_l]
 
@@ -237,7 +157,7 @@ __device__ __forceinline__ void gm_scatter_slice(const GmRow& row, const float* 
 }
 
 // Part 3, one thread: the refreshed theta of an n-entry row from the
-// cluster's em sums and scatter sums, with gm_input_and_em's clamps.
+// cluster's em sums and scatter sums, with the plain version's clamps.
 __device__ __forceinline__ void em_store_theta(const float* em_tot, const float* sc_tot, int n,
                                                int L, float* __restrict__ theta_out) {
   float mu_new[kMaxComponents], safe[kMaxComponents];

@@ -46,8 +46,8 @@ _SIGNATURES = {
     "bqcs_encode_launch": [_P] * 5 + [_I] * 4 + [_P],
     # ghat, nu_g, shat, theta, obs, alpha, lo_tau, hi_tau, a,
     # ghat_out, nug_out, shat_out, theta_out, nb, n, m, L, em, bits, obs_w,
-    # n_lev, rows_per_cta, stream
-    "qgamp_step_launch": [_P] * 13 + [_I] * 9 + [_P],
+    # n_lev, rows_per_tile, cluster, stream
+    "qgamp_step_launch": [_P] * 13 + [_I] * 10 + [_P],
     # ghat, nu_g, shat, theta, y, nu_d, a, ghat_out, nug_out, shat_out,
     # theta_out, nb, n, m, L, em, rows_per_cta, cluster, stream
     "gamp_step_launch": [_P] * 11 + [_I] * 7 + [_P],

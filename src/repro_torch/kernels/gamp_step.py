@@ -36,11 +36,12 @@ def launch_shape(nb: int, sms: int) -> tuple[int, int]:
     with ``sms`` SMs.  Rows in one tile share each load of A; the blocks of a
     cluster split the columns, so each block streams 1/cluster of A.  One row
     a tile while the rows alone fill fewer blocks than SMs (the 10-row AE
-    decode), else four (the 300-row vq EA decode: A read 75 times, not 300);
+    decode), else four (the 300-row EA decodes: A read 75 times, not 300);
     then the largest cluster that keeps the grid within two blocks per SM
-    (the kernel's launch bounds): 10 x 16 = 160 and 75 x 2 = 150 blocks.
-    Set from ``chip_smoke.py``'s [tune] sweep on an H100 (PERF.md), which
-    times every pair at 10 and 300 rows and marks this choice."""
+    (the kernels' launch bounds): 10 x 16 = 160 and 75 x 2 = 150 blocks.
+    ``qgamp_step`` launches with the same choice.  Set from ``chip_smoke.py``'s
+    [tune] sweep on an H100 (PERF.md), which times every pair for gamp_step
+    at 10 and 300 rows and for qgamp_step at 300 rows and marks this choice."""
     rows = 1 if nb < sms else 4
     tiles = -(-nb // rows)
     cluster = 1

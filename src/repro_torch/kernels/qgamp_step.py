@@ -11,8 +11,11 @@ Replaces the Pallas kernel ``repro/kernels/qgamp_step.py``
 
 With ``bits = Q`` the observation is the (nb, W) uint32 wire words and the
 kernel unpacks the Q-bit indices itself; with ``bits = 0`` it reads (nb, M)
-int32 codes.  The CUDA source is ``csrc/qgamp_step.cu``; the plain version
-is ``ref.qgamp_step_ref``.  ``launches`` counts kernel launches only.
+int32 codes.  The CUDA source is ``csrc/qgamp_step.cu``: each tile of
+``rows`` block-rows is split by columns over a thread-block cluster of
+``cluster`` blocks, as in ``gamp_step`` (``launch_shape`` picks both).  The
+plain version is ``ref.qgamp_step_ref``.  ``launches`` counts kernel launches
+only.
 """
 
 from __future__ import annotations
@@ -24,18 +27,9 @@ import torch
 from repro_torch.core.compression import packed_width, unpack_codes
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.bqcs_encode_fused import _check
+from repro_torch.kernels.gamp_step import _sm_count, launch_shape
 
 launches = 0
-
-
-def rows_per_cta(nb: int, device) -> int:
-    """Block-rows that share one pass over A in a GAMP step kernel: 2 when
-    that still gives every SM a block, else 1.  Fewer rows per block fill
-    more SMs; more rows read A from L2 fewer times.  ``chip_smoke.py``'s
-    [tune] lines time both at the decode's shapes (300 EA rows, 10 AE rows);
-    the kernels instantiate only these two."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 2 if -(-nb // 2) >= sms else 1
 
 
 def qgamp_step(
@@ -52,7 +46,8 @@ def qgamp_step(
     em: bool = True,
     bits: int = 0,
     *,
-    _rows: Optional[int] = None,  # rows per block for the [tune] sweep only
+    _rows: Optional[int] = None,  # rows per tile, for the [tune] sweep only
+    _cluster: Optional[int] = None,  # blocks per cluster, for the [tune] sweep only
 ):
     """Returns (ghat, nu_g, shat, theta) after one iteration."""
     nb, n = ghat.shape
@@ -79,14 +74,16 @@ def qgamp_step(
     if dev.type != "cuda":
         raise ValueError(f"qgamp_step runs on cpu or cuda tensors, got {dev}")
     lib = build.library()
+    rows, cluster = launch_shape(nb, _sm_count(dev.index))
     outs = (torch.empty_like(ghat), torch.empty_like(nu_g), torch.empty_like(shat),
             torch.empty_like(theta))
+    # a cluster size that does not fit on the card makes the launch raise
     lib.call(
         "qgamp_step_launch",
         ghat.data_ptr(), nu_g.data_ptr(), shat.data_ptr(), theta.data_ptr(),
         obs.data_ptr(), alpha.data_ptr(), lo_tau.data_ptr(), hi_tau.data_ptr(),
         a.data_ptr(), *(o.data_ptr() for o in outs),
-        nb, n, m, L, int(em), bits, obs.shape[1], n_lev, _rows or rows_per_cta(nb, dev),
+        nb, n, m, L, int(em), bits, obs.shape[1], n_lev, _rows or rows, _cluster or cluster,
         build.stream_handle(dev),
     )
     global launches

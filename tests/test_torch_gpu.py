@@ -13,8 +13,8 @@ Tolerances, each with its reason:
   * one GAMP step: allclose rtol 1e-3 / atol 1e-5 for qgamp_step, rtol 2e-4
     / atol 1e-6 for gamp_step (the reference's own kernel-vs-oracle
     tolerances; products and row sums in another order, CUDA erfcf/expf a
-    few ulps from PyTorch's); gamp_step at every (rows, cluster) shape, and
-    bit-identical from one launch to the next (no atomics).
+    few ulps from PyTorch's); both kernels at every (rows, cluster) shape,
+    and bit-identical from one launch to the next (no atomics).
   * 25-step drivers: NMSE <= 1e-4 against the plain drivers (the
     DESIGN.md #Kernels contract).
   * the encoder's dither and vq branches: as the scalar branch; a vq code
@@ -113,14 +113,17 @@ def _gamp_state(nb, n, m, L, seed, dev):
     return rng, ghat, nug, shat, theta, a
 
 
-# nb >= 263 gives 2 rows per block on a 132-SM H100 (an odd nb leaves a
-# ragged last block); smaller nb gives 1
-@pytest.mark.parametrize("nb,n,m,q", [
-    (8, 256, 64, 3), (13, 300, 100, 2), (37, 512, 171, 4), (300, 1591, 530, 3),
-    (301, 256, 85, 3),
+# every (rows per tile, blocks per cluster) the kernel takes, and the
+# chooser's own pick (None, None); N = 1591, 300, 512 and 256 split unevenly
+# over some cluster sizes > 1, and nb = 301 leaves a ragged last tile
+@pytest.mark.parametrize("rows,cluster", [(None, None)] + [
+    (r, c) for r in GAMP_ROWS for c in GAMP_CLUSTERS])
+@pytest.mark.parametrize("nb,n,m,q,em", [
+    (8, 256, 64, 3, True), (13, 300, 100, 2, True), (37, 512, 171, 4, True),
+    (300, 1591, 530, 3, True), (301, 256, 85, 3, True), (300, 1591, 530, 3, False),
 ])
 @pytest.mark.parametrize("packed", [True, False])
-def test_qgamp_step_matches_plain(cuda, nb, n, m, q, packed):
+def test_qgamp_step_matches_plain(cuda, nb, n, m, q, em, packed, rows, cluster):
     L = 3
     rng, ghat, nug, shat, theta, a = _gamp_state(nb, n, m, L, nb + q, cuda)
     alpha = torch.as_tensor(rng.uniform(0.8, 1.25, (nb, 1)).astype(np.float32), device=cuda)
@@ -136,10 +139,27 @@ def test_qgamp_step_matches_plain(cuda, nb, n, m, q, packed):
         assert obs.shape[1] == packed_width(m, q)
     else:
         obs, bits = codes, 0
-    out_k = qgamp_step(ghat, nug, shat, theta, obs, alpha, lo, hi, a, L, True, bits)
-    out_r = ref.qgamp_step_ref(ghat, nug, shat, theta, codes, alpha, lo, hi, a, L, True)
+    args = (ghat, nug, shat, theta, obs, alpha, lo, hi, a, L, em, bits)
+    out_k = qgamp_step(*args, _rows=rows, _cluster=cluster)
+    out_r = ref.qgamp_step_ref(ghat, nug, shat, theta, codes, alpha, lo, hi, a, L, em)
     for k, r in zip(out_k, out_r):
         torch.testing.assert_close(k, r, rtol=1e-3, atol=1e-5)
+    # no atomics: a second launch gives the same bits
+    again = qgamp_step(*args, _rows=rows, _cluster=cluster)
+    assert all(torch.equal(k, k2) for k, k2 in zip(out_k, again))
+
+
+@pytest.mark.parametrize("rows,cluster", [(3, 1), (1, 3), (1, 32)])
+def test_qgamp_step_refused_shape_raises(cuda, rows, cluster):
+    """A shape the kernel does not take raises; nothing falls back."""
+    rng, ghat, nug, shat, theta, a = _gamp_state(10, 300, 100, 3, 0, cuda)
+    codes = torch.zeros((10, 100), dtype=torch.int32, device=cuda)
+    alpha = torch.ones((10, 1), device=cuda)
+    lo, hi = tau_tables(torch.as_tensor(design_lloyd_max(3).thresholds.astype(np.float32),
+                                        device=cuda))
+    with pytest.raises(RuntimeError, match="qgamp_step_launch failed"):
+        qgamp_step(ghat, nug, shat, theta, codes, alpha, lo, hi, a, 3, True, 0,
+                   _rows=rows, _cluster=cluster)
 
 
 # every (rows per tile, blocks per cluster) the kernel takes, and the

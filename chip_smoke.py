@@ -39,6 +39,9 @@ Phases (any failure raises and the script exits non-zero):
     plain step first, with the chooser's pick marked, and at the pick
     without the EM refresh.
 
+``python3 chip_smoke.py --levels 4,5,6,7`` runs phases 1-2 and then the
+[levels] sweep of the bisection's pass size (``phase_levels``), and stops.
+
 The next-to-last lines are the kernels JSON and ``nvidia-smi``'s name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or outside a checkout of the repository, it exits 2 and prints
@@ -655,6 +658,7 @@ def phase_times(dev, k_in):
                 blocks, resid0, a_t[:, :m], tab, s, q, dither=dith)
         b_ms, b_by = encoder_bound(k, rows)
         res[name] = dict(ms=timer(lambda: bqcs_encode_fused(*k["args"], **kw)),
+                         ms_iters0=timer(lambda: bqcs_encode_fused(*k["args"], iters=0, **kw)),
                          plain_ms=timer(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     carry, s = k_in["topk"]["args"]
@@ -666,6 +670,7 @@ def phase_times(dev, k_in):
 
     b_ms, b_by = bound_ms(4 * 3 * rows * N, 2 * BISECT_ITERS * rows * N)
     res["block_topk"] = dict(ms=timer(lambda: block_topk(carry, s)),
+                             ms_iters0=timer(lambda: block_topk(carry, s, iters=0)),
                              plain_ms=timer(lambda: ref.block_topk_ref(carry, s)),
                              bound_ms=b_ms, bound_by=b_by, library_ms=timer(topk_library),
                              library="torch.topk + scatter")
@@ -739,7 +744,77 @@ def phase_times(dev, k_in):
                else f"{r['library_ms']:.4f} ({r['library']})")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | library {lib}")
+    # at iters=0 the threshold stays at the row max: no bisection, and only
+    # the max is kept, so the encoder projects ~1 row of A^T instead of ~159
+    for name, r in res.items():
+        if "ms_iters0" in r:
+            print(f"[time] {name} at iters=0: kernel {r['ms_iters0']:.4f} ms (at "
+                  f"iters={BISECT_ITERS}: {r['ms']:.4f} ms, difference "
+                  f"{r['ms'] - r['ms_iters0']:.4f} ms)")
     return res
+
+
+def phase_levels(dev, k_in, levels):
+    """[levels] The development sweep behind ``common.cuh``'s kLevels (levels
+    per bisection pass): for each b, a copy of the kernel sources with
+    kLevels = b is built into a library of its own; block_topk and the
+    encoder's three branches are held against their plain versions (kept
+    set and resid bit-identical, alpha to 1e-6 relative) and timed at
+    iters=26 and iters=0."""
+    import re
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.bqcs_encode_fused import BISECT_ITERS, bqcs_encode_fused
+
+    timer = GpuTimer()
+    carry, s = k_in["topk"]["args"]
+    saved = build.CSRC, build._LOADED
+    try:
+        for b in levels:
+            src = build.BUILD_ROOT / f"levels-{b}"
+            shutil.rmtree(src, ignore_errors=True)
+            shutil.copytree(saved[0], src)
+            text, subs = re.subn(r"constexpr int kLevels = \d+;", f"constexpr int kLevels = {b};",
+                                 (src / "common.cuh").read_text())
+            check(subs == 1, "common.cuh must define kLevels once")
+            (src / "common.cuh").write_text(text)
+            build.CSRC, build._LOADED = src, None
+            build.library()
+            ms = {}
+            for it in (BISECT_ITERS, 0):
+                sp, res = block_topk(carry, s, it)
+                sp_p, res_p = ref.block_topk_ref(carry, s, it)
+                torch.cuda.synchronize()
+                check(torch.equal(sp, sp_p) and torch.equal(res, res_p),
+                      f"kLevels={b} iters={it}: block_topk must be bit-identical")
+                ms[f"block_topk iters={it}"] = timer(lambda: block_topk(carry, s, it))
+                for key in ("encode", "encode_dither", "encode_vq"):
+                    blocks, resid0, a_t, tab, s_, m, q = k_in[key]["args"]
+                    kw = k_in[key]["kwargs"]
+                    _, alpha, resid = bqcs_encode_fused(*k_in[key]["args"], it, **kw)
+                    if tab.dim() == 2:
+                        _, al_p, res_p = ref.bqcs_encode_fused_ref(
+                            blocks, resid0, a_t, None, s_, q, it, centroids=tab,
+                            half_norms=kw["half_norms"])
+                    else:
+                        dith = None if kw["dither"] is None else kw["dither"][:m]
+                        _, al_p, res_p = ref.bqcs_encode_fused_ref(
+                            blocks, resid0, a_t[:, :m], tab, s_, q, it, dither=dith)
+                    torch.cuda.synchronize()
+                    rel = float(torch.max(torch.abs(alpha - al_p)
+                                          / torch.clamp(torch.abs(al_p), min=1e-30)))
+                    check(torch.equal(resid, res_p) and rel <= 1e-6,
+                          f"kLevels={b} iters={it} {key}: resid or alpha off")
+                    ms[f"{key} iters={it}"] = timer(
+                        lambda: bqcs_encode_fused(*k_in[key]["args"], it, **kw))
+            print(f"[levels] kLevels={b}: " + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + " (checked against the plain versions)")
+    finally:
+        build.CSRC, build._LOADED = saved
 
 
 # JSON name -> (source, the Pallas site it replaces, phase_kernels key)
@@ -772,6 +847,12 @@ def main_path_launches(per_run: dict, staged: dict) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--levels", help="comma-separated kLevels values: build, check and "
+                        "time the top-S bisection at each, after the [kernels] phase, and stop")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -790,6 +871,10 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device()
     k_in = phase_kernels(dev)
+    if args.levels:
+        phase_levels(dev, k_in, [int(v) for v in args.levels.split(",")])
+        print(f"[done] the kLevels sweep passed in {time.perf_counter() - t0:.1f} s")
+        return 0
     staged = phase_staged(dev)
     per_run, round_ms = phase_main_path(dev)
     phase_profile(round_ms, dev)

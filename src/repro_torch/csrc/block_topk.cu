@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/block_topk.py (_topk_kernel,
 // launched by block_topk_pallas).  Per block-row x:
-//   hi     = topk_threshold(|x|)  (26-step fp32 bisection of [0, max|x|])
+//   hi     = topk_threshold(|x|)  (26-step fp32 bisection of [0, max|x|], in passes)
 //   keep   = topk_keep(x, hi, max|x|)
 //   sparse = keep ? x : 0;  resid = x - sparse
 // The bisection and the keep rule are the device functions of common.cuh
@@ -13,11 +13,16 @@
 //
 // What bounds it on the card: one read of x and two writes (sparse, resid),
 // 3 x rows x N x 4 B = 5.7 MB at the paper's 300 x 1591 (~1.7 us at
-// 3.35 TB/s); the 26 counting passes run over the row in shared memory.
-// Design: one block per row (the TPU kernel's row tile), the row staged once
-// in shared memory, each counting pass a block reduction.  300 rows give
-// 300 blocks, ~2.3 per SM; the 26 reductions per row, each with two
-// barriers, set the time rather than the bytes.
+// 3.35 TB/s).  Design: one block per row (the TPU kernel's row tile), the
+// row staged once in shared memory.  The bisection runs in passes of
+// kLevels levels (common.cuh::topk_threshold): each pass computes the
+// 2^kLevels - 1 midpoints of its levels, counts them all in one sweep over
+// the row (a shared histogram), and walks the levels in every warp, for two
+// barriers a pass instead of two a level.  The bytes still do not set the
+// time: a block's passes are chains of dependent steps (the midpoints, the
+// first pass's histogram of every element, the search for the entry at the
+// threshold, the warp scan), and 300 rows give 300 blocks, ~2.3 per SM,
+// too few warps to hide their latency.
 
 #include "common.cuh"
 

@@ -5,7 +5,7 @@
 // (_fused_kernel, launched by bqcs_encode_fused_pallas), all three codebook
 // branches.  Per block-row:
 //   carry  = blocks + residual
-//   hi     = topk_threshold(|carry|)  (26-step bisection, common.cuh)
+//   hi     = topk_threshold(|carry|)  (26-step bisection in passes, common.cuh)
 //   keep   = topk_keep(carry, hi, max|carry|)                (ties and the max)
 //   resid  = carry - (keep ? carry : 0)                    (bit-identical)
 //   alpha  = sqrt(M) / ||sparse||, 0 for a dead row
@@ -15,25 +15,35 @@
 //           over the G = M / d code lanes (j-major layout), 0 on lanes g >= G
 //   word_w = OR_p code[p * W + w] << (p * Q)   (lane c -> word c % W, bit (c / W) Q)
 //
-// What bounds it on the card: the data must move once -- blocks, residual
-// and resid (3 x rows x N x 4 B) plus the rows of A^T the kept entries touch,
-// ~9.2 MB at the paper's 300 x 1591 (~2.7 us at 3.35 TB/s); the sparse
-// product is only 2 x S x M FLOPs per row.  Design: A^T (3.4 MB) cannot sit
-// in shared memory the way it sat in VMEM, but it stays in the 50 MB L2
-// across blocks.  One block per row keeps the carry row in shared memory
-// through the 26 counting passes (each a block reduction), compacts the kept
-// entries in ascending index order (warp ballots + a prefix over the warps),
-// and then each thread computes whole projected lanes y_j from the compacted
-// list, reading rows of A^T that neighbouring threads share (coalesced).  The
-// projected row must be complete before the encode and the pack: a vq code
-// reads d lanes G apart, and word w gathers lanes p * W + w from across the
-// row.  The bisection is the plain version's exact fp32 arithmetic, so the
-// kept set and resid are bit-identical; alpha and y are sums in another
-// order (alpha to ~1e-7 relative; a code can differ only on a lane within
-// float rounding of a threshold or of a tie between two centroids).  The
-// dither add and the vq score are written with __fadd_rn/__fmul_rn so nvcc
-// cannot contract them into FMAs: on identical y they round as the plain
-// version's separate PyTorch ops do.
+// What bounds it on the card: the data that must move once -- blocks,
+// residual and resid (3 x rows x N x 4 B) plus the rows of A^T the kept
+// entries touch -- is ~9.2 MB at the paper's 300 x 1591 (~2.7 us at
+// 3.35 TB/s), and the sparse product is only 2 x S x M FLOPs per row.  But
+// one block per row shares no row of A^T with another row: each reads its
+// ~159 kept rows of A^T from L2 (159 x 530 x 4 B = 337 KB), ~101 MB an
+// encode, and that L2 traffic bounds this design.  Design: A^T (3.4 MB)
+// cannot sit in shared memory the way it sat in VMEM, but it stays in the
+// 50 MB L2 across blocks.  One block per row keeps the carry row in shared
+// memory through the pass-batched bisection (a few passes of kLevels
+// levels, two barriers each), compacts the kept entries in ascending index
+// order (warp ballots + a prefix over the warps), and splits the compacted
+// list over its 8 warps.  A lane holds kProjLoads columns of y in registers
+// and issues a kept row's kProjLoads coalesced loads, two rows at a time,
+// so each SM keeps hundreds of L2 lines in flight: enough to stream at the
+// L2's rate rather than wait on its latency.  The warps' partials are added
+// in warp order, the same on every run.  Tensor cores do not help: the
+// projection gathers scattered rows of A^T, a different set for every row,
+// with ~0.5 FLOP per byte read, and TF32 would flip codes at the thresholds,
+// so it stays fp32 FMA.  The projected row must be complete before the
+// encode and the pack: a vq code reads d lanes G apart, and word w gathers
+// lanes p * W + w from across the row.  The bisection is the plain
+// version's exact fp32 arithmetic, so the kept set and resid are
+// bit-identical; alpha and y are sums in another order (alpha to ~1e-7
+// relative; a code can differ only on a lane within float rounding of a
+// threshold or of a tie between two centroids).  The dither add and the vq
+// score are written with __fadd_rn/__fmul_rn so nvcc cannot contract them
+// into FMAs: on identical y they round as the plain version's separate
+// PyTorch ops do.
 
 #include "common.cuh"
 
@@ -41,7 +51,18 @@ using namespace fedqcs;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+// The sparse projection: a lane sums kProjLoads columns 32 apart, so a warp
+// covers kProjCols columns a chunk (544: the paper's M = 530 in one chunk).
+constexpr int kProjLoads = 17;
+constexpr int kProjCols = 32 * kProjLoads;
+
+// The carry row's region, which the warps' projection partials reuse.
+__host__ __device__ inline int carry_floats(int n, int mp) {
+  const int part = kWarps * (mp < kProjCols ? mp : kProjCols);
+  return n > part ? n : part;
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restrict__ residual,
                          const float* __restrict__ a_t, const float* __restrict__ tab_g,
                          const float* __restrict__ cn_g, const float* __restrict__ dither,
@@ -49,8 +70,8 @@ bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restri
                          float* __restrict__ resid, int n, int mp, int m, int s, int bits,
                          int n_tab, int vq_d, int iters) {
   extern __shared__ float smem[];
-  float* carry = smem;                          // n
-  int* kidx = reinterpret_cast<int*>(carry + n);  // n: kept indices, ascending
+  float* carry = smem;                          // carry_floats(n, mp): the row, then part
+  int* kidx = reinterpret_cast<int*>(carry + carry_floats(n, mp));  // n: kept indices, ascending
   float* kval = reinterpret_cast<float*>(kidx + n);  // n: kept values (then * alpha)
   float* y = kval + n;                          // mp projected lanes
   float* tab = y + mp;                          // scalar: n_tab thresholds;
@@ -115,16 +136,55 @@ bqcs_encode_fused_kernel(const float* __restrict__ blocks, const float* __restri
   for (int k = tid; k < kept; k += kThreads) kval[k] *= alpha;
   __syncthreads();
 
-  // y = (alpha * sparse) @ A^T over the kept entries only.
-  for (int j = tid; j < mp; j += kThreads) {
-    float acc = 0.f;
-    if (alive) {
-#pragma unroll 4
-      for (int k = 0; k < kept; ++k) acc = fmaf(kval[k], __ldg(a_t + (size_t)kidx[k] * mp + j), acc);
+  // y = (alpha * sparse) @ A^T over the kept entries only.  Warp w takes a
+  // contiguous slice of the kept list and sums it a chunk of kProjCols
+  // columns at a time, lane l keeping columns l + 32 c in registers: each
+  // kept row of A^T is kProjLoads coalesced loads, issued for two rows
+  // together.  The warps' partials meet in part (over carry, dead since the
+  // compaction) and each y_j adds them in warp order 0..7.
+  const int kn = alive ? kept : 0;
+  const int per = (kn + kWarps - 1) / kWarps;
+  const int k_lo = min(kn, warp * per), k_hi = min(kn, k_lo + per);
+  float* part = carry;
+  for (int j0 = 0; j0 < mp; j0 += kProjCols) {
+    const int cols = min(kProjCols, mp - j0);
+    const float* at = a_t + j0 + lane;
+    float acc[kProjLoads];
+#pragma unroll
+    for (int c = 0; c < kProjLoads; ++c) acc[c] = 0.f;
+    int k = k_lo;
+    for (; k + 2 <= k_hi; k += 2) {
+      const float* r0 = at + (size_t)kidx[k] * mp;
+      const float* r1 = at + (size_t)kidx[k + 1] * mp;
+      float v0[kProjLoads], v1[kProjLoads];
+#pragma unroll
+      for (int c = 0; c < kProjLoads; ++c) {
+        const bool ok = lane + 32 * c < cols;
+        v0[c] = ok ? __ldg(r0 + 32 * c) : 0.f;
+        v1[c] = ok ? __ldg(r1 + 32 * c) : 0.f;
+      }
+      const float w0 = kval[k], w1 = kval[k + 1];
+#pragma unroll
+      for (int c = 0; c < kProjLoads; ++c) acc[c] = fmaf(w1, v1[c], fmaf(w0, v0[c], acc[c]));
     }
-    y[j] = acc;
+    if (k < k_hi) {
+      const float* r0 = at + (size_t)kidx[k] * mp;
+      const float w0 = kval[k];
+#pragma unroll
+      for (int c = 0; c < kProjLoads; ++c)
+        acc[c] = fmaf(w0, lane + 32 * c < cols ? __ldg(r0 + 32 * c) : 0.f, acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < kProjLoads; ++c)
+      if (lane + 32 * c < cols) part[warp * cols + lane + 32 * c] = acc[c];
+    __syncthreads();
+    for (int j = tid; j < cols; j += kThreads) {
+      float t = 0.f;
+      for (int w = 0; w < kWarps; ++w) t += part[w * cols + j];
+      y[j0 + j] = t;
+    }
+    __syncthreads();  // part is rewritten by the next chunk; y is read below
   }
-  __syncthreads();
 
   // Encode + lane-group packing.  Scalar: n_codes = M over Mp = W * per_word
   // lanes; vq: n_codes = G = M / d over W * per_word lanes.
@@ -183,7 +243,8 @@ extern "C" int bqcs_encode_fused_launch(const float* blocks, const float* residu
   if (vq_d > 1 && (mp != m || m % vq_d != 0 || cn == nullptr || dither != nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t tab_floats = vq_d > 1 ? (size_t)n_tab * (vq_d + 1) : (size_t)n_tab;
-  const size_t smem = sizeof(float) * (3 * (size_t)n + mp + tab_floats);
+  const size_t smem =
+      sizeof(float) * ((size_t)carry_floats(n, mp) + 2 * (size_t)n + mp + tab_floats);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(bqcs_encode_fused_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -70,21 +70,166 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   return m;
 }
 
+constexpr int kLevels = 7;                         // levels per pass (PERF.md: the sweep)
+constexpr int kPivots = (1 << kLevels) - 1;
+constexpr int kBinsPerLane = (kPivots + 1 + 31) / 32;  // bins 0..kPivots over a warp
+constexpr int kRowChunk = 8;  // elements a thread holds at once: N = 1591 in one chunk
+
+// Marks the chunk's elements inside [lo, hi) and counts those at or above hi.
+__device__ __forceinline__ unsigned chunk_between(const float (&v)[kRowChunk], float lo, float hi,
+                                                  int& n_top) {
+  unsigned inner = 0u;
+#pragma unroll
+  for (int e = 0; e < kRowChunk; ++e) {
+    n_top += v[e] >= hi ? 1 : 0;
+    inner |= v[e] >= lo && v[e] < hi ? 1u << e : 0u;
+  }
+  return inner;
+}
+
+// Adds the marked elements to bin c of h, c = the number of the np sorted
+// pivots p <= v.  The pivots lie near lo + t / scale, so c starts from the
+// estimate (v - lo) * scale and is checked against its two neighbouring
+// pivots; it steps on only where they crowd (an interval a few ulps wide).
+__device__ __forceinline__ void chunk_count(const float (&v)[kRowChunk], unsigned inner, float lo,
+                                            float scale, const float* p, int np, int* h) {
+  if (!__any_sync(0xffffffffu, inner != 0u)) return;
+  int c[kRowChunk];
+  float below[kRowChunk], above[kRowChunk];
+#pragma unroll
+  for (int e = 0; e < kRowChunk; ++e) {
+    c[e] = (int)fminf(fmaxf((v[e] - lo) * scale, 0.f), (float)np);
+    below[e] = c[e] > 0 ? p[c[e] - 1] : 0.f;                            // pivot c
+    above[e] = c[e] < np ? p[c[e]] : __int_as_float(0x7f800000);  // pivot c + 1
+  }
+#pragma unroll
+  for (int e = 0; e < kRowChunk; ++e) {
+    if (inner >> e & 1u) {
+      if (!(below[e] <= v[e] && v[e] < above[e])) {
+        while (c[e] < np && p[c[e]] <= v[e]) ++c[e];
+        while (c[e] > 0 && p[c[e] - 1] > v[e]) --c[e];
+      }
+      atomicAdd(&h[c[e]], 1);
+    }
+  }
+}
+
 // Top-S threshold of one row held in shared memory, by the plain version's
-// exact fp32 bisection (kernels/ref.py::block_topk_ref): iters halvings of
-// [0, mx], mid = 0.5f * (lo + hi), and count(|x| >= mid) > S moves lo up,
-// else hi down.  Counts <= n are exact in fp32.  Returns hi, the same on
-// every thread.  Both encoders (bqcs_encode_fused.cu, block_topk.cu) call
-// it, so their kept sets are the same bits.
+// exact fp32 bisection (kernels/ref.py::block_topk_ref) run in passes of
+// kLevels levels.  The plain version halves [0, mx] iters times: mid =
+// 0.5f * (lo + hi), and count(|x| >= mid) > S moves lo up, else hi down.
+// Its midpoints form a binary tree: a node's midpoint follows from the
+// decisions above it alone, and an in-order listing of a subtree's
+// midpoints is non-decreasing (round-to-nearest keeps each midpoint inside
+// its interval).  So a pass of lv = min(kLevels, iters - done) levels
+//   1. writes the np = 2^lv - 1 midpoints of the next lv levels in in-order
+//      order, each from its own node's (lo, hi) with the plain version's two
+//      rounded operations (__fadd_rn, __fmul_rn: nothing to contract);
+//   2. counts |x| >= p for all of them in one sweep over the row.  With c
+//      the number of pivots <= |x|, count(|x| >= pivot t) = #(c >= t).
+//      Every pivot lies in [lo, hi], so c = 0 below lo and c = np at or
+//      above hi (counted in registers, one word a warp); only elements in
+//      [lo, hi) need c and go to bin c of a shared histogram -- all of them
+//      in the first pass, a few a row after it (the (S+1)-th largest always
+//      stays inside).  c is found from the estimate (|x| - lo) 2^lv /
+//      (hi - lo), checked against its two neighbouring pivots;
+//   3. walks the lv levels with those counts.  The walk's test, count > S,
+//      holds for a prefix 1..T of the in-order pivots (the counts do not
+//      rise along them), and a descent of the tree on such a test ends
+//      between pivots T and T + 1, both on its path: lo becomes pivot T and
+//      hi pivot T + 1 (each unchanged where T = 0 or T = np).  So each warp
+//      sums the histogram's suffixes with shuffles and counts T with ballots.
+// The result is the (lo, hi) of lv sequential halvings, bit for bit.  Counts
+// are exact integers, so the order of the shared atomics cannot move them;
+// every warp reads the same bins, so all threads hold the same (lo, hi) and
+// control flow stays uniform.  A pass costs two barriers (the plain loop:
+// two per level); the pivots and the histogram alternate between two
+// buffers, so a pass need not wait for the last one's readers.  The first
+// kRowChunk elements of each thread stay in registers for every pass.
+// scratch is not used (the passes keep their own shared arrays).  Returns
+// hi, the same on every thread.  Both encoders (bqcs_encode_fused.cu,
+// block_topk.cu) call it, so their kept sets are the same bits.
 __device__ __forceinline__ float topk_threshold(const float* row, int n, int s, int iters,
-                                                float mx, float* scratch) {
+                                                float mx, float* /*scratch*/) {
+  __shared__ float piv[2][kPivots];
+  __shared__ int hist[2][32 * kBinsPerLane];
+  __shared__ int tops[2][kWarps];  // each warp's count of |x| >= hi (bin np)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kChunk = kRowChunk * kThreads;
+  // -1 (past the row) lies below every pivot
+  float v0[kRowChunk];
+#pragma unroll
+  for (int e = 0; e < kRowChunk; ++e) {
+    const int i = e * kThreads + threadIdx.x;
+    v0[e] = i < n ? fabsf(row[i]) : -1.f;
+  }
   float lo = 0.f, hi = mx;
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    float cnt = 0.f;
-    for (int i = threadIdx.x; i < n; i += kThreads) cnt += fabsf(row[i]) >= mid ? 1.f : 0.f;
-    cnt = block_sum1(cnt, scratch);
-    if (cnt > (float)s) lo = mid; else hi = mid;
+  for (int done = 0, buf = 0; done < iters; buf ^= 1) {
+    const int lv = min(kLevels, iters - done);
+    const int np = (1 << lv) - 1, root = 1 << (lv - 1);  // in-order positions 1..np
+    float* p = piv[buf];
+    int* h = hist[buf];
+    // 1. pivot t at p[t - 1], found by descending from the root as the plain
+    //    loop would (lv steps on every thread, no divergence); bins 1..np
+    //    cleared.  Marking the first chunk needs no pivot, so it overlaps.
+    for (int t = threadIdx.x + 1; t <= np; t += kThreads) {
+      float l = lo, u = hi, at_t = 0.f;
+      for (int d = 0, node = root, step = root >> 1; d < lv; ++d, step >>= 1) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(l, u));
+        at_t = node == t ? mid : at_t;  // below t the descent turns left for good
+        const bool right = t > node;
+        l = right ? mid : l;
+        u = right ? u : mid;
+        node += right ? step : -step;
+      }
+      p[t - 1] = at_t;
+      h[t] = 0;
+    }
+    int n_top = 0;
+    const unsigned inner0 = chunk_between(v0, lo, hi, n_top);
+    __syncthreads();
+    // 2. bin c for the elements in [lo, hi); the rest are counted in n_top
+    const float scale = (float)(np + 1) / (hi - lo);
+    chunk_count(v0, inner0, lo, scale, p, np, h);
+    for (int i0 = kChunk; i0 < n; i0 += kChunk) {
+      float v[kRowChunk];
+#pragma unroll
+      for (int e = 0; e < kRowChunk; ++e) {
+        const int i = i0 + e * kThreads + threadIdx.x;
+        v[e] = i < n ? fabsf(row[i]) : -1.f;
+      }
+      chunk_count(v, chunk_between(v, lo, hi, n_top), lo, scale, p, np, h);
+    }
+    n_top = (int)__reduce_add_sync(0xffffffffu, (unsigned)n_top);
+    if (lane == 0) tops[buf][warp] = n_top;
+    __syncthreads();
+    // 3. sfx[k] = count(|x| >= pivot b) for this lane's bins b = lane * kBinsPerLane + k
+    int n_hi = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) n_hi += tops[buf][w];
+    int sfx[kBinsPerLane], tot = 0;
+#pragma unroll
+    for (int k = kBinsPerLane - 1; k >= 0; --k) {
+      const int b = lane * kBinsPerLane + k;
+      tot += (b >= 1 && b <= np) ? h[b] + (b == np ? n_hi : 0) : 0;
+      sfx[k] = tot;
+    }
+    int above = tot;  // then the sum over lanes >= this one
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_down_sync(0xffffffffu, above, o);
+      above += lane + o < 32 ? x : 0;
+    }
+    above -= tot;
+    int t_up = 0;  // T: the pivots whose count exceeds S
+#pragma unroll
+    for (int k = 0; k < kBinsPerLane; ++k) {
+      const int b = lane * kBinsPerLane + k;
+      t_up += __popc(__ballot_sync(0xffffffffu, b >= 1 && b <= np && sfx[k] + above > s));
+    }
+    if (t_up > 0) lo = p[t_up - 1];
+    if (t_up < np) hi = p[t_up];
+    done += lv;
   }
   return hi;
 }

@@ -20,19 +20,19 @@ from repro_torch.kernels.bqcs_encode_fused import BISECT_ITERS, _check
 launches = 0
 
 
-def block_topk(blocks: torch.Tensor, s: int):
-    """(nb, N) f32 -> (sparse (nb, N), resid (nb, N))."""
+def block_topk(blocks: torch.Tensor, s: int, iters: int = BISECT_ITERS):
+    """(nb, N) f32 -> (sparse (nb, N), resid (nb, N)); ``iters`` halvings."""
     nb, n = blocks.shape
     dev = blocks.device
     _check("blocks", blocks, (nb, n), torch.float32, dev)
     if dev.type == "cpu":
-        return ref.block_topk_ref(blocks, s, iters=BISECT_ITERS)
+        return ref.block_topk_ref(blocks, s, iters=iters)
     if dev.type != "cuda":
         raise ValueError(f"block_topk runs on cpu or cuda tensors, got {dev}")
     lib = build.library()
     sparse, resid = torch.empty_like(blocks), torch.empty_like(blocks)
     lib.call("block_topk_launch", blocks.data_ptr(), sparse.data_ptr(), resid.data_ptr(),
-             nb, n, s, BISECT_ITERS, build.stream_handle(dev))
+             nb, n, s, iters, build.stream_handle(dev))
     global launches
     launches += 1
     return sparse, resid

@@ -19,7 +19,9 @@ Tolerances, each with its reason:
     DESIGN.md #Kernels contract).
   * the encoder's dither and vq branches: as the scalar branch; a vq code
     may differ only where its two candidate centroid scores lie within
-    1e-5 of each other.  block_topk: bit-identical.  bqcs_encode (staged):
+    1e-5 of each other.  block_topk: bit-identical.  Both at several
+    bisection depths, since the bisection runs in passes of kLevels levels
+    and the last pass is shorter where kLevels does not divide the depth.  bqcs_encode (staged):
     alpha rtol 1e-6, codes as the encoder's.
 """
 
@@ -34,13 +36,17 @@ from repro_torch.core.compression import packed_width, unpack_codes  # noqa: E40
 from repro_torch.core.gamp import tau_tables  # noqa: E402
 from repro_torch.core.quantizer import design_lloyd_max  # noqa: E402
 from repro_torch.kernels import gm_prior, ops, ref  # noqa: E402
-from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused  # noqa: E402
+from repro_torch.kernels.bqcs_encode_fused import BISECT_ITERS, bqcs_encode_fused  # noqa: E402
 from repro_torch.kernels.gamp_step import CLUSTERS as GAMP_CLUSTERS  # noqa: E402
 from repro_torch.kernels.gamp_step import ROWS as GAMP_ROWS  # noqa: E402
 from repro_torch.kernels.gamp_step import gamp_step  # noqa: E402
 from repro_torch.kernels.qgamp_step import qgamp_step  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+
+# bisection depths for the top-S cases: 0 (the row max only), 1, 7 and 30,
+# which the pass size kLevels does not divide, and the paths' 26
+BISECT_CASES = [0, 1, 7, BISECT_ITERS, 30]
 
 
 @pytest.fixture
@@ -278,22 +284,23 @@ def _vq_score_gap(y, cb, codes_a, codes_b):
     return torch.abs(pick(codes_a) - pick(codes_b))
 
 
-def check_encoder_family(blocks, residual, a, cb, s):
+def check_encoder_family(blocks, residual, a, cb, s, iters=BISECT_ITERS):
     """Fused kernel vs its plain version for any codebook family; returns
     the count of differing code lanes (each within 1e-5 of a decision)."""
     m = a.shape[0]
     a_t = ops.encoder_a_t(a, cb)
     tables = ops.encoder_tables(cb, m, a.device)
+    dither = None if tables.dither is None else tables.dither[:m]
     words, alpha, resid = bqcs_encode_fused(blocks, residual, a_t, tables.tab, s, m, cb.bits,
-                                            dither=tables.dither, half_norms=tables.half_norms)
+                                            iters, dither=tables.dither,
+                                            half_norms=tables.half_norms)
     if cb.dim > 1:
         w_r, al_r, res_r = ref.bqcs_encode_fused_ref(
-            blocks, residual, a_t, None, s, cb.bits, centroids=tables.tab,
+            blocks, residual, a_t, None, s, cb.bits, iters, centroids=tables.tab,
             half_norms=tables.half_norms)
     else:
         w_r, al_r, res_r = ref.bqcs_encode_fused_ref(
-            blocks, residual, a.T.contiguous(), tables.tab, s, cb.bits,
-            dither=tables.dither[:m])
+            blocks, residual, a.T.contiguous(), tables.tab, s, cb.bits, iters, dither=dither)
     torch.cuda.synchronize()
     assert torch.equal(resid, res_r)
     torch.testing.assert_close(alpha, al_r, rtol=1e-6, atol=0.0)
@@ -302,12 +309,13 @@ def check_encoder_family(blocks, residual, a, cb, s):
     codes, codes_r = unpack_codes(words, cb.bits, lanes), unpack_codes(w_r, cb.bits, lanes)
     diff = codes != codes_r
     if diff.any():
-        sparse, _ = ref.block_topk_ref(blocks + residual, s)
+        sparse, _ = ref.block_topk_ref(blocks + residual, s, iters)
         y = (sparse * al_r[:, None]) @ a.T
         if cb.dim > 1:
             gap = _vq_score_gap(y, cb, codes, codes_r)
         else:
-            gap = torch.amin(torch.abs((y + tables.dither[:m])[..., None] - tables.tab), dim=-1)
+            yd = y if dither is None else y + dither
+            gap = torch.amin(torch.abs(yd[..., None] - tables.tab), dim=-1)
         assert float(gap[diff].max()) < 1e-5
     full = unpack_codes(words, cb.bits, words.shape[1] * (32 // cb.bits))
     assert not full[:, lanes:].any()
@@ -326,17 +334,46 @@ def test_encoder_dither_and_vq_branches(cuda, family, n, bits, vq_dim):
     check_encoder_family(blocks, resid, a, _codebook(family, n, bits, vq_dim), max(1, n // 10))
 
 
-@pytest.mark.parametrize("nb,n,s", [(37, 300, 30), (300, 1591, 159), (5, 7000, 700)])
-def test_block_topk_bit_identical(cuda, nb, n, s):
+def _tied_rows(blocks, resid):
+    """Rows 1-3 of blocks + resid: four entries tied at the row max; a third
+    of the row tied at the row max, so more than S entries are kept and the
+    warps' slices of the kept list are uneven; magnitudes 1 ulp apart."""
+    resid[1:4] = 0.0
+    top = float(blocks[1:3].abs().max()) + 0.01
+    blocks[1, 0:4:2], blocks[1, 1:4:2] = top, -top
+    blocks[2, ::3] = top
+    n = blocks.shape[1]
+    ulp = 1.0 + torch.arange(n, device=blocks.device, dtype=torch.float32) * 2.0**-23
+    blocks[3] = torch.where(torch.arange(n, device=blocks.device) % 2 == 0, ulp, -ulp)
+    return blocks, resid
+
+
+@pytest.mark.parametrize("iters", BISECT_CASES)
+@pytest.mark.parametrize("nb,n,s", [(37, 300, 30), (300, 1591, 159), (5, 7000, 700),
+                                    (37, 300, 300), (37, 300, 301)])
+def test_block_topk_bit_identical(cuda, nb, n, s, iters):
     from repro_torch.kernels.block_topk import block_topk
 
     blocks, resid, _, _ = _encode_inputs(nb, n, 3, 3, seed=nb, dev=cuda)
+    blocks, resid = _tied_rows(blocks, resid)
     x = blocks + resid
-    x[1, :4] = 0.25  # a tie at the row max
-    sparse, res = block_topk(x, s)
-    sp_r, res_r = ref.block_topk_ref(x, s)
+    sparse, res = block_topk(x, s, iters)
+    sp_r, res_r = ref.block_topk_ref(x, s, iters)
     torch.cuda.synchronize()
     assert torch.equal(sparse, sp_r) and torch.equal(res, res_r)
+
+
+# the bisection's passes at iters that kLevels divides and that it does not
+# (a shorter last pass), the tied rows above, S >= N (every entry kept), and
+# N = 7002 (the encoder's shared memory above 48 KB, A^T wider than one
+# projection chunk; M = N / 3 even, as vq's d = 2 needs)
+@pytest.mark.parametrize("family", ["lloyd_max", "dithered_uniform", "vq"])
+@pytest.mark.parametrize("nb,n,s,iters", [(300, 1591, 159, it) for it in BISECT_CASES] + [
+    (37, 300, 300, BISECT_ITERS), (37, 300, 301, BISECT_ITERS), (5, 7002, 700, BISECT_ITERS)])
+def test_encoder_bisection_passes_and_wide_rows(cuda, family, nb, n, s, iters):
+    blocks, resid, a, _ = _encode_inputs(nb, n, n // 3, 3, seed=n + iters, dev=cuda)
+    blocks, resid = _tied_rows(blocks, resid)
+    check_encoder_family(blocks, resid, a, _codebook(family, n, 3), s, iters)
 
 
 @pytest.mark.parametrize("nb,n,m,q", [(37, 300, 100, 3), (300, 1591, 530, 3), (19, 129, 65, 2)])

@@ -8,11 +8,12 @@ Phases (any failure raises and the script exits non-zero):
  1. Device: the card's name and count, ``nvidia-smi``'s name and power limit,
     torch/CUDA versions, and the build of the five CUDA kernels from
     ``src/repro_torch/csrc`` (one nvcc per source, all started together;
-    timed).
+    timed), with each kernel's registers, shared memory and spills.
  2. [kernels] Each kernel against its plain PyTorch version at the paths'
     shapes, on the card, inputs from a seed: the fused encoder's scalar,
     dither and vq branches (300 x 1591, S=159, Q=3), block_topk
-    (bit-identical) and the staged bqcs_encode, qgamp_step at the chooser's
+    (bit-identical) and the staged bqcs_encode (and a second launch
+    bit-identical), qgamp_step at the chooser's
     (rows per tile, cluster) and at cluster 1 and the 25-step EA driver (300
     rows), gamp_step at the same two shapes and the 25-step AE driver (10
     rows), and gamp_step's two shapes at 300 rows (the vq EA decode's).
@@ -28,19 +29,25 @@ Phases (any failure raises and the script exits non-zero):
     Then one round of each configuration from the same A and initial
     weights with the plain versions swapped in; the decoded gradients must
     agree to NMSE <= 1e-3.
- 5. [profile] ``torch.profiler`` traces per configuration: a steady round's
-    device busy time beside its wall time (the idle share), and the top
-    device events.
+ 5. [profile] One ``torch.profiler`` trace of 3 rounds per configuration:
+    each round's device busy time (the device events that start inside its
+    ``run_round``), the steady rounds' mean beside their unprofiled wall time
+    (the idle share), and the top device events.
  6. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
-    work.  [tune]: qgamp_step at 300 rows and gamp_step at 10 and 300 rows,
-    at every (rows per tile, blocks per cluster), each held against the
-    plain step first, with the chooser's pick marked, and at the pick
-    without the EM refresh.
+    work.  [tune]: the staged bqcs_encode (300 rows) at every cluster
+    size, each held against the plain version first;
+    qgamp_step at 300 rows and gamp_step at 10 and 300 rows likewise, each
+    held against the plain step first, and at the chooser's pick without
+    the EM refresh.  The chooser's pick is marked.
 
 ``python3 chip_smoke.py --levels 4,5,6,7`` runs phases 1-2 and then the
 [levels] sweep of the bisection's pass size (``phase_levels``), and stops.
+``python3 chip_smoke.py --against DIR`` runs phases 1-2 and then
+[against] (``phase_against``): the kernels this tree shares with the
+checkout at DIR, through this tree's wrappers with DIR's kernel library and
+with this one's, held bit for bit and timed in turns, and stops.
 
 The next-to-last lines are the kernels JSON and ``nvidia-smi``'s name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -225,10 +233,28 @@ def phase_device():
           f"torch {torch.__version__} cuda {torch.version.cuda} | python {sys.version.split()[0]}")
     lib = build.library()
     print(f"[build] {lib.path.name}: nvcc build {lib.build_s:.1f} s (0.0 = reused)")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("[build]", line.strip())
+    for line in ptxas_lines(lib.log):
+        print("[build]", line)
     return name, smi
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: source, kernel
+    (template argument in brackets), registers and shared memory, spills."""
+    import re
+
+    out, src, kernel, spill = [], "", "", ""
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif "Compiling entry function" in line:
+            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+            kernel = (m[1] + (f"<{m[2]}>" if m[2] else "")) if m else line.strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{src} {kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def step_vs_plain(kind: str, args, dev, shapes=None):
@@ -270,6 +296,35 @@ def step_vs_plain(kind: str, args, dev, shapes=None):
     return errs, shapes
 
 
+def staged_vs_plain(x, a_tt, taus, cluster=None):
+    """The staged bqcs_encode at ``cluster`` blocks a tile (default: the
+    chooser's pick) against its plain version: alpha to 1e-6 relative, a
+    differing code only on a lane within 1e-5 of a threshold, and a second
+    launch bit-identical (no atomics).  Returns (alpha max rel err, alpha max
+    abs err, differing code lanes)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bqcs_encode import bqcs_encode
+
+    codes, alpha = bqcs_encode(x, a_tt, taus, _cluster=cluster)
+    codes2, alpha2 = bqcs_encode(x, a_tt, taus, _cluster=cluster)
+    codes_p, alpha_p = ref.bqcs_encode_ref(x, a_tt, taus)
+    torch.cuda.synchronize()
+    shape = f"cluster {cluster}" if cluster else "the chooser's pick"
+    check(torch.equal(codes, codes2) and torch.equal(alpha, alpha2),
+          f"bqcs_encode at {shape}: a second launch must give the same bits")
+    rel = float(torch.max(torch.abs(alpha - alpha_p) / torch.clamp(torch.abs(alpha_p), min=1e-30)))
+    check(rel <= 1e-6, f"bqcs_encode at {shape}: alpha rtol {rel:.3g} > 1e-6")
+    diff = codes != codes_p
+    gap = torch.amin(torch.abs(((x * alpha_p[:, None]) @ a_tt)[..., None] - taus), dim=-1)
+    n_diff = int(diff.sum())
+    if n_diff:
+        check(float(gap[diff].max()) < 1e-5, f"bqcs_encode at {shape}: a differing code lane "
+              "is not near a threshold")
+    return rel, float(torch.max(torch.abs(alpha - alpha_p))), n_diff
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version at the main path's shapes."""
     import numpy as np
@@ -287,7 +342,6 @@ def phase_kernels(dev):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import qgamp_step as q_mod
     from repro_torch.kernels.block_topk import block_topk
-    from repro_torch.kernels.bqcs_encode import bqcs_encode
     from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
 
     def launched(mod, since: int, want: int) -> int:
@@ -373,25 +427,14 @@ def phase_kernels(dev):
     print(f"[block_topk] 300x1591 S=159: sparse and resid bit-identical; launches {n_t}")
     a_tt = a.T.contiguous()
     n0 = s_mod.launches
-    st_codes, st_alpha = bqcs_encode(sparse, a_tt, taus)
-    n_s = launched(s_mod, n0, 1)
-    st_codes_p, st_alpha_p = ref.bqcs_encode_ref(sparse, a_tt, taus)
-    torch.cuda.synchronize()
-    rel = float(torch.max(torch.abs(st_alpha - st_alpha_p)
-                          / torch.clamp(torch.abs(st_alpha_p), min=1e-30)))
-    check(rel <= 1e-6, f"bqcs_encode alpha rtol {rel:.3g} > 1e-6")
-    diff = st_codes != st_codes_p
-    y = (sparse * st_alpha_p[:, None]) @ a_tt
-    gap = torch.amin(torch.abs(y[..., None] - taus), dim=-1)
-    n_diff = int(diff.sum())
-    if n_diff:
-        check(float(gap[diff].max()) < 1e-5, "bqcs_encode: a differing code lane is not near "
-              "a threshold")
-    out["staged"] = dict(max_abs_err=float(torch.max(torch.abs(st_alpha - st_alpha_p))),
-                         args=(sparse, a_tt, taus))
-    print(f"[bqcs_encode] 300x1591 -> 530 Q=3 (the top-S blocks): alpha max rel err {rel:.3g}, "
-          f"{n_diff} differing code lanes of {st_codes.numel()} (each within 1e-5 of a "
-          f"threshold); launches {n_s}")
+    rel, abs_err, n_diff = staged_vs_plain(sparse, a_tt, taus)
+    n_s = launched(s_mod, n0, 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pick = s_mod.launch_shape(rows, N, M, sms)
+    out["staged"] = dict(max_abs_err=abs_err, args=(sparse, a_tt, taus))
+    print(f"[bqcs_encode] 300x1591 -> 530 Q=3 (the top-S blocks), (rows per tile, cluster) "
+          f"{pick}: alpha max rel err {rel:.3g}, {n_diff} differing code lanes of {rows * M} "
+          f"(each within 1e-5 of a threshold), a second launch bit-identical; launches {n_s}")
     words, alpha, cb = enc_out["lloyd_max"]
 
     lo, hi = tau_tables(taus)
@@ -569,44 +612,86 @@ def phase_main_path(dev):
     return per_run, round_ms
 
 
-def _device_ms(fn) -> dict:
-    """Device-side events (kernels, copies) of ``fn`` from a ``torch.profiler``
-    trace: name -> [count, ms]."""
+ROUND_RANGE = "chip_smoke.round"
+
+
+def _round_device_ms(method, cfg, dev, steps: int) -> list:
+    """Device events (kernels, copies) of each round of one ``run_federated``
+    run, from one ``torch.profiler`` trace: per round, name -> [count, ms].
+    Each ``CohortEngine.run_round`` runs inside a ``record_function`` range
+    and ends in a device sync (the float() of its stats), so the round's
+    device work starts and ends inside it.  The trace gives the range on the
+    host's clock and, as a device annotation, from its first to its last
+    kernel on the device's clock; a device event belongs to the round whose
+    window (the union of the two) holds its start, so no event is lost to a
+    skew between the clocks, and the evaluation between rounds falls in no
+    round, as in the round wall."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: [e.count, e.self_device_time_total / 1e3]
-            for e in prof.key_averages() if e.device_type != DeviceType.CPU}
+    from repro_torch.fed.engine import CohortEngine
+    from repro_torch.paper.mlp import run_federated
+
+    run_round = CohortEngine.run_round
+
+    def traced(self):
+        with record_function(ROUND_RANGE):
+            return run_round(self)
+
+    CohortEngine.run_round = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_federated(method, steps=steps, device=dev, fed_cfg=cfg)
+            torch.cuda.synchronize()
+    finally:
+        CohortEngine.run_round = run_round
+    events = prof.events()
+    host, device = ([(e.time_range.start, e.time_range.end) for e in events
+                     if e.name == ROUND_RANGE and (e.device_type == DeviceType.CPU) == on_host]
+                    for on_host in (True, False))
+    spans = sorted(host)
+    if len(device) == len(host):
+        spans = [(min(h[0], d[0]), max(h[1], d[1])) for h, d in zip(spans, sorted(device))]
+    rounds = [{} for _ in spans]
+    for e in events:
+        if e.device_type == DeviceType.CPU or e.name == ROUND_RANGE:
+            continue
+        for per, (lo, hi) in zip(rounds, spans):
+            if lo <= e.time_range.start <= hi:
+                c, ms = per.get(e.name, (0, 0.0))
+                per[e.name] = [c + 1, ms + e.time_range.elapsed_us() / 1e3]
+                break
+    return rounds
 
 
 def phase_profile(round_ms, dev):
-    """Device busy time of a steady round per configuration, beside its
-    unprofiled wall time.  ``run_federated`` with 3 steps minus 1 step is two
-    rounds and one evaluation, without the set-up (data and weights to the
-    card) that both calls share; halved, it is one round."""
-    from repro_torch.paper.mlp import run_federated
-
+    """Device busy time of the steady rounds per configuration, beside their
+    unprofiled wall time: one traced ``run_federated`` of 3 rounds, each
+    device event counted in its own round (``_round_device_ms``), and the
+    mean over the rounds after the first."""
     for (method, codebook, variance), ms in round_ms.items():
         if len(ms) < 2:
             continue
         label = run_label(method, codebook, variance)
-        cfg = fed_cfg(codebook, variance)
-        one = _device_ms(lambda: run_federated(method, steps=1, device=dev, fed_cfg=cfg))
-        three = _device_ms(lambda: run_federated(method, steps=3, device=dev, fed_cfg=cfg))
-        per_round = {k: ((c - one.get(k, [0, 0.0])[0]) / 2, (t - one.get(k, [0, 0.0])[1]) / 2)
-                     for k, (c, t) in three.items()}
-        busy = sum(t for _, t in per_round.values())
+        rounds = _round_device_ms(method, fed_cfg(codebook, variance), dev, 3)
+        busy = [sum(t for _, t in per.values()) for per in rounds]
         wall = sum(ms[1:]) / (len(ms) - 1)
-        if busy <= 0.0:
-            print(f"[profile] {label}: the trace holds no device time (not measured)")
+        if len(rounds) != 3 or min(busy) <= 0.0:
+            print(f"[profile] {label}: the trace holds {len(rounds)} rounds with device busy "
+                  f"ms {busy} (not measured)")
             continue
+        steady = rounds[1:]
+        mean = sum(busy[1:]) / len(steady)
+        per_round = {}
+        for per in steady:
+            for k, (c, t) in per.items():
+                pc, pt = per_round.get(k, (0.0, 0.0))
+                per_round[k] = (pc + c / len(steady), pt + t / len(steady))
         top = sorted(per_round.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"[profile] {label}: device busy {busy:.4f} ms per round vs round wall "
-              f"{wall:.4f} ms, idle share {1.0 - busy / wall:.3f}; per round: "
+        print(f"[profile] {label}: device busy {mean:.4f} ms per round (rounds "
+              f"{[round(v, 4) for v in busy]}) vs round wall {wall:.4f} ms, idle share "
+              f"{1.0 - mean / wall:.3f}; per round: "
               + "; ".join(f"{k[:48]} x{c:g} {t:.4f} ms" for k, (c, t) in top))
 
 
@@ -711,14 +796,23 @@ def phase_times(dev, k_in):
             library_ms=timer(lambda: (torch.matmul(g2, a2.T), torch.matmul(s2, a2))),
             library="GEMMs only",
         )
-    # every (rows per tile, blocks per cluster) of both step kernels, each
-    # first held against its plain step, then timed; then the chooser's pick
-    # without the EM refresh
+    # every cluster size of the staged encoder, then every (rows per tile,
+    # blocks per cluster) of both step kernels, each first held against its plain version, then
+    # timed; then the step kernels at the chooser's pick without the EM refresh
+    from repro_torch.kernels import bqcs_encode as s_mod
     from repro_torch.kernels import gamp_step as g_mod
     from repro_torch.kernels import qgamp_step as q_mod
     from repro_torch.kernels.gamp_step import CLUSTERS, ROWS
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pick = s_mod.launch_shape(rows, N, M, sms)
+    for c in s_mod.CLUSTERS:
+        rel, _, n_diff = staged_vs_plain(x, a_tt, taus, c)
+        ms = timer(lambda: bqcs_encode(x, a_tt, taus, _cluster=c))
+        blocks = -(-rows // s_mod.TILE_ROWS) * -(-M // s_mod.TILE_COLS) * c
+        print(f"[tune] bqcs_encode {rows} rows, {s_mod.TILE_ROWS} rows per tile, cluster {c} "
+              f"({blocks} blocks): {ms:.4f} ms, alpha max rel err {rel:.3g}, {n_diff} differing "
+              f"code lanes" + (" (the chooser's pick)" if c == pick[1] else ""))
     for kind, key, mod in (("qgamp", "qgamp", q_mod), ("gamp", "gamp", g_mod),
                            ("gamp", "gamp300", g_mod)):
         step = getattr(mod, f"{kind}_step")
@@ -754,6 +848,72 @@ def phase_times(dev, k_in):
     return res
 
 
+@contextlib.contextmanager
+def kernels_from(csrc: Path):
+    """Builds the kernel sources under ``csrc`` into a library of their own
+    (``build.py``, keyed by their hash) and sends every wrapper's launches to
+    it inside the block."""
+    from repro_torch.kernels import build
+
+    saved = build.CSRC, build._LOADED
+    build.CSRC, build._LOADED = csrc, None
+    try:
+        yield build.library()
+    finally:
+        build.CSRC, build._LOADED = saved
+
+
+def phase_against(dev, k_in, other: Path):
+    """[against] The kernels this tree shares with the checkout at ``other``
+    (the fused encoder's three branches, block_topk, qgamp_step at 300 rows,
+    gamp_step at 10 and 300 rows, each step kernel at the chooser's pick and
+    at cluster 1; not bqcs_encode, whose C interface may differ), run through
+    this tree's wrappers on the same inputs with ``other``'s kernel library
+    and with this one's.  Outputs must be bit-identical; times are taken in
+    turns (other, this, this, other)."""
+    import torch
+
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import qgamp_step as q_mod
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
+
+    csrc = other.resolve() / "src" / "repro_torch" / "csrc"
+    check(csrc.is_dir(), f"no kernel sources under {csrc}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    calls = {name: functools.partial(bqcs_encode_fused, *k_in[key]["args"],
+                                     **k_in[key]["kwargs"])
+             for name, key in (("bqcs_encode_fused", "encode"),
+                               ("bqcs_encode_fused[dither]", "encode_dither"),
+                               ("bqcs_encode_fused[vq]", "encode_vq"))}
+    calls["block_topk"] = functools.partial(block_topk, *k_in["topk"]["args"])
+    for name, key, mod, step in (("qgamp_step", "qgamp", q_mod, q_mod.qgamp_step),
+                                 ("gamp_step", "gamp", g_mod, g_mod.gamp_step),
+                                 ("gamp_step[300 rows]", "gamp300", g_mod, g_mod.gamp_step)):
+        args = k_in[key]["args"]
+        rows, cluster = mod.launch_shape(args[0].shape[0], sms)
+        for c in dict.fromkeys((cluster, 1)):
+            calls[f"{name} {rows}x{c}"] = functools.partial(step, *args, _rows=rows, _cluster=c)
+    timer = GpuTimer()
+    with kernels_from(csrc) as lib:
+        print(f"[against] {other}: {lib.path.parent.name}, nvcc build {lib.build_s:.1f} s")
+        theirs = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+    ms = {name: [] for name in calls}
+    for turn in ("other", "this", "this", "other"):
+        with kernels_from(csrc) if turn == "other" else contextlib.nullcontext():
+            for name, fn in calls.items():
+                ms[name].append(timer(fn))
+    for name, fn in calls.items():
+        ours = fn()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(ours, theirs[name]))
+        check(same, f"{name}: outputs differ from {other}'s kernels")
+        o1, t1, t2, o2 = ms[name]
+        print(f"[against] {name}: bit-identical; ms other {o1:.4f}, this {t1:.4f}, this "
+              f"{t2:.4f}, other {o2:.4f} (this / other {(t1 + t2) / (o1 + o2):.4f})")
+
+
 def phase_levels(dev, k_in, levels):
     """[levels] The development sweep behind ``common.cuh``'s kLevels (levels
     per bisection pass): for each b, a copy of the kernel sources with
@@ -772,18 +932,15 @@ def phase_levels(dev, k_in, levels):
 
     timer = GpuTimer()
     carry, s = k_in["topk"]["args"]
-    saved = build.CSRC, build._LOADED
-    try:
-        for b in levels:
-            src = build.BUILD_ROOT / f"levels-{b}"
-            shutil.rmtree(src, ignore_errors=True)
-            shutil.copytree(saved[0], src)
-            text, subs = re.subn(r"constexpr int kLevels = \d+;", f"constexpr int kLevels = {b};",
-                                 (src / "common.cuh").read_text())
-            check(subs == 1, "common.cuh must define kLevels once")
-            (src / "common.cuh").write_text(text)
-            build.CSRC, build._LOADED = src, None
-            build.library()
+    for b in levels:
+        src = build.BUILD_ROOT / f"levels-{b}"
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(build.CSRC, src)
+        text, subs = re.subn(r"constexpr int kLevels = \d+;", f"constexpr int kLevels = {b};",
+                             (src / "common.cuh").read_text())
+        check(subs == 1, "common.cuh must define kLevels once")
+        (src / "common.cuh").write_text(text)
+        with kernels_from(src):
             ms = {}
             for it in (BISECT_ITERS, 0):
                 sp, res = block_topk(carry, s, it)
@@ -813,8 +970,6 @@ def phase_levels(dev, k_in, levels):
                         lambda: bqcs_encode_fused(*k_in[key]["args"], it, **kw))
             print(f"[levels] kLevels={b}: " + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
                   + " (checked against the plain versions)")
-    finally:
-        build.CSRC, build._LOADED = saved
 
 
 # JSON name -> (source, the Pallas site it replaces, phase_kernels key)
@@ -852,6 +1007,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--levels", help="comma-separated kLevels values: build, check and "
                         "time the top-S bisection at each, after the [kernels] phase, and stop")
+    parser.add_argument("--against", type=Path, help="another checkout of the repository: hold "
+                        "the kernels both trees share bit for bit and time them in turns, after "
+                        "the [kernels] phase, and stop")
     args = parser.parse_args()
     try:
         import torch
@@ -874,6 +1032,11 @@ def main() -> int:
     if args.levels:
         phase_levels(dev, k_in, [int(v) for v in args.levels.split(",")])
         print(f"[done] the kLevels sweep passed in {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.against:
+        phase_against(dev, k_in, args.against)
+        print(f"[done] the comparison with {args.against} passed in "
+              f"{time.perf_counter() - t0:.1f} s")
         return 0
     staged = phase_staged(dev)
     per_run, round_ms = phase_main_path(dev)

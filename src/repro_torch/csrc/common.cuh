@@ -1,7 +1,8 @@
 // Shared device helpers of the FedQCS kernels: block-wide and cluster-wide
 // reductions, the bisection top-S threshold and keep rule of the two
-// encoders, and the row-times-A products of a GAMP step split by columns over
-// a thread-block cluster.
+// encoders, the row-times-A products of a GAMP step split by columns over a
+// thread-block cluster, the register-tiled fp32 tile product of the staged
+// encoder, and the host-side launch of a kernel on thread-block clusters.
 //
 // Every kernel here runs 256 threads per block (8 warps).  Reductions go
 // warp shuffle -> shared scratch -> every thread sums the 8 warp partials in
@@ -264,6 +265,30 @@ __device__ __forceinline__ void cluster_sum(const float* part, int cnt, float* t
   }
 }
 
+// The same sum for a slice: s[j] = sum of part[lo + threadIdx.x + kThreads j]
+// over the blocks of this cluster, in rank order 0..C-1, for j < per (per <=
+// P), under the same rules as cluster_sum.  Blocks may reduce different
+// slices.  A thread keeps its P loads from one rank in flight at once, where
+// cluster_sum keeps one element's C loads in flight: the staged encoder's
+// slice is many elements a thread and few ranks.
+template <int P>
+__device__ __forceinline__ void cluster_sum_slice(const float* part, int lo, int per,
+                                                  float (&s)[P]) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+#pragma unroll
+  for (int j = 0; j < P; ++j) s[j] = 0.f;
+  for (int q = 0; q < c; ++q) {
+    const float* src = cluster.map_shared_rank(part, q) + lo + threadIdx.x;
+    float v[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) v[j] = j < per ? src[kThreads * j] : 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) s[j] += v[j];
+  }
+}
+
 // The column-slice products stream A in tiles of kSliceRows rows x kColTile
 // columns: each thread keeps 32 independent scalar loads in flight (rows of
 // A are 1591 floats at the paper's width, so not 16-byte aligned), and the
@@ -391,6 +416,221 @@ __device__ __forceinline__ void slice_times_a_into(const float* s, const float* 
     }
     __syncthreads();
   }
+}
+
+// -- the register-tiled fp32 tile product ---------------------------------
+//
+// A block of kThreads threads computes one kTileRows x kTileCols tile of X @
+// B over a K range [k_lo, k_hi): X row-major with row stride ldx, B
+// row-major with row stride ldb, both in device memory.  What sets the pace
+// of such a product is the shared-memory datapath (128 bytes a clock an SM,
+// however many lanes share an address): a thread that holds a x b outputs
+// loads a + b values per k for a b FMAs.  So each thread holds 8 x 8 outputs
+// in registers (4 16-byte shared loads feed 64 FMAs, which just balances the
+// SM's 128 FMAs a clock), and the block's threads form kTileGroups groups of
+// 64 threads that each cover the whole tile and split every stage's K step
+// between them: group g takes its kTileGroupK consecutive k.  Thread (ty,
+// tx) of a group holds rows h 32 + 4 ty + i and columns h' 32 + 4 tx + j (h,
+// h' < 2; i, j < 4); the 8 lanes of a quarter warp share ty, so their loads
+// of X are broadcasts and their loads of B one 128-byte row segment.  Each
+// sum runs over its k in increasing order with IEEE fmaf (no TF32).  The
+// caller adds the groups' partial tiles.
+//
+// The K range is walked in steps of kTileK through a ring of kStages stages
+// in shared memory, filled with 4-byte cp.async while the previous stage is
+// multiplied (rows of X and B need not be 16-byte aligned: at the paper's
+// shape they are 6364 and 2120 bytes long); one barrier per stage.  X is
+// staged transposed (k-major, rows padded to kTileXStride floats), so a
+// thread's 4 rows at one k are one 16-byte load; each copy instruction of a
+// warp takes 8 k of 4 rows (four 32-byte sectors of X), which the padding
+// spreads over all 32 banks.  Entries past k_hi, past x_rows rows or past
+// b_cols columns are zero-filled.  On the H100 the copies and the product's
+// shared loads add up rather than overlap (they share the SM's L1 and
+// shared-memory path; tools/probe_staged_encode.py, PERF.md); versions with
+// 16-byte copies, more stages, a 64-deep K step, 128-column tiles or the
+// copies spread between the FMAs were no faster.  The PROBE: comments mark
+// the lines that the probe's cut-down builds skip.
+constexpr int kTileRows = 64;  // output rows of a tile
+constexpr int kTileCols = 64;  // output columns of a tile
+constexpr int kTileK = 32;     // K step, one ring stage
+constexpr int kStages = 3;
+constexpr int kTileGroups = kThreads / 64;              // groups that split each K step
+constexpr int kTileGroupK = kTileK / kTileGroups;       // k of a stage per group
+constexpr int kTileXStride = kTileRows + 4;             // floats per k of the staged X
+constexpr int kTileStage = kTileK * kTileXStride + kTileK * kTileCols;
+constexpr int kTileRing = kStages * kTileStage;         // floats of the ring
+
+// 4 bytes from src to dst, or 4 zero bytes when !full (src is not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Queues this thread's copies of one stage: X rows r < kTileRows and k in
+// [k0, k0 + kTileK) to xs[k * kTileXStride + r] (lane l of warp w takes rows
+// l / 8 + 4 w + 32 u and k0 + l % 8 + 8 v: each copy instruction of a warp
+// reads 8 k of 4 rows and writes all 32 banks), then B rows k0 + kk, columns
+// c < kTileCols (thread t takes column t % 64 of rows t / 64 + 4 j).
+__device__ __forceinline__ void tile_load_stage(float* st, const float* __restrict__ x, int ldx,
+                                                int x_rows, const float* __restrict__ b, int ldb,
+                                                int b_cols, int k0, int k_hi) {
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kTileRows * kTileK / kThreads; ++i) {
+    const int r = (lane >> 3) + 4 * warp + 32 * (i / (kTileK / 8));
+    const int kk = (lane & 7) + 8 * (i % (kTileK / 8));
+    const bool ok = r < x_rows && k0 + kk < k_hi;
+    cp_async4(st + kk * kTileXStride + r, ok ? x + (size_t)r * ldx + k0 + kk : x, ok);
+  }
+  const int c = (int)threadIdx.x & (kTileCols - 1);
+#pragma unroll
+  for (int i = 0; i < kTileK * kTileCols / kThreads; ++i) {
+    const int kk = (int)threadIdx.x / kTileCols + (kThreads / kTileCols) * i;
+    const bool ok = k0 + kk < k_hi && c < b_cols;
+    cp_async4(st + kTileK * kTileXStride + kk * kTileCols + c,
+              ok ? b + (size_t)(k0 + kk) * ldb + c : b, ok);
+  }
+}
+
+// This thread's place in the tile: its group, and (ty, tx) inside it.
+struct TileThread {
+  int g, ty, tx;
+  __device__ __forceinline__ TileThread()
+      : g((int)threadIdx.x / 64), ty((int)threadIdx.x % 64 / 8), tx((int)threadIdx.x % 8) {}
+  // output row of acc[a][.] and column of acc[.][b] within the tile
+  __device__ __forceinline__ int row(int a) const {
+    return (a >> 2) * (kTileRows / 2) + 4 * ty + (a & 3);
+  }
+  __device__ __forceinline__ int col(int b) const {
+    return (b >> 2) * (kTileCols / 2) + 4 * tx + (b & 3);
+  }
+};
+
+// acc[a][b] += sum over this group's k of the stage of X[row(a)][k] B[k][col(b)]
+__device__ __forceinline__ void tile_mul_stage(const float* st, const TileThread& th,
+                                               float (&acc)[8][8]) {
+  const float* xs = st + th.g * kTileGroupK * kTileXStride + 4 * th.ty;
+  const float* bs = st + kTileK * kTileXStride + th.g * kTileGroupK * kTileCols + 4 * th.tx;
+#pragma unroll
+  for (int kk = 0; kk < kTileGroupK; ++kk) {
+    const float4 x0 = *reinterpret_cast<const float4*>(xs + kk * kTileXStride);
+    const float4 x1 = *reinterpret_cast<const float4*>(xs + kk * kTileXStride + kTileRows / 2);
+    const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * kTileCols);
+    const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * kTileCols + kTileCols / 2);
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(xv[a], bv[b], acc[a][b]);
+  }
+}
+
+// acc = this group's part of X[0:x_rows, k_lo:k_hi] @ B[k_lo:k_hi, 0:b_cols]
+// for this thread's outputs (TileThread::row, col; zero past x_rows and
+// b_cols): the sum over the k that the group takes from each stage.  x points
+// at the tile's first row, b at its first column; ring holds kTileRing floats
+// of shared memory, 16-byte aligned.  on_stage(xs) is called by every thread
+// once per stage, after the barrier that makes the stage visible: xs is the
+// stage's X tile, xs[k * kTileXStride + r] for k < kTileK, r < kTileRows,
+// zero past the range.  Ends with a barrier, so the caller may reuse the
+// ring.  Needs k_lo <= k_hi.
+template <class StageFn>
+__device__ __forceinline__ void tile_product(const float* __restrict__ x, int ldx, int x_rows,
+                                             const float* __restrict__ b, int ldb, int b_cols,
+                                             int k_lo, int k_hi, float* ring, const TileThread& th,
+                                             float (&acc)[8][8], StageFn&& on_stage) {
+  const int steps = (k_hi - k_lo + kTileK - 1) / kTileK;
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps)
+      tile_load_stage(ring + s * kTileStage, x, ldx, x_rows, b, ldb, b_cols, k_lo + s * kTileK,
+                      k_hi);
+    cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of stage t have landed
+    __syncthreads();               // everyone's have, and stage t - 1 is no longer read
+    const int next = t + kStages - 1;
+    if (next < steps)  // PROBE:staging
+      tile_load_stage(ring + (next % kStages) * kTileStage, x, ldx, x_rows, b, ldb, b_cols,
+                      k_lo + next * kTileK, k_hi);
+    cp_async_commit();
+    const float* st = ring + (t % kStages) * kTileStage;
+    on_stage(st);
+    tile_mul_stage(st, th, acc);  // PROBE:product
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// -- host: launching a kernel on thread-block clusters ---------------------
+//
+// Launches Kernel on a 1-D grid of `blocks` blocks of kThreads threads, in
+// which each run of `cluster` consecutive blocks is one thread-block cluster,
+// with `smem` bytes of dynamic shared memory, on `stream`.  Returns the CUDA
+// error: cudaErrorInvalidClusterSize when no such cluster fits on the card
+// (the caller raises; there is no smaller fallback).  Setting the
+// attributes and checking the fit cost host time, and a caller repeats one
+// shape, so they run only when a launch needs more than was set or checked
+// before in this process (a cluster that fits fits with less shared
+// memory).  Those records are statics of this instantiation, so each kernel
+// keeps its own.
+template <auto Kernel, typename... Args>
+int launch_cluster(unsigned blocks, int cluster, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidClusterSize;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  static size_t attr_smem = 0, checked[kMaxCluster + 1] = {};
+  static bool non_portable = false;
+  cudaError_t e;
+  if (smem > attr_smem) {
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_smem = smem;
+  }
+  if (cluster > 8 && !non_portable) {
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    non_portable = true;
+  }
+  if (smem > checked[cluster]) {
+    int active = 0;
+    e = cudaOccupancyMaxActiveClusters(&active, Kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (active < 1) return (int)cudaErrorInvalidClusterSize;
+    checked[cluster] = smem;
+  }
+  e = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fedqcs

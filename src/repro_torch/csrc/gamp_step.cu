@@ -176,56 +176,18 @@ gamp_step_kernel(const float* __restrict__ ghat, const float* __restrict__ nu_g,
   cluster.sync();
 }
 
-// Launches one step at TB rows per tile on clusters of `cluster` blocks.
-// Returns the CUDA error: cudaErrorInvalidClusterSize when no such cluster
-// fits on the card (the caller raises; there is no smaller fallback).
+// Launches one step at TB rows per tile on clusters of `cluster` blocks
+// (common.cuh launch_cluster: a cluster that does not fit on the card
+// returns cudaErrorInvalidClusterSize, and the caller raises).
 template <int TB>
 int launch(const float* ghat, const float* nu_g, const float* shat, const float* theta,
            const float* y, const float* nu_d, const float* a, float* ghat_out, float* nug_out,
            float* shat_out, float* theta_out, int nb, int n, int m, int L, int em, int cluster,
            cudaStream_t stream) {
-  auto kernel = gamp_step_kernel<TB>;
-  const size_t smem = sizeof(float) * smem_floats<TB>(n, m, cluster);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((nb + TB - 1) / TB) * cluster));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-
-  // The attributes and the fit check cost host time, and a decode repeats
-  // one shape, so they run only when a launch needs more than was set or
-  // checked before in this process (a cluster that fits fits with less).
-  static size_t attr_smem = 0, checked[17] = {};
-  static bool non_portable = false;
-  cudaError_t e;
-  if (smem > attr_smem) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_smem = smem;
-  }
-  if (cluster > 8 && !non_portable) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    non_portable = true;
-  }
-  if (smem > checked[cluster]) {
-    int active = 0;
-    e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (active < 1) return (int)cudaErrorInvalidClusterSize;
-    checked[cluster] = smem;
-  }
-  e = cudaLaunchKernelEx(&cfg, kernel, ghat, nu_g, shat, theta, y, nu_d, a, ghat_out, nug_out,
-                         shat_out, theta_out, nb, n, m, L, em);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_cluster<gamp_step_kernel<TB>>(
+      (unsigned)(((nb + TB - 1) / TB) * cluster), cluster,
+      sizeof(float) * smem_floats<TB>(n, m, cluster), stream, ghat, nu_g, shat, theta, y, nu_d,
+      a, ghat_out, nug_out, shat_out, theta_out, nb, n, m, L, em);
 }
 
 }  // namespace

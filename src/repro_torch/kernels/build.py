@@ -42,8 +42,8 @@ _SIGNATURES = {
     "bqcs_encode_fused_launch": [_P] * 9 + [_I] * 9 + [_P],
     # x, sparse, resid, nb, n, s, iters, stream
     "block_topk_launch": [_P] * 3 + [_I] * 4 + [_P],
-    # x, a_t, taus, codes, alpha, nb, n, m, n_taus, stream
-    "bqcs_encode_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # x, a_t, taus, codes, alpha, nb, n, m, n_taus, cluster, stream
+    "bqcs_encode_launch": [_P] * 5 + [_I] * 5 + [_P],
     # ghat, nu_g, shat, theta, obs, alpha, lo_tau, hi_tau, a,
     # ghat_out, nug_out, shat_out, theta_out, nb, n, m, L, em, bits, obs_w,
     # n_lev, rows_per_tile, cluster, stream

@@ -21,8 +21,10 @@ Tolerances, each with its reason:
     may differ only where its two candidate centroid scores lie within
     1e-5 of each other.  block_topk: bit-identical.  Both at several
     bisection depths, since the bisection runs in passes of kLevels levels
-    and the last pass is shorter where kLevels does not divide the depth.  bqcs_encode (staged):
-    alpha rtol 1e-6, codes as the encoder's.
+    and the last pass is shorter where kLevels does not divide the depth.
+  * bqcs_encode (staged): alpha rtol 1e-6, codes as the encoder's, at every
+    cluster size, and bit-identical from one launch to the next (the
+    cluster adds its partial tiles in rank order, no atomics).
 """
 
 import functools
@@ -36,6 +38,7 @@ from repro_torch.core.compression import packed_width, unpack_codes  # noqa: E40
 from repro_torch.core.gamp import tau_tables  # noqa: E402
 from repro_torch.core.quantizer import design_lloyd_max  # noqa: E402
 from repro_torch.kernels import gm_prior, ops, ref  # noqa: E402
+from repro_torch.kernels.bqcs_encode import CLUSTERS as STAGED_CLUSTERS  # noqa: E402
 from repro_torch.kernels.bqcs_encode_fused import BISECT_ITERS, bqcs_encode_fused  # noqa: E402
 from repro_torch.kernels.gamp_step import CLUSTERS as GAMP_CLUSTERS  # noqa: E402
 from repro_torch.kernels.gamp_step import ROWS as GAMP_ROWS  # noqa: E402
@@ -376,22 +379,46 @@ def test_encoder_bisection_passes_and_wide_rows(cuda, family, nb, n, s, iters):
     check_encoder_family(blocks, resid, a, _codebook(family, n, 3), s, iters)
 
 
-@pytest.mark.parametrize("nb,n,m,q", [(37, 300, 100, 3), (300, 1591, 530, 3), (19, 129, 65, 2)])
-def test_staged_encode_matches_plain(cuda, nb, n, m, q):
+# every cluster size the kernel takes, and the chooser's own pick (None);
+# nb = 301 and 37 leave a ragged last row tile, m = 530, 100, 65 and 1 a
+# ragged column tile, and N = 33, 40 and 288 leave the last ranks of a
+# cluster of 4 or 8 without a K step (empty K ranges)
+@pytest.mark.parametrize("cluster", (None,) + STAGED_CLUSTERS)
+@pytest.mark.parametrize("nb,n,m,q", [
+    (37, 300, 100, 3), (300, 1591, 530, 3), (19, 129, 65, 2), (301, 1591, 530, 3),
+    (1, 7002, 2334, 3), (5, 33, 1, 3), (9, 40, 70, 2), (9, 288, 70, 3),
+])
+def test_staged_encode_matches_plain(cuda, nb, n, m, q, cluster):
     from repro_torch.kernels.bqcs_encode import bqcs_encode
 
     blocks, _, a, taus = _encode_inputs(nb, n, m, q, seed=m, dev=cuda)
+    if nb == 1:  # one live row (the inputs' row 0 is dead)
+        rng = np.random.default_rng(n)
+        blocks = torch.as_tensor(rng.normal(0, 0.1, (1, n)).astype(np.float32), device=cuda)
     a_t = a.T.contiguous()
-    codes, alpha = bqcs_encode(blocks, a_t, taus)
+    codes, alpha = bqcs_encode(blocks, a_t, taus, _cluster=cluster)
     codes_r, alpha_r = ref.bqcs_encode_ref(blocks, a_t, taus)
     torch.cuda.synchronize()
     torch.testing.assert_close(alpha, alpha_r, rtol=1e-6, atol=0.0)
-    assert float(alpha[0]) == 0.0
+    assert nb == 1 or float(alpha[0]) == 0.0
     diff = codes != codes_r
     if diff.any():
         y = (blocks * alpha_r[:, None]) @ a_t
         gap = torch.amin(torch.abs(y[..., None] - taus), dim=-1)
         assert float(gap[diff].max()) < 1e-5
+    # no atomics: a second launch gives the same bits
+    codes2, alpha2 = bqcs_encode(blocks, a_t, taus, _cluster=cluster)
+    assert torch.equal(codes, codes2) and torch.equal(alpha, alpha2)
+
+
+@pytest.mark.parametrize("cluster", [3, 16, 32])
+def test_staged_encode_refused_shape_raises(cuda, cluster):
+    """A shape the kernel does not take raises; nothing falls back."""
+    from repro_torch.kernels.bqcs_encode import bqcs_encode
+
+    blocks, _, a, taus = _encode_inputs(10, 300, 100, 3, seed=0, dev=cuda)
+    with pytest.raises(RuntimeError, match="bqcs_encode_launch failed"):
+        bqcs_encode(blocks, a.T.contiguous(), taus, _cluster=cluster)
 
 
 def test_staged_path_matches_fused_wire(cuda):

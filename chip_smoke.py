@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
     bit-identical), qgamp_step at the chooser's
     (rows per tile, cluster) and at cluster 1 and the 25-step EA driver (300
     rows), gamp_step at the same two shapes and the 25-step AE driver (10
-    rows), and gamp_step's two shapes at 300 rows (the vq EA decode's).
+    rows), and gamp_step's two shapes at 300 rows (the vq EA decode's); both
+    step kernels at 64 rows (a chunk of [routes]' chunked EA decode).
  3. [staged] The staged encode path of ``kernels/ops.py``
     (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
     counts set to 0 just before and read just after, held against the
@@ -29,18 +30,31 @@ Phases (any failure raises and the script exits non-zero):
     Then one round of each configuration from the same A and initial
     weights with the plain versions swapped in; the decoded gradients must
     agree to NMSE <= 1e-3.
- 5. [profile] One ``torch.profiler`` trace of 3 rounds per configuration:
-    each round's device busy time (the device events that start inside its
-    ``run_round``), the steady rounds' mean beside their unprofiled wall time
-    (the idle share), and the top device events.
- 6. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 5. [routes] The reference's default config (``run_federated`` with no
+    ``fed_cfg``: the XLA-algorithm route, exact-variance GAMP) for
+    fedqcs-ae and fedqcs-ea (2 rounds each, every launch count 0), round 0
+    of each against the same round run on the CPU (differing wire lanes
+    only within 1e-5 of a threshold, decoded gradient NMSE <= 1e-3); one EA
+    round with ``sparsifier="bisect"``; the chunked EA decode on the kernel
+    route (lloyd_max and vq, ``recon_chunk=64``: 5 chunks, 125 step launches
+    a round) against ``recon_chunk=0`` (NMSE <= 1e-4) and against the plain
+    versions (NMSE <= 1e-3); early stop (bit-identical to the fixed trip
+    count) and the two-phase sweep (NMSE <= 1e-6 of its composition) on the
+    default EA round's payload.
+ 6. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
+    [main] and [routes]: each round's device busy time (the device events
+    that start inside its ``run_round``), the steady rounds' mean beside
+    their unprofiled wall time (the idle share), and the top device events.
+ 7. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
-    work.  [tune]: the staged bqcs_encode (300 rows) at every cluster
-    size, each held against the plain version first;
-    qgamp_step at 300 rows and gamp_step at 10 and 300 rows likewise, each
-    held against the plain step first, and at the chooser's pick without
-    the EM refresh.  The chooser's pick is marked.
+    work; the default route's encode (no kernel) beside the fused
+    encoder's, for the record.  [tune]: the staged bqcs_encode (300 rows)
+    at every cluster size, each held against the plain version first;
+    qgamp_step at 64 and 300 rows and gamp_step at 10, 64 and 300 rows at
+    every (rows per tile, cluster), each held against the plain step
+    first, and at the chooser's pick without the EM refresh.  The
+    chooser's pick is marked.
 
 ``python3 chip_smoke.py --levels 4,5,6,7`` runs phases 1-2 and then the
 [levels] sweep of the bisection's pass size (``phase_levels``), and stops.
@@ -74,6 +88,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 K, N, M, Q, S, ITERS = 30, 1591, 530, 3, 159, 25
+CHUNK_ROWS = 64  # [routes]' recon_chunk: 300 EA rows -> 5 chunks, the last with 20 dead rows
 
 # The main-path runs: (method, codebook, GAMP variance mode, rounds, the
 # launches per round of each kernel module).  The dithered EA decode and the
@@ -514,6 +529,19 @@ def phase_kernels(dev):
     print(f"[gamp_step] one step, 300 rows, (rows per tile, cluster) {shapes}: allclose rtol "
           f"2e-4 atol 1e-6, max abs err {max(errs):.3g}; 25-step vq EA decode on the vq "
           f"encoder's words: NMSE {e_vq:.3g} (<= 1e-4); launches {n_g}")
+
+    # -- both step kernels at one chunk of the chunked EA decode ([routes]) ------
+    for kind, key, args, mod in (("qgamp", "qgamp64", qargs, q_mod),
+                                 ("gamp", "gamp64", args300, g_mod)):
+        args64 = tuple(v[:CHUNK_ROWS].contiguous() if torch.is_tensor(v) and v.dim()
+                       and v.shape[0] == rows else v for v in args)
+        n0 = mod.launches
+        errs, shapes = step_vs_plain(kind, args64, dev)
+        n_k = launched(mod, n0, len(shapes))
+        out[key] = dict(max_abs_err=max(errs), args=args64,
+                        gemm=(args64[0], args64[2], a))
+        print(f"[{kind}_step] one step, {CHUNK_ROWS} rows (a chunk of the chunked EA decode), "
+              f"(rows per tile, cluster) {shapes}: max abs err {max(errs):.3g}; launches {n_k}")
     return out
 
 
@@ -595,7 +623,7 @@ def phase_main_path(dev):
         want = dict({k: v * rounds for k, v in per_round.items()}, topk=0, staged=0)
         check(counts == want, f"{label}: launches {counts}, want {want}")
         per_run[(method, codebook, variance)] = counts
-        round_ms[(method, codebook, variance)] = res.round_ms
+        round_ms[label] = (method, fed_cfg(codebook, variance), res.round_ms)
 
     # the same round from the same A and init, kernels vs plain versions
     for method, codebook, variance, _, _ in MAIN_RUNS:
@@ -610,6 +638,171 @@ def phase_main_path(dev):
               f"{res_p.nmses[0]:.6f}")
         check(e <= 1e-3, f"{label}: kernel round vs plain round NMSE {e:.3g} > 1e-3")
     return per_run, round_ms
+
+
+# The reference's default config (``run_federated`` with no ``fed_cfg``):
+# the XLA-algorithm route, exact-variance GAMP on the plain loop.
+
+
+@contextlib.contextmanager
+def captured_rounds():
+    """Records each round's client-pass payload and blocks, the engine, and
+    the PS pass's decoded aggregate (one dict per round) while runs go on."""
+    from repro_torch.fed.engine import CohortEngine
+
+    rounds = []
+    client_pass, ps = CohortEngine._client_pass, CohortEngine._ps
+
+    def cp(self, *args):
+        out = client_pass(self, *args)
+        rounds.append(dict(engine=self, words=out[0]["words"], alpha=out[0]["alpha"],
+                           blocks=out[1]))
+        return out
+
+    def psf(self, payload, blocks, rhos):
+        out = ps(self, payload, blocks, rhos)
+        rounds[-1].update(ghat=out[0], rhos=rhos)
+        return out
+
+    CohortEngine._client_pass, CohortEngine._ps = cp, psf
+    try:
+        yield rounds
+    finally:
+        CohortEngine._client_pass, CohortEngine._ps = client_pass, ps
+
+
+def phase_routes(dev):
+    """[routes] This slice's paths at full width: the reference's default
+    config (0 kernel launches; round 0 against the same round on the CPU),
+    one EA round with the bisect sparsifier, the chunked EA decode on the
+    kernel route (lloyd_max and vq, recon_chunk=64, against recon_chunk=0
+    and against the plain versions), and early stop and the two-phase sweep
+    on one EA round's payload.  Returns (the chunked runs' launch counts by
+    KERNELS name, label -> (method, config, round walls) for [profile])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import recon_engine
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.core.gamp import GampConfig, _qem_gamp_xla
+    from repro_torch.core.reconstruction import estimate_and_aggregate_packed
+    from repro_torch.core.sensing import project_blocks
+    from repro_torch.core.sparsify import block_sparsify
+    from repro_torch.paper.mlp import run_federated
+
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    round_ms, launches = {}, {}
+    default_cfg = FedQCSConfig(reduction_ratio=3, bits=Q, s_ratio=0.1, gamp_iters=ITERS)
+    ea_round = None
+    for method in ("fedqcs-ae", "fedqcs-ea"):
+        label = f"{method} default config"
+        with captured_rounds() as card:
+            zero_counts()
+            res = run_federated(method, steps=2, eval_every=1, device=dev)
+            counts = read_counts()
+        check(counts == zero, f"{label}: launches {counts}, want none")
+        check(all(np.isfinite(res.nmses)) and max(res.nmses) < 1.0, f"{label} nmse {res.nmses}")
+        with captured_rounds() as cpu:
+            run_federated(method, steps=1, device="cpu")
+        k0, c0 = card[0], cpu[0]
+        codec = k0["engine"].codec
+        check(not codec.cfg.use_kernels and codec.cfg.gamp_variance_mode == "exact",
+              f"{label}: run_federated's default config is not the reference's")
+        sparse, _ = block_sparsify(k0["blocks"].reshape(-1, N), codec.cfg.s)
+        x, _ = project_blocks(sparse, codec.a.T)
+        gap = torch.amin(torch.abs(x[..., None] - codec.codebook.thresholds_t(dev)), dim=-1)
+        diff = codec.unpack(k0["words"]).reshape(-1, M) != codec.unpack(
+            c0["words"]).reshape(-1, M).to(dev)
+        n_diff = int(diff.sum())
+        if n_diff:
+            check(float(gap[diff].max()) < 1e-5, f"{label}: a wire lane differs from the CPU "
+                  "run's away from a threshold")
+        e = nmse(k0["ghat"], c0["ghat"].to(dev))
+        check(e <= 1e-3, f"{label}: round 0 on the card vs the CPU: NMSE {e:.3g} > 1e-3")
+        print(f"[routes] {label} (XLA route, exact variance): nmse "
+              f"{[round(v, 6) for v in res.nmses]} round ms "
+              f"{[round(v, 2) for v in res.round_ms]} launches {counts}; round 0 vs the same "
+              f"round on the CPU: {n_diff} of {diff.numel()} wire lanes differ (each within "
+              f"1e-5 of a threshold), decoded gradient NMSE {e:.3g} (<= 1e-3)")
+        round_ms[label] = (method, default_cfg, res.round_ms)
+        if method == "fedqcs-ea":
+            ea_round = k0
+
+    bisect = dataclasses.replace(default_cfg, sparsifier="bisect")
+    zero_counts()
+    res = run_federated("fedqcs-ea", steps=1, device=dev, fed_cfg=bisect)
+    counts = read_counts()
+    check(counts == zero, f"bisect EA round: launches {counts}, want none")
+    check(np.isfinite(res.nmses[0]) and res.nmses[0] < 1.0, f"bisect EA nmse {res.nmses}")
+    print(f"[routes] fedqcs-ea default config, sparsifier=bisect: nmse {res.nmses[0]:.6f} round "
+          f"ms {res.round_ms[0]:.2f} launches {counts}")
+
+    rows = K * 10
+    nch = -(-rows // CHUNK_ROWS)
+    for codebook, kernel in (("lloyd_max", "qgamp"), ("vq", "gamp")):
+        label = f"fedqcs-ea {codebook} recon_chunk={CHUNK_ROWS}"
+        cfg = dataclasses.replace(fed_cfg(codebook), recon_chunk=CHUNK_ROWS)
+        zero_counts()
+        res = run_federated("fedqcs-ea", steps=2, eval_every=1, device=dev, fed_cfg=cfg)
+        counts = read_counts()
+        want = dict(zero, encode=2, **{kernel: 2 * ITERS * nch})
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        mono = run_federated("fedqcs-ea", steps=1, device=dev, fed_cfg=fed_cfg(codebook))
+        chunked = run_federated("fedqcs-ea", steps=1, device=dev, fed_cfg=cfg)
+        with plain_kernels():
+            plain = run_federated("fedqcs-ea", steps=1, device=dev, fed_cfg=cfg)
+        e_mono = nmse(chunked.last_ghat, mono.last_ghat)
+        e_plain = nmse(chunked.last_ghat, plain.last_ghat)
+        check(e_mono <= 1e-4, f"{label}: NMSE {e_mono:.3g} against recon_chunk=0 > 1e-4")
+        check(e_plain <= 1e-3, f"{label}: NMSE {e_plain:.3g} against the plain versions > 1e-3")
+        print(f"[routes] {label} (kernel route, scalar variance, {nch} chunks, the last with "
+              f"{nch * CHUNK_ROWS - rows} dead rows): nmse {[round(v, 6) for v in res.nmses]} "
+              f"round ms {[round(v, 2) for v in res.round_ms]} launches {counts}; round 0 vs "
+              f"recon_chunk=0: NMSE {e_mono:.3g} (<= 1e-4); vs the plain versions on the card: "
+              f"NMSE {e_plain:.3g} (<= 1e-3)")
+        round_ms[label] = ("fedqcs-ea", cfg, res.round_ms)
+        branch = "bqcs_encode_fused" + ("[vq]" if codebook == "vq" else "")
+        step = f"{kernel}_step[{CHUNK_ROWS} rows]"
+        launches[branch], launches[step] = counts["encode"], counts[kernel]
+
+    # early stop and the two-phase sweep on the default EA round 0's payload
+    codec = ea_round["engine"].codec
+    words, alpha, rhos = ea_round["words"], ea_round["alpha"], ea_round["rhos"]
+    exact = GampConfig(iters=ITERS, variance_mode="exact", tol=1e-3)
+    es = dataclasses.replace(exact, early_stop=True)
+
+    def decode(cfg):
+        t0 = time.perf_counter()
+        out = estimate_and_aggregate_packed(codec, words, alpha, rhos, cfg, with_info=True)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    decode(exact)  # warm-up
+    (fixed, info_f), fixed_ms = decode(exact)
+    (early, info), es_ms = decode(es)
+    check(torch.equal(early, fixed) and torch.equal(info.iters, info_f.iters),
+          "early stop must be bit-identical to the fixed trip count")
+    print(f"[routes] early stop, default EA round 0's payload ({rows} rows, exact variance, "
+          f"tol 1e-3): bit-identical to the fixed trip count; loop iterations run "
+          f"{int(info.iters.max())} of {ITERS}, live iterations a row mean "
+          f"{float(info.iters.float().mean()):.2f}, converged {int(info.converged.sum())} of "
+          f"{rows}; decode wall {es_ms:.2f} ms (fixed trip count {fixed_ms:.2f} ms)")
+    scalar = dataclasses.replace(exact, variance_mode="scalar")
+    out, stats = recon_engine.ea_decode_two_phase(codec, words, alpha, rhos, scalar, packed=True)
+    flat_c, flat_a = codec.unpack(words.reshape(rows, -1)), alpha.reshape(rows)
+    ghat, conv, _ = _qem_gamp_xla(flat_c, flat_a, codec.a, codec.codebook, scalar)
+    surv = torch.nonzero(~conv).flatten()
+    check(surv.numel() == stats["phase2_rows"], "two-phase survivors")
+    if surv.numel():
+        refined, _, _ = _qem_gamp_xla(flat_c[surv], flat_a[surv], codec.a, codec.codebook,
+                                      dataclasses.replace(exact, early_stop=False))
+        ghat = ghat.index_copy(0, surv, refined)
+    e = nmse(out, torch.einsum("k,kbn->bn", rhos, ghat.reshape(K, 10, N)))
+    check(e <= 1e-6, f"two-phase vs its composition: NMSE {e:.3g} > 1e-6")
+    print(f"[routes] two-phase sweep, the same payload (scalar pass, tol 1e-3): phase2_rows "
+          f"{stats['phase2_rows']} of {stats['rows']}, phase-1 iterations mean "
+          f"{stats['phase1_iters_mean']:.2f}; vs its composition NMSE {e:.3g} (<= 1e-6)")
+    return launches, round_ms
 
 
 ROUND_RANGE = "chip_smoke.round"
@@ -666,15 +859,15 @@ def _round_device_ms(method, cfg, dev, steps: int) -> list:
 
 
 def phase_profile(round_ms, dev):
-    """Device busy time of the steady rounds per configuration, beside their
+    """Device busy time of the steady rounds per configuration (``round_ms``:
+    label -> (method, config, unprofiled round walls)), beside their
     unprofiled wall time: one traced ``run_federated`` of 3 rounds, each
     device event counted in its own round (``_round_device_ms``), and the
     mean over the rounds after the first."""
-    for (method, codebook, variance), ms in round_ms.items():
+    for label, (method, cfg, ms) in round_ms.items():
         if len(ms) < 2:
             continue
-        label = run_label(method, codebook, variance)
-        rounds = _round_device_ms(method, fed_cfg(codebook, variance), dev, 3)
+        rounds = _round_device_ms(method, cfg, dev, 3)
         busy = [sum(t for _, t in per.values()) for per in rounds]
         wall = sum(ms[1:]) / (len(ms) - 1)
         if len(rounds) != 3 or min(busy) <= 0.0:
@@ -769,23 +962,26 @@ def phase_times(dev, k_in):
                               library_ms=timer(lambda: torch.matmul(x, a_tt)),
                               library="GEMM only")
 
-    qa = k_in["qgamp"]["args"]
-    ghat, nug, shat, theta, words, al, lo, hi, a, L, em, bits = qa
-    state = 4 * rows * (2 * N + M + 1 + 3 * L)
-    nbytes = 2 * state + 4 * M * N + 4 * words.numel() + 4 * rows + 8 * lo.numel()
-    b_ms, b_by = bound_ms(nbytes, 4 * rows * N * M)
-    g1, s1, a1 = k_in["qgamp"]["gemm"]
-    res["qgamp_step"] = dict(
-        ms=timer(lambda: qgamp_step(*qa)),
-        plain_ms=timer(lambda: ref.qgamp_step_ref(ghat, nug, shat, theta,
-                                                  unpack_codes(words, bits, M), al, lo, hi, a,
-                                                  L, em)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer(lambda: (torch.matmul(g1, a1.T), torch.matmul(s1, a1))),
-        library="GEMMs only",
-    )
+    for name, key in (("qgamp_step", "qgamp"), ("qgamp_step[64 rows]", "qgamp64")):
+        qa = k_in[key]["args"]
+        ghat, nug, shat, theta, words, al, lo, hi, a, L, em, bits = qa
+        nb_ = ghat.shape[0]
+        state = 4 * nb_ * (2 * N + M + 1 + 3 * L)
+        nbytes = 2 * state + 4 * M * N + 4 * words.numel() + 4 * nb_ + 8 * lo.numel()
+        b_ms, b_by = bound_ms(nbytes, 4 * nb_ * N * M)
+        g1, s1, a1 = k_in[key]["gemm"]
+        res[name] = dict(
+            ms=timer(lambda: qgamp_step(*qa)),
+            plain_ms=timer(lambda: ref.qgamp_step_ref(ghat, nug, shat, theta,
+                                                      unpack_codes(words, bits, M), al, lo, hi,
+                                                      a, L, em)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer(lambda: (torch.matmul(g1, a1.T), torch.matmul(s1, a1))),
+            library="GEMMs only",
+        )
 
-    for name, key in (("gamp_step", "gamp"), ("gamp_step[300 rows]", "gamp300")):
+    for name, key in (("gamp_step", "gamp"), ("gamp_step[300 rows]", "gamp300"),
+                      ("gamp_step[64 rows]", "gamp64")):
         ga = k_in[key]["args"]
         b_ms, b_by = gamp_step_bound(ga[0].shape[0])
         g2, s2, a2 = k_in[key]["gemm"]
@@ -813,8 +1009,9 @@ def phase_times(dev, k_in):
         print(f"[tune] bqcs_encode {rows} rows, {s_mod.TILE_ROWS} rows per tile, cluster {c} "
               f"({blocks} blocks): {ms:.4f} ms, alpha max rel err {rel:.3g}, {n_diff} differing "
               f"code lanes" + (" (the chooser's pick)" if c == pick[1] else ""))
-    for kind, key, mod in (("qgamp", "qgamp", q_mod), ("gamp", "gamp", g_mod),
-                           ("gamp", "gamp300", g_mod)):
+    for kind, key, mod in (("qgamp", "qgamp", q_mod), ("qgamp", "qgamp64", q_mod),
+                           ("gamp", "gamp", g_mod), ("gamp", "gamp300", g_mod),
+                           ("gamp", "gamp64", g_mod)):
         step = getattr(mod, f"{kind}_step")
         args = k_in[key]["args"]
         nb_ = args[0].shape[0]
@@ -833,6 +1030,28 @@ def phase_times(dev, k_in):
         ms = timer(lambda: step(*no_em, _rows=pick[0], _cluster=pick[1]))
         print(f"[tune] {kind}_step {nb_} rows at the chooser's pick {pick} without the EM "
               f"refresh (em=False): {ms:.4f} ms")
+    # the reference's default encode route (no kernel; for the record): the
+    # stable-sort top-S, one GEMM, searchsorted, the wire packing
+    from repro_torch.core import sensing, sparsify
+    from repro_torch.core.compression import BQCSCodec
+
+    blocks, resid0, a_t = k_in["encode"]["args"][:3]
+    xla = BQCSCodec(dataclasses.replace(fed_cfg(), block_size=N, use_kernels=False),
+                    a=a_t[:, :M].T, device=dev)
+    sparse, _ = sparsify.block_sparsify(blocks + resid0, S)
+    y, _ = sensing.project_blocks(sparse, xla.a.T)
+    codes = xla.codebook.encode(y)
+    parts = {
+        "whole": lambda: xla.compress_blocks_packed(blocks, resid0),
+        "sort top-S": lambda: sparsify.block_sparsify(blocks + resid0, S),
+        "GEMM and scale": lambda: sensing.project_blocks(sparse, xla.a.T),
+        "searchsorted": lambda: xla.codebook.encode(y),
+        "pack": lambda: xla.pack(codes),
+    }
+    xla_ms = {k: timer(fn) for k, fn in parts.items()}
+    print(f"[time] XLA-route encode {rows}x{N} -> {M} Q={Q} (the default route, no kernel): "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in xla_ms.items())
+          + f" | fused encoder kernel {res['bqcs_encode_fused']['ms']:.4f} ms")
     for name, r in res.items():
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ({r['library']})")
@@ -983,6 +1202,8 @@ KERNELS = {
     "qgamp_step": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp"),
     "gamp_step": ("gamp_step.cu", "gamp_step.py:108", "gamp"),
     "gamp_step[300 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp300"),
+    "qgamp_step[64 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp64"),
+    "gamp_step[64 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp64"),
 }
 
 
@@ -1040,13 +1261,17 @@ def main() -> int:
         return 0
     staged = phase_staged(dev)
     per_run, round_ms = phase_main_path(dev)
+    routes_launches, routes_ms = phase_routes(dev)
+    round_ms.update(routes_ms)
     phase_profile(round_ms, dev)
     times = phase_times(dev, k_in)
-    for key, ms in round_ms.items():
+    for label, (_, _, ms) in round_ms.items():
         steady = sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else float("nan")
-        print(f"[round] {run_label(*key)}: wall ms per round {[round(v, 3) for v in ms]}, "
+        print(f"[round] {label}: wall ms per round {[round(v, 3) for v in ms]}, "
               f"mean of rounds 1..{len(ms) - 1}: {steady:.3f}")
     launches = main_path_launches(per_run, staged)
+    for kname, n in routes_launches.items():
+        launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():
         tm = times[kname]

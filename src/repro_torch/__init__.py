@@ -6,13 +6,17 @@ every ported module has exactly one reference module.  The port imports
 ``torch``, numpy and the standard library only; it never imports ``jax`` or
 anything of ``repro``.
 
-Slices 1 and 2 cover one barrier round of the paper's Sec. VI experiment:
-the ``lloyd_max``, ``dithered_uniform`` and ``vq`` codebooks, the fused
-BQCS encoder and the staged one (``block_sparsify`` -> ``bqcs_encode`` ->
-``pack_codes``), the AE (``gamp_step``) and packed EA (``qgamp_step``)
-GAMP kernel routes, the reference's GAMP loop as plain PyTorch (exact or
-scalar variance, damping, early freeze; the dithered EA decode), the
-``ideal`` channel, the ``full`` scheduler and the FedAdam server.  The five
+The port covers one barrier round of the paper's Sec. VI experiment: the
+``lloyd_max``, ``dithered_uniform`` and ``vq`` codebooks; the reference's
+default XLA-algorithm route (``use_kernels=False``: exact or bisecting
+top-S, one GEMM, the codebook's encode, the wire packing) and the kernel
+route (the fused BQCS encoder; the staged one, ``block_sparsify`` ->
+``bqcs_encode`` -> ``pack_codes``; the AE ``gamp_step`` and packed EA
+``qgamp_step`` GAMP steps); the reference's GAMP loop as plain PyTorch
+(exact or scalar variance, damping, early freeze and early stop); the
+chunked and two-phase EA engine (``core/recon_engine.py``) and the
+``core/api.py`` facade; the ``ideal`` channel, the ``full`` scheduler and
+the FedAdam server.  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

@@ -9,11 +9,14 @@ Pipeline per step, per client (paper Sec. III):
       -> codebook encode (eq. 10): lloyd_max, dithered_uniform or vq
       -> bit-pack codes into uint32 words (the wire payload)
 
-On the kernel route the whole pipeline is ONE launch of the fused encoder
-(``kernels/bqcs_encode_fused.py``).  The words carry ``n_codes = M / dim``
-index lanes of ``bits`` each (scalar families: n_codes == M).  Wire words
-are ``torch.uint32`` tensors in the reference's lane-group layout, so words
-packed by either package unpack identically in the other.
+On the kernel route (``use_kernels=True``) the whole pipeline is ONE launch
+of the fused encoder (``kernels/bqcs_encode_fused.py``); the default route
+composes the reference's XLA-algorithm stages (``core/sparsify.py``, one
+GEMM in ``core/sensing.py``, the codebook's encode, ``pack_codes``).  The
+words carry ``n_codes = M / dim`` index lanes of ``bits`` each (scalar
+families: n_codes == M).  Wire words are ``torch.uint32`` tensors in the
+reference's lane-group layout, so words packed by either package unpack
+identically in the other.
 """
 
 from __future__ import annotations
@@ -26,12 +29,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import entry_device, not_in_slice
-from repro_torch.core import sensing
+from repro_torch.core import sensing, sparsify
 from repro_torch.core.codebook import Codebook, index_bits, make_codebook
 
 __all__ = [
     "FedQCSConfig",
     "BQCSCodec",
+    "CompressedGradient",
     "Layout",
     "flatten_to_blocks",
     "blocks_to_tree",
@@ -127,6 +131,25 @@ class FedQCSConfig:
             width = index_bits(self.vq_levels or (1 << self.bits))
             return width / (self.vq_dim * self.reduction_ratio)
         return self.bits / self.reduction_ratio
+
+
+@dataclasses.dataclass
+class CompressedGradient:
+    """The wire payload of one worker for one step: ``codes`` are the packed
+    uint32 words (nb, W) in the :func:`pack_codes` layout, covering
+    ``n_codes = M / dim`` index lanes of ``bits`` each."""
+
+    codes: torch.Tensor  # (nblocks, W) uint32 words
+    alpha: torch.Tensor  # (nblocks,) f32 scales
+    nbar: int  # original flat length
+    m: int  # measurements per block
+    bits: int  # Q: index width on the wire
+
+    def wire_bits(self) -> int:
+        """Bits on the wire from the true word count: nb * (W * 32 + 32 for
+        alpha).  Q = 3 packs 10 codes a word, so M * Q would undercount."""
+        nb, w = self.codes.shape[:2]
+        return nb * (w * 32 + 32)
 
 
 # ---------------------------------------------------------------------------
@@ -280,15 +303,18 @@ def _warn_kernel_bypass_once(cfg: FedQCSConfig) -> None:
 class BQCSCodec:
     """BQCS encoder/decoder bound to a FedQCSConfig, on one device.
 
-    ``a`` injects the sensing matrix (M, N) instead of drawing it from the
-    config seed -- the way the tests hand the reference's matrix across
-    (see ``convert.from_reference``).
+    Two encode routes, as in the reference: ``use_kernels=True`` runs the
+    fused encoder kernel; ``use_kernels=False`` (the default) composes the
+    reference's XLA-algorithm stages -- exact top-S by a stable sort (or the
+    bisecting threshold with ``sparsifier="bisect"``), one fp32 GEMM, the
+    codebook's encode, then the wire packing.  ``a`` injects the sensing
+    matrix (M, N) instead of drawing it from the config seed -- the way the
+    tests hand the reference's matrix across (see
+    ``convert.from_reference``).
     """
 
     def __init__(self, cfg: FedQCSConfig, a: Optional[torch.Tensor] = None, device="cuda"):
         self.cfg = cfg.validate()
-        if not cfg.use_kernels:
-            raise not_in_slice("use_kernels=False (the XLA-algorithm routes)", "item 1")
         _warn_kernel_bypass_once(cfg)
         self.device = entry_device(device)
         self.codebook: Codebook = make_codebook(cfg)
@@ -297,40 +323,107 @@ class BQCSCodec:
         if tuple(a.shape) != (cfg.m, cfg.block_size):
             raise ValueError(f"a has shape {tuple(a.shape)}, want {(cfg.m, cfg.block_size)}")
         self._a = a.to(self.device, torch.float32).contiguous()
-        from repro_torch.kernels import ops as kops
+        if cfg.use_kernels:
+            from repro_torch.kernels import ops as kops
 
-        # the encoder's operands, made once: A^T (word-padded for the scalar
-        # families) and the family's tables (thresholds and dither, or
-        # centroids and their half squared norms)
-        self._a_t = kops.encoder_a_t(self._a, self.codebook)
-        self._tables = kops.encoder_tables(self.codebook, cfg.m, self.device)
+            # the encoder's operands, made once: A^T (word-padded for the
+            # scalar families) and the family's tables (thresholds and
+            # dither, or centroids and their half squared norms)
+            self._a_t = kops.encoder_a_t(self._a, self.codebook)
+            self._tables = kops.encoder_tables(self.codebook, cfg.m, self.device)
 
     @property
     def a(self) -> torch.Tensor:
         return self._a
 
     @property
+    def quantizer(self) -> Codebook:
+        """Back-compat alias of :attr:`codebook`, as in the reference."""
+        return self.codebook
+
+    @property
     def n_codes(self) -> int:
         return self.codebook.n_codes(self.cfg.m)
 
+    # -- encode ------------------------------------------------------------
     def compress_blocks_packed(
         self, blocks: torch.Tensor, residual: torch.Tensor, s: Optional[int] = None
     ):
         """(blocks + residual) -> (words, alpha, new_residual), eqs. 7-10 plus
-        the wire packing, in one launch of the fused encoder."""
-        from repro_torch.kernels import ops as kops
+        the wire packing: one launch of the fused encoder on the kernel
+        route; the XLA-algorithm stages, packed last, otherwise."""
+        if self.cfg.use_kernels:
+            from repro_torch.kernels import ops as kops
 
-        return kops.bqcs_encode_fused(
-            blocks, residual, self._a, self.codebook, self.cfg.s if s is None else s,
-            a_t=self._a_t, tables=self._tables,
-        )
+            return kops.bqcs_encode_fused(
+                blocks, residual, self._a, self.codebook, self.cfg.s if s is None else s,
+                a_t=self._a_t, tables=self._tables,
+            )
+        codes, alpha, new_residual = self._compress_blocks_xla(blocks, residual, s)
+        return self.pack(codes), alpha, new_residual
 
     def compress_blocks(
         self, blocks: torch.Tensor, residual: torch.Tensor, s: Optional[int] = None
     ):
-        """Unpacked uint8-index view of :meth:`compress_blocks_packed`."""
-        words, alpha, new_residual = self.compress_blocks_packed(blocks, residual, s)
-        return self.unpack(words), alpha, new_residual
+        """(blocks + residual) -> (codes, alpha, new_residual): the unpacked
+        uint8-index view.  The kernel route still runs the fused encoder and
+        unpacks the words it emits."""
+        if self.cfg.use_kernels:
+            words, alpha, new_residual = self.compress_blocks_packed(blocks, residual, s)
+            return self.unpack(words), alpha, new_residual
+        return self._compress_blocks_xla(blocks, residual, s)
+
+    def _compress_blocks_xla(
+        self, blocks: torch.Tensor, residual: torch.Tensor, s: Optional[int] = None
+    ):
+        """The reference's XLA-algorithm encode: sparsify (``cfg.sparsifier``),
+        project with one GEMM, codebook encode."""
+        cfg = self.cfg
+        s = cfg.s if s is None else s
+        carry = blocks + residual
+        if cfg.sparsifier == "bisect":
+            sparse, new_residual = sparsify.block_sparsify_threshold(carry, s)
+        else:
+            sparse, new_residual = sparsify.block_sparsify(carry, s)
+        x, alpha = sensing.project_blocks(sparse, self._a.T)
+        return self.codebook.encode(x), alpha, new_residual
+
+    def compress_tree(
+        self, grads: Dict[str, torch.Tensor], residual_blocks: torch.Tensor,
+        layout: Optional[Layout] = None,
+    ):
+        """Whole-tree encode over the monolithic layout (the default wire
+        geometry): blocks, one encoder pass over the full grid.  Returns
+        ``(CompressedGradient, layout, new_residual)``."""
+        cfg = self.cfg
+        if layout is None:
+            layout = Layout.monolithic(grads, cfg.block_size)
+        elif not isinstance(layout, Layout):
+            raise not_in_slice("per-tensor layouts and per-segment top-S budgets", "item 9")
+        words, alpha, new_res = self.compress_blocks_packed(layout.to_blocks(grads),
+                                                            residual_blocks)
+        payload = CompressedGradient(words, alpha, layout.nbar, cfg.m, self.codebook.bits)
+        return payload, layout, new_res
+
+    def zero_residual(
+        self, grads_like: Dict[str, torch.Tensor], layout: Optional[Layout] = None
+    ) -> torch.Tensor:
+        if layout is None:
+            layout = Layout.monolithic(grads_like, self.cfg.block_size)
+        return torch.zeros((layout.rows, layout.n), dtype=torch.float32, device=self.device)
+
+    # -- wire --------------------------------------------------------------
+    def pack(self, codes: torch.Tensor) -> torch.Tensor:
+        return pack_codes(codes, self.codebook.bits)
 
     def unpack(self, words: torch.Tensor) -> torch.Tensor:
+        """(..., W) words -> (..., n_codes) index view (n_codes = M / dim)."""
         return unpack_codes(words, self.codebook.bits, self.n_codes)
+
+    # -- decode helpers ------------------------------------------------------
+    def dequantize(self, codes: torch.Tensor) -> torch.Tensor:
+        return self.codebook.decode(codes, self.cfg.m)
+
+    def dequantize_packed(self, words: torch.Tensor) -> torch.Tensor:
+        """Reconstruction values straight from packed wire words (..., W)."""
+        return self.codebook.decode_packed(words, self.cfg.m)

@@ -16,10 +16,10 @@ Two routes, dispatched as the reference dispatches them:
     and for the vq EA fallback;
   * the reference's XLA loop ``_gamp_run``, ported as plain PyTorch: scalar
     or exact variance, damping, and the sticky early freeze at ``tol`` with
-    per-block ``converged``/``iters`` outputs.  It serves every other config,
-    and the dithered EA decode on either route (the step kernel has no
-    per-lane edge shift).  ``early_stop=True`` (the data-dependent trip
-    count) is not ported.
+    per-block ``converged``/``iters`` outputs, and ``early_stop`` (the
+    data-dependent trip count).  It serves every other config, and the
+    dithered EA decode on either route (the step kernel has no per-lane
+    edge shift).
 
 The loop ports the reference's own ``_input_channel``/``_em_update`` rather
 than the kernels' ``gm_prior``, whose numerics belong to the kernels.
@@ -34,11 +34,10 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_in_slice
-
 __all__ = [
     "GampConfig",
     "GampInfo",
+    "gamp_health",
     "qem_gamp",
     "qem_gamp_packed",
     "em_gamp",
@@ -60,11 +59,13 @@ class GampConfig:
 
     n_components: int = 3  # L
     iters: int = 25  # fixed trip count
-    tol: float = 1e-5  # early-freeze tolerance (XLA route only)
+    tol: float = 1e-5  # early-freeze tolerance (plain loop only)
     damping: float = 1.0
     variance_mode: str = "exact"  # "exact" | "scalar"
     em: bool = True
     lam0_init: float = 0.9
+    # end the plain loop once every block froze (outputs identical to the
+    # fixed trip count; one host sync an iteration)
     early_stop: bool = False
 
 
@@ -278,11 +279,9 @@ def _gamp_run(
 ):
     """``cfg.iters`` GAMP iterations on every block at once.  A block whose
     update falls below ``tol`` of its energy freezes (sticky), so its output
-    is the state at its freeze.  Returns (ghat, nu_g, theta, converged,
-    iters); dead rows (alpha == 0) are frozen from the start and come out
-    zero."""
-    if cfg.early_stop and cfg.tol > 0.0:
-        raise not_in_slice("GAMP with early_stop=True (the data-dependent trip count)", "item 2")
+    is the state at its freeze; with ``cfg.early_stop`` the loop ends once
+    every block froze.  Returns (ghat, nu_g, theta, converged, iters); dead
+    rows (alpha == 0) are frozen from the start and come out zero."""
     dev = a.device
     alpha = alpha.to(torch.float32)
     alive = alpha > 0.0
@@ -299,7 +298,14 @@ def _gamp_run(
     shat = torch.zeros((nblocks, m), dtype=torch.float32, device=dev)
     converged = ~alive
     iters = torch.zeros((nblocks,), dtype=torch.int32, device=dev)
+    early_stop = cfg.early_stop and cfg.tol > 0.0
     for _ in range(cfg.iters):
+        # the reference's while_loop tests "not all converged" before each
+        # body, so a batch of dead rows runs 0 iterations; a frozen block is
+        # a no-op, so the outputs equal the fixed trip count's.  The test is
+        # one host sync an iteration: the price of the data-dependent count.
+        if early_stop and bool(converged.all()):
+            break
         iters = iters + (~converged).to(torch.int32)
         if scalar_var:
             nu_p = (al2 / m * torch.sum(nu_g, dim=-1, keepdim=True)).expand(nblocks, m)
@@ -332,6 +338,22 @@ def _gamp_run(
         theta = tuple(_freeze(converged, old, new) for old, new in zip(theta, theta_new))
     ghat = torch.where(alive[:, None], ghat, torch.zeros_like(ghat))
     return ghat, nu_g, theta, converged, iters
+
+
+def gamp_health(info: GampInfo, live: Optional[torch.Tensor] = None):
+    """Scalar summary of a GampInfo batch for the telemetry layer: mean and
+    max live iterations and the converged-before-cap fraction over the
+    ``live`` problem mask (default: all).  Returns a dict of f32 0-d
+    tensors."""
+    conv = info.converged.reshape(-1).to(torch.float32)
+    iters = info.iters.reshape(-1).to(torch.float32)
+    lf = torch.ones_like(iters) if live is None else live.reshape(-1).to(torch.float32)
+    nlive = torch.clamp(torch.sum(lf), min=1.0)
+    return {
+        "gamp_iters_mean": torch.sum(iters * lf) / nlive,
+        "gamp_iters_max": torch.max(iters * lf),
+        "gamp_converged_frac": torch.sum(conv * lf) / nlive,
+    }
 
 
 def _kernel_dispatch_ok(cfg: GampConfig) -> bool:

@@ -1,17 +1,21 @@
 """PS-side gradient reconstruction strategies (paper Sec. IV, Procedure 1),
 port of ``repro.core.reconstruction``.
 
-  * estimate_and_aggregate_packed (FedQCS-EA, steps 12-14): Q-EM-GAMP per
-    (worker, block) straight from the packed wire words, then the
-    rho-weighted sum.  This is the reference's monolithic (``chunk=0``)
-    ``recon_engine.ea_decode`` inlined: K*nb rows, one solve, dispatched per
-    codebook family as the reference does (lloyd_max -> ``qgamp_step``,
-    vq -> ``gamp_step`` on the Bussgang AWGN fallback, dithered_uniform ->
-    the plain GAMP loop, whose channel shifts the cell edges per lane).
+  * estimate_and_aggregate (FedQCS-EA, steps 12-14): Q-EM-GAMP per
+    (worker, block), then the rho-weighted sum, from the code indices or --
+    ``estimate_and_aggregate_packed`` -- straight from the packed wire
+    words.  Both delegate to the chunked engine
+    (``recon_engine.ea_decode``), which dispatches per codebook family as
+    the reference does (lloyd_max -> ``qgamp_step``, vq -> ``gamp_step`` on
+    the Bussgang AWGN fallback, dithered_uniform -> the plain GAMP loop,
+    whose channel shifts the cell edges per lane; every family takes the
+    plain loop off the kernel route).
   * aggregate_and_estimate (FedQCS-AE, steps 16-20): Bussgang-combine all K
     workers, one EM-GAMP solve.  The reference's G > 1 groups are not ported.
 
-A worker with rho_k = 0 contributes exactly nothing.
+Payloads: codes (K, nb, n_codes) uint8 or words (K, nb, W) uint32, alphas
+(K, nb), rhos (K,) summing to 1.  A worker with rho_k = 0 contributes
+exactly nothing.
 """
 
 from __future__ import annotations
@@ -22,9 +26,14 @@ import torch
 
 from repro_torch import not_in_slice
 from repro_torch.core import bussgang
-from repro_torch.core.gamp import GampConfig, em_gamp, qem_gamp_packed
+from repro_torch.core.gamp import GampConfig, em_gamp
 
-__all__ = ["estimate_and_aggregate_packed", "aggregate_and_estimate", "gamp_config_from"]
+__all__ = [
+    "estimate_and_aggregate",
+    "estimate_and_aggregate_packed",
+    "aggregate_and_estimate",
+    "gamp_config_from",
+]
 
 
 def gamp_config_from(codec, iters: Optional[int] = None) -> GampConfig:
@@ -36,6 +45,33 @@ def gamp_config_from(codec, iters: Optional[int] = None) -> GampConfig:
     )
 
 
+def _ea(codec, obs, alphas, rhos, gamp, use_kernels, chunk, with_info, packed):
+    from repro_torch.core import recon_engine  # layering: the engine imports this module
+
+    return recon_engine.ea_decode(
+        codec, obs, alphas, rhos, gamp or gamp_config_from(codec), packed=packed,
+        use_kernels=codec.cfg.use_kernels if use_kernels is None else use_kernels,
+        chunk=codec.cfg.recon_chunk if chunk is None else chunk, with_info=with_info,
+    )
+
+
+def estimate_and_aggregate(
+    codec,
+    codes: torch.Tensor,  # (K, nb, n_codes)
+    alphas: torch.Tensor,  # (K, nb)
+    rhos: torch.Tensor,  # (K,)
+    gamp: Optional[GampConfig] = None,
+    use_kernels: Optional[bool] = None,
+    chunk: Optional[int] = None,
+    with_info: bool = False,
+):
+    """FedQCS-EA from the code indices -> (nb, N) aggregated blocks, or
+    ``(blocks, GampInfo)`` with (K, nb)-shaped info.  ``use_kernels``
+    defaults to ``cfg.use_kernels``, ``chunk`` (rows per engine chunk, 0 =
+    one batch) to ``cfg.recon_chunk``."""
+    return _ea(codec, codes, alphas, rhos, gamp, use_kernels, chunk, with_info, packed=False)
+
+
 def estimate_and_aggregate_packed(
     codec,
     words: torch.Tensor,  # (K, nb, W) uint32 packed wire words
@@ -44,21 +80,11 @@ def estimate_and_aggregate_packed(
     gamp: Optional[GampConfig] = None,
     use_kernels: Optional[bool] = None,
     chunk: Optional[int] = None,
-) -> torch.Tensor:
-    """FedQCS-EA from the wire words -> (nb, N) aggregated blocks."""
-    gamp = gamp or gamp_config_from(codec)
-    if use_kernels is None:
-        use_kernels = codec.cfg.use_kernels
-    if chunk is None:
-        chunk = codec.cfg.recon_chunk
-    if chunk:
-        raise not_in_slice(f"chunked EA decode (recon_chunk={chunk})", "item 2")
-    k, nb = words.shape[:2]
-    flat = qem_gamp_packed(
-        words.reshape(k * nb, -1), alphas.reshape(k * nb), codec.a, codec.codebook,
-        gamp, codec.cfg.m, use_kernels=use_kernels,
-    )
-    return torch.einsum("k,kbn->bn", rhos, flat.reshape(k, nb, -1))
+    with_info: bool = False,
+):
+    """FedQCS-EA straight from the wire words; bit-identical to
+    :func:`estimate_and_aggregate` on the unpacked codes."""
+    return _ea(codec, words, alphas, rhos, gamp, use_kernels, chunk, with_info, packed=True)
 
 
 def aggregate_and_estimate(
@@ -69,8 +95,10 @@ def aggregate_and_estimate(
     groups: int = 1,
     gamp: Optional[GampConfig] = None,
     use_kernels: Optional[bool] = None,
-) -> torch.Tensor:
-    """FedQCS-AE: Bussgang-aggregate all K workers, one EM-GAMP solve (G = 1)."""
+    with_info: bool = False,
+):
+    """FedQCS-AE: Bussgang-aggregate all K workers, one EM-GAMP solve (G = 1).
+    ``with_info`` returns ``(blocks, GampInfo)`` with (nb,)-shaped info."""
     if groups != 1:
         raise not_in_slice(f"AE decode in G={groups} groups", "item 6")
     gamp = gamp or gamp_config_from(codec)
@@ -82,5 +110,5 @@ def aggregate_and_estimate(
         bussgang.effective_noise_var(alphas, rhos, q),
         codec.a, gamp,
         init_var=bussgang.signal_energy(alphas, rhos, codec.cfg.m, codec.cfg.block_size),
-        use_kernels=use_kernels,
+        use_kernels=use_kernels, with_info=with_info,
     )

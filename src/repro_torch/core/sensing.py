@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sensing_matrix", "scale_factor"]
+__all__ = ["sensing_matrix", "scale_factor", "project_blocks"]
 
 
 def sensing_matrix(seed: int, m: int, n: int, device="cuda") -> torch.Tensor:
@@ -29,3 +29,11 @@ def scale_factor(blocks: torch.Tensor, m: int, eps: float = 1e-20) -> torch.Tens
     norms = torch.linalg.vector_norm(blocks, dim=-1)
     root_m = float(np.sqrt(np.float32(m)))
     return torch.where(norms > eps, root_m / norms, torch.zeros_like(norms))
+
+
+def project_blocks(blocks: torch.Tensor, a_t: torch.Tensor):
+    """x = alpha * (A @ g) for every block, batched as one GEMM (IEEE fp32:
+    the entry points turn TF32 off).  blocks (nb, N), a_t (N, M).  Returns
+    (x (nb, M) unit-variance projections, alpha (nb,))."""
+    alpha = scale_factor(blocks, a_t.shape[1])
+    return (blocks @ a_t) * alpha[:, None], alpha

@@ -4,19 +4,20 @@ One round is two passes:
 
   * **client pass** -- every cohort member's gradient, batched through
     ``torch.func.vmap(torch.func.grad(loss))``, flattened to its
-    ``(nb, N)`` block grid, then ONE fused-encoder launch over all
-    ``C * nb`` block rows (every encoder stage is per block, so batching
-    the rows is the reference's vmapped encode).
+    ``(nb, N)`` block grid, then ONE encode over all ``C * nb`` block rows
+    (one fused-encoder launch on the kernel route; every encoder stage is
+    per block, so batching the rows is the reference's vmapped encode).
   * **PS pass** -- reconstruction from the stacked payloads: ``fedqcs-ea``
-    decodes the packed words per (client, block) and rho-sums;
-    ``fedqcs-ae`` Bussgang-combines the codes and runs one EM-GAMP solve.
+    decodes the packed words per (client, block), in chunks of
+    ``recon_chunk`` rows, and rho-sums; ``fedqcs-ae`` Bussgang-combines the
+    codes and runs one EM-GAMP solve.
 
 Then the FedAdam server step.  Participation contract: a cohort slot with
 ``rho_k = 0`` contributes nothing and its error-feedback residual carries
 the full gradient forward.  This slice ports the ``fedqcs-ae`` and
 ``fedqcs-ea`` methods over the ideal uplink with the full scheduler; the
-other methods, the streamed and chunked passes, the loop oracle and the
-telemetry hooks raise ``NotImplementedError``.
+other methods, the streamed and chunked client passes, the loop oracle
+and the telemetry hooks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ class CohortEngine:
         return self.layout.to_blocks_batched(self._vgrad(batch))
 
     def _client_pass(self, batch, residuals, rhos):
-        """Gradients + one fused-encoder launch over all C * nb rows."""
+        """Gradients + one encode over all C * nb rows."""
         blocks = self._grad_blocks(batch)
         c = blocks.shape[0]
         words, alpha, enc_res = self.codec.compress_blocks_packed(

@@ -114,8 +114,11 @@ def run_federated(
     a: Optional[torch.Tensor] = None,
 ) -> RunResult:
     """Runs the federated loop on the cohort engine; returns the accuracy /
-    NMSE traces.  Defaults reproduce the paper's experiment on the kernel
-    route (``use_kernels=True``, ``gamp_variance_mode="scalar"``).
+    NMSE traces.  The default ``fed_cfg`` is the reference's:
+    ``FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25)``,
+    i.e. the XLA-algorithm route (``use_kernels=False``: exact top-S, one
+    GEMM, exact-variance GAMP on the plain loop); pass
+    ``use_kernels=True, gamp_variance_mode="scalar"`` for the kernel route.
     ``params`` and ``a`` inject an initial parameter dict and sensing matrix
     (e.g. the reference's, via ``convert.from_reference``) in place of the
     port's own seeded draws."""
@@ -124,10 +127,7 @@ def run_federated(
     parts = partition_indices(
         ytr, k_devices, PartitionConfig(kind=partition, alpha=alpha, seed=seed)
     )
-    fed_cfg = fed_cfg or FedQCSConfig(
-        reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25,
-        use_kernels=True, gamp_variance_mode="scalar",
-    )
+    fed_cfg = fed_cfg or FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25)
     # Paper blocking: B=10 blocks -> N = ceil(15910/10) = 1591.
     fed_cfg = dataclasses.replace(fed_cfg, block_size=1591)
     if params is None:

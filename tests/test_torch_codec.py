@@ -222,8 +222,38 @@ def test_config_validation_matches_reference(bad):
     (dict(use_kernels=False, codebook="dithered_uniform"), "item 1"),
 ])
 def test_routes_outside_the_slice_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcomp.BQCSCodec(tcomp.FedQCSConfig(block_size=64, reduction_ratio=2, **kw), device="cpu")
+    """These codec routes raised until ROADMAP queue 1 ``item`` ported them:
+    with ``use_kernels=False`` the codec now encodes as the reference's XLA
+    route for each codebook -- residual bit-identical, alpha to rtol 1e-6,
+    a code differing only within 1e-5 of a decision (threshold or vq
+    centroid-score tie), as the fused encoder's contract."""
+    cfg_kw = dict(block_size=64, reduction_ratio=2, **kw)
+    jcodec = jcomp.BQCSCodec(jcomp.FedQCSConfig(**cfg_kw))
+    _, a = from_reference({}, np.asarray(jcodec.a))
+    tcodec = tcomp.BQCSCodec(tcomp.FedQCSConfig(**cfg_kw), a=a, device="cpu")
+    rng = np.random.default_rng(len(item) + len(kw))
+    blocks = rng.normal(0, 0.1, (9, 64)).astype(np.float32)
+    res = rng.normal(0, 0.02, (9, 64)).astype(np.float32)
+    blocks[4] = res[4] = 0.0  # a dead block
+    cj, aj, rj = jcodec.compress_blocks(jnp.asarray(blocks), jnp.asarray(res))
+    wt, at_, rt = tcodec.compress_blocks_packed(torch.as_tensor(blocks), torch.as_tensor(res))
+    assert wt.dtype == torch.uint32 and float(at_[4]) == 0.0
+    assert np.array_equal(np.asarray(rj), rt.numpy())
+    np.testing.assert_allclose(at_.numpy(), np.asarray(aj), rtol=1e-6)
+    ct = tcodec.unpack(wt).numpy()
+    diff = ct != np.asarray(cj)
+    if diff.any():
+        x = ((torch.as_tensor(blocks + res) - rt) @ tcodec.a.T * at_[:, None]).numpy()
+        cb = tcodec.codebook
+        if cb.dim > 1:
+            c = cb.centroids.astype(np.float32)
+            sc = np.einsum("rjg,lj->rgl", x.reshape(9, cb.dim, -1), c) - 0.5 * (c * c).sum(1)
+            pick = lambda k: np.take_along_axis(sc, k[..., None].astype(np.int64), -1)[..., 0]
+            gap = np.abs(pick(ct) - pick(np.asarray(cj)))
+        else:
+            x = x if cb.dither is None else x + cb.dither.astype(np.float32)
+            gap = np.min(np.abs(x[..., None] - cb.thresholds.astype(np.float32)), axis=-1)
+        assert gap[diff].max() < 1e-5
 
 
 def test_exact_variance_on_the_kernel_route_warns_once(monkeypatch):
@@ -234,6 +264,8 @@ def test_exact_variance_on_the_kernel_route_warns_once(monkeypatch):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tcomp.BQCSCodec(tcomp.FedQCSConfig(gamp_variance_mode="scalar", **kw), device="cpu")
+        # the default route never warns: exact variance is its own algorithm
+        tcomp.BQCSCodec(tcomp.FedQCSConfig(block_size=64, reduction_ratio=2), device="cpu")
     with pytest.warns(UserWarning, match="gamp_variance_mode='scalar'"):
         tcomp.BQCSCodec(tcomp.FedQCSConfig(**kw), device="cpu")
     with warnings.catch_warnings():

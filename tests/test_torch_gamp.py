@@ -14,6 +14,8 @@ for CPU tensors.  Contracts, each with its reason:
   * FedAdam server update: allclose rtol 1e-6.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -317,10 +319,25 @@ def test_fedadam_server_update_matches_reference(step):
     (dict(variance_mode="exact", early_stop=True), "item 2"),
 ])
 def test_gamp_routes_outside_the_slice_raise(kw, item, use_kernels):
-    """early_stop=True (the reference's data-dependent trip count) is not
-    ported, on either route: the kernel route never takes it and the plain
-    loop raises."""
-    a = torch.zeros((4, 12))
-    with pytest.raises(NotImplementedError, match=item):
-        tgamp.em_gamp(torch.ones((2, 4)), torch.ones(2), a, tgamp.GampConfig(**kw),
-                      use_kernels=use_kernels)
+    """early_stop=True (the reference's data-dependent trip count) raised
+    until ROADMAP queue 1 ``item`` ported it.  On either route it now runs
+    the plain loop (the kernels have a fixed trip count), ends once every
+    block froze, and is bit-identical to the fixed trip count; the
+    reference's early-stopped decode agrees to NMSE 1e-4."""
+    rng = np.random.default_rng(3)
+    nb, n = 6, 384
+    jc, tc = _codecs(n)
+    g = _sparse_blocks(rng, nb, n, 30)
+    y = g @ np.asarray(jc.a).T + rng.normal(0, 0.01, (nb, jc.cfg.m)).astype(np.float32)
+    y[2] = 0.0  # a block with nothing to find
+    nu = np.full((nb,), 1e-4, np.float32)
+    es = tgamp.GampConfig(tol=1e-3, **kw)
+    fixed = dataclasses.replace(es, early_stop=False)
+    got, info = tgamp.em_gamp(T(y), T(nu), tc.a, es, use_kernels=use_kernels, with_info=True)
+    want, info_f = tgamp.em_gamp(T(y), T(nu), tc.a, fixed, use_kernels=False, with_info=True)
+    assert torch.equal(got, want)
+    assert torch.equal(info.iters, info_f.iters) and torch.equal(info.converged, info_f.converged)
+    assert int(info.iters.max()) < es.iters  # every block froze before the cap
+    ref = jgamp.em_gamp(J(y), J(nu), jc.a, jgamp.GampConfig(tol=1e-3, **kw),
+                        use_pallas=use_kernels)
+    assert _nmse(got, ref) <= 1e-4

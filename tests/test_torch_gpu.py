@@ -472,3 +472,122 @@ def test_gamp_loop_on_the_card_matches_the_cpu(cuda):
     (g_c, info_c), (g_p, info_p) = outs
     assert _nmse(g_c.cpu(), g_p) <= 1e-4
     assert float((info_c.iters.cpu() == info_p.iters).float().mean()) >= 0.99
+
+
+# -- slice 7: the default (XLA-algorithm) route, the chunked and early-stop decode --------
+
+
+def _xla_and_cpu_codecs(family, cuda, **kw):
+    from repro_torch.core.compression import BQCSCodec, FedQCSConfig
+
+    cfg = FedQCSConfig(block_size=1591, reduction_ratio=3, bits=3, s_ratio=0.1, codebook=family,
+                       **kw)
+    card = BQCSCodec(cfg, device=cuda)
+    return card, BQCSCodec(cfg, a=card.a.cpu(), device="cpu")
+
+
+@pytest.mark.parametrize("sparsifier", ["topk", "bisect"])
+@pytest.mark.parametrize("family", ["lloyd_max", "dithered_uniform", "vq"])
+def test_default_route_encode_matches_its_cpu_run(cuda, family, sparsifier):
+    """The XLA-route encode (sort top-S or bisection, cuBLAS fp32 GEMM,
+    searchsorted, pack) on the card against the same codec on the CPU: no
+    kernel launches, resid bit-identical, alpha rtol 1e-6, a code differing
+    only within 1e-5 of a decision (the GEMMs sum in other orders)."""
+    from repro_torch.core import sensing
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+
+    card, cpu = _xla_and_cpu_codecs(family, cuda, sparsifier=sparsifier)
+    blocks, resid, _, _ = _encode_inputs(300, 1591, 530, 3, seed=21, dev=cuda)
+    n0 = enc_mod.launches
+    words, alpha, res = card.compress_blocks_packed(blocks, resid)
+    torch.cuda.synchronize()
+    assert enc_mod.launches == n0
+    words_c, alpha_c, res_c = cpu.compress_blocks_packed(blocks.cpu(), resid.cpu())
+    assert torch.equal(res.cpu(), res_c)
+    torch.testing.assert_close(alpha.cpu(), alpha_c, rtol=1e-6, atol=0.0)
+    codes, codes_c = card.unpack(words), card.unpack(words_c.to(cuda))
+    diff = codes != codes_c
+    if diff.any():
+        y, _ = sensing.project_blocks(blocks + resid - res, card.a.T)
+        cb = card.codebook
+        if cb.dim > 1:
+            gap = _vq_score_gap(y, cb, codes, codes_c)
+        else:
+            yd = y if cb.dither is None else y + cb.dither_t(cuda)
+            gap = torch.amin(torch.abs(yd[..., None] - cb.thresholds_t(cuda)), dim=-1)
+        assert float(gap[diff].max()) < 1e-5
+
+
+def _ea_payload(family, cuda, seed=4):
+    from repro_torch.core.compression import BQCSCodec, FedQCSConfig
+
+    cfg = FedQCSConfig(block_size=1591, reduction_ratio=3, bits=3, s_ratio=0.1, codebook=family,
+                       use_kernels=True, gamp_variance_mode="scalar")
+    codec = BQCSCodec(cfg, device=cuda)
+    blocks, resid, _, _ = _encode_inputs(300, 1591, 530, 3, seed=seed, dev=cuda)
+    words, alpha, _ = codec.compress_blocks_packed(blocks, resid)
+    rhos = torch.full((30,), 1.0 / 30, device=cuda)
+    return codec, words.reshape(30, 10, -1), alpha.reshape(30, 10), rhos
+
+
+@pytest.mark.parametrize("family,kernel", [("lloyd_max", "qgamp_step"), ("vq", "gamp_step")])
+def test_chunked_kernel_ea_matches_unchunked(cuda, family, kernel):
+    """recon_chunk=64 over 300 rows: 5 chunks, the last with 20 dead rows,
+    25 step launches each; NMSE <= 1e-4 against the monolithic decode (the
+    reference's chunked-vs-monolithic contract), dead row 0 exactly zero."""
+    import importlib
+
+    from repro_torch.core.recon_engine import ea_solve_flat
+    from repro_torch.core.reconstruction import estimate_and_aggregate_packed, gamp_config_from
+
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    codec, words, alpha, rhos = _ea_payload(family, cuda)
+    mono = estimate_and_aggregate_packed(codec, words, alpha, rhos, chunk=0)
+    n0 = mod.launches
+    chunked = estimate_and_aggregate_packed(codec, words, alpha, rhos, chunk=64)
+    torch.cuda.synchronize()
+    assert mod.launches - n0 == 25 * 5
+    assert _nmse(chunked, mono) <= 1e-4
+    flat = ea_solve_flat(codec, words.reshape(300, -1), alpha.reshape(300),
+                         gamp_config_from(codec), packed=True, use_kernels=True, chunk=64)
+    assert not flat[0].any()
+
+
+@pytest.mark.parametrize("variance", ["exact", "scalar"])
+def test_early_stop_bit_identical_on_the_card(cuda, variance):
+    from repro_torch.core.gamp import GampConfig
+    from repro_torch.core.reconstruction import estimate_and_aggregate_packed
+
+    codec, words, alpha, rhos = _ea_payload("lloyd_max", cuda, seed=6)
+    cfg = GampConfig(iters=25, variance_mode=variance, tol=1e-2)
+    fixed, info_f = estimate_and_aggregate_packed(codec, words, alpha, rhos, cfg,
+                                                  use_kernels=False, chunk=64, with_info=True)
+    early, info = estimate_and_aggregate_packed(
+        codec, words, alpha, rhos, GampConfig(iters=25, variance_mode=variance, tol=1e-2,
+                                              early_stop=True),
+        use_kernels=True, chunk=64, with_info=True)  # early_stop keeps the plain loop
+    torch.cuda.synchronize()
+    assert torch.equal(early, fixed)
+    assert torch.equal(info.iters, info_f.iters) and torch.equal(info.converged, info_f.converged)
+
+
+def test_two_phase_on_the_card_matches_its_composition(cuda):
+    """The two-phase sweep from the packed words on the card (its survivor
+    gather reads uint32 rows) against its composition: the scalar pass,
+    then the exact re-solve of the unconverged rows; NMSE <= 1e-6."""
+    import dataclasses
+
+    from repro_torch.core.gamp import GampConfig, _qem_gamp_xla
+    from repro_torch.core.recon_engine import ea_decode_two_phase
+
+    codec, words, alpha, rhos = _ea_payload("lloyd_max", cuda, seed=9)
+    cfg = GampConfig(iters=25, variance_mode="scalar", tol=1e-3)
+    out, stats = ea_decode_two_phase(codec, words, alpha, rhos, cfg, packed=True)
+    codes, flat_a = codec.unpack(words.reshape(300, -1)), alpha.reshape(300)
+    ghat, conv, _ = _qem_gamp_xla(codes, flat_a, codec.a, codec.codebook, cfg)
+    surv = torch.nonzero(~conv).flatten()
+    assert surv.numel() == stats["phase2_rows"] > 0
+    exact = dataclasses.replace(cfg, variance_mode="exact")
+    refined, _, _ = _qem_gamp_xla(codes[surv], flat_a[surv], codec.a, codec.codebook, exact)
+    ghat = ghat.index_copy(0, surv, refined)
+    assert _nmse(out, torch.einsum("k,kbn->bn", rhos, ghat.reshape(30, 10, -1))) <= 1e-6

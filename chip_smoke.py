@@ -41,11 +41,24 @@ Phases (any failure raises and the script exits non-zero):
     versions (NMSE <= 1e-3); early stop (bit-identical to the fixed trip
     count) and the two-phase sweep (NMSE <= 1e-6 of its composition) on the
     default EA round's payload.
- 6. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
-    [main] and [routes]: each round's device busy time (the device events
+ 6. [baselines] ``run_federated`` at full width for qcs-qiht on the kernel
+    route and on the default config, and qcs-dither, signsgd and none on
+    the default config (2 rounds each): launch counts (the fused encoder
+    once a QIHT kernel-route round, every other count 0), and round 0
+    against the same round on the CPU (the same A, weights and draws): QIHT
+    wire lanes differ only within 1e-5 of a threshold, the decoded
+    aggregate to NMSE <= 1e-3, QIHT's flipped support entries printed.
+ 7. [channels] fedqcs-ae with lloyd_max on the kernel route over awgn 20 dB,
+    rayleigh 20 dB (outages printed, the scheduler's un-stamp checked),
+    mimo_mac lmmse (n_rx=8) and mimo_mac zf (n_rx=32, csi_error=0.01), 2
+    rounds each: 25 gamp_step launches a round, nu_quant / nu_channel /
+    nmse per round, round 0 against the plain versions with the same draws
+    (NMSE <= 1e-3); fedqcs-ea and qcs-dither over awgn raise ValueError.
+ 8. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
+    [main], [routes], [baselines] and [channels]: each round's device busy time (the device events
     that start inside its ``run_round``), the steady rounds' mean beside
     their unprofiled wall time (the idle share), and the top device events.
- 7. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 9. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
@@ -623,7 +636,7 @@ def phase_main_path(dev):
         want = dict({k: v * rounds for k, v in per_round.items()}, topk=0, staged=0)
         check(counts == want, f"{label}: launches {counts}, want {want}")
         per_run[(method, codebook, variance)] = counts
-        round_ms[label] = (method, fed_cfg(codebook, variance), res.round_ms)
+        round_ms[label] = (method, fed_cfg(codebook, variance), res.round_ms, {})
 
     # the same round from the same A and init, kernels vs plain versions
     for method, codebook, variance, _, _ in MAIN_RUNS:
@@ -646,29 +659,67 @@ def phase_main_path(dev):
 
 @contextlib.contextmanager
 def captured_rounds():
-    """Records each round's client-pass payload and blocks, the engine, and
-    the PS pass's decoded aggregate (one dict per round) while runs go on."""
+    """Records each round's client-pass payload (``words`` or ``codes``,
+    ``alpha``) and blocks, the engine, the PS pass's decoded aggregate,
+    stats and channel mask, and QIHT's per-row decode where it runs (one
+    dict per round) while runs go on."""
+    from repro_torch.core import baselines
     from repro_torch.fed.engine import CohortEngine
 
     rounds = []
     client_pass, ps = CohortEngine._client_pass, CohortEngine._ps
+    qiht = baselines.qiht_reconstruct
 
     def cp(self, *args):
         out = client_pass(self, *args)
-        rounds.append(dict(engine=self, words=out[0]["words"], alpha=out[0]["alpha"],
-                           blocks=out[1]))
+        rounds.append(dict(engine=self, words=out[0].get("words"), codes=out[0].get("codes"),
+                           alpha=out[0].get("alpha"), blocks=out[1]))
         return out
 
-    def psf(self, payload, blocks, rhos):
-        out = ps(self, payload, blocks, rhos)
-        rounds[-1].update(ghat=out[0], rhos=rhos)
+    def psf(self, payload, blocks, rhos, real=None, draw=None):
+        out = ps(self, payload, blocks, rhos, real, draw)
+        rounds[-1].update(ghat=out[0], stats=out[1], rhos=rhos,
+                          mask=None if real is None else real.mask)
+        return out
+
+    def qiht_f(*args, **kwargs):
+        out = qiht(*args, **kwargs)
+        rounds[-1]["qiht"] = out
         return out
 
     CohortEngine._client_pass, CohortEngine._ps = cp, psf
+    baselines.qiht_reconstruct = qiht_f
     try:
         yield rounds
     finally:
         CohortEngine._client_pass, CohortEngine._ps = client_pass, ps
+        baselines.qiht_reconstruct = qiht
+
+
+def wire_vs_cpu(label, k0, c0, dev):
+    """Round 0's wire lanes on the card against the same round on the CPU
+    (``captured_rounds`` records; round 0 starts from zero residuals): a
+    lane may differ only where its projection lies within 1e-5 of a
+    threshold.  Returns (differing lanes, lanes)."""
+    import torch
+
+    from repro_torch.core.sensing import project_blocks
+    from repro_torch.core.sparsify import block_sparsify
+
+    codec = k0["engine"].codec
+
+    def codes(r):
+        return (codec.unpack(r["words"]) if r["words"] is not None else r["codes"]).reshape(-1, M)
+
+    sparse, _ = block_sparsify(k0["blocks"].reshape(-1, N), codec.cfg.s)
+    x, _ = project_blocks(sparse, codec.a.T)
+    gap = torch.amin(torch.abs(x[..., None] - codec.codebook.thresholds_t(dev)), dim=-1)
+    diff = codes(k0) != codes(c0).to(dev)
+    n_diff = int(diff.sum())
+    if n_diff:
+        check(float(gap[diff].max()) < 1e-5, f"{label}: a wire lane differs from the CPU "
+              "run's away from a threshold")
+    return n_diff, diff.numel()
 
 
 def phase_routes(dev):
@@ -686,8 +737,6 @@ def phase_routes(dev):
     from repro_torch.core.compression import FedQCSConfig
     from repro_torch.core.gamp import GampConfig, _qem_gamp_xla
     from repro_torch.core.reconstruction import estimate_and_aggregate_packed
-    from repro_torch.core.sensing import project_blocks
-    from repro_torch.core.sparsify import block_sparsify
     from repro_torch.paper.mlp import run_federated
 
     zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
@@ -708,23 +757,15 @@ def phase_routes(dev):
         codec = k0["engine"].codec
         check(not codec.cfg.use_kernels and codec.cfg.gamp_variance_mode == "exact",
               f"{label}: run_federated's default config is not the reference's")
-        sparse, _ = block_sparsify(k0["blocks"].reshape(-1, N), codec.cfg.s)
-        x, _ = project_blocks(sparse, codec.a.T)
-        gap = torch.amin(torch.abs(x[..., None] - codec.codebook.thresholds_t(dev)), dim=-1)
-        diff = codec.unpack(k0["words"]).reshape(-1, M) != codec.unpack(
-            c0["words"]).reshape(-1, M).to(dev)
-        n_diff = int(diff.sum())
-        if n_diff:
-            check(float(gap[diff].max()) < 1e-5, f"{label}: a wire lane differs from the CPU "
-                  "run's away from a threshold")
+        n_diff, lanes = wire_vs_cpu(label, k0, c0, dev)
         e = nmse(k0["ghat"], c0["ghat"].to(dev))
         check(e <= 1e-3, f"{label}: round 0 on the card vs the CPU: NMSE {e:.3g} > 1e-3")
         print(f"[routes] {label} (XLA route, exact variance): nmse "
               f"{[round(v, 6) for v in res.nmses]} round ms "
               f"{[round(v, 2) for v in res.round_ms]} launches {counts}; round 0 vs the same "
-              f"round on the CPU: {n_diff} of {diff.numel()} wire lanes differ (each within "
+              f"round on the CPU: {n_diff} of {lanes} wire lanes differ (each within "
               f"1e-5 of a threshold), decoded gradient NMSE {e:.3g} (<= 1e-3)")
-        round_ms[label] = (method, default_cfg, res.round_ms)
+        round_ms[label] = (method, default_cfg, res.round_ms, {})
         if method == "fedqcs-ea":
             ea_round = k0
 
@@ -760,7 +801,7 @@ def phase_routes(dev):
               f"round ms {[round(v, 2) for v in res.round_ms]} launches {counts}; round 0 vs "
               f"recon_chunk=0: NMSE {e_mono:.3g} (<= 1e-4); vs the plain versions on the card: "
               f"NMSE {e_plain:.3g} (<= 1e-3)")
-        round_ms[label] = ("fedqcs-ea", cfg, res.round_ms)
+        round_ms[label] = ("fedqcs-ea", cfg, res.round_ms, {})
         branch = "bqcs_encode_fused" + ("[vq]" if codebook == "vq" else "")
         step = f"{kernel}_step[{CHUNK_ROWS} rows]"
         launches[branch], launches[step] = counts["encode"], counts[kernel]
@@ -805,10 +846,215 @@ def phase_routes(dev):
     return launches, round_ms
 
 
+# [baselines]: (method, route, kernel route?, launches per round).  Only the
+# fused encoder launches, once a QIHT round on the kernel route; QIHT's
+# decode, the dither codec, SignSGD and no compression run no kernel.
+BASELINE_RUNS = (
+    ("qcs-qiht", "kernel route", True, dict(encode=1)),
+    ("qcs-qiht", "default config", False, {}),
+    ("qcs-dither", "default config", False, {}),
+    ("signsgd", "default config", False, {}),
+    ("none", "default config", False, {}),
+)
+# [channels]: fedqcs-ae with lloyd_max on the kernel route over each noisy
+# uplink (run_federated's channel arguments); 25 gamp_step launches a round.
+CHANNEL_RUNS = (
+    ("awgn 20 dB", dict(channel="awgn", snr_db=20.0)),
+    ("rayleigh 20 dB", dict(channel="rayleigh", snr_db=20.0)),
+    ("mimo_mac lmmse n_rx=8", dict(channel="mimo_mac", n_rx=8)),
+    ("mimo_mac zf n_rx=32 csi_error=0.01",
+     dict(channel="mimo_mac", combiner="zf", n_rx=32, csi_error=0.01)),
+)
+ROUNDS_NEW = 2  # rounds of each [baselines] and [channels] run
+
+
+def qiht_replay(codes, alpha, codec, dev, iters: int = 50):
+    """QIHT from the same codes on the card and on the CPU in lockstep
+    (``baselines.qiht_step``), to the first iteration where the two take a
+    different discrete branch: a code of the requantization Q(alpha A g),
+    or an entry of the top-S.  Until then the iterates can differ only by
+    rounding.  There it measures the difference of the branch's input
+    (alpha A g, or the update before the threshold; relative to its max)
+    and each flipped item's distance from its decision (the nearest
+    codebook threshold, or its row's S-th magnitude) over the largest
+    card-vs-CPU difference in its row (twice that for the top-S, whose
+    threshold moves too): a ratio <= 1 is a near-tie that rounding
+    decides.  Returns (iteration or None, branch, flipped items, relative
+    difference, ratio)."""
+    import torch
+
+    from repro_torch.core.baselines import qiht_step
+
+    s, m, cb = codec.cfg.s, codec.cfg.m, codec.codebook
+    check(cb.dim == 1 and cb.dither is None, "qiht_replay reads a plain scalar codebook")
+    taus = torch.as_tensor(cb.thresholds, dtype=torch.float32)
+
+    def near(x, ref, flips, gap, factor):
+        diff = torch.abs(x - ref)
+        ratio = gap / torch.clamp(factor * diff.amax(dim=1, keepdim=True), min=1e-30)
+        return (int(flips.sum()), float(diff.max() / torch.abs(ref).max()),
+                float(ratio[flips].max()))
+
+    sides = []
+    for d in (dev, "cpu"):
+        al = alpha.to(d)
+        sides.append([torch.zeros((codes.shape[0], N), device=d), cb.decode(codes.to(d), m),
+                      codec.a.to(d), torch.where(al > 0, al, torch.ones_like(al))[:, None]])
+    for t in range(iters):
+        xa, pre = [], []
+        for side in sides:
+            g, q_dq, a, safe = side
+            xa.append((safe * (g @ a.T)).cpu())
+            p, side[0] = qiht_step(g, q_dq, a, safe, cb, s)
+            pre.append(p.cpu())
+        flips = cb.encode(xa[0]) != cb.encode(xa[1])
+        if flips.any():
+            gap = torch.amin(torch.abs(xa[1][..., None] - taus), dim=-1)
+            return (t, "requantization code") + near(xa[0], xa[1], flips, gap, 1.0)
+        flips = (sides[0][0].cpu() != 0) != (sides[1][0] != 0)
+        if flips.any():
+            mag = torch.abs(pre[1])
+            tau = torch.sort(mag, dim=1, descending=True).values[:, s - 1:s]
+            return (t, "top-S entry") + near(pre[0], pre[1], flips, torch.abs(mag - tau), 2.0)
+    return None, "none", 0, 0.0, 0.0
+
+
+def phase_baselines(dev):
+    """[baselines] The paper's baselines through ``run_federated`` at full
+    width, launch counts set to 0 just before each run and read just after;
+    round 0 of each against the same round on the CPU (the same A, weights
+    and draws): QIHT's wire lanes differ only near a threshold, the decoded
+    aggregate to NMSE <= 1e-3.  Returns (the fused encoder's launches,
+    label -> (method, config, round walls, arguments) for [profile])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.paper.mlp import run_federated
+
+    default_cfg = FedQCSConfig(reduction_ratio=3, bits=Q, s_ratio=0.1, gamp_iters=ITERS)
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    round_ms, encode = {}, 0
+    for method, route, kernels, per_round in BASELINE_RUNS:
+        label = f"{method} {route}"
+        cfg = fed_cfg() if kernels else default_cfg
+        with captured_rounds() as card:
+            zero_counts()
+            res = run_federated(method, steps=ROUNDS_NEW, eval_every=1, device=dev, fed_cfg=cfg)
+            counts = read_counts()
+        want = dict(zero, **{k: v * ROUNDS_NEW for k, v in per_round.items()})
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        encode += counts["encode"]
+        check(all(np.isfinite(res.nmses)) and len(res.nmses) == (0 if method == "none"
+                                                                  else ROUNDS_NEW),
+              f"{label} nmse {res.nmses}")
+        check(all(0.0 <= v <= 1.0 for v in res.accs), f"{label} accuracy {res.accs}")
+        with captured_rounds() as cpu:
+            run_federated(method, steps=1, device="cpu", fed_cfg=cfg)
+        k0, c0 = card[0], cpu[0]
+        wire = ""
+        if method == "qcs-qiht":
+            n_diff, lanes = wire_vs_cpu(label, k0, c0, dev)
+            g_k, g_c = k0["qiht"], c0["qiht"].to(dev)
+            flips = (g_k != 0) != (g_c != 0)
+            n_flip = int(flips.sum())
+            margin = (float(torch.abs(torch.where(flips, g_k - g_c, 0.0)).max()
+                            / torch.abs(g_c).max()) if n_flip else 0.0)
+            wire = (f"; {n_diff} of {lanes} wire lanes differ (each within 1e-5 of a "
+                    f"threshold); QIHT support entries flipped {n_flip} of {flips.numel()} "
+                    f"(largest flipped value {margin:.3g} of max|g|)")
+        e = nmse(k0["ghat"], c0["ghat"].to(dev))
+        print(f"[baselines] {label}: bits/entry {res.bits_per_entry} nmse "
+              f"{[round(v, 6) for v in res.nmses]} accuracy {[round(v, 4) for v in res.accs]} "
+              f"round ms {[round(v, 2) for v in res.round_ms]} launches {counts}; round 0 vs "
+              f"the same round on the CPU: decoded aggregate NMSE {e:.3g} (<= 1e-3){wire}")
+        if e > 1e-3 and method == "qcs-qiht":
+            # QIHT's 50 hard thresholds amplify a near-tie at the S-th
+            # magnitude into a different trajectory: the bound holds only
+            # where no near-tie flips; a break must be such a flip
+            codes = k0["codes"] if k0["codes"] is not None else k0["engine"].codec.unpack(
+                k0["words"])
+            t, branch, n_flip, rel, ratio = qiht_replay(
+                codes.reshape(-1, codes.shape[-1]), k0["alpha"].reshape(-1),
+                k0["engine"].codec, dev)
+            print(f"[baselines] {label}: NMSE {e:.3g} breaks the bound; QIHT replayed in "
+                  f"lockstep on the card and the CPU from the card's codes: the first different "
+                  f"branch is at iteration {t}, {n_flip} {branch}(s), where the branch's inputs "
+                  f"agree to {rel:.3g} of their max and each flipped item lies within "
+                  f"{ratio:.3g} x its row's card-vs-CPU difference of its decision (a near-tie: "
+                  f"<= 1)")
+            check(t is not None and rel <= 1e-4 and ratio <= 1.0,
+                  f"{label}: round 0 on the card vs the CPU: NMSE {e:.3g} > 1e-3, and the "
+                  "divergence is not a near-tie flip")
+        else:
+            check(e <= 1e-3, f"{label}: round 0 on the card vs the CPU: NMSE {e:.3g} > 1e-3")
+        round_ms[label] = (method, cfg, res.round_ms, {})
+    return encode, round_ms
+
+
+def phase_channels(dev):
+    """[channels] fedqcs-ae over each noisy uplink (CHANNEL_RUNS) on the
+    kernel route, launch counts per run; rayleigh's outages and the
+    scheduler's un-stamp; round 0 against the same round with the plain
+    versions swapped in (the same draws): NMSE <= 1e-3; and the reference's
+    ValueError for a code-domain method over awgn.  Returns (the launches
+    by KERNELS name, label -> (method, config, round walls, arguments))."""
+    import numpy as np
+    import torch
+
+    from repro_torch.paper.mlp import run_federated
+
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    want = dict(zero, encode=ROUNDS_NEW, gamp=ROUNDS_NEW * ITERS)
+    round_ms, launches = {}, {"bqcs_encode_fused": 0, "gamp_step": 0}
+    for name, kw in CHANNEL_RUNS:
+        label = f"fedqcs-ae lloyd_max {name}"
+        with captured_rounds() as card:
+            zero_counts()
+            res = run_federated("fedqcs-ae", steps=ROUNDS_NEW, eval_every=1, device=dev,
+                                fed_cfg=fed_cfg(), **kw)
+            counts = read_counts()
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        launches["bqcs_encode_fused"] += counts["encode"]
+        launches["gamp_step"] += counts["gamp"]
+        check(all(np.isfinite(res.nmses)) and max(res.nmses) < 1.0, f"{label} nmse {res.nmses}")
+        stats = [{k: float(v) for k, v in r["stats"].items()} for r in card]
+        check(all(v["nu_channel"] > 0 for v in stats), f"{label}: nu_channel {stats}")
+        outages = ""
+        if kw["channel"] == "rayleigh":
+            masks = [r["mask"].cpu().numpy() for r in card]
+            alive = np.array([[t if m[k] else -1 for k in range(K)] for t, m in enumerate(masks)])
+            last = card[-1]["engine"].sched_state.last_round
+            check(np.array_equal(last, alive.max(axis=0)),
+                  f"{label}: last_round {last} is not each client's last live round")
+            outages = f"; outages per round {[int((m == 0).sum()) for m in masks]} (un-stamped)"
+        with plain_kernels():
+            plain = run_federated("fedqcs-ae", steps=1, device=dev, fed_cfg=fed_cfg(), **kw)
+        e = nmse(card[0]["ghat"], plain.last_ghat)
+        print(f"[channels] {label}: nmse / nu_quant / nu_channel per round "
+              + "; ".join(f"{v['nmse']:.6f} / {v['nu_quant']:.4g} / {v['nu_channel']:.4g}"
+                          for v in stats)
+              + f"; accuracy {[round(v, 4) for v in res.accs]} round ms "
+              f"{[round(v, 2) for v in res.round_ms]} launches {counts}{outages}; round 0 vs "
+              f"the plain versions on the card: NMSE {e:.3g} (<= 1e-3)")
+        check(e <= 1e-3, f"{label}: kernel round vs plain round NMSE {e:.3g} > 1e-3")
+        round_ms[label] = ("fedqcs-ae", fed_cfg(), res.round_ms, kw)
+    for method in ("fedqcs-ea", "qcs-dither"):
+        try:
+            run_federated(method, steps=1, device=dev, fed_cfg=fed_cfg(), channel="awgn")
+        except ValueError as err:
+            check("exact codes" in str(err), f"{method} over awgn: {err}")
+            print(f"[channels] {method} over awgn raises ValueError: {str(err)[:72]}...")
+        else:
+            raise RuntimeError(f"{method} over awgn ran; the reference raises ValueError")
+    torch.cuda.synchronize()
+    return launches, round_ms
+
+
 ROUND_RANGE = "chip_smoke.round"
 
 
-def _round_device_ms(method, cfg, dev, steps: int) -> list:
+def _round_device_ms(method, cfg, dev, steps: int, run_kw: dict) -> list:
     """Device events (kernels, copies) of each round of one ``run_federated``
     run, from one ``torch.profiler`` trace: per round, name -> [count, ms].
     Each ``CohortEngine.run_round`` runs inside a ``record_function`` range
@@ -835,7 +1081,7 @@ def _round_device_ms(method, cfg, dev, steps: int) -> list:
     CohortEngine.run_round = traced
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_federated(method, steps=steps, device=dev, fed_cfg=cfg)
+            run_federated(method, steps=steps, device=dev, fed_cfg=cfg, **run_kw)
             torch.cuda.synchronize()
     finally:
         CohortEngine.run_round = run_round
@@ -860,14 +1106,15 @@ def _round_device_ms(method, cfg, dev, steps: int) -> list:
 
 def phase_profile(round_ms, dev):
     """Device busy time of the steady rounds per configuration (``round_ms``:
-    label -> (method, config, unprofiled round walls)), beside their
+    label -> (method, config, unprofiled round walls, run_federated's other
+    arguments)), beside their
     unprofiled wall time: one traced ``run_federated`` of 3 rounds, each
     device event counted in its own round (``_round_device_ms``), and the
     mean over the rounds after the first."""
-    for label, (method, cfg, ms) in round_ms.items():
+    for label, (method, cfg, ms, run_kw) in round_ms.items():
         if len(ms) < 2:
             continue
-        rounds = _round_device_ms(method, cfg, dev, 3)
+        rounds = _round_device_ms(method, cfg, dev, 3, run_kw)
         busy = [sum(t for _, t in per.values()) for per in rounds]
         wall = sum(ms[1:]) / (len(ms) - 1)
         if len(rounds) != 3 or min(busy) <= 0.0:
@@ -1263,14 +1510,19 @@ def main() -> int:
     per_run, round_ms = phase_main_path(dev)
     routes_launches, routes_ms = phase_routes(dev)
     round_ms.update(routes_ms)
+    qiht_encode, baseline_ms = phase_baselines(dev)
+    round_ms.update(baseline_ms)
+    channel_launches, channel_ms = phase_channels(dev)
+    round_ms.update(channel_ms)
     phase_profile(round_ms, dev)
     times = phase_times(dev, k_in)
-    for label, (_, _, ms) in round_ms.items():
+    for label, (_, _, ms, _) in round_ms.items():
         steady = sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else float("nan")
         print(f"[round] {label}: wall ms per round {[round(v, 3) for v in ms]}, "
               f"mean of rounds 1..{len(ms) - 1}: {steady:.3f}")
     launches = main_path_launches(per_run, staged)
-    for kname, n in routes_launches.items():
+    launches["bqcs_encode_fused"] += qiht_encode
+    for kname, n in list(routes_launches.items()) + list(channel_launches.items()):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

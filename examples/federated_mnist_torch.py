@@ -4,13 +4,18 @@ train the 784-20-10 MLP with K=30 non-IID devices and FedQCS compression at
 
     PYTHONPATH=src python examples/federated_mnist_torch.py --method fedqcs-ea --steps 300
     PYTHONPATH=src python examples/federated_mnist_torch.py --compare --device cpu
+    PYTHONPATH=src python examples/federated_mnist_torch.py --channel mimo_mac --n-rx 32 \
+        --csi-error 0.01 --snr-db 10 --steps 50
 
 ``examples/federated_mnist.py`` on ``repro_torch``, plus ``--device``
-(default ``cuda``).  ``--method`` takes fedqcs-ea and fedqcs-ae; ``--compare``
-runs those two rows for each codebook (lloyd_max, dithered_uniform, vq).
-The other methods, channels, partitions, schedulers and ``--record`` are
-not ported yet and fail with the port's ``NotImplementedError``, naming the
-ROADMAP.md item that ports them.
+(default ``cuda``).  ``--method`` takes all six methods; ``--compare`` runs
+the reference's rows: every method with lloyd_max, then fedqcs-ae and
+fedqcs-ea with the dithered_uniform and vq codebooks.  The uplink is
+``--channel`` (ideal, awgn, rayleigh, mimo_mac) with ``--snr-db``,
+``--n-rx`` and ``--csi-error``; a code-domain method falls back to the
+ideal uplink, as in the reference.  Other partitions, schedulers and
+``--record`` are not ported yet and fail with the port's
+``NotImplementedError``, naming the ROADMAP.md item that ports them.
 
 Uses real MNIST if $MNIST_DIR points at the IDX files, else the
 deterministic synthMNIST surrogate.
@@ -21,10 +26,10 @@ import dataclasses
 
 from repro_torch import not_in_slice
 from repro_torch.core.compression import FedQCSConfig
+from repro_torch.fed.channel import get_channel_family
 from repro_torch.paper.mlp import run_federated
 
 METHODS = ["fedqcs-ea", "fedqcs-ae", "qcs-qiht", "qcs-dither", "signsgd", "none"]
-PORTED = ["fedqcs-ea", "fedqcs-ae"]
 
 
 def main():
@@ -52,6 +57,10 @@ def main():
     ap.add_argument("--channel", default=None,
                     help="uplink family (ideal/awgn/rayleigh/mimo_mac; "
                          "default: awgn when --snr-db is set, else ideal)")
+    ap.add_argument("--n-rx", type=int, default=8,
+                    help="mimo_mac receive antennas")
+    ap.add_argument("--csi-error", type=float, default=0.0,
+                    help="mimo_mac CSI estimate error variance")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="per-round straggler probability")
     ap.add_argument("--chunk", type=int, default=0,
@@ -67,7 +76,9 @@ def main():
                        gamp_iters=25, gamp_variance_mode="scalar",
                        codebook=args.codebook, vq_dim=args.vq_dim)
     if args.compare:
-        rows = [(m, cbk, args.Q) for cbk in ("lloyd_max", "dithered_uniform") for m in PORTED]
+        rows = [(m, "lloyd_max", args.Q) for m in METHODS[::-1]]
+        rows += [("fedqcs-ae", "dithered_uniform", args.Q),
+                 ("fedqcs-ea", "dithered_uniform", args.Q)]
         # vq at Q*vq_dim bits per code = the same Q bits per measurement
         vq_bits = args.Q * args.vq_dim
         m_paper = 1591 // args.R
@@ -76,7 +87,7 @@ def main():
         elif m_paper % args.vq_dim:
             print(f"  (skipping vq rows: vq_dim={args.vq_dim} does not divide M={m_paper})")
         else:
-            rows += [(m, "vq", vq_bits) for m in PORTED]
+            rows += [("fedqcs-ae", "vq", vq_bits), ("fedqcs-ea", "vq", vq_bits)]
     else:
         rows = [(args.method, args.codebook, args.Q)]
     cohort_kw = dict(
@@ -87,6 +98,9 @@ def main():
         sample_frac=args.sample_frac,
         dropout=args.dropout,
         channel=args.channel or ("awgn" if args.snr_db is not None else "ideal"),
+        snr_db=args.snr_db if args.snr_db is not None else 20.0,
+        n_rx=args.n_rx,
+        csi_error=args.csi_error,
         chunk=args.chunk,
     )
     print(f"(R,Q)=({args.R},{args.Q}) -> {fed.bits_per_entry:.2f} bits/entry "
@@ -94,9 +108,15 @@ def main():
           f"channel={cohort_kw['channel']}; device={args.device}")
     print(f"{'method':24s} {'bits/entry':>10s} {'final acc':>9s} {'mean NMSE':>9s} {'wall':>6s}")
     for m, cbk, q in rows:
+        kw = dict(cohort_kw)
+        if m != "fedqcs-ae" and not get_channel_family(kw["channel"]).exact_codes:
+            # code-domain methods need the exact codes at the PS: only the
+            # Bussgang-linearized AE path absorbs uplink noise
+            print(f"  ({m}: noisy uplink unsupported -> ideal channel)")
+            kw["channel"] = "ideal"
         row_fed = dataclasses.replace(fed, codebook=cbk, bits=q, vq_dim=args.vq_dim)
         r = run_federated(m, steps=args.steps, fed_cfg=row_fed,
-                          eval_every=max(args.steps // 10, 1), device=args.device, **cohort_kw)
+                          eval_every=max(args.steps // 10, 1), device=args.device, **kw)
         nm = sum(r.nmses) / len(r.nmses) if r.nmses else float("nan")
         label = m if cbk == "lloyd_max" else f"{m}+{cbk}"
         print(f"{label:24s} {r.bits_per_entry:10.2f} {r.accs[-1]:9.3f} {nm:9.3f} {r.wall_s:5.0f}s")

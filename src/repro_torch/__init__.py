@@ -15,8 +15,12 @@ route (the fused BQCS encoder; the staged one, ``block_sparsify`` ->
 ``qgamp_step`` GAMP steps); the reference's GAMP loop as plain PyTorch
 (exact or scalar variance, damping, early freeze and early stop); the
 chunked and two-phase EA engine (``core/recon_engine.py``) and the
-``core/api.py`` facade; the ``ideal`` channel, the ``full`` scheduler and
-the FedAdam server.  The five
+``core/api.py`` facade; all six methods of the paper's comparison
+(``fedqcs-ae``, ``fedqcs-ea`` and the baselines of ``core/baselines.py``:
+``qcs-qiht``, ``qcs-dither``, ``signsgd``, ``none``); the uplinks of
+``fed/channel.py`` (``ideal``, and for ``fedqcs-ae`` the noisy ``awgn``,
+``rayleigh`` and ``mimo_mac`` with LMMSE or zero-forcing combining); the
+``full`` scheduler and the FedAdam server.  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

@@ -9,8 +9,9 @@
 ``ReconSpec`` (core/recon_engine.py) says HOW the PS reconstructs: mode,
 AE grouping, chunking, kernel routing.  The pre-spec ``mode=``/``groups=``
 keywords still work as a deprecated shim.  The monolithic layout is the
-only one ported; the segment-local decode (``emit=``), a received channel
-observation and AE groups G > 1 raise ``NotImplementedError``.
+only one ported; the segment-local decode (``emit=``) and AE groups G > 1
+raise ``NotImplementedError``.  ``ReconSpec(channel=(y_eff, nu_eff))``
+decodes one received multiple-access observation (``fed/channel.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from repro_torch import not_in_slice
+from repro_torch.core import bussgang
 from repro_torch.core.compression import (
     BQCSCodec,
     CompressedGradient,
@@ -29,9 +31,13 @@ from repro_torch.core.compression import (
     Layout,
     blocks_to_tree,
 )
-from repro_torch.core.gamp import gamp_health
+from repro_torch.core.gamp import em_gamp, gamp_health
 from repro_torch.core.recon_engine import ReconSpec
-from repro_torch.core.reconstruction import aggregate_and_estimate, estimate_and_aggregate_packed
+from repro_torch.core.reconstruction import (
+    aggregate_and_estimate,
+    estimate_and_aggregate_packed,
+    gamp_config_from,
+)
 
 __all__ = [
     "FedQCSConfig",
@@ -88,8 +94,9 @@ def reconstruct(
 
     ``recon`` selects the strategy: mode="ea" runs one Q-EM-GAMP per worker
     payload straight from the packed words (the chunked engine); mode="ae"
-    Bussgang-combines the codes first.  Chunking and kernel routing come
-    from the spec, deferring to the codec config where unset.  A spec with
+    Bussgang-combines the codes first, or with ``recon.channel`` decodes the
+    received observation with the payloads' alphas.  Chunking and kernel
+    routing come from the spec, deferring to the codec config where unset.  A spec with
     ``return_info`` returns ``(tree, info)``: the per-problem ``converged``
     flags and ``iters`` counts ((K, nb) on EA, (nb,) on AE) and their
     summary (``gamp_iters_mean`` / ``gamp_iters_max`` /
@@ -126,6 +133,19 @@ def reconstruct(
             with_info=recon.return_info,
         )
         live = alphas > 0  # dead blocks freeze at iteration 0
+    elif recon.channel is not None:
+        # the joint-estimation decode of one superimposed reception: y_eff
+        # is already the aggregate's observation, so only the quantization
+        # and channel variances and the GAMP-init energy remain (eq. 24 +
+        # nu_eff)
+        y_eff, nu_eff = recon.channel
+        cfg = codec.cfg
+        nu = bussgang.effective_noise_var(alphas, rhos, codec.codebook) + nu_eff
+        energy = bussgang.signal_energy(alphas, rhos, cfg.m, cfg.block_size)
+        blocks = em_gamp(
+            y_eff, nu, codec.a, gamp_config_from(codec), init_var=energy,
+            use_kernels=recon.use_kernels, with_info=recon.return_info,
+        )
     else:
         # AE's Bussgang combine consumes indices: unpack once, at the PS
         codes = torch.stack([codec.unpack(p.codes) for p in payloads])

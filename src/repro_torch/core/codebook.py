@@ -79,6 +79,10 @@ class Codebook:
             raise ValueError(f"codebook dim {self.dim} must divide the measurement count {m}")
         return m // self.dim
 
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """Q(x): quantize-dequantize (QIHT's requantization)."""
+        return self.decode(self.encode(x), x.shape[-1])
+
 
 @dataclasses.dataclass(frozen=True)
 class ScalarCodebook(Codebook):

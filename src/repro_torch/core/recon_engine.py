@@ -54,7 +54,11 @@ class ReconSpec:
       groups: AE grouping G (only G = 1 is ported).
       chunk: EA row chunking; None defers to ``cfg.recon_chunk``.
       use_kernels: step-kernel routing; None defers to ``cfg.use_kernels``.
-      channel: a received multiple-access observation (not ported).
+      channel: a received multiple-access observation in place of the
+        payloads' codes: the ``(y_eff (nb, M), nu_eff (nb,))`` pair a
+        channel family's ``combine`` hook returns (fed/channel.py).  AE
+        only; the payloads then contribute their alphas (the quantization
+        noise and the GAMP init), not codes.
       return_info: ``api.reconstruct`` also returns the decode health.
     """
 
@@ -78,9 +82,6 @@ class ReconSpec:
             )
         if self.channel is not None and self.groups != 1:
             raise ValueError("groups != 1 is only defined for exact-code AE")
-        if self.channel is not None:
-            raise not_in_slice("ReconSpec(channel=...) (a received channel observation)",
-                               "item 5")
 
     def resolve(self, cfg) -> "ReconSpec":
         """Fills the defer-to-codec fields from a FedQCSConfig."""

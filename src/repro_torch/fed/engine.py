@@ -4,45 +4,69 @@ One round is two passes:
 
   * **client pass** -- every cohort member's gradient, batched through
     ``torch.func.vmap(torch.func.grad(loss))``, flattened to its
-    ``(nb, N)`` block grid, then ONE encode over all ``C * nb`` block rows
-    (one fused-encoder launch on the kernel route; every encoder stage is
-    per block, so batching the rows is the reference's vmapped encode).
-  * **PS pass** -- reconstruction from the stacked payloads: ``fedqcs-ea``
-    decodes the packed words per (client, block), in chunks of
-    ``recon_chunk`` rows, and rho-sums; ``fedqcs-ae`` Bussgang-combines the
-    codes and runs one EM-GAMP solve.
+    ``(nb, N)`` block grid, then the method's encode over all ``C * nb``
+    block rows at once (one fused-encoder launch on the kernel route; every
+    encoder stage is per block, so batching the rows is the reference's
+    vmapped encode).  ``qcs-dither`` re-blocks each client's flat vector
+    into ``dither_n``-wide rows and compresses and reconstructs them with
+    that client's dither; ``signsgd`` sends signs; ``none`` sends nothing.
+  * **PS pass** -- reconstruction from the stacked payloads, per method:
+    ``fedqcs-ea`` decodes the packed words per (client, block) and
+    rho-sums; ``fedqcs-ae`` Bussgang-combines the codes (after the uplink's
+    noise, over a noisy channel) and runs one EM-GAMP solve; ``qcs-qiht``
+    runs QIHT per (client, block) and rho-sums; ``qcs-dither`` rho-sums the
+    clients' reconstructions; ``signsgd`` takes the live clients' majority
+    vote; ``none`` is the true sum.
 
 Then the FedAdam server step.  Participation contract: a cohort slot with
-``rho_k = 0`` contributes nothing and its error-feedback residual carries
-the full gradient forward.  This slice ports the ``fedqcs-ae`` and
-``fedqcs-ea`` methods over the ideal uplink with the full scheduler; the
-other methods, the streamed and chunked client passes, the loop oracle
-and the telemetry hooks raise ``NotImplementedError``.
+``rho_k = 0`` -- scheduler dropout or channel outage -- contributes nothing,
+and its error-feedback residual carries the full gradient forward.
+
+Every random tensor of a round -- the uplink's fading gains, fading matrix,
+CSI error and receive noise, and each client's dither -- comes through ONE
+seam, ``draw(round, purpose, shape, client=None)``, which returns a CPU
+float32 tensor.  The default, :func:`seeded_draw`, seeds a CPU
+``torch.Generator`` from ``(cohort.seed, round, purpose[, client])``, so a
+round on the card and the same round on the CPU see the same draws.  The
+reference draws these from ``jax.random``; its tests inject the
+reference's draws through ``CohortEngine(draw=...)``.
+
+The streamed and chunked client passes, the loop oracle, AE groups and the
+telemetry hooks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import entry_device, not_in_slice
-from repro_torch.core import bussgang
+from repro_torch.core import baselines, bussgang
 from repro_torch.core.compression import BQCSCodec, FedQCSConfig, Layout, blocks_to_tree
+from repro_torch.core.gamp import em_gamp
 from repro_torch.core.reconstruction import (
     aggregate_and_estimate,
     estimate_and_aggregate_packed,
     gamp_config_from,
 )
-from repro_torch.fed.channel import ChannelConfig, check_ported
+from repro_torch.fed.channel import (
+    ChannelConfig,
+    get_channel_family,
+    mimo_tx_gain,
+    realize_uplink,
+)
 from repro_torch.fed.scheduler import SchedulerConfig, SchedulerState, select_cohort
 from repro_torch.fed.server_opt import ServerOptConfig, init_server_state, server_update
 
-__all__ = ["CohortConfig", "CohortEngine", "ArrayClientData"]
+__all__ = ["CohortConfig", "CohortEngine", "ArrayClientData", "seeded_draw",
+           "METHODS", "EF_METHODS"]
 
-PORTED_METHODS = ("fedqcs-ae", "fedqcs-ea")
+EF_METHODS = ("fedqcs-ae", "fedqcs-ea", "qcs-qiht")
+METHODS = EF_METHODS + ("qcs-dither", "signsgd", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +77,7 @@ class CohortConfig:
     chunk: int = 0
     groups: int = 1
     impl: str = "vmap"
-    dither_n: int = 2048
+    dither_n: int = 2048  # qcs-dither re-blocking size (power of 2)
     record_nmse: bool = True
     seed: int = 0
     layout: str = "monolithic"
@@ -62,16 +86,39 @@ class CohortConfig:
 
 
 def _check_ported(c: CohortConfig) -> None:
-    if c.method not in PORTED_METHODS:
-        raise not_in_slice(f"method {c.method!r}", "item 3")
-    if c.dither_n != CohortConfig.dither_n:
-        raise not_in_slice(f"qcs-dither re-blocking (dither_n={c.dither_n})", "item 3")
     if c.groups != 1:
         raise not_in_slice(f"AE decode in G={c.groups} groups", "item 6")
     if c.chunk or c.impl != "vmap":
         raise not_in_slice(f"client pass chunk={c.chunk} impl={c.impl!r}", "item 6")
     if c.layout != "monolithic" or c.encode_stream or c.grad_accum != 1:
         raise not_in_slice("per-tensor layouts and the streamed encode", "item 9")
+
+
+# purpose -> (stream tag, distribution) of the round's random tensors
+_DRAWS = {
+    "gain": (1, "exponential"),  # rayleigh power gains |h_k|^2 ~ Exp(1), (C,)
+    "h": (2, "normal"),  # mimo_mac fading matrix, (n_rx, C)
+    "h_err": (3, "normal"),  # mimo_mac CSI estimate error, (n_rx, C)
+    "noise": (4, "normal"),  # receive noise, the reception's shape
+    "dither": (5, "uniform"),  # one client's qcs-dither draw on [-0.5, 0.5)
+}
+
+
+def seeded_draw(seed: int, t: int, purpose: str, shape: Tuple[int, ...],
+                client: Optional[int] = None) -> torch.Tensor:
+    """The default draw seam: a CPU float32 tensor from a ``torch.Generator``
+    seeded by ``(seed, round t, purpose[, global client id])``, so every
+    purpose and client has its own stream and no draw depends on the
+    cohort's other members or on the device."""
+    tag, dist = _DRAWS[purpose]
+    key = [int(seed), int(t), tag] + ([] if client is None else [int(client)])
+    hi, lo = np.random.SeedSequence(key).generate_state(2, np.uint32)
+    gen = torch.Generator(device="cpu").manual_seed((int(hi) << 32) | int(lo))
+    if dist == "normal":
+        return torch.randn(shape, generator=gen)
+    if dist == "uniform":
+        return torch.rand(shape, generator=gen) - 0.5
+    return torch.empty(shape).exponential_(1.0, generator=gen)
 
 
 class ArrayClientData:
@@ -113,8 +160,11 @@ class CohortEngine:
 
     ``params`` is a dict of tensors in the reference's names and layouts;
     ``grad_fn(params, batch)`` returns one client's gradient dict.  ``a``
-    injects the sensing matrix (see ``BQCSCodec``).  ``last_ghat`` holds the
-    decoded (nb, N) aggregate of the latest round.
+    injects the sensing matrix (see ``BQCSCodec``); ``draw`` replaces the
+    draw seam (:func:`seeded_draw`, bound to ``cohort.seed``).  ``dither``
+    is the ``qcs-dither`` codec (its signs and rows may be replaced before
+    the first round).  ``last_ghat`` holds the decoded (nb, N) aggregate of
+    the latest round.
     """
 
     def __init__(
@@ -129,21 +179,43 @@ class CohortEngine:
         server: ServerOptConfig = ServerOptConfig(),
         device="cuda",
         a: Optional[torch.Tensor] = None,
+        draw: Optional[Callable[..., torch.Tensor]] = None,
     ):
+        if cohort.method not in METHODS:
+            raise ValueError(f"unknown method {cohort.method!r} (choose from {METHODS})")
+        # gating by the channel family's traits, as the reference does
+        fam = get_channel_family(chan.kind)
+        if not fam.exact_codes and cohort.method != "fedqcs-ae":
+            raise ValueError(
+                f"method {cohort.method!r} needs the exact codes at the PS, which "
+                "only an ideal (error-free digital) uplink provides; noisy "
+                "channels are supported by 'fedqcs-ae' (Bussgang + channel "
+                "variance into em_gamp noise_var)"
+            )
+        if cohort.groups != 1 and (cohort.method != "fedqcs-ae" or not fam.exact_codes):
+            raise ValueError("groups != 1 is only defined for fedqcs-ae over an ideal uplink")
         _check_ported(cohort)
-        check_ported(chan)
+        self._chan_family = fam
         self.device = entry_device(device)
         self.cohort, self.sched, self.chan, self.server = cohort, sched, chan, server
         self.fed_cfg = fed_cfg or FedQCSConfig()
         self.grad_fn = grad_fn
         self.data = data
+        self.draw = draw or functools.partial(seeded_draw, cohort.seed)
         self.params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
         n = self.fed_cfg.block_size
         self.layout = Layout.monolithic(self.params, n)
         self.nb, self.n = self.layout.rows, n
         self.clients = len(data.counts)
-        self.codec = BQCSCodec(self.fed_cfg, a=a, device=self.device)
-        self.gamp = gamp_config_from(self.codec)
+        ef = cohort.method in EF_METHODS
+        self.codec = BQCSCodec(self.fed_cfg, a=a, device=self.device) if ef else None
+        self.gamp = gamp_config_from(self.codec) if ef else None
+        self.dither = (
+            baselines.DitherCodec(n=cohort.dither_n,
+                                  m=cohort.dither_n // self.fed_cfg.reduction_ratio,
+                                  bits=self.fed_cfg.bits, device=self.device)
+            if cohort.method == "qcs-dither" else None
+        )
         self.residuals = torch.zeros((self.clients, self.nb, n), device=self.device)
         self.server_state = init_server_state(server, self.params)
         self.sched_state = SchedulerState.init(self.clients)
@@ -155,34 +227,109 @@ class CohortEngine:
         """(C, ...) cohort batch -> (C, nb, N) gradient blocks in one pass."""
         return self.layout.to_blocks_batched(self._vgrad(batch))
 
-    def _client_pass(self, batch, residuals, rhos):
-        """Gradients + one encode over all C * nb rows."""
+    def _dither_rows(self) -> Tuple[int, int]:
+        """qcs-dither's re-blocking of the flat vector: (rows, M) per client."""
+        return -(-self.layout.nbar // self.cohort.dither_n), self.dither.m
+
+    def _client_pass(self, batch, residuals, rhos, unit_dither=None):
+        """Gradients + the method's encode over all C * nb rows.
+        ``unit_dither`` is the cohort's (C * rows, M) qcs-dither draw."""
         blocks = self._grad_blocks(batch)
         c = blocks.shape[0]
-        words, alpha, enc_res = self.codec.compress_blocks_packed(
-            blocks.reshape(c * self.nb, self.n), residuals.reshape(c * self.nb, self.n)
-        )
-        live = (rhos > 0)[:, None, None]
-        new_res = torch.where(live, enc_res.reshape(c, self.nb, self.n), blocks + residuals)
-        payload = {"words": words.reshape(c, self.nb, -1), "alpha": alpha.reshape(c, self.nb)}
+        method = self.cohort.method
+        payload: Dict[str, torch.Tensor] = {}
+        new_res = residuals
+        if method in EF_METHODS:
+            flat_b = blocks.reshape(c * self.nb, self.n)
+            flat_r = residuals.reshape(c * self.nb, self.n)
+            if method == "qcs-qiht":  # the uint8 index view
+                codes, alpha, enc_res = self.codec.compress_blocks(flat_b, flat_r)
+                payload["codes"] = codes.reshape(c, self.nb, -1)
+            else:  # the packed wire words
+                words, alpha, enc_res = self.codec.compress_blocks_packed(flat_b, flat_r)
+                payload["words"] = words.reshape(c, self.nb, -1)
+            payload["alpha"] = alpha.reshape(c, self.nb)
+            live = (rhos > 0)[:, None, None]
+            new_res = torch.where(live, enc_res.reshape(c, self.nb, self.n), blocks + residuals)
+        elif method == "qcs-dither":
+            nbar, dn = self.layout.nbar, self.cohort.dither_n
+            rows, _ = self._dither_rows()
+            flat = blocks.reshape(c, -1)[:, :nbar]
+            carry = torch.nn.functional.pad(flat, (0, rows * dn - nbar)).reshape(c * rows, dn)
+            q, delta, dith = self.dither.compress(carry, unit_dither)
+            recon = self.dither.reconstruct(q, delta, dith).reshape(c, -1)[:, :nbar]
+            payload["recon"] = torch.nn.functional.pad(
+                recon, (0, self.nb * self.n - nbar)).reshape(c, self.nb, self.n)
+        elif method == "signsgd":
+            payload["signs"] = baselines.signsgd_compress(blocks)
         return payload, blocks, new_res
 
-    def _ps(self, payload, blocks, rhos):
-        """Reconstruction once per round from the stacked payloads."""
+    def _ps(self, payload, blocks, rhos, real=None, draw=None):
+        """Reconstruction once per round from the stacked payloads.  ``real``
+        is the round's channel realization and ``draw(purpose, shape)`` its
+        draw seam on the device; over a noisy uplink, fedqcs-ae's received
+        rows get their noise draw and the channel's variance joins the
+        Bussgang term in em_gamp's noise_var."""
         stats: Dict[str, torch.Tensor] = {}
-        words, alphas = payload["words"], payload["alpha"]
-        if self.cohort.method == "fedqcs-ea":
-            ghat = estimate_and_aggregate_packed(self.codec, words, alphas, rhos, self.gamp)
-        else:  # fedqcs-ae over the ideal uplink
-            stats["nu_quant"] = torch.mean(
-                bussgang.effective_noise_var(alphas, rhos, self.codec.codebook)
+        method = self.cohort.method
+        true_sum = torch.einsum("k,kbn->bn", rhos, blocks)
+        if method == "none":
+            ghat = true_sum
+        elif method == "signsgd":
+            # unweighted majority vote; rho_k = 0 clients abstain
+            alive = (rhos > 0).to(torch.int8)[:, None, None]
+            scale = torch.mean(torch.abs(true_sum))
+            ghat = baselines.signsgd_aggregate(payload["signs"] * alive, lr_scale=scale)
+        elif method == "qcs-dither":
+            ghat = torch.einsum("k,kbn->bn", rhos, payload["recon"])
+        elif method == "qcs-qiht":
+            codes, alphas = payload["codes"], payload["alpha"]
+            c, nb, lanes = codes.shape
+            parts = baselines.qiht_reconstruct(
+                codes.reshape(c * nb, lanes), alphas.reshape(-1),
+                self.codec.a, self.codec.codebook, self.fed_cfg.s,
             )
-            stats["nu_channel"] = torch.zeros((), device=self.device)
-            ghat = aggregate_and_estimate(
-                self.codec, self.codec.unpack(words), alphas, rhos, gamp=self.gamp
+            ghat = torch.einsum("k,kbn->bn", rhos, parts.reshape(c, nb, -1))
+        elif method == "fedqcs-ea":
+            ghat = estimate_and_aggregate_packed(
+                self.codec, payload["words"], payload["alpha"], rhos, self.gamp
             )
-        if self.cohort.record_nmse:
-            true_sum = torch.einsum("k,kbn->bn", rhos, blocks)
+        else:  # fedqcs-ae
+            words, alphas = payload["words"], payload["alpha"]
+            q = self.codec.codebook
+            fam = self._chan_family
+            nu_q = bussgang.effective_noise_var(alphas, rhos, q)
+            stats["nu_quant"] = torch.mean(nu_q)
+            if fam.exact_codes:
+                stats["nu_channel"] = torch.zeros((), device=self.device)
+                ghat = aggregate_and_estimate(
+                    self.codec, self.codec.unpack(words), alphas, rhos, gamp=self.gamp
+                )
+            else:
+                deq = self.codec.dequantize(self.codec.unpack(words))  # (C, nb, M)
+                w = bussgang.bussgang_weight(rhos[:, None], alphas, q)  # (C, nb)
+                if fam.multiple_access:
+                    # every live client pre-scales by its Bussgang weight
+                    # times the round's broadcast power-control scalar and
+                    # transmits at once; the PS combines the one reception
+                    active = (rhos > 0).to(torch.float32)
+                    eta = mimo_tx_gain(w, active)
+                    x = (eta * w)[..., None] * deq  # (C, nb, M) transmit rows
+                    y_rx = fam.transmit(self.chan, real, x, draw)
+                    y, nu_ch = fam.combine(self.chan, real, y_rx, w, active, psi=q.psi,
+                                           tx_gain=eta)
+                else:
+                    # per-client reception: equalized rows + their variance,
+                    # Bussgang-combined at the PS (eqs. 23-24 + the channel term)
+                    nu_chan = fam.effective_noise(real)
+                    y_rx = fam.transmit(self.chan, real, deq, draw)
+                    y = torch.sum(w[..., None] * y_rx, dim=0)
+                    nu_ch = torch.sum(torch.square(w) * nu_chan, dim=0)  # (nb,)
+                stats["nu_channel"] = torch.mean(nu_ch)
+                energy = bussgang.signal_energy(alphas, rhos, self.fed_cfg.m, self.n)
+                ghat = em_gamp(y, nu_q + nu_ch, self.codec.a, self.gamp, init_var=energy,
+                               use_kernels=self.fed_cfg.use_kernels)
+        if self.cohort.record_nmse and method != "none":
             num = torch.sum((ghat - true_sum) ** 2)
             stats["nmse"] = num / (torch.sum(true_sum**2) + 1e-30)
         return ghat, stats
@@ -191,17 +338,33 @@ class CohortEngine:
         """One federated round; advances params/residuals/server state and
         returns the round's stats (python floats)."""
         t = self.round
-        ids, rho0, self.sched_state = select_cohort(
-            self.sched, self.sched_state, t, self.data.counts
-        )
-        # ideal uplink: every cohort member's link closes (mask of ones)
-        r = torch.as_tensor(rho0, dtype=torch.float32, device=self.device)
+        prev_sched = self.sched_state
+        ids, rho0, new_sched = select_cohort(self.sched, prev_sched, t, self.data.counts)
+        # the uplink is realized on the host, before the cohort passes
+        real = realize_uplink(self.chan, lambda p, shape: self.draw(t, p, shape),
+                              len(ids), self.nb)
+        mask = real.mask.cpu().numpy()
+        # channel outage is a failed participation: those clients keep their
+        # last successful round (their residual carries the full gradient)
+        dead = ids[mask == 0]
+        if len(dead):
+            new_sched.last_round[dead] = prev_sched.last_round[dead]
+        self.sched_state = new_sched
+        real = real.to(self.device)
+        r = torch.as_tensor(rho0 * mask, dtype=torch.float32, device=self.device)
         total = torch.sum(r)
         rhos = torch.where(total > 0, r / torch.clamp(total, min=1e-12), torch.zeros_like(r))
+        unit_dither = None
+        if self.dither is not None:
+            shape = self._dither_rows()
+            unit_dither = torch.cat(
+                [self.draw(t, "dither", shape, client=int(i)) for i in ids]).to(self.device)
         jids = torch.as_tensor(ids, device=self.device)
         batch = self.data.cohort_batch(t, ids)
-        payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], rhos)
-        ghat, stats = self._ps(payload, blocks, rhos)
+        payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], rhos,
+                                                     unit_dither)
+        ghat, stats = self._ps(payload, blocks, rhos, real,
+                               lambda p, shape: self.draw(t, p, shape).to(self.device))
         self.residuals[jids] = new_res
         self.params, self.server_state = server_update(
             self.server, blocks_to_tree(ghat, self.layout), self.server_state, self.params, t

@@ -90,7 +90,7 @@ class RunResult:
 
 
 def run_federated(
-    method: str,  # fedqcs-ea | fedqcs-ae
+    method: str,  # fedqcs-ea | fedqcs-ae | qcs-qiht | qcs-dither | signsgd | none
     steps: int = 300,
     k_devices: int = 30,
     fed_cfg: Optional[FedQCSConfig] = None,
@@ -105,7 +105,11 @@ def run_federated(
     scheduler: str = "full",
     sample_frac: float = 1.0,
     dropout: float = 0.0,
-    channel: str = "ideal",
+    channel: str = "ideal",  # any registered family: ideal | awgn | rayleigh | mimo_mac
+    snr_db: float = 20.0,
+    n_rx: int = 8,  # mimo_mac receive antennas
+    csi_error: float = 0.0,  # mimo_mac CSI estimate error variance
+    combiner: str = "lmmse",  # mimo_mac spatial combiner: lmmse | zf
     server: str = "fedadam",
     chunk: int = 0,
     impl: str = "vmap",
@@ -121,7 +125,10 @@ def run_federated(
     ``use_kernels=True, gamp_variance_mode="scalar"`` for the kernel route.
     ``params`` and ``a`` inject an initial parameter dict and sensing matrix
     (e.g. the reference's, via ``convert.from_reference``) in place of the
-    port's own seeded draws."""
+    port's own seeded draws.  ``channel`` with ``snr_db``, ``n_rx``,
+    ``csi_error`` and ``combiner`` is the uplink (``fed/channel.py``; the
+    reference's ``run_federated`` has no ``combiner`` argument and always
+    combines with lmmse); only ``fedqcs-ae`` runs over a noisy one."""
     dev = entry_device(device)
     (xtr, ytr, xte, yte), _ = mnist.load(seed)
     parts = partition_indices(
@@ -141,7 +148,8 @@ def run_federated(
                             chunk=chunk, impl=impl, seed=seed),
         sched=SchedulerConfig(kind=scheduler, sample_frac=sample_frac,
                               dropout_prob=dropout, seed=seed),
-        chan=ChannelConfig(kind=channel),
+        chan=ChannelConfig(kind=channel, snr_db=snr_db, n_rx=n_rx, csi_error=csi_error,
+                           combiner=combiner),
         server=ServerOptConfig(kind=server, lr=lr, b1=0.9, b2=0.999, eps=1e-8),
         device=dev,
         a=a,
@@ -160,5 +168,5 @@ def run_federated(
             with torch.no_grad():
                 accs.append(float(accuracy(engine.params, xte_t, yte_t)))
                 losses.append(float(mlp_loss(engine.params, xte_t, yte_t)))
-    return RunResult(accs, nmses, losses, fed_cfg.bits_per_entry, time.time() - t0, round_ms,
-                     engine.last_ghat)
+    bits = 32.0 if method == "none" else 1.0 if method == "signsgd" else fed_cfg.bits_per_entry
+    return RunResult(accs, nmses, losses, bits, time.time() - t0, round_ms, engine.last_ghat)

@@ -591,3 +591,98 @@ def test_two_phase_on_the_card_matches_its_composition(cuda):
     refined, _, _ = _qem_gamp_xla(codes[surv], flat_a[surv], codec.a, codec.codebook, exact)
     ghat = ghat.index_copy(0, surv, refined)
     assert _nmse(out, torch.einsum("k,kbn->bn", rhos, ghat.reshape(30, 10, -1))) <= 1e-6
+
+
+# -- slice 8: the baselines and the noisy uplinks -------------------------------
+
+
+@pytest.mark.parametrize("method", ["qcs-dither", "signsgd", "none"])
+def test_baseline_round_on_the_card_matches_the_cpu(cuda, method):
+    """One default-config baseline round on the card against the same round
+    on the CPU (the same A, weights and draws): the decoded aggregate to
+    NMSE <= 1e-3, and no kernel.  QIHT's round is chaotic in a near-tie at
+    its thresholds; ``test_qiht_on_the_card_follows_the_cpu`` holds it."""
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.paper.mlp import run_federated
+
+    enc_mod.launches = g_mod.launches = 0
+    card = run_federated(method, steps=1, k_devices=10, device="cuda")
+    assert enc_mod.launches == 0 and g_mod.launches == 0
+    cpu = run_federated(method, steps=1, k_devices=10, device="cpu")
+    assert _nmse(card.last_ghat.cpu(), cpu.last_ghat) <= 1e-3
+    assert card.bits_per_entry == cpu.bits_per_entry
+
+
+def test_qiht_on_the_card_follows_the_cpu(cuda):
+    """QIHT (``baselines.qiht_step``, 50 iterations, 300 rows of the paper's
+    width) on the card and on the CPU in lockstep from the same codes.  Its
+    iterates are piecewise linear in rounding: they can part only where the
+    two devices take different discrete branches -- a requantization code
+    of Q(alpha A g), or an entry of the top-S.  Contract: up to and at the
+    first such branch, alpha A g and the update agree to 1e-4 of their max,
+    and every flipped item lies within its row's largest card-vs-CPU
+    difference of its decision (twice that for the top-S, whose threshold
+    moves too): a near-tie that rounding decides."""
+    from repro_torch.core.baselines import qiht_step
+    from repro_torch.core.compression import BQCSCodec, FedQCSConfig
+
+    codec = BQCSCodec(FedQCSConfig(block_size=1591, reduction_ratio=3, bits=3, s_ratio=0.1),
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    g = torch.tensor(rng.standard_t(3, (300, 1591)).astype(np.float32) * 0.01)
+    codes, alpha, _ = codec.compress_blocks(g, torch.zeros_like(g))
+    s, m, cb = codec.cfg.s, codec.cfg.m, codec.codebook
+    taus = torch.as_tensor(cb.thresholds, dtype=torch.float32)
+    sides = [[torch.zeros_like(g).to(d), cb.decode(codes.to(d), m), codec.a.to(d),
+              alpha[:, None].to(d)] for d in ("cuda", "cpu")]
+
+    def agree(x, ref):  # -> each row's largest card-vs-CPU difference
+        diff = torch.abs(x - ref)
+        assert float(diff.max()) <= 1e-4 * float(torch.abs(ref).max())
+        return diff.amax(dim=1, keepdim=True)
+
+    for _ in range(50):
+        xa, pre = [], []
+        for side in sides:
+            xa.append((side[3] * (side[0] @ side[2].T)).cpu())
+            p, side[0] = qiht_step(side[0], side[1], side[2], side[3], cb, s)
+            pre.append(p.cpu())
+        row = agree(xa[0], xa[1])
+        flips = cb.encode(xa[0]) != cb.encode(xa[1])
+        if flips.any():
+            gap = torch.amin(torch.abs(xa[1][..., None] - taus), dim=-1)
+            assert bool((gap <= row)[flips].all())
+            break
+        row = agree(pre[0], pre[1])
+        flips = (sides[0][0].cpu() != 0) != (sides[1][0] != 0)
+        if flips.any():
+            mag = torch.abs(pre[1])
+            tau = torch.sort(mag, dim=1, descending=True).values[:, s - 1:s]
+            assert bool((torch.abs(mag - tau) <= 2 * row)[flips].all())
+            break
+
+
+@pytest.mark.parametrize("kw", [
+    dict(channel="awgn", snr_db=20.0),
+    dict(channel="rayleigh", snr_db=20.0),
+    dict(channel="mimo_mac", n_rx=8),
+    dict(channel="mimo_mac", combiner="zf", n_rx=32, csi_error=0.01),
+], ids=["awgn", "rayleigh", "mimo_mac-lmmse", "mimo_mac-zf"])
+def test_noisy_channel_ae_round_kernels_match_plain(cuda, kw):
+    """fedqcs-ae on the kernel route over each noisy uplink: the fused
+    encoder once and gamp_step 25 times, and the decoded aggregate within
+    NMSE 1e-3 of the same round with the plain versions (on the CPU, the
+    same draws)."""
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.paper.mlp import run_federated
+
+    cfg = FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25, use_kernels=True,
+                       gamp_variance_mode="scalar")
+    enc_mod.launches = g_mod.launches = 0
+    card = run_federated("fedqcs-ae", steps=1, k_devices=10, device="cuda", fed_cfg=cfg, **kw)
+    assert enc_mod.launches == 1 and g_mod.launches == 25
+    plain = run_federated("fedqcs-ae", steps=1, k_devices=10, device="cpu", fed_cfg=cfg, **kw)
+    assert _nmse(card.last_ghat.cpu(), plain.last_ghat) <= 1e-3

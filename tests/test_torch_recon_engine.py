@@ -352,16 +352,21 @@ def test_dead_rows_converged_zero_and_padding_invariant():
     assert _nmse(padded, ghat) <= 1e-4 and not padded[1].any()
 
 
+# Explicit ids keep each case's name from before ReconSpec(channel=...) was
+# ported (item 5): that case became tests/test_torch_channel.py's
+# api.reconstruct parity test.
 @pytest.mark.parametrize("route,item", [
-    (lambda tc: tre.chunked_rows(None, (torch.zeros(4),), 2, 1, mesh=object()), "item 10"),
-    (lambda tc: tre.ea_decode_segments(tc, None, None, None, None, packed=True), "item 9"),
-    (lambda tc: tre.decode_from_stats(tc, None), "item 7"),
-    (lambda tc: tre.ReconSpec(mode="ae", channel=(None, None)), "item 5"),
-    (lambda tc: trec.aggregate_and_estimate(tc, None, None, None, groups=2), "item 6"),
-    (lambda tc: tapi.reconstruct(tc, [], [], None, recon=tre.ReconSpec(mode="ea"),
-                                 emit=print), "item 9"),
-    (lambda tc: tc.compress_tree({"w": torch.zeros(3)}, torch.zeros((1, 256)), layout=()),
-     "item 9"),
+    pytest.param(lambda tc: tre.chunked_rows(None, (torch.zeros(4),), 2, 1, mesh=object()),
+                 "item 10", id="route0-item 10"),
+    pytest.param(lambda tc: tre.ea_decode_segments(tc, None, None, None, None, packed=True),
+                 "item 9", id="route1-item 9"),
+    pytest.param(lambda tc: tre.decode_from_stats(tc, None), "item 7", id="route2-item 7"),
+    pytest.param(lambda tc: trec.aggregate_and_estimate(tc, None, None, None, groups=2),
+                 "item 6", id="route4-item 6"),
+    pytest.param(lambda tc: tapi.reconstruct(tc, [], [], None, recon=tre.ReconSpec(mode="ea"),
+                                             emit=print), "item 9", id="route5-item 9"),
+    pytest.param(lambda tc: tc.compress_tree({"w": torch.zeros(3)}, torch.zeros((1, 256)),
+                                             layout=()), "item 9", id="route6-item 9"),
 ])
 def test_engine_routes_outside_the_slice_raise(route, item):
     tc = tcomp.BQCSCodec(tcomp.FedQCSConfig(block_size=256, reduction_ratio=4), device="cpu")

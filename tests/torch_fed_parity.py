@@ -1,0 +1,169 @@
+"""Shared set-up of the round-level parity tests (tests/test_torch_baselines.py,
+tests/test_torch_channel.py): one small federation run by the reference's
+``CohortEngine`` and by the port's, from the same numpy data, parameters,
+sensing matrix, dither codec and random draws.
+
+The model is a softmax regression (``w`` (32, 8), ``b`` (8,): 264
+parameters, 5 blocks of N = 64) over 6 clients, so a round costs
+milliseconds in either package.  The port takes the reference's draws
+through its draw seam (``CohortEngine(draw=...)``): :func:`reference_draw`
+computes each one with ``jax.random`` along the reference engine's own key
+path (``fold_in(PRNGKey(seed), round)``, split into the channel and noise
+keys; a client's dither key is ``fold_in`` of the round key with its id).
+"""
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.core.compression import FedQCSConfig as JCfg
+from repro.fed import engine as jeng
+from repro.fed.channel import ChannelConfig as JChan
+from repro.fed.scheduler import SchedulerConfig as JSched
+from repro.fed.server_opt import ServerOptConfig as JSrv
+from repro_torch.core.baselines import DitherCodec
+from repro_torch.core.compression import FedQCSConfig as TCfg
+from repro_torch.fed import engine as teng
+from repro_torch.fed.channel import ChannelConfig as TChan
+from repro_torch.fed.scheduler import SchedulerConfig as TSched
+from repro_torch.fed.server_opt import ServerOptConfig as TSrv
+
+D_IN, D_OUT, CLIENTS, LR = 32, 8, 6, 0.003
+FED = dict(block_size=64, reduction_ratio=4, bits=3, s_ratio=0.2, gamp_iters=10)
+DITHER_N = 64
+
+
+def reference_draw(seed: int):
+    """The port's draw seam, returning the reference engine's draws."""
+
+    def draw(t, purpose, shape, client=None):
+        kr = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+        k_chan, k_noise = jax.random.split(kr)
+        if purpose == "gain":
+            x = jax.random.exponential(k_chan, shape, jnp.float32)
+        elif purpose in ("h", "h_err"):
+            k_h, k_e = jax.random.split(k_chan)
+            x = jax.random.normal(k_h if purpose == "h" else k_e, shape, jnp.float32)
+        elif purpose == "noise":
+            x = jax.random.normal(k_noise, shape, jnp.float32)
+        else:  # dither
+            key = jax.random.fold_in(kr, client)
+            x = jax.random.uniform(key, shape, minval=-0.5, maxval=0.5)
+        return torch.tensor(np.asarray(x, np.float32))
+
+    return draw
+
+
+def _data(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(120, D_IN)).astype(np.float32)
+    y = rng.integers(0, D_OUT, 120).astype(np.int32)
+    parts = [np.arange(k, 120, CLIENTS) for k in range(CLIENTS)]
+    w = (rng.normal(size=(D_IN, D_OUT)) / np.sqrt(D_IN)).astype(np.float32)
+    params = {"w": w, "b": np.zeros(D_OUT, np.float32)}
+    return x, y, parts, params
+
+
+def _j_loss(params, x, y):
+    logp = jax.nn.log_softmax(x @ params["w"] + params["b"])
+    return -jnp.mean(jnp.take_along_axis(logp, y[:, None], axis=1))
+
+
+def _j_grad(params, batch):
+    return jax.grad(_j_loss)(params, batch["x"], batch["y"])
+
+
+def _t_loss(params, x, y):
+    logp = torch.log_softmax(x @ params["w"] + params["b"], dim=-1)
+    return -torch.mean(torch.gather(logp, 1, y[:, None]))
+
+
+def _t_grad(params, batch):
+    return torch.func.grad(_t_loss)(params, batch["x"], batch["y"])
+
+
+def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0):
+    """(reference engine, port engine) over the same federation, with the
+    reference's sensing matrix, dither codec and draws in the port's."""
+    chan_kw = chan_kw or {}
+    fed = dict(FED, **(fed_kw or {}))
+    x, y, parts, params = _data()
+    common = dict(
+        cohort=dict(method=method, dither_n=DITHER_N, seed=seed),
+        sched=dict(kind="full", dropout_prob=dropout, seed=seed),
+        server=dict(kind="fedadam", lr=LR, b1=0.9, b2=0.999, eps=1e-8),
+    )
+    je = jeng.CohortEngine(
+        {k: jnp.asarray(v) for k, v in params.items()}, _j_grad,
+        jeng.ArrayClientData(x, y, parts, batch_size=4, seed=seed),
+        fed_cfg=JCfg(**fed), cohort=jeng.CohortConfig(**common["cohort"]),
+        sched=JSched(**common["sched"]), chan=JChan(**chan_kw),
+        server=JSrv(**common["server"]),
+    )
+    a = None if je.codec is None else torch.tensor(np.asarray(je.codec.a))
+    te = teng.CohortEngine(
+        {k: torch.tensor(v) for k, v in params.items()}, _t_grad,
+        teng.ArrayClientData(x, y, parts, batch_size=4, seed=seed, device="cpu"),
+        fed_cfg=TCfg(**fed), cohort=teng.CohortConfig(**common["cohort"]),
+        sched=TSched(**common["sched"]), chan=TChan(**chan_kw),
+        server=TSrv(**common["server"]), device="cpu", a=a, draw=reference_draw(seed),
+    )
+    if je._dither is not None:
+        jd = je._dither
+        te.dither = DitherCodec(jd.n, jd.m, jd.bits,
+                                rademacher=torch.tensor(np.asarray(jd.rademacher)),
+                                rows=torch.tensor(np.asarray(jd.rows)))
+    return je, te
+
+
+def reference_round(je):
+    """One reference round; returns (stats, decoded aggregate)."""
+    seen = {}
+    ps = je._ps_jit
+
+    def capture(*args):
+        out = ps(*args)
+        seen["ghat"] = out[0]
+        return out
+
+    je._ps_jit = capture
+    stats = je.run_round()
+    je._ps_jit = ps
+    return stats, np.asarray(seen["ghat"])
+
+
+def nmse(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.sum((x - ref) ** 2) / max(np.sum(ref**2), 1e-30))
+
+
+def check_round(je, te, ghat_tol):
+    """Runs round 0 in both and holds the port to the reference: the decoded
+    aggregate to NMSE ``ghat_tol``, every stat to 1e-5 relative, the
+    residuals and the scheduler state, and the parameters (atol 1e-6 where
+    |ghat| > 1e-4 max|ghat|; Adam's first step is +-lr there, and within
+    2 lr everywhere).  Returns (port stats, reference stats)."""
+    stats_j, ghat_j = reference_round(je)
+    stats_t = te.run_round()
+    ghat_t = te.last_ghat.numpy()
+    assert ghat_t.shape == ghat_j.shape
+    assert nmse(ghat_t, ghat_j) <= ghat_tol, nmse(ghat_t, ghat_j)
+    assert set(stats_t) == set(stats_j), (sorted(stats_t), sorted(stats_j))
+    for k, v in stats_j.items():
+        assert abs(stats_t[k] - float(v)) <= 1e-5 * abs(float(v)) + 1e-12, (k, stats_t[k], v)
+    np.testing.assert_allclose(te.residuals.numpy(), np.asarray(je.residuals),
+                               rtol=1e-5, atol=1e-7)
+    assert np.array_equal(te.sched_state.last_round, je.sched_state.last_round)
+    flat = ghat_j.reshape(-1)
+    gj = {"b": flat[:D_OUT].reshape(D_OUT), "w": flat[D_OUT:D_OUT * (D_IN + 1)].reshape(
+        D_IN, D_OUT)}
+    big = 1e-4 * np.abs(ghat_j).max()
+    for k, v in je.params.items():
+        v = np.asarray(v)
+        got = te.params[k].numpy()
+        mask = np.abs(gj[k]) > big
+        np.testing.assert_allclose(got[mask], v[mask], rtol=0, atol=1e-6)
+        assert np.all(np.abs(got - v) <= 2 * LR + 1e-6)
+    return stats_t, stats_j

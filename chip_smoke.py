@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
     (rows per tile, cluster) and at cluster 1 and the 25-step EA driver (300
     rows), gamp_step at the same two shapes and the 25-step AE driver (10
     rows), and gamp_step's two shapes at 300 rows (the vq EA decode's); both
-    step kernels at 64 rows (a chunk of [routes]' chunked EA decode).
+    step kernels at 64 rows (a chunk of [routes]' chunked EA decode);
+    gamp_step at 30 and 100 rows (the AE decode in 3 and 10 groups) and the
+    fused encoder at 10 rows (one client of the loop oracle: bit-identical
+    to the 300-row launch's first 10 rows).
  3. [staged] The staged encode path of ``kernels/ops.py``
     (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
     counts set to 0 just before and read just after, held against the
@@ -54,18 +57,28 @@ Phases (any failure raises and the script exits non-zero):
     rounds each: 25 gamp_step launches a round, nu_quant / nu_channel /
     nmse per round, round 0 against the plain versions with the same draws
     (NMSE <= 1e-3); fedqcs-ea and qcs-dither over awgn raise ValueError.
- 8. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
-    [main], [routes], [baselines] and [channels]: each round's device busy time (the device events
-    that start inside its ``run_round``), the steady rounds' mean beside
-    their unprofiled wall time (the idle share), and the top device events.
- 9. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 8. [knobs] fedqcs-ae with lloyd_max on the kernel route: the AE decode in
+    G = 3 and G = 10 groups (2 rounds each, 25 gamp_step launches a round
+    on 30 and 100 rows; round 0 against the plain versions, NMSE <= 1e-3);
+    ``impl="loop"`` against ``impl="vmap"`` from the same seed (30 encoder
+    launches of 10 rows a round against 1 of 300; round 0's wire words and
+    the parameters after 2 rounds bit-identical); the SNR sweep's scenario
+    (K = 100, dirichlet alpha 0.1, uniform 30%, dropout 0.25, awgn 10 dB,
+    fedavgm, chunk 10: cohort, finite stats, launches, and the chunked
+    gradients against one pass, reported).
+ 9. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
+    [main], [routes], [baselines], [channels] and [knobs]: each round's
+    device busy time (the device events that start inside its
+    ``run_round``), the steady rounds' mean beside their unprofiled wall
+    time (the idle share), and the top device events.
+ 10. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
     encoder's, for the record.  [tune]: the staged bqcs_encode (300 rows)
     at every cluster size, each held against the plain version first;
-    qgamp_step at 64 and 300 rows and gamp_step at 10, 64 and 300 rows at
-    every (rows per tile, cluster), each held against the plain step
+    qgamp_step at 64 and 300 rows and gamp_step at 10, 30, 64, 100 and 300
+    rows at every (rows per tile, cluster), each held against the plain step
     first, and at the chooser's pick without the EM refresh.  The
     chooser's pick is marked.
 
@@ -542,6 +555,43 @@ def phase_kernels(dev):
     print(f"[gamp_step] one step, 300 rows, (rows per tile, cluster) {shapes}: allclose rtol "
           f"2e-4 atol 1e-6, max abs err {max(errs):.3g}; 25-step vq EA decode on the vq "
           f"encoder's words: NMSE {e_vq:.3g} (<= 1e-4); launches {n_g}")
+
+    # -- gamp_step at the grouped AE decode's rows ([knobs]: G = 3 and 10) -------
+    for g in KNOB_GROUPS:
+        nb_g = 10 * g
+        args_g = tuple(v[:nb_g].contiguous() if torch.is_tensor(v) and v.dim()
+                       and v.shape[0] == rows else v for v in args300)
+        n0 = g_mod.launches
+        errs, shapes = step_vs_plain("gamp", args_g, dev)
+        n_k = launched(g_mod, n0, len(shapes))
+        out[f"gamp{nb_g}"] = dict(max_abs_err=max(errs), args=args_g,
+                                  gemm=(args_g[0], args_g[2], a))
+        print(f"[gamp_step] one step, {nb_g} rows (the AE decode at G = {g}), (rows per tile, "
+              f"cluster) {shapes}: allclose rtol 2e-4 atol 1e-6, max abs err {max(errs):.3g}; "
+              f"launches {n_k}")
+
+    # -- the fused encoder at 10 rows (one client: [knobs]' loop oracle) ---------
+    k300 = out["encode"]
+    b10, r10 = blocks[:10].contiguous(), resid0[:10].contiguous()
+    a_t, tab = k300["args"][2], k300["args"][3]
+    n0 = enc_mod.launches
+    w10, al10, res10 = bqcs_encode_fused(b10, r10, a_t, tab, S, M, Q, **k300["kwargs"])
+    n_enc = launched(enc_mod, n0, 1)
+    w_p, al_p, res_p = ref.bqcs_encode_fused_ref(b10, r10, a_t[:, :M], tab, S, Q)
+    words300, alpha300, _ = enc_out["lloyd_max"]
+    torch.cuda.synchronize()
+    check(torch.equal(w10, words300[:10]) and torch.equal(al10, alpha300[:10]),
+          "the fused encoder at 10 rows must give the 300-row launch's first 10 rows bit for bit")
+    check(torch.equal(res10, res_p), "10-row encoder resid must be bit-identical to the plain")
+    kept10 = kept[:10]
+    out["encode10"] = dict(
+        max_abs_err=float(torch.max(torch.abs(al10 - al_p))), kept=int(kept10.sum()),
+        a_rows=int(kept10.any(dim=0).sum()), args=(b10, r10, a_t, tab, S, M, Q),
+        kwargs=k300["kwargs"], words=w10.shape[1],
+    )
+    print(f"[encode] lloyd_max at 10 rows (one client): words and alpha bit-identical to the "
+          f"300-row launch's first 10 rows, resid bit-identical to the plain version, alpha max "
+          f"abs err {out['encode10']['max_abs_err']:.3g}; launches {n_enc}")
 
     # -- both step kernels at one chunk of the chunked EA decode ([routes]) ------
     for kind, key, args, mod in (("qgamp", "qgamp64", qargs, q_mod),
@@ -1051,6 +1101,119 @@ def phase_channels(dev):
     return launches, round_ms
 
 
+# [knobs]: fedqcs-ae lloyd_max on the kernel route at full width with the
+# round's remaining knobs: the AE decode in G groups (gamp_step at G x 10
+# rows), the per-client loop oracle (the fused encoder at 10 rows, once per
+# client) and examples/fed_snr_sweep_torch.py's scenario at K = 100.
+KNOB_GROUPS = (3, 10)
+SWEEP = dict(k_devices=100, partition="dirichlet", alpha=0.1, scheduler="uniform",
+             sample_frac=0.3, dropout=0.25, channel="awgn", snr_db=10.0, server="fedavgm",
+             chunk=10)
+
+
+def phase_knobs(dev):
+    """[knobs] The AE decode at G = 3 and G = 10 (25 gamp_step launches a
+    round on G x 10 rows; round 0 against the plain versions on the card,
+    NMSE <= 1e-3), ``impl="loop"`` against ``impl="vmap"`` from the same
+    seed (30 encoder launches a round against 1; round 0's wire words and
+    the parameters after 2 rounds bit-identical), and the SNR sweep's
+    scenario (dirichlet alpha 0.1, uniform 30% of 100 clients, dropout 0.25,
+    awgn 10 dB, fedavgm, chunk 10) with its chunked gradients held against
+    one pass (reported).  Returns (the launches by KERNELS name, label ->
+    (method, config, round walls, arguments) for [profile])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.paper.mlp import run_federated
+
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    want = dict(zero, encode=ROUNDS_NEW, gamp=ROUNDS_NEW * ITERS)
+    round_ms = {}
+    launches = {"bqcs_encode_fused": 0, "gamp_step": 0, "bqcs_encode_fused[10 rows]": 0}
+    for g in KNOB_GROUPS:
+        label = f"fedqcs-ae lloyd_max G={g}"
+        with captured_rounds() as card:
+            zero_counts()
+            res = run_federated("fedqcs-ae", steps=ROUNDS_NEW, eval_every=1, device=dev,
+                                fed_cfg=fed_cfg(), groups=g)
+            counts = read_counts()
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        check(all(np.isfinite(res.nmses)) and max(res.nmses) < 1.0, f"{label} nmse {res.nmses}")
+        with plain_kernels():
+            plain = run_federated("fedqcs-ae", steps=1, device=dev, fed_cfg=fed_cfg(), groups=g)
+        e = nmse(card[0]["ghat"], plain.last_ghat)
+        check(e <= 1e-3, f"{label}: kernel round vs plain round NMSE {e:.3g} > 1e-3")
+        print(f"[knobs] {label} (gamp_step on {g * 10} rows): nmse "
+              f"{[round(v, 6) for v in res.nmses]} accuracy {[round(v, 4) for v in res.accs]} "
+              f"round ms {[round(v, 2) for v in res.round_ms]} launches {counts} "
+              f"({counts['gamp'] // ROUNDS_NEW} gamp_step a round); round 0 vs the plain "
+              f"versions on the card: NMSE {e:.3g} (<= 1e-3)")
+        launches["bqcs_encode_fused"] += counts["encode"]
+        launches[f"gamp_step[{g * 10} rows]"] = counts["gamp"]
+        round_ms[label] = ("fedqcs-ae", fed_cfg(), res.round_ms, dict(groups=g))
+
+    runs = {}
+    for impl in ("vmap", "loop"):
+        with captured_rounds() as rounds:
+            zero_counts()
+            res = run_federated("fedqcs-ae", steps=ROUNDS_NEW, eval_every=1, device=dev,
+                                fed_cfg=fed_cfg(), impl=impl)
+            counts = read_counts()
+        per_round = K if impl == "loop" else 1
+        want_impl = dict(want, encode=ROUNDS_NEW * per_round)
+        check(counts == want_impl, f"impl={impl}: launches {counts}, want {want_impl}")
+        runs[impl] = (rounds, res, counts)
+    # the vmap run is [main]'s AE lloyd_max round; only the loop is new
+    round_ms["fedqcs-ae lloyd_max impl=loop"] = ("fedqcs-ae", fed_cfg(), runs["loop"][1].round_ms,
+                                                 dict(impl="loop"))
+    (vm, res_v, counts_v), (lp, res_l, counts_l) = runs["vmap"], runs["loop"]
+    check(torch.equal(vm[0]["words"], lp[0]["words"]),
+          "round 0: the loop oracle's wire words differ from the batched encode's")
+    params_v, params_l = vm[-1]["engine"].params, lp[-1]["engine"].params
+    same = all(torch.equal(params_v[k], params_l[k]) for k in params_v)
+    check(same and res_v.nmses == res_l.nmses,
+          "impl=loop vs impl=vmap: parameters or nmse differ after 2 rounds")
+    launches["bqcs_encode_fused"] += counts_v["encode"]
+    launches["bqcs_encode_fused[10 rows]"] = counts_l["encode"]
+    launches["gamp_step"] += counts_v["gamp"] + counts_l["gamp"]
+    print(f"[knobs] fedqcs-ae lloyd_max impl=loop vs impl=vmap, same seed: round 0 wire words "
+          f"bit-identical ({vm[0]['words'].numel()} words), parameters after {ROUNDS_NEW} rounds "
+          f"bit-identical, nmse {[round(v, 6) for v in res_l.nmses]}; encoder launches "
+          f"{counts_l['encode']} (loop, 10 rows each) vs {counts_v['encode']} (vmap, 300 "
+          f"rows); round ms loop {[round(v, 2) for v in res_l.round_ms]} vs vmap "
+          f"{[round(v, 2) for v in res_v.round_ms]}")
+
+    label = "fedqcs-ae lloyd_max SNR-sweep scenario"
+    with captured_rounds() as sw:
+        zero_counts()
+        res = run_federated("fedqcs-ae", steps=ROUNDS_NEW, eval_every=1, device=dev,
+                            fed_cfg=fed_cfg(), **SWEEP)
+        counts = read_counts()
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    stats = [{k: float(v) for k, v in r["stats"].items()} for r in sw]
+    check(all(np.isfinite(list(v.values())).all() for v in stats) and len(res.nmses) == ROUNDS_NEW,
+          f"{label}: stats {stats}")
+    cohorts = [(r["rhos"].numel(), int((r["rhos"] > 0).sum())) for r in sw]
+    check(all(c == 30 for c, _ in cohorts), f"{label}: cohorts {cohorts}, want 30")
+    with captured_rounds() as one:
+        run_federated("fedqcs-ae", steps=1, device=dev, fed_cfg=fed_cfg(),
+                      **dict(SWEEP, chunk=0))
+    diff = torch.abs(sw[0]["blocks"] - one[0]["blocks"])
+    launches["bqcs_encode_fused"] += counts["encode"]
+    launches["gamp_step"] += counts["gamp"]
+    print(f"[knobs] {label} (K=100 dirichlet alpha=0.1, uniform 0.3, dropout 0.25, awgn 10 dB, "
+          f"fedavgm, chunk=10): nmse / nu_quant / nu_channel per round "
+          + "; ".join(f"{v['nmse']:.6f} / {v['nu_quant']:.4g} / {v['nu_channel']:.4g}"
+                      for v in stats)
+          + f"; cohort/participating {cohorts}; accuracy {[round(v, 4) for v in res.accs]} "
+          f"round ms {[round(v, 2) for v in res.round_ms]} launches {counts}; round 0 gradients "
+          f"chunk=10 vs one pass: {int((diff > 0).sum())} of {diff.numel()} entries differ, max "
+          f"abs {float(diff.max()):.3g}")
+    round_ms[label] = ("fedqcs-ae", fed_cfg(), res.round_ms, SWEEP)
+    torch.cuda.synchronize()
+    return launches, round_ms
+
+
 ROUND_RANGE = "chip_smoke.round"
 
 
@@ -1170,7 +1333,8 @@ def phase_times(dev, k_in):
 
     for name, key in (("bqcs_encode_fused", "encode"), ("bqcs_encode_fused[dither]",
                                                           "encode_dither"),
-                      ("bqcs_encode_fused[vq]", "encode_vq")):
+                      ("bqcs_encode_fused[vq]", "encode_vq"),
+                      ("bqcs_encode_fused[10 rows]", "encode10")):
         k = k_in[key]
         blocks, resid0, a_t, tab, s, m, q = k["args"]
         kw = k["kwargs"]
@@ -1181,7 +1345,7 @@ def phase_times(dev, k_in):
             dith = None if kw["dither"] is None else kw["dither"][:m]
             plain = lambda: ref.bqcs_encode_fused_ref(  # noqa: E731
                 blocks, resid0, a_t[:, :m], tab, s, q, dither=dith)
-        b_ms, b_by = encoder_bound(k, rows)
+        b_ms, b_by = encoder_bound(k, blocks.shape[0])
         res[name] = dict(ms=timer(lambda: bqcs_encode_fused(*k["args"], **kw)),
                          ms_iters0=timer(lambda: bqcs_encode_fused(*k["args"], iters=0, **kw)),
                          plain_ms=timer(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -1228,7 +1392,8 @@ def phase_times(dev, k_in):
         )
 
     for name, key in (("gamp_step", "gamp"), ("gamp_step[300 rows]", "gamp300"),
-                      ("gamp_step[64 rows]", "gamp64")):
+                      ("gamp_step[64 rows]", "gamp64"), ("gamp_step[30 rows]", "gamp30"),
+                      ("gamp_step[100 rows]", "gamp100")):
         ga = k_in[key]["args"]
         b_ms, b_by = gamp_step_bound(ga[0].shape[0])
         g2, s2, a2 = k_in[key]["gemm"]
@@ -1258,7 +1423,8 @@ def phase_times(dev, k_in):
               f"code lanes" + (" (the chooser's pick)" if c == pick[1] else ""))
     for kind, key, mod in (("qgamp", "qgamp", q_mod), ("qgamp", "qgamp64", q_mod),
                            ("gamp", "gamp", g_mod), ("gamp", "gamp300", g_mod),
-                           ("gamp", "gamp64", g_mod)):
+                           ("gamp", "gamp64", g_mod), ("gamp", "gamp30", g_mod),
+                           ("gamp", "gamp100", g_mod)):
         step = getattr(mod, f"{kind}_step")
         args = k_in[key]["args"]
         nb_ = args[0].shape[0]
@@ -1451,6 +1617,10 @@ KERNELS = {
     "gamp_step[300 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp300"),
     "qgamp_step[64 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp64"),
     "gamp_step[64 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp64"),
+    "bqcs_encode_fused[10 rows]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                   "encode10"),
+    "gamp_step[30 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp30"),
+    "gamp_step[100 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp100"),
 }
 
 
@@ -1514,6 +1684,8 @@ def main() -> int:
     round_ms.update(baseline_ms)
     channel_launches, channel_ms = phase_channels(dev)
     round_ms.update(channel_ms)
+    knob_launches, knob_ms = phase_knobs(dev)
+    round_ms.update(knob_ms)
     phase_profile(round_ms, dev)
     times = phase_times(dev, k_in)
     for label, (_, _, ms, _) in round_ms.items():
@@ -1522,7 +1694,8 @@ def main() -> int:
               f"mean of rounds 1..{len(ms) - 1}: {steady:.3f}")
     launches = main_path_launches(per_run, staged)
     launches["bqcs_encode_fused"] += qiht_encode
-    for kname, n in list(routes_launches.items()) + list(channel_launches.items()):
+    for kname, n in (list(routes_launches.items()) + list(channel_launches.items())
+                     + list(knob_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

@@ -13,9 +13,9 @@ the reference's rows: every method with lloyd_max, then fedqcs-ae and
 fedqcs-ea with the dithered_uniform and vq codebooks.  The uplink is
 ``--channel`` (ideal, awgn, rayleigh, mimo_mac) with ``--snr-db``,
 ``--n-rx`` and ``--csi-error``; a code-domain method falls back to the
-ideal uplink, as in the reference.  Other partitions, schedulers and
-``--record`` are not ported yet and fail with the port's
-``NotImplementedError``, naming the ROADMAP.md item that ports them.
+ideal uplink, as in the reference.  ``--record`` is not ported yet and
+fails with the port's ``NotImplementedError``, naming the ROADMAP.md item
+that ports it.
 
 Uses real MNIST if $MNIST_DIR points at the IDX files, else the
 deterministic synthMNIST surrogate.

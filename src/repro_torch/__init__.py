@@ -20,7 +20,10 @@ chunked and two-phase EA engine (``core/recon_engine.py``) and the
 ``qcs-qiht``, ``qcs-dither``, ``signsgd``, ``none``); the uplinks of
 ``fed/channel.py`` (``ideal``, and for ``fedqcs-ae`` the noisy ``awgn``,
 ``rayleigh`` and ``mimo_mac`` with LMMSE or zero-forcing combining); the
-``full`` scheduler and the FedAdam server.  The five
+``iid``, ``shard``, ``dirichlet`` and ``paper`` partitions, the ``full``,
+``uniform`` and ``async`` schedulers, the FedAvg, FedAvgM and FedAdam
+servers (Adam or SGD, fp32 or blockwise-int8 states), the AE decode in G
+groups, the chunked client pass and the per-client loop oracle.  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

@@ -1,2 +1,16 @@
-"""FedQCS core, ported to PyTorch: quantizer (Lloyd-Max design), codebook,
-sensing, compression (the BQCS codec), gamp, bussgang, reconstruction."""
+"""FedQCS core, ported to PyTorch: quantizer (Lloyd-Max design), codebook
+(lloyd_max / dithered_uniform / vq), sparsify, sensing, compression (the
+BQCS codec), gamp (EM-GAMP / Q-EM-GAMP), bussgang, reconstruction (EA / AE),
+recon_engine (the chunked PS decode), baselines (SignSGD, QCS-Dither,
+QCS-QIHT) and api (the one-call interface, re-exported here as the
+reference's ``repro.core`` does)."""
+
+from repro_torch.core.api import (  # noqa: F401
+    BQCSCodec,
+    CompressorState,
+    FedQCSConfig,
+    compress,
+    init_state,
+    make_codec,
+    reconstruct,
+)

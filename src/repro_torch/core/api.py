@@ -9,8 +9,8 @@
 ``ReconSpec`` (core/recon_engine.py) says HOW the PS reconstructs: mode,
 AE grouping, chunking, kernel routing.  The pre-spec ``mode=``/``groups=``
 keywords still work as a deprecated shim.  The monolithic layout is the
-only one ported; the segment-local decode (``emit=``) and AE groups G > 1
-raise ``NotImplementedError``.  ``ReconSpec(channel=(y_eff, nu_eff))``
+only one ported; the segment-local decode (``emit=``) raises
+``NotImplementedError``.  ``ReconSpec(channel=(y_eff, nu_eff))``
 decodes one received multiple-access observation (``fed/channel.py``).
 """
 

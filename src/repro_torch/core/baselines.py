@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import sparsify
+from repro_torch.core.codebook import as_codebook
 
 __all__ = [
     "signsgd_compress",
@@ -166,7 +167,7 @@ def qiht_reconstruct(
     codes: torch.Tensor,  # (nb, n_codes) codebook indices
     alpha: torch.Tensor,  # (nb,)
     a: torch.Tensor,  # (M, N)
-    codebook,  # Codebook of any family
+    codebook,  # Codebook of any family (or legacy LloydMaxQuantizer)
     s: int,
     iters: int = 50,
     step: float = 1.0,
@@ -174,6 +175,7 @@ def qiht_reconstruct(
     """QIHT: ``iters`` steps of :func:`qiht_step` from zero, then the norm
     rescale to ||g_hat|| = sqrt(M)/alpha; dead rows (alpha == 0) come out
     zero."""
+    codebook = as_codebook(codebook)
     m, n = a.shape
     q_dq = codebook.decode(codes, m)  # (nb, M)
     alive = alpha > 0

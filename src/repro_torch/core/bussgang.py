@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.codebook import as_codebook
+
 __all__ = [
     "bussgang_weight",
     "aggregate_codes",
@@ -32,7 +34,7 @@ def _safe(alpha: torch.Tensor) -> torch.Tensor:
 def bussgang_weight(rho: torch.Tensor, alpha: torch.Tensor, quantizer) -> torch.Tensor:
     """Per-(worker, block) combining weight rho_k / (gamma_Q alpha_{k,b});
     alpha == 0 (empty block) contributes weight 0."""
-    w = rho / (quantizer.gamma * _safe(alpha))
+    w = rho / (as_codebook(quantizer).gamma * _safe(alpha))
     return torch.where(alpha > 0, w, torch.zeros_like(w))
 
 
@@ -40,15 +42,17 @@ def aggregate_codes(codes, alphas, rhos, quantizer, m=None) -> torch.Tensor:
     """q_tilde (nb, M) from (K, nb, n_codes) codes: the Bussgang aggregate of
     eq. 23.  The codebook decodes the n_codes = M / dim lanes to the M
     measurements (vq: centroid dimension j of group g to lane j*G + g)."""
-    deq = quantizer.decode(codes, m)
-    w = bussgang_weight(rhos[:, None], alphas, quantizer)
+    cb = as_codebook(quantizer)
+    deq = cb.decode(codes, m)
+    w = bussgang_weight(rhos[:, None], alphas, cb)
     return torch.sum(w[..., None] * deq, dim=0)
 
 
 def aggregate_packed(words, alphas, rhos, quantizer, m: int) -> torch.Tensor:
     """q_tilde (nb, M) straight from the (K, nb, W) packed words."""
-    deq = quantizer.decode_packed(words, m)
-    w = bussgang_weight(rhos[:, None], alphas, quantizer)
+    cb = as_codebook(quantizer)
+    deq = cb.decode_packed(words, m)
+    w = bussgang_weight(rhos[:, None], alphas, cb)
     return torch.sum(w[..., None] * deq, dim=0)
 
 
@@ -56,7 +60,7 @@ def effective_noise_var(alphas, rhos, quantizer) -> torch.Tensor:
     """nu_{g,b} (nb,): AWGN variance of the effective distortion (eq. 24)."""
     ratio = rhos[:, None] / _safe(alphas)
     terms = torch.where(alphas > 0, ratio * ratio, torch.zeros_like(alphas))
-    return quantizer.kappa * torch.sum(terms, dim=0)
+    return as_codebook(quantizer).kappa * torch.sum(terms, dim=0)
 
 
 def signal_energy(alphas, rhos, m: int, n: int) -> torch.Tensor:

@@ -27,11 +27,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quantizer import _phi, design_lloyd_max
+from repro_torch.core.quantizer import LloydMaxQuantizer, _phi, design_lloyd_max
 
 __all__ = [
     "Codebook",
     "ScalarCodebook",
+    "as_codebook",
     "VectorCodebook",
     "make_codebook",
     "vq_nearest",
@@ -267,12 +268,15 @@ def design_vq(
 # ---------------------------------------------------------------------------
 
 
-def _build_lloyd_max(cfg) -> ScalarCodebook:
-    q = design_lloyd_max(cfg.bits)
+def _as_lloyd_max_codebook(q: LloydMaxQuantizer) -> ScalarCodebook:
     return ScalarCodebook(
         family="lloyd_max", bits=q.bits, dim=1, n_levels=q.n_levels, gamma=q.gamma,
         psi=q.psi, levels=q.levels, thresholds=q.thresholds,
     )
+
+
+def _build_lloyd_max(cfg) -> ScalarCodebook:
+    return _as_lloyd_max_codebook(design_lloyd_max(cfg.bits))
 
 
 def _build_dithered_uniform(cfg) -> ScalarCodebook:
@@ -305,3 +309,13 @@ def make_codebook(cfg) -> Codebook:
             f"unknown codebook {cfg.codebook!r} (known: {sorted(_FAMILIES)})"
         ) from None
     return builder(cfg)
+
+
+def as_codebook(obj) -> Codebook:
+    """Adapts a legacy :class:`LloydMaxQuantizer` to the Codebook surface;
+    Codebooks pass through."""
+    if isinstance(obj, Codebook):
+        return obj
+    if isinstance(obj, LloydMaxQuantizer):
+        return _as_lloyd_max_codebook(obj)
+    raise TypeError(f"not a codebook or quantizer: {type(obj)!r}")

@@ -34,6 +34,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.codebook import as_codebook
+
 __all__ = [
     "GampConfig",
     "GampInfo",
@@ -368,10 +370,11 @@ def _ea_kernel_ok(cb, cfg: GampConfig) -> bool:
     return _kernel_dispatch_ok(cfg) and cb.dim == 1 and getattr(cb, "dither", None) is None
 
 
-def _qem_gamp_xla(codes, alpha, a, cb, cfg: GampConfig):
+def _qem_gamp_xla(codes, alpha, a, quantizer, cfg: GampConfig):
     """Plain-loop Q-EM-GAMP: the truncated-posterior channel on the scalar
     codebook's cell edges (dither as a per-lane edge shift), or the Bussgang
     AWGN fallback for vq.  Returns (guarded ghat, converged, iters)."""
+    cb = as_codebook(quantizer)
     if cb.dim > 1:
         return _vq_ea_xla(codes, alpha, a, cb, cfg)
     nb, m = codes.shape
@@ -451,7 +454,7 @@ def qem_gamp(
     codes: torch.Tensor,  # (nb, n_codes) code indices
     alpha: torch.Tensor,  # (nb,) transmitted scale factors
     a: torch.Tensor,  # (M, N)
-    quantizer,  # Codebook
+    quantizer,  # Codebook (or legacy LloydMaxQuantizer)
     cfg: GampConfig,
     use_kernels: bool = True,
     with_info: bool = False,
@@ -462,7 +465,7 @@ def qem_gamp(
     for an undithered scalar codebook, gamp_step for the vq fallback, both
     for scalar-variance undamped configs only; everything else runs the
     plain loop."""
-    cb = quantizer
+    cb = as_codebook(quantizer)
     static = GampInfo.static(codes.shape[0], cfg.iters, codes.device)
     if use_kernels and _kernel_dispatch_ok(cfg) and cb.dim > 1:
         ghat = _vq_ea_kernel(codes, alpha, a, cb, cfg)
@@ -484,7 +487,7 @@ def qem_gamp_packed(
     words: torch.Tensor,  # (nb, W) uint32 packed wire words
     alpha: torch.Tensor,  # (nb,) transmitted scale factors
     a: torch.Tensor,  # (M, N) sensing matrix
-    quantizer,  # Codebook
+    quantizer,  # Codebook (or legacy LloydMaxQuantizer)
     cfg: GampConfig,
     m: int,  # true measurement count M (the words carry M / dim lanes)
     use_kernels: bool = True,
@@ -496,7 +499,7 @@ def qem_gamp_packed(
     unpack first and then dispatch as :func:`qem_gamp`."""
     from repro_torch.core.compression import unpack_codes  # layering
 
-    cb = quantizer
+    cb = as_codebook(quantizer)
     if use_kernels and _ea_kernel_ok(cb, cfg):
         from repro_torch.kernels import ops as kops  # layering: kernels import core
 

@@ -18,8 +18,9 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
-__all__ = ["LloydMaxQuantizer", "design_lloyd_max"]
+__all__ = ["LloydMaxQuantizer", "design_lloyd_max", "encode", "decode", "quantize"]
 
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -57,6 +58,11 @@ class LloydMaxQuantizer:
     @property
     def kappa(self) -> float:
         return (self.psi - self.gamma**2) / (self.gamma**2)
+
+    @property
+    def distortion(self) -> float:
+        """MSE for a unit-variance Gaussian input: E[(Q(X) - X)^2] = 1 - 2 gamma + psi."""
+        return 1.0 - 2.0 * self.gamma + self.psi
 
 
 def design_lloyd_max(bits: int, iters: int = 0, tol: float = 1e-12) -> LloydMaxQuantizer:
@@ -108,3 +114,22 @@ def _norm_ppf(p: float, lo: float = -12.0, hi: float = 12.0) -> float:
         else:
             hi = mid
     return 0.5 * (lo + hi)
+
+
+def encode(x: torch.Tensor, quantizer: LloydMaxQuantizer) -> torch.Tensor:
+    """Code indices in [0, 2**Q): index i with taus[i-1] < x <= taus[i].
+    Shape-preserving."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    taus = torch.as_tensor(quantizer.thresholds, dtype=dtype, device=x.device)
+    return torch.searchsorted(taus, x.to(dtype).contiguous(), right=False).to(torch.uint8)
+
+
+def decode(codes: torch.Tensor, quantizer: LloydMaxQuantizer, dtype=torch.float32) -> torch.Tensor:
+    """Code indices back to reconstruction levels q_i."""
+    levels = torch.as_tensor(quantizer.levels, dtype=dtype, device=codes.device)
+    return levels[codes.long()]
+
+
+def quantize(x: torch.Tensor, quantizer: LloydMaxQuantizer) -> torch.Tensor:
+    """Q(x): quantize-dequantize in one go."""
+    return decode(encode(x, quantizer), quantizer, dtype=x.dtype)

@@ -51,7 +51,7 @@ class ReconSpec:
     fields, with ``use_pallas`` renamed ``use_kernels``):
 
       mode: "ae" (aggregate-and-estimate) or "ea" (estimate-and-aggregate).
-      groups: AE grouping G (only G = 1 is ported).
+      groups: AE grouping G (K must divide by G).
       chunk: EA row chunking; None defers to ``cfg.recon_chunk``.
       use_kernels: step-kernel routing; None defers to ``cfg.use_kernels``.
       channel: a received multiple-access observation in place of the

@@ -10,8 +10,10 @@ port of ``repro.core.reconstruction``.
     the Bussgang AWGN fallback, dithered_uniform -> the plain GAMP loop,
     whose channel shifts the cell edges per lane; every family takes the
     plain loop off the kernel route).
-  * aggregate_and_estimate (FedQCS-AE, steps 16-20): Bussgang-combine all K
-    workers, one EM-GAMP solve.  The reference's G > 1 groups are not ported.
+  * aggregate_and_estimate (FedQCS-AE, steps 16-20): Bussgang-combine within
+    each of G groups of K / G workers, one EM-GAMP solve over the G * nb
+    stacked rows (on the kernel route, ``gamp_step`` at G * nb rows), then
+    the sum of the G estimates.
 
 Payloads: codes (K, nb, n_codes) uint8 or words (K, nb, W) uint32, alphas
 (K, nb), rhos (K,) summing to 1.  A worker with rho_k = 0 contributes
@@ -24,7 +26,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch import not_in_slice
 from repro_torch.core import bussgang
 from repro_torch.core.gamp import GampConfig, em_gamp
 
@@ -97,18 +98,31 @@ def aggregate_and_estimate(
     use_kernels: Optional[bool] = None,
     with_info: bool = False,
 ):
-    """FedQCS-AE: Bussgang-aggregate all K workers, one EM-GAMP solve (G = 1).
-    ``with_info`` returns ``(blocks, GampInfo)`` with (nb,)-shaped info."""
-    if groups != 1:
-        raise not_in_slice(f"AE decode in G={groups} groups", "item 6")
+    """FedQCS-AE: Bussgang-aggregate within each of ``groups`` groups of
+    K / G consecutive workers, one EM-GAMP solve over the (G * nb, M)
+    stacked group observations, and the sum of the G group estimates.
+    ``with_info`` returns ``(blocks, GampInfo)`` with (G * nb,)-shaped info.
+    K must divide by G."""
     gamp = gamp or gamp_config_from(codec)
     if use_kernels is None:
         use_kernels = codec.cfg.use_kernels
+    k, nb = codes.shape[:2]
+    m, n = codec.cfg.m, codec.cfg.block_size
+    if k % groups != 0:
+        raise ValueError(f"K={k} not divisible by G={groups}")
+    per = k // groups
     q = codec.codebook
-    return em_gamp(
-        bussgang.aggregate_codes(codes, alphas, rhos, q, codec.cfg.m),
-        bussgang.effective_noise_var(alphas, rhos, q),
-        codec.a, gamp,
-        init_var=bussgang.signal_energy(alphas, rhos, codec.cfg.m, codec.cfg.block_size),
+    ys, nus, energies = [], [], []
+    for g in range(groups):
+        sl = slice(g * per, (g + 1) * per)
+        ys.append(bussgang.aggregate_codes(codes[sl], alphas[sl], rhos[sl], q, m))
+        nus.append(bussgang.effective_noise_var(alphas[sl], rhos[sl], q))
+        energies.append(bussgang.signal_energy(alphas[sl], rhos[sl], m, n))
+    ghat = em_gamp(
+        torch.cat(ys), torch.cat(nus), codec.a, gamp, init_var=torch.cat(energies),
         use_kernels=use_kernels, with_info=with_info,
     )
+    if with_info:
+        ghat, info = ghat
+        return torch.sum(ghat.reshape(groups, nb, n), dim=0), info
+    return torch.sum(ghat.reshape(groups, nb, n), dim=0)

@@ -1,2 +1,49 @@
-"""The federated cohort round engine, ported to PyTorch (barrier rounds):
-partition, scheduler, server_opt and engine."""
+"""The federated cohort engine, ported to PyTorch (barrier rounds):
+
+  * :mod:`repro_torch.fed.partition`  -- IID / label-shard / Dirichlet(alpha)
+    / paper partitioners over labeled datasets;
+  * :mod:`repro_torch.fed.scheduler`  -- full / uniform-sampling /
+    staleness-weighted async participation plus straggler dropout;
+  * :mod:`repro_torch.fed.channel`    -- the ``ChannelFamily`` registry (ideal,
+    awgn, rayleigh, mimo_mac);
+  * :mod:`repro_torch.fed.server_opt` -- FedAvg / FedAvgM / FedAdam;
+  * :mod:`repro_torch.fed.engine`     -- the vmapped (optionally chunked)
+    cohort round, with the per-client loop oracle.
+
+The names of ``repro.fed`` that belong to the streaming PS and the token
+federation (``TokenClientData``, ``StreamConfig``, ``StreamingPS``,
+``BoundedIngestBuffer``, ``stream_decode``) are not ported yet.
+"""
+
+from repro_torch.fed.channel import (
+    CHANNEL_FAMILIES,
+    ChannelConfig,
+    ChannelFamily,
+    ChannelRealization,
+    get_channel_family,
+    realize_uplink,
+    register_channel_family,
+)
+from repro_torch.fed.engine import ArrayClientData, CohortConfig, CohortEngine
+from repro_torch.fed.partition import PartitionConfig, partition_indices
+from repro_torch.fed.scheduler import SchedulerConfig, SchedulerState, select_cohort
+from repro_torch.fed.server_opt import ServerOptConfig
+
+__all__ = [
+    "ArrayClientData",
+    "CHANNEL_FAMILIES",
+    "ChannelConfig",
+    "ChannelFamily",
+    "ChannelRealization",
+    "CohortConfig",
+    "CohortEngine",
+    "PartitionConfig",
+    "SchedulerConfig",
+    "SchedulerState",
+    "ServerOptConfig",
+    "get_channel_family",
+    "partition_indices",
+    "realize_uplink",
+    "register_channel_family",
+    "select_cohort",
+]

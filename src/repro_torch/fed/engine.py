@@ -3,24 +3,29 @@
 One round is two passes:
 
   * **client pass** -- every cohort member's gradient, batched through
-    ``torch.func.vmap(torch.func.grad(loss))``, flattened to its
-    ``(nb, N)`` block grid, then the method's encode over all ``C * nb``
-    block rows at once (one fused-encoder launch on the kernel route; every
-    encoder stage is per block, so batching the rows is the reference's
-    vmapped encode).  ``qcs-dither`` re-blocks each client's flat vector
-    into ``dither_n``-wide rows and compresses and reconstructs them with
-    that client's dither; ``signsgd`` sends signs; ``none`` sends nothing.
+    ``torch.func.vmap(torch.func.grad(loss))`` (``cohort.chunk`` clients at
+    a time when set, then concatenated), flattened to its ``(nb, N)`` block
+    grid, then the method's encode over all ``C * nb`` block rows at once
+    (one fused-encoder launch on the kernel route; every encoder stage is
+    per block, so batching the rows is the reference's vmapped encode).
+    ``impl="loop"`` is the reference's per-client oracle: the same batched
+    gradient pass, then one encode per client.  ``qcs-dither`` re-blocks
+    each client's flat vector into ``dither_n``-wide rows and compresses
+    and reconstructs them with that client's dither; ``signsgd`` sends
+    signs; ``none`` sends nothing.
   * **PS pass** -- reconstruction from the stacked payloads, per method:
     ``fedqcs-ea`` decodes the packed words per (client, block) and
-    rho-sums; ``fedqcs-ae`` Bussgang-combines the codes (after the uplink's
-    noise, over a noisy channel) and runs one EM-GAMP solve; ``qcs-qiht``
-    runs QIHT per (client, block) and rho-sums; ``qcs-dither`` rho-sums the
-    clients' reconstructions; ``signsgd`` takes the live clients' majority
-    vote; ``none`` is the true sum.
+    rho-sums; ``fedqcs-ae`` Bussgang-combines the codes (in
+    ``cohort.groups`` groups over an ideal uplink; after the uplink's noise
+    over a noisy one) and runs one EM-GAMP solve; ``qcs-qiht`` runs QIHT per
+    (client, block) and rho-sums; ``qcs-dither`` rho-sums the clients'
+    reconstructions; ``signsgd`` takes the live clients' majority vote;
+    ``none`` is the true sum.
 
-Then the FedAdam server step.  Participation contract: a cohort slot with
-``rho_k = 0`` -- scheduler dropout or channel outage -- contributes nothing,
-and its error-feedback residual carries the full gradient forward.
+Then the server step (``fed/server_opt.py``).  Participation contract: a
+cohort slot with ``rho_k = 0`` -- scheduler dropout or channel outage --
+contributes nothing, and its error-feedback residual carries the full
+gradient forward.
 
 Every random tensor of a round -- the uplink's fading gains, fading matrix,
 CSI error and receive noise, and each client's dither -- comes through ONE
@@ -31,8 +36,8 @@ round on the card and the same round on the CPU see the same draws.  The
 reference draws these from ``jax.random``; its tests inject the
 reference's draws through ``CohortEngine(draw=...)``.
 
-The streamed and chunked client passes, the loop oracle, AE groups and the
-telemetry hooks raise ``NotImplementedError``.
+The streamed client pass and the telemetry hooks raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -86,10 +91,8 @@ class CohortConfig:
 
 
 def _check_ported(c: CohortConfig) -> None:
-    if c.groups != 1:
-        raise not_in_slice(f"AE decode in G={c.groups} groups", "item 6")
-    if c.chunk or c.impl != "vmap":
-        raise not_in_slice(f"client pass chunk={c.chunk} impl={c.impl!r}", "item 6")
+    if c.impl not in ("vmap", "loop"):
+        raise ValueError(f"unknown impl {c.impl!r} (choose 'vmap' or 'loop')")
     if c.layout != "monolithic" or c.encode_stream or c.grad_accum != 1:
         raise not_in_slice("per-tensor layouts and the streamed encode", "item 9")
 
@@ -224,17 +227,44 @@ class CohortEngine:
         self._vgrad = torch.func.vmap(lambda b: self.grad_fn(self.params, b))
 
     def _grad_blocks(self, batch) -> torch.Tensor:
-        """(C, ...) cohort batch -> (C, nb, N) gradient blocks in one pass."""
-        return self.layout.to_blocks_batched(self._vgrad(batch))
+        """(C, ...) cohort batch -> (C, nb, N) gradient blocks, one vmapped
+        pass, or ``cohort.chunk`` clients a pass when that bounds how many
+        per-client gradient dicts exist at once."""
+        c = next(iter(batch.values())).shape[0]
+        chunk = self.cohort.chunk
+        if chunk <= 0 or chunk >= c:
+            return self.layout.to_blocks_batched(self._vgrad(batch))
+        return torch.cat([
+            self.layout.to_blocks_batched(
+                self._vgrad({k: v[i:i + chunk] for k, v in batch.items()}))
+            for i in range(0, c, chunk)
+        ])
 
     def _dither_rows(self) -> Tuple[int, int]:
         """qcs-dither's re-blocking of the flat vector: (rows, M) per client."""
         return -(-self.layout.nbar // self.cohort.dither_n), self.dither.m
 
     def _client_pass(self, batch, residuals, rhos, unit_dither=None):
-        """Gradients + the method's encode over all C * nb rows.
+        """Gradients (always batched) + the method's encode: over all
+        C * nb rows at once, or with ``impl="loop"`` one client at a time
+        (the per-client payloads and residuals concatenated).
         ``unit_dither`` is the cohort's (C * rows, M) qcs-dither draw."""
         blocks = self._grad_blocks(batch)
+        if self.cohort.impl != "loop":
+            payload, new_res = self._encode(blocks, residuals, rhos, unit_dither)
+            return payload, blocks, new_res
+        rows = 0 if unit_dither is None else self._dither_rows()[0]
+        outs = [
+            self._encode(blocks[i:i + 1], residuals[i:i + 1], rhos[i:i + 1],
+                         None if unit_dither is None else unit_dither[i * rows:(i + 1) * rows])
+            for i in range(blocks.shape[0])
+        ]
+        payload = {k: torch.cat([o[0][k] for o in outs]) for k in outs[0][0]}
+        return payload, blocks, torch.cat([o[1] for o in outs])
+
+    def _encode(self, blocks, residuals, rhos, unit_dither):
+        """The method's encode of (C, nb, N) blocks -> (payload, new
+        residuals)."""
         c = blocks.shape[0]
         method = self.cohort.method
         payload: Dict[str, torch.Tensor] = {}
@@ -262,7 +292,7 @@ class CohortEngine:
                 recon, (0, self.nb * self.n - nbar)).reshape(c, self.nb, self.n)
         elif method == "signsgd":
             payload["signs"] = baselines.signsgd_compress(blocks)
-        return payload, blocks, new_res
+        return payload, new_res
 
     def _ps(self, payload, blocks, rhos, real=None, draw=None):
         """Reconstruction once per round from the stacked payloads.  ``real``
@@ -303,7 +333,8 @@ class CohortEngine:
             if fam.exact_codes:
                 stats["nu_channel"] = torch.zeros((), device=self.device)
                 ghat = aggregate_and_estimate(
-                    self.codec, self.codec.unpack(words), alphas, rhos, gamp=self.gamp
+                    self.codec, self.codec.unpack(words), alphas, rhos,
+                    groups=self.cohort.groups, gamp=self.gamp,
                 )
             else:
                 deq = self.codec.dequantize(self.codec.unpack(words))  # (C, nb, M)
@@ -378,3 +409,82 @@ class CohortEngine:
 
     def run(self, rounds: int) -> List[Dict[str, float]]:
         return [self.run_round() for _ in range(rounds)]
+
+
+# ---------------------------------------------------------------------------
+# Smoke entry point: a tiny synthetic cohort end to end.
+#     PYTHONPATH=src python -m repro_torch.fed --device cpu --clients 8 --rounds 2
+# ---------------------------------------------------------------------------
+
+
+def _smoke_main(argv=None):
+    import argparse
+
+    from repro_torch.fed.channel import CHANNEL_FAMILIES
+    from repro_torch.fed.partition import PartitionConfig, partition_indices
+    from repro_torch.fed.toy import toy_classification, toy_loss, toy_params
+
+    ap = argparse.ArgumentParser(description="cohort engine smoke")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--clients", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--sample-frac", type=float, default=1.0)
+    ap.add_argument("--alpha", type=float, default=0.3)
+    ap.add_argument("--snr-db", type=float, default=None)
+    ap.add_argument(
+        "--channel", default=None, choices=sorted(CHANNEL_FAMILIES),
+        help="uplink family (default: awgn when --snr-db is set, else ideal)",
+    )
+    ap.add_argument("--n-rx", type=int, default=8, help="mimo_mac receive antennas")
+    ap.add_argument("--csi-error", type=float, default=0.0,
+                    help="mimo_mac CSI estimate error variance")
+    ap.add_argument("--method", default="fedqcs-ae", choices=METHODS)
+    ap.add_argument("--chunk", type=int, default=0)
+    ap.add_argument("--layout", default="monolithic", choices=("monolithic", "per_tensor"),
+                    help="gradient block layout (per_tensor is not ported yet)")
+    ap.add_argument("--encode-stream", action="store_true",
+                    help="stream the client encode one layout segment at a time (not ported yet)")
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatches for the encode-stream gradient hook")
+    ap.add_argument("--stream", type=int, default=0, metavar="BATCH",
+                    help="streaming PS mode: sub-cohort ingest batch size (not ported yet)")
+    ap.add_argument("--deadline", type=float, default=8.0)
+    ap.add_argument("--record", default=None, metavar="RUN_DIR",
+                    help="write the run's events to this directory (not ported yet)")
+    args = ap.parse_args(argv)
+    if args.stream > 0:
+        raise not_in_slice("the streaming PS round (--stream)", "item 7")
+    if args.record:
+        raise not_in_slice("the run recorder (--record)", "item 8")
+
+    x, y = toy_classification()
+    parts = partition_indices(
+        y, args.clients, PartitionConfig(kind="dirichlet", alpha=args.alpha, min_size=4)
+    )
+    engine = CohortEngine(
+        toy_params(),
+        torch.func.grad(toy_loss),
+        ArrayClientData(x, y, parts, batch_size=4, device=args.device),
+        fed_cfg=FedQCSConfig(block_size=64, reduction_ratio=2, bits=3, gamp_iters=10),
+        cohort=CohortConfig(
+            method=args.method, chunk=args.chunk, layout=args.layout,
+            encode_stream=args.encode_stream, grad_accum=args.grad_accum,
+        ),
+        sched=SchedulerConfig(
+            kind="uniform" if args.sample_frac < 1.0 else "full",
+            sample_frac=args.sample_frac,
+        ),
+        chan=ChannelConfig(
+            kind=args.channel or ("awgn" if args.snr_db is not None else "ideal"),
+            snr_db=args.snr_db if args.snr_db is not None else 20.0,
+            n_rx=args.n_rx,
+            csi_error=args.csi_error,
+        ),
+        server=ServerOptConfig(kind="fedadam", lr=0.01),
+        device=args.device,
+    )
+    for i, stats in enumerate(engine.run(args.rounds)):
+        print("round", i, stats)
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise RuntimeError(f"round {i}: non-finite stats {stats}")
+    print("smoke ok:", args.clients, "clients,", args.rounds, "rounds")

@@ -1,9 +1,14 @@
-"""Server-side optimizer over the reconstructed aggregate (port of
-``repro.fed.server_opt``, ``fedadam`` only).
+"""Server-side optimizers over the reconstructed aggregate (port of
+``repro.fed.server_opt``).
 
-FedAdam is server Adam with clipping, warmup and decay disabled -- the
-update the paper's Sec. VI experiment ran.  ``fedavg`` and ``fedavgm`` are
-not ported yet.
+The PS treats the reconstructed, rho-weighted aggregate as a
+pseudo-gradient and applies one server update per round:
+
+  * ``fedavg``  -- plain SGD: ``params -= lr * ghat``.
+  * ``fedavgm`` -- server momentum: ``m = momentum * m + ghat;
+    params -= lr * m``, with ``m`` in fp32.
+  * ``fedadam`` -- server Adam (``optim/adam.py``) with clipping, warmup and
+    decay disabled: the update the paper's Sec. VI experiment ran.
 """
 
 from __future__ import annotations
@@ -11,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
-from repro_torch import not_in_slice
+import torch
+
 from repro_torch.optim import adam
 
 __all__ = ["ServerOptConfig", "init_server_state", "server_update"]
@@ -21,8 +27,8 @@ __all__ = ["ServerOptConfig", "init_server_state", "server_update"]
 class ServerOptConfig:
     kind: str = "fedadam"  # fedavg | fedavgm | fedadam
     lr: float = 0.003
-    momentum: float = 0.9
-    b1: float = 0.9
+    momentum: float = 0.9  # fedavgm
+    b1: float = 0.9  # fedadam
     b2: float = 0.999
     eps: float = 1e-8
 
@@ -33,17 +39,27 @@ class ServerOptConfig:
         )
 
 
-def _check(cfg: ServerOptConfig) -> None:
-    if cfg.kind != "fedadam":
-        raise not_in_slice(f"server optimizer {cfg.kind!r}", "item 6")
-
-
 def init_server_state(cfg: ServerOptConfig, params) -> Dict[str, Any]:
-    _check(cfg)
-    return adam.init_state(cfg._adam_cfg(), params)
+    if cfg.kind == "fedadam":
+        return adam.init_state(cfg._adam_cfg(), params)
+    if cfg.kind == "fedavgm":
+        return {"m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                      for k, p in params.items()}}
+    if cfg.kind == "fedavg":
+        return {}
+    raise ValueError(f"unknown server optimizer {cfg.kind!r}")
 
 
 def server_update(cfg: ServerOptConfig, ghat, state, params, step) -> Tuple[Any, Dict[str, Any]]:
-    """One server round: (params, state) <- Adam(params, ghat)."""
-    _check(cfg)
-    return adam.update(cfg._adam_cfg(), ghat, state, params, step)
+    """One server round: (params, state) <- update(params, ghat)."""
+    if cfg.kind == "fedadam":
+        return adam.update(cfg._adam_cfg(), ghat, state, params, step)
+    if cfg.kind == "fedavgm":
+        new_m = {k: cfg.momentum * m + ghat[k].float() for k, m in state["m"].items()}
+        new_p = {k: (p.float() - cfg.lr * new_m[k]).to(p.dtype) for k, p in params.items()}
+        return new_p, {"m": new_m}
+    if cfg.kind == "fedavg":
+        new_p = {k: (p.float() - cfg.lr * ghat[k].float()).to(p.dtype)
+                 for k, p in params.items()}
+        return new_p, state
+    raise ValueError(f"unknown server optimizer {cfg.kind!r}")

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.codebook import as_codebook
 from repro_torch.core.compression import packed_width
 from repro_torch.core.gamp import block_prior_energy, norm_guard, tau_tables
 from repro_torch.kernels import gm_prior as _gm
@@ -78,7 +79,9 @@ def bqcs_encode_fused(blocks, residual, a, codebook, s, a_t=None, tables=None):
     """Fused encoder: error feedback -> top-S -> scale/project/encode ->
     uint32 wire packing, for any codebook family.  blocks/residual (nb, N),
     a (M, N).  Returns (words uint32 (nb, W), alpha (nb,), new_residual
-    (nb, N)) with W = ceil(n_codes / (32 // Q))."""
+    (nb, N)) with W = ceil(n_codes / (32 // Q)).  ``codebook``: a Codebook
+    of any family or a legacy LloydMaxQuantizer."""
+    codebook = as_codebook(codebook)
     m = a.shape[0]
     if a_t is None:
         a_t = encoder_a_t(a, codebook)
@@ -101,6 +104,7 @@ def bqcs_encode(blocks: torch.Tensor, a: torch.Tensor, codebook):
     """Staged scale + project + quantize for an undithered scalar codebook
     (the reference's ``ops.bqcs_encode``); bf16/f16 blocks are upcast to
     f32.  blocks (nb, N), a (M, N).  Returns (codes uint8 (nb, M), alpha)."""
+    codebook = as_codebook(codebook)
     if codebook.dim != 1 or getattr(codebook, "dither", None) is not None:
         raise ValueError("the staged encoder takes an undithered scalar codebook")
     return _staged_encode(

@@ -1,28 +1,33 @@
-"""Adam over parameter dicts, fp32 states (port of ``repro.optim.adam``).
+"""Adam and SGD with momentum over parameter dicts, with fp32 or
+blockwise-int8 moment states (port of ``repro.optim.adam``).
 
 The update is written out as the reference writes it -- bias terms
 ``1 - b**t`` in float32, ``mhat / (sqrt(vhat) + eps)`` -- rather than
-through ``torch.optim.Adam``, whose arithmetic order differs.  The
-blockwise-int8 moment states and SGD are not ported yet.
+through ``torch.optim.Adam``, whose arithmetic order differs.
+
+``state_dtype="int8"`` stores each moment as a :class:`QLeaf`: int8 codes
+in the parameter's shape and one fp32 scale per block of 256 entries of
+the flattened leaf (linear blockwise quantization; Adam's second moment in
+the sqrt domain with a half-LSB floor, as the reference).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import not_in_slice
-
 Params = Dict[str, torch.Tensor]
+
+_QBLOCK = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
-    kind: str = "adam"
+    kind: str = "adam"  # adam | sgd
     lr: float = 3e-4
     b1: float = 0.9
     b2: float = 0.95
@@ -32,14 +37,8 @@ class OptConfig:
     warmup_steps: int = 100
     decay_steps: int = 10_000
     min_lr_frac: float = 0.1
-    state_dtype: str = "float32"
-    momentum: float = 0.9
-
-
-def _check_ported(cfg: OptConfig) -> None:
-    if cfg.kind != "adam" or cfg.state_dtype != "float32":
-        raise not_in_slice(f"optimizer kind={cfg.kind!r} state_dtype={cfg.state_dtype!r}",
-                           "item 6")
+    state_dtype: str = "float32"  # float32 | int8
+    momentum: float = 0.9  # sgd
 
 
 def schedule(cfg: OptConfig, step) -> float:
@@ -58,31 +57,104 @@ def schedule(cfg: OptConfig, step) -> float:
     return float(f(cfg.lr) * warm * frac)
 
 
-def init_state(cfg: OptConfig, params: Params) -> Dict[str, Params]:
-    _check_ported(cfg)
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return {"m": {k: zeros(p) for k, p in params.items()},
-            "v": {k: zeros(p) for k, p in params.items()}}
+# ---------------------------------------------------------------------------
+# blockwise int8 moment quantization
+# ---------------------------------------------------------------------------
+
+
+class QLeaf(NamedTuple):
+    q: torch.Tensor  # int8, the leaf's shape
+    scale: torch.Tensor  # f32, (ceil(size / 256),)
+
+
+def _blocks(flat: torch.Tensor) -> torch.Tensor:
+    """(n,) -> (ceil(n / 256), 256), zero-padded."""
+    return torch.nn.functional.pad(flat, (0, (-flat.shape[0]) % _QBLOCK)).reshape(-1, _QBLOCK)
+
+
+def _quantize_leaf(x: torch.Tensor, sqrt_domain: bool = False) -> QLeaf:
+    """Blockwise int8.  ``sqrt_domain=True`` (Adam's second moment) stores
+    sqrt(x) / sqrt(blockmax): v spans many decades within a block, and a
+    linear mapping would underflow small v to exactly 0."""
+    flat = x.reshape(-1).to(torch.float32)
+    fp = _blocks(flat)
+    if sqrt_domain:
+        fp = torch.sqrt(torch.clamp(fp, min=0.0))
+    scale = torch.amax(torch.abs(fp), dim=1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(fp / safe[:, None]), -127, 127).to(torch.int8)
+    return QLeaf(q.reshape(-1)[: flat.shape[0]].reshape(x.shape), scale)
+
+
+def _dequantize_leaf(ql: QLeaf, sqrt_domain: bool = False) -> torch.Tensor:
+    flat = ql.q.reshape(-1).to(torch.float32)
+    fp = _blocks(flat)
+    if sqrt_domain:
+        fp = torch.clamp(torch.abs(fp), min=0.5)  # half-LSB floor: v never hits 0
+        out = torch.square(fp * ql.scale[:, None])
+        out = torch.where((ql.scale == 0.0)[:, None], torch.zeros_like(out), out)
+    else:
+        out = fp * ql.scale[:, None]
+    return out.reshape(-1)[: flat.shape[0]].reshape(ql.q.shape)
+
+
+def _maybe_q(x: torch.Tensor, cfg: OptConfig, sqrt_domain: bool = False):
+    return _quantize_leaf(x, sqrt_domain) if cfg.state_dtype == "int8" else x
+
+
+def _maybe_dq(x, sqrt_domain: bool = False) -> torch.Tensor:
+    return _dequantize_leaf(x, sqrt_domain) if isinstance(x, QLeaf) else x
+
+
+def _f32_product(a: float, b: float) -> float:
+    """a * b rounded to f32, as the reference's ``lr * weight_decay`` (an f32
+    array times a Python float) before it meets the parameters."""
+    return float(np.float32(a) * np.float32(b))
+
+
+def _check(cfg: OptConfig) -> None:
+    if cfg.kind not in ("adam", "sgd") or cfg.state_dtype not in ("float32", "int8"):
+        raise ValueError(f"unknown optimizer kind={cfg.kind!r} state_dtype={cfg.state_dtype!r}")
+
+
+def init_state(cfg: OptConfig, params: Params) -> Dict[str, dict]:
+    """{"m": ..., "v": ...} for Adam, {"m": ...} for SGD: fp32 zeros or
+    their QLeafs."""
+    _check(cfg)
+    zeros = lambda p: _maybe_q(  # noqa: E731
+        torch.zeros(p.shape, dtype=torch.float32, device=p.device), cfg)
+    names = ("m", "v") if cfg.kind == "adam" else ("m",)
+    return {s: {k: zeros(p) for k, p in params.items()} for s in names}
 
 
 def update(cfg: OptConfig, grads: Params, state, params: Params, step) -> Tuple[Params, dict]:
-    _check_ported(cfg)
+    _check(cfg)
     lr = schedule(cfg, step)
     if cfg.grad_clip > 0:
         gn = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
         grads = {k: g * clip for k, g in grads.items()}
+    if cfg.kind == "sgd":
+        new_p, new_m = {}, {}
+        for k, p in params.items():
+            mf = cfg.momentum * _maybe_dq(state["m"][k]) + grads[k].float()
+            q = p.float() - lr * mf
+            if cfg.weight_decay:
+                q = q - _f32_product(lr, cfg.weight_decay) * p.float()
+            new_p[k], new_m[k] = q.to(p.dtype), _maybe_q(mf, cfg)
+        return new_p, {"m": new_m}
     t = np.float32(step) + np.float32(1.0)
     bias1 = float(np.float32(1.0) - np.float32(cfg.b1) ** t)  # f32, as the reference
     bias2 = float(np.float32(1.0) - np.float32(cfg.b2) ** t)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         gf = grads[k].float()
-        mf = cfg.b1 * state["m"][k] + (1 - cfg.b1) * gf
-        vf = cfg.b2 * state["v"][k] + (1 - cfg.b2) * (gf * gf)
+        mf = cfg.b1 * _maybe_dq(state["m"][k]) + (1 - cfg.b1) * gf
+        vf = cfg.b2 * _maybe_dq(state["v"][k], sqrt_domain=True) + (1 - cfg.b2) * (gf * gf)
         step_dir = (mf / bias1) / (torch.sqrt(vf / bias2) + cfg.eps)
         q = p.float() - lr * step_dir
         if cfg.weight_decay:
-            q = q - lr * cfg.weight_decay * p.float()
-        new_p[k], new_m[k], new_v[k] = q.to(p.dtype), mf, vf
+            q = q - _f32_product(lr, cfg.weight_decay) * p.float()
+        new_p[k], new_m[k] = q.to(p.dtype), _maybe_q(mf, cfg)
+        new_v[k] = _maybe_q(vf, cfg, sqrt_domain=True)
     return new_p, {"m": new_m, "v": new_v}

@@ -180,6 +180,7 @@ def test_qgamp_step_refused_shape_raises(cuda, rows, cluster):
     (8, 256, 64, 3, True), (10, 1591, 530, 3, True), (301, 300, 100, 3, True),
     (1, 1591, 530, 3, True), (300, 1591, 530, 3, True), (10, 300, 100, 1, True),
     (10, 300, 100, 8, True), (10, 1591, 530, 3, False),
+    (30, 1591, 530, 3, True), (100, 1591, 530, 3, True),  # the AE decode at G = 3 and 10
 ])
 def test_gamp_step_matches_plain(cuda, nb, n, m, L, em, rows, cluster):
     rng, ghat, nug, shat, theta, a = _gamp_state(nb, n, m, L, nb + L, cuda)
@@ -686,3 +687,57 @@ def test_noisy_channel_ae_round_kernels_match_plain(cuda, kw):
     assert enc_mod.launches == 1 and g_mod.launches == 25
     plain = run_federated("fedqcs-ae", steps=1, k_devices=10, device="cpu", fed_cfg=cfg, **kw)
     assert _nmse(card.last_ghat.cpu(), plain.last_ghat) <= 1e-3
+
+
+# -- slice 9: the AE decode in G groups, the loop oracle ---------------------------
+
+
+def _kernel_cfg():
+    from repro_torch.core.compression import FedQCSConfig
+
+    return FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25, use_kernels=True,
+                        gamp_variance_mode="scalar")
+
+
+@pytest.mark.parametrize("groups", [3, 10])
+def test_ae_groups_round_on_the_card_matches_the_cpu(cuda, groups):
+    """fedqcs-ae at G groups of K = 30: 25 gamp_step launches on G x 10
+    rows, and the decoded aggregate within NMSE 1e-3 of the same round with
+    the plain versions on the CPU."""
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.paper.mlp import run_federated
+
+    g_mod.launches = 0
+    card = run_federated("fedqcs-ae", steps=1, device="cuda", fed_cfg=_kernel_cfg(),
+                         groups=groups)
+    assert g_mod.launches == 25
+    cpu = run_federated("fedqcs-ae", steps=1, device="cpu", fed_cfg=_kernel_cfg(), groups=groups)
+    assert _nmse(card.last_ghat.cpu(), cpu.last_ghat) <= 1e-3
+
+
+def test_loop_oracle_wire_matches_vmap_on_the_card(cuda, monkeypatch):
+    """The per-client loop launches the fused encoder once per client at 10
+    rows; each block row is its own CTA, so its words are the batched
+    launch's bit for bit, and so are the parameters after 2 rounds."""
+    from repro_torch.fed import engine as teng
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.paper.mlp import run_federated
+
+    words = []
+    client_pass = teng.CohortEngine._client_pass
+
+    def capture(self, *args):
+        out = client_pass(self, *args)
+        words.append(out[0]["words"])
+        return out
+
+    monkeypatch.setattr(teng.CohortEngine, "_client_pass", capture)
+    seen = {}
+    for impl in ("vmap", "loop"):
+        enc_mod.launches = 0
+        res = run_federated("fedqcs-ae", steps=2, device="cuda", fed_cfg=_kernel_cfg(), impl=impl)
+        seen[impl] = (enc_mod.launches, res)
+    assert seen["vmap"][0] == 2 and seen["loop"][0] == 60
+    assert torch.equal(words[0], words[2])
+    assert res.nmses == seen["vmap"][1].nmses
+    assert torch.equal(res.last_ghat, seen["vmap"][1].last_ghat)

@@ -352,17 +352,16 @@ def test_dead_rows_converged_zero_and_padding_invariant():
     assert _nmse(padded, ghat) <= 1e-4 and not padded[1].any()
 
 
-# Explicit ids keep each case's name from before ReconSpec(channel=...) was
-# ported (item 5): that case became tests/test_torch_channel.py's
-# api.reconstruct parity test.
+# Explicit ids keep each case's name from before ReconSpec(channel=...) (item
+# 5) and the AE decode in G groups (item 6) were ported: those cases became
+# tests/test_torch_channel.py's api.reconstruct parity test and
+# tests/test_torch_knobs.py's grouped-decode tests.
 @pytest.mark.parametrize("route,item", [
     pytest.param(lambda tc: tre.chunked_rows(None, (torch.zeros(4),), 2, 1, mesh=object()),
                  "item 10", id="route0-item 10"),
     pytest.param(lambda tc: tre.ea_decode_segments(tc, None, None, None, None, packed=True),
                  "item 9", id="route1-item 9"),
     pytest.param(lambda tc: tre.decode_from_stats(tc, None), "item 7", id="route2-item 7"),
-    pytest.param(lambda tc: trec.aggregate_and_estimate(tc, None, None, None, groups=2),
-                 "item 6", id="route4-item 6"),
     pytest.param(lambda tc: tapi.reconstruct(tc, [], [], None, recon=tre.ReconSpec(mode="ea"),
                                              emit=print), "item 9", id="route5-item 9"),
     pytest.param(lambda tc: tc.compress_tree({"w": torch.zeros(3)}, torch.zeros((1, 256)),

@@ -40,10 +40,8 @@ from repro.fed.server_opt import ServerOptConfig as JSrv  # noqa: E402
 from repro.paper import mlp as jmlp  # noqa: E402
 from repro_torch.convert import from_reference  # noqa: E402
 from repro_torch.core.compression import FedQCSConfig as TCfg  # noqa: E402
-from repro_torch.core.reconstruction import aggregate_and_estimate  # noqa: E402
 from repro_torch.data import mnist as tmnist  # noqa: E402
 from repro_torch.fed import engine as teng  # noqa: E402
-from repro_torch.fed import server_opt as tsrv  # noqa: E402
 from repro_torch.fed.partition import PartitionConfig as TPart  # noqa: E402
 from repro_torch.fed.partition import partition_indices as t_partition  # noqa: E402
 from repro_torch.fed.scheduler import SchedulerConfig as TSched  # noqa: E402
@@ -193,24 +191,14 @@ def test_run_federated_on_the_cpu():
     assert res.last_ghat.shape == (10, 1591) and bool(torch.isfinite(res.last_ghat).all())
 
 
-# Explicit ids keep each case's name from before the baselines (item 3) and
-# the noisy uplinks (item 5) were ported; their raise cases became the parity
-# rounds of tests/test_torch_baselines.py and tests/test_torch_channel.py.
+# Explicit ids keep each case's name from before the baselines (item 3), the
+# noisy uplinks (item 5) and the round's remaining knobs (item 6) were
+# ported; their raise cases became the parity tests of
+# tests/test_torch_baselines.py, tests/test_torch_channel.py and
+# tests/test_torch_knobs.py.
 @pytest.mark.parametrize("route,item", [
-    pytest.param(lambda: teng._check_ported(teng.CohortConfig(groups=2)), "item 6",
-                 id="route2-item 6"),
-    pytest.param(lambda: aggregate_and_estimate(None, None, None, None, groups=2), "item 6",
-                 id="route3-item 6"),
-    pytest.param(lambda: teng._check_ported(teng.CohortConfig(chunk=4)), "item 6",
-                 id="route4-item 6"),
     pytest.param(lambda: teng._check_ported(teng.CohortConfig(layout="per_tensor")), "item 9",
                  id="route5-item 9"),
-    pytest.param(lambda: t_select(TSched(kind="uniform"), TState.init(3), 0, np.ones(3)),
-                 "item 6", id="route6-item 6"),
-    pytest.param(lambda: tsrv.init_server_state(tsrv.ServerOptConfig(kind="fedavg"), {}),
-                 "item 6", id="route7-item 6"),
-    pytest.param(lambda: t_partition(np.arange(10) % 2, 2, TPart(kind="dirichlet")), "item 6",
-                 id="route9-item 6"),
 ])
 def test_round_routes_outside_the_slice_raise(route, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,5 +1,6 @@
 """Shared set-up of the round-level parity tests (tests/test_torch_baselines.py,
-tests/test_torch_channel.py): one small federation run by the reference's
+tests/test_torch_channel.py, tests/test_torch_knobs.py): one small federation
+run by the reference's
 ``CohortEngine`` and by the port's, from the same numpy data, parameters,
 sensing matrix, dither codec and random draws.
 
@@ -84,32 +85,49 @@ def _t_grad(params, batch):
     return torch.func.grad(_t_loss)(params, batch["x"], batch["y"])
 
 
-def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0):
-    """(reference engine, port engine) over the same federation, with the
-    reference's sensing matrix, dither codec and draws in the port's."""
-    chan_kw = chan_kw or {}
-    fed = dict(FED, **(fed_kw or {}))
-    x, y, parts, params = _data()
-    common = dict(
-        cohort=dict(method=method, dither_n=DITHER_N, seed=seed),
-        sched=dict(kind="full", dropout_prob=dropout, seed=seed),
-        server=dict(kind="fedadam", lr=LR, b1=0.9, b2=0.999, eps=1e-8),
+def _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw):
+    return dict(
+        fed=dict(FED, **(fed_kw or {})),
+        cohort=dict(dict(method=method, dither_n=DITHER_N, seed=seed), **(cohort_kw or {})),
+        sched=dict(dict(kind="full", dropout_prob=dropout, seed=seed), **(sched_kw or {})),
+        server=dict(dict(kind="fedadam", lr=LR, b1=0.9, b2=0.999, eps=1e-8),
+                    **(server_kw or {})),
     )
+
+
+def port_engine(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=None,
+                cohort_kw=None, server_kw=None, a=None, draw=None):
+    """The port's engine over the federation; with no ``a`` and ``draw``, on
+    its own sensing matrix and draws (no JAX work)."""
+    c = _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw)
+    x, y, parts, params = _data()
+    return teng.CohortEngine(
+        {k: torch.tensor(v) for k, v in params.items()}, _t_grad,
+        teng.ArrayClientData(x, y, parts, batch_size=4, seed=seed, device="cpu"),
+        fed_cfg=TCfg(**c["fed"]), cohort=teng.CohortConfig(**c["cohort"]),
+        sched=TSched(**c["sched"]), chan=TChan(**(chan_kw or {})),
+        server=TSrv(**c["server"]), device="cpu", a=a, draw=draw,
+    )
+
+
+def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=None,
+            cohort_kw=None, server_kw=None):
+    """(reference engine, port engine) over the same federation, with the
+    reference's sensing matrix, dither codec and draws in the port's.
+    ``sched_kw``, ``cohort_kw`` and ``server_kw`` override the full
+    scheduler, the cohort defaults and FedAdam."""
+    c = _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw)
+    x, y, parts, params = _data()
     je = jeng.CohortEngine(
         {k: jnp.asarray(v) for k, v in params.items()}, _j_grad,
         jeng.ArrayClientData(x, y, parts, batch_size=4, seed=seed),
-        fed_cfg=JCfg(**fed), cohort=jeng.CohortConfig(**common["cohort"]),
-        sched=JSched(**common["sched"]), chan=JChan(**chan_kw),
-        server=JSrv(**common["server"]),
+        fed_cfg=JCfg(**c["fed"]), cohort=jeng.CohortConfig(**c["cohort"]),
+        sched=JSched(**c["sched"]), chan=JChan(**(chan_kw or {})),
+        server=JSrv(**c["server"]),
     )
     a = None if je.codec is None else torch.tensor(np.asarray(je.codec.a))
-    te = teng.CohortEngine(
-        {k: torch.tensor(v) for k, v in params.items()}, _t_grad,
-        teng.ArrayClientData(x, y, parts, batch_size=4, seed=seed, device="cpu"),
-        fed_cfg=TCfg(**fed), cohort=teng.CohortConfig(**common["cohort"]),
-        sched=TSched(**common["sched"]), chan=TChan(**chan_kw),
-        server=TSrv(**common["server"]), device="cpu", a=a, draw=reference_draw(seed),
-    )
+    te = port_engine(method, chan_kw, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw,
+                     a=a, draw=reference_draw(seed))
     if je._dither is not None:
         jd = je._dither
         te.dither = DitherCodec(jd.n, jd.m, jd.bits,

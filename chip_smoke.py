@@ -20,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
     step kernels at 64 rows (a chunk of [routes]' chunked EA decode);
     gamp_step at 30 and 100 rows (the AE decode in 3 and 10 groups) and the
     fused encoder at 10 rows (one client of the loop oracle: bit-identical
-    to the 300-row launch's first 10 rows).
+    to the 300-row launch's first 10 rows); qgamp_step at 80 rows (one fold
+    of [stream]'s EA decode).
  3. [staged] The staged encode path of ``kernels/ops.py``
     (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
     counts set to 0 just before and read just after, held against the
@@ -66,19 +67,38 @@ Phases (any failure raises and the script exits non-zero):
     (K = 100, dirichlet alpha 0.1, uniform 30%, dropout 0.25, awgn 10 dB,
     fedavgm, chunk 10: cohort, finite stats, launches, and the chunked
     gradients against one pass, reported).
- 9. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
-    [main], [routes], [baselines], [channels] and [knobs]: each round's
-    device busy time (the device events that start inside its
+ 9. [stream] Streamed rounds (``StreamConfig(batch_clients=8,
+    buffer_batches=2, fanout=2, deadline=1e9)``) on the kernel route, 2
+    each: AE (25 gamp_step launches at 10 rows a round) and EA (4 folds of
+    25 qgamp_step launches at 80 rows, the last fold with 20 padded rows)
+    against the barrier round of an engine in the same state (decoded
+    aggregate NMSE <= 1e-8, parameters within 1e-5) and round 0 against the
+    plain versions (NMSE <= 1e-3); a blackout round (every client past the
+    deadline: zero update, residuals == gradients bit for bit, nobody
+    stamped); awgn 20 dB batched by 8 against by 30 (NMSE <= 1e-8); and
+    mimo_mac lmmse (n_rx = 8).  Wall, launches, live statistics bytes and
+    buffer occupancy printed.
+ 10. [record] ``run_federated(obs=JsonlRecorder(dir))``, 3 rounds each of
+    fedqcs-ae and fedqcs-ea (a temporary directory): the run directory
+    validates, the stats and decoded aggregate equal an unrecorded run's,
+    and each round's ``phase_ms`` (uplink, client_pass, decode, apply; each
+    phase ends in a device sync) and ``round_ms`` are printed with the
+    reader's summary; each phase's device busy time from a traced run
+    with the phases as profiler ranges; then a streamed AE engine under an
+    ``InMemoryRecorder`` (phases uplink, client_pass, fold, apply).
+ 11. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
+    [main], [routes], [baselines], [channels], [knobs] and [stream]: each
+    round's device busy time (the device events that start inside its
     ``run_round``), the steady rounds' mean beside their unprofiled wall
     time (the idle share), and the top device events.
- 10. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 12. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
     encoder's, for the record.  [tune]: the staged bqcs_encode (300 rows)
     at every cluster size, each held against the plain version first;
-    qgamp_step at 64 and 300 rows and gamp_step at 10, 30, 64, 100 and 300
-    rows at every (rows per tile, cluster), each held against the plain step
+    qgamp_step at 64, 80 and 300 rows and gamp_step at 10, 30, 64, 100 and
+    300 rows at every (rows per tile, cluster), each held against the plain step
     first, and at the chooser's pick without the EM refresh.  The
     chooser's pick is marked.
 
@@ -115,6 +135,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 K, N, M, Q, S, ITERS = 30, 1591, 530, 3, 159, 25
 CHUNK_ROWS = 64  # [routes]' recon_chunk: 300 EA rows -> 5 chunks, the last with 20 dead rows
+# [stream]'s StreamConfig: 8-client batches (K = 30 -> 3 full batches and one
+# of 6 padded to 8), a 2-batch ingest buffer, fanout 2, a deadline no client
+# misses; an EA fold decodes 8 x 10 = 80 rows
+STREAM = dict(batch_clients=8, buffer_batches=2, fanout=2, deadline=1e9)
+FOLD_ROWS = STREAM["batch_clients"] * 10
+STREAM_BATCHES = -(-K // STREAM["batch_clients"])
 
 # The main-path runs: (method, codebook, GAMP variance mode, rounds, the
 # launches per round of each kernel module).  The dithered EA decode and the
@@ -605,6 +631,17 @@ def phase_kernels(dev):
                         gemm=(args64[0], args64[2], a))
         print(f"[{kind}_step] one step, {CHUNK_ROWS} rows (a chunk of the chunked EA decode), "
               f"(rows per tile, cluster) {shapes}: max abs err {max(errs):.3g}; launches {n_k}")
+
+    # -- qgamp_step at one fold of the streamed EA decode ([stream]) -------------
+    args80 = tuple(v[:FOLD_ROWS].contiguous() if torch.is_tensor(v) and v.dim()
+                   and v.shape[0] == rows else v for v in qargs)
+    n0 = q_mod.launches
+    errs, shapes = step_vs_plain("qgamp", args80, dev)
+    n_k = launched(q_mod, n0, len(shapes))
+    out["qgamp80"] = dict(max_abs_err=max(errs), args=args80, gemm=(args80[0], args80[2], a))
+    print(f"[qgamp_step] one step, {FOLD_ROWS} rows (one fold of the streamed EA decode: "
+          f"{STREAM['batch_clients']} clients x 10 blocks), (rows per tile, cluster) {shapes}: "
+          f"allclose rtol 1e-3 atol 1e-5, max abs err {max(errs):.3g}; launches {n_k}")
     return out
 
 
@@ -1214,6 +1251,270 @@ def phase_knobs(dev):
     return launches, round_ms
 
 
+# FedAdam's eps (run_federated's ServerOptConfig): its first step is
+# lr * g / (|g| + eps), so on an entry whose aggregate g is O(eps) a 1e-9
+# difference in g moves the step by ~1% of lr.  Parameters are held to 1e-5
+# where the barrier aggregate was >= 100 eps in every round so far, and to
+# the Adam step bound 2 lr a round on the rest (counted and printed).
+ADAM_EPS, LR = 1e-8, 0.003
+
+
+def _param_gaps(a, b, tiny):
+    """(max gap where ``tiny`` is off, max gap where it is on, entries on)
+    between engines ``a`` and ``b``; ``tiny`` maps each parameter to its
+    mask of entries whose barrier aggregate was < 100 eps in some round."""
+    import torch
+
+    def gap(on: bool) -> float:
+        d = torch.cat([(a.params[k] - b.params[k]).abs()[tiny[k] == on].reshape(-1)
+                       for k in a.params])
+        return float(d.max()) if d.numel() else 0.0
+
+    return gap(False), gap(True), int(sum(int(torch.sum(m)) for m in tiny.values()))
+
+
+def phase_stream(dev):
+    """[stream] Streamed rounds (``StreamConfig(**STREAM)``) at full width on
+    the kernel route, each round's launch counts set to 0 just before and
+    read just after: (a) AE and (b) EA against the barrier round of an
+    engine in the same state (decoded aggregate NMSE <= 1e-8, the reference's
+    pin; parameters within 1e-5) and round 0 against the streamed round with
+    the plain versions (NMSE <= 1e-3); (c) a blackout round (every client
+    past the deadline): a zero update, every residual carrying its full
+    gradient bit for bit, nobody stamped; (d) awgn 20 dB, 8-client batches
+    against one 30-client batch (NMSE <= 1e-8: per-client noise); (e)
+    mimo_mac lmmse, n_rx = 8 (finite nmse).  Returns (the launches by
+    KERNELS name, label -> (method, config, round walls, arguments) for
+    [profile])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compression import blocks_to_tree
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.paper.mlp import mlp_engine
+
+    scfg = StreamConfig(**STREAM)
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    launches = {"bqcs_encode_fused": 0, "gamp_step": 0, "qgamp_step[80 rows]": 0}
+    round_ms = {}
+
+    def streamed_round(eng, want, label):
+        zero_counts()
+        t0 = time.perf_counter()
+        stats = eng.run_round()  # ends in a device sync (the float() of its stats)
+        wall = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        check(counts == dict(zero, **want), f"{label}: launches {counts}, want {want}")
+        launches["bqcs_encode_fused"] += counts["encode"]
+        launches["gamp_step"] += counts["gamp"]
+        launches["qgamp_step[80 rows]"] += counts["qgamp"]
+        return stats, wall, counts
+
+    def report(label, stats, walls, counts):
+        print(f"[stream] {label}: round wall ms {[round(v, 3) for v in walls]}, launches "
+              f"{counts}, batches admitted {stats['batches_admitted']:g}, "
+              f"peak_live_stats_bytes {stats['peak_live_stats_bytes']:g}, "
+              f"buffer_peak_occupancy {stats['buffer_peak_occupancy']:g}, tree tiers "
+              f"{stats['tree_tiers']:g}, nmse {stats['nmse']:.6f}, participating "
+              f"{stats['participating']:g}")
+
+    # (a), (b): streamed vs barrier from the same engine state
+    for method in ("fedqcs-ae", "fedqcs-ea"):
+        label = f"{method} lloyd_max streamed"
+        want = dict(encode=1, gamp=ITERS) if method == "fedqcs-ae" else dict(
+            encode=1, qgamp=STREAM_BATCHES * ITERS)
+        barrier, _ = mlp_engine(method, fed_cfg=fed_cfg(), device=dev)
+        streamed, _ = mlp_engine(method, fed_cfg=fed_cfg(), device=dev, stream=scfg)
+        walls, errs, gaps = [], [], []
+        tiny = {k: torch.zeros_like(v, dtype=torch.bool) for k, v in barrier.params.items()}
+        for r in range(ROUNDS_NEW):
+            barrier.run_round()
+            stats, wall, counts = streamed_round(streamed, want, label)
+            check(stats["batches_admitted"] == STREAM_BATCHES and stats["participating"] == K,
+                  f"{label}: round {r} stats {stats}")
+            errs.append(nmse(streamed.last_ghat, barrier.last_ghat))
+            for k, g in blocks_to_tree(barrier.last_ghat, barrier.layout).items():
+                tiny[k] |= g.abs() < 100 * ADAM_EPS
+            gaps.append(_param_gaps(streamed, barrier, tiny))
+            check(errs[-1] <= 1e-8, f"{label} round {r}: NMSE {errs[-1]:.3g} against the "
+                  "barrier round breaks the 1e-8 pin")
+            check(gaps[-1][0] <= 1e-5 and gaps[-1][1] <= 2 * LR * (r + 1),
+                  f"{label} round {r}: parameters {gaps[-1]} from the barrier run's (atol "
+                  "1e-5 where the aggregate was >= 100 eps, 2 lr a round elsewhere)")
+            walls.append(wall)
+            if r == 0:
+                ghat0 = streamed.last_ghat.clone()
+        with plain_kernels():
+            plain, _ = mlp_engine(method, fed_cfg=fed_cfg(), device=dev, stream=scfg)
+            plain.run_round()
+        e_plain = nmse(ghat0, plain.last_ghat)
+        check(e_plain <= 1e-3, f"{label}: round 0 vs the plain versions NMSE {e_plain:.3g}")
+        report(label, stats, walls, counts)
+        print(f"[stream] {label}: vs the barrier round from the same state, NMSE per round "
+              f"{[float(f'{e:.3g}') for e in errs]} (<= 1e-8); max parameter gap per round where "
+              f"the aggregate was >= 100 Adam eps {[float(f'{g[0]:.3g}') for g in gaps]} "
+              f"(<= 1e-5), on the {gaps[-1][2]} entries where it was not "
+              f"{[float(f'{g[1]:.3g}') for g in gaps]} (<= 2 lr a round); round 0 vs the plain "
+              f"versions on the card NMSE {e_plain:.3g} (<= 1e-3)")
+        round_ms[label] = (method, fed_cfg(), walls, dict(stream=scfg))
+
+    # (c) blackout: nobody beats the deadline
+    label = "fedqcs-ae blackout"
+    black = StreamConfig(**dict(STREAM, deadline=8.0, straggler_prob=1.0,
+                                straggler_mult=1e12))
+    eng, _ = mlp_engine("fedqcs-ae", fed_cfg=fed_cfg(), device=dev, stream=black)
+    params0 = {k: v.clone() for k, v in eng.params.items()}
+    blocks = eng._grad_blocks(eng.data.cohort_batch(0, np.arange(K)))
+    stats, wall, counts = streamed_round(eng, dict(encode=1), label)
+    check(stats["participating"] == 0.0 and stats["arrived"] == 0.0, f"{label}: {stats}")
+    check(all(torch.equal(eng.params[k], v) for k, v in params0.items()),
+          f"{label}: the parameters moved")
+    check(torch.equal(eng.residuals, blocks), f"{label}: a residual lost part of its gradient")
+    check(not bool(eng.last_ghat.any()) and bool((eng.sched_state.last_round == -1).all()),
+          f"{label}: a nonzero update or a stamped client")
+    print(f"[stream] {label} (straggler_prob 1, mult 1e12): participating 0, arrived 0; "
+          f"parameters unchanged, residuals == the round's gradients bit for bit, nobody "
+          f"stamped; wall {wall:.3f} ms, launches {counts}")
+
+    # (d) awgn 20 dB: the received noise is drawn per client, so the batching
+    # does not change the observation
+    out = {}
+    for batch in (STREAM["batch_clients"], K):
+        label = f"fedqcs-ae awgn 20 dB streamed, {batch}-client batches"
+        eng, _ = mlp_engine("fedqcs-ae", fed_cfg=fed_cfg(), device=dev, channel="awgn",
+                            snr_db=20.0, stream=StreamConfig(**dict(STREAM,
+                                                                    batch_clients=batch)))
+        stats, wall, counts = streamed_round(eng, dict(encode=1, gamp=ITERS), label)
+        out[batch] = eng.last_ghat
+        report(label, stats, [wall], counts)
+    e = nmse(out[STREAM["batch_clients"]], out[K])
+    check(e <= 1e-8, f"awgn streamed: batching changed the decode, NMSE {e:.3g} > 1e-8")
+    print(f"[stream] fedqcs-ae awgn 20 dB: {STREAM['batch_clients']}-client batches vs one "
+          f"{K}-client batch, NMSE {e:.3g} (<= 1e-8)")
+
+    # (e) mimo_mac lmmse, one superimposed reception per admitted batch
+    label = "fedqcs-ae mimo_mac lmmse n_rx=8 streamed"
+    eng, _ = mlp_engine("fedqcs-ae", fed_cfg=fed_cfg(), device=dev, channel="mimo_mac", n_rx=8,
+                        stream=scfg)
+    walls = []
+    for _ in range(ROUNDS_NEW):
+        stats, wall, counts = streamed_round(eng, dict(encode=1, gamp=ITERS), label)
+        check(np.isfinite(stats["nmse"]), f"{label}: nmse {stats['nmse']}")
+        walls.append(wall)
+    report(label, stats, walls, counts)
+    torch.cuda.synchronize()
+    return launches, round_ms
+
+
+def phase_record(dev):
+    """[record] ``run_federated(obs=JsonlRecorder(dir))``: 3 recorded rounds
+    each of fedqcs-ae and fedqcs-ea (run directories in a temporary
+    directory), each run's directory validated, its returned stats and
+    decoded aggregate held equal to an unrecorded run from the same seed,
+    and each round's ``phase_ms`` and ``round_ms`` printed (the recorded
+    phases end in a device sync); then one more recorded run of each under
+    ``torch.profiler`` with every phase a ``record_function`` range
+    (``REPRO_TRACE_ANNOTATIONS``' switch, ``obs.trace.ANNOTATE``): each
+    phase's device busy time beside its wall (``_phase_device_ms``); then a
+    streamed AE engine run under an ``InMemoryRecorder``, held equal to its
+    unrecorded run.  Launch counts set to 0 just before each recorded run
+    and read just after.  Returns the launches by KERNELS name."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.obs import InMemoryRecorder, JsonlRecorder
+    from repro_torch.obs.reader import load_rounds, summarize, validate_dir
+    from repro_torch.paper.mlp import mlp_engine, run_federated
+
+    rounds = 3
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    launches = {"bqcs_encode_fused": 0, "gamp_step": 0, "qgamp_step": 0}
+
+    def show(label, events):
+        for ev in events:
+            phases = ", ".join(f"{k} {v:.3f}" for k, v in ev["phase_ms"].items())
+            print(f"[record] {label} round {ev['round']}: phase_ms {{{phases}}} round_ms "
+                  f"{ev['round_ms']:.3f} (nmse {ev['nmse']:.6f}, gamp_iters_mean "
+                  f"{ev.get('gamp_iters_mean', float('nan')):g}, clip_saturation "
+                  f"{ev['clip_saturation']:.4f})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for method in ("fedqcs-ae", "fedqcs-ea"):
+            run_dir = f"{tmp}/{method}"
+            rec = JsonlRecorder(run_dir, config={"method": method, "rounds": rounds})
+            zero_counts()
+            res = run_federated(method, steps=rounds, eval_every=1, device=dev,
+                                fed_cfg=fed_cfg(), obs=rec)
+            counts = read_counts()
+            rec.close()
+            want = dict(zero, encode=rounds, **({"gamp": rounds * ITERS} if method == "fedqcs-ae"
+                                                else {"qgamp": rounds * ITERS}))
+            check(counts == want, f"[record] {method}: launches {counts}, want {want}")
+            launches["bqcs_encode_fused"] += counts["encode"]
+            launches["gamp_step"] += counts["gamp"]
+            launches["qgamp_step"] += counts["qgamp"]
+            problems = validate_dir(run_dir)
+            check(problems == [], f"[record] {method}: {problems}")
+            plain = run_federated(method, steps=rounds, eval_every=1, device=dev,
+                                  fed_cfg=fed_cfg())
+            check(res.nmses == plain.nmses and res.accs == plain.accs
+                  and torch.equal(res.last_ghat, plain.last_ghat),
+                  f"[record] {method}: recording changed the run ({res.nmses} vs {plain.nmses})")
+            events = load_rounds(run_dir)
+            check(len(events) == rounds, f"[record] {method}: {len(events)} round events")
+            show(method, events)
+            walls = [round(v, 3) for v in res.round_ms]
+            print(f"[record] {method}: run directory valid, stats and decoded aggregate equal to "
+                  f"the unrecorded run's; recorded round walls {walls} vs unrecorded "
+                  f"{[round(v, 3) for v in plain.round_ms]}; launches {counts}")
+            print("\n".join(f"[record] | {line}" for line in summarize(run_dir).splitlines()))
+
+    # each recorded phase as a torch.profiler range (the spans' annotations):
+    # the device time that ran inside each phase, beside its wall
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    for method in ("fedqcs-ae", "fedqcs-ea"):
+        rec = InMemoryRecorder()
+        trace.ANNOTATE = True
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run_federated(method, steps=rounds, device=dev, fed_cfg=fed_cfg(), obs=rec)
+                torch.cuda.synchronize()
+        finally:
+            trace.ANNOTATE = False
+        walls = [ev["phase_ms"] for ev in rec.events if ev["kind"] == "round"][1:]
+        parts = []
+        per_phase = _phase_device_ms(prof.events(), set(walls[0]))
+        for name in walls[0]:
+            busy, wall = per_phase[name], sum(w[name] for w in walls) / len(walls)
+            if busy is None or len(busy) != rounds:
+                parts.append(f"{name} wall {wall:.3f} ms, device busy not measured (the trace "
+                             "pairs its host and device ranges otherwise)")
+                continue
+            parts.append(f"{name} wall {wall:.3f} ms, device busy "
+                         f"{sum(busy[1:]) / len(busy[1:]):.4f} ms")
+        print(f"[record] {method}, rounds 1-{rounds - 1} under torch.profiler with each phase a "
+              f"range: " + "; ".join(parts))
+
+    rec = InMemoryRecorder()
+    label = "fedqcs-ae streamed"
+    eng, _ = mlp_engine("fedqcs-ae", fed_cfg=fed_cfg(), device=dev,
+                        stream=StreamConfig(**STREAM), obs=rec)
+    ref, _ = mlp_engine("fedqcs-ae", fed_cfg=fed_cfg(), device=dev,
+                        stream=StreamConfig(**STREAM))
+    for _ in range(rounds):
+        stats, stats_ref = eng.run_round(), ref.run_round()
+        check({k: stats[k] for k in stats_ref} == stats_ref,
+              f"[record] {label}: recording changed the round ({stats} vs {stats_ref})")
+    check(torch.equal(eng.last_ghat, ref.last_ghat), f"[record] {label}: decode differs")
+    show(label, [ev for ev in rec.events if ev["kind"] == "round"])
+    return launches
+
+
 ROUND_RANGE = "chip_smoke.round"
 
 
@@ -1265,6 +1566,35 @@ def _round_device_ms(method, cfg, dev, steps: int, run_kw: dict) -> list:
                 per[e.name] = [c + 1, ms + e.time_range.elapsed_us() / 1e3]
                 break
     return rounds
+
+
+def _phase_device_ms(events, names) -> dict:
+    """Device ms per occurrence of each round phase in ``names`` (the
+    engine's spans as ``record_function`` ranges, in start order), or None
+    for a phase whose device annotations do not pair one to one with its
+    host ranges.  A phase's window is its device annotation (the device
+    clock, from its first to its last kernel): a recorded phase ends in a
+    device sync, so its work does not spill into the next, and every
+    device event counts in the one window that holds its start."""
+    from torch.autograd import DeviceType
+
+    host, dev = {n: 0 for n in names}, {n: [] for n in names}
+    for e in events:
+        if e.name in names:
+            if e.device_type == DeviceType.CPU:
+                host[e.name] += 1
+            else:
+                dev[e.name].append((e.time_range.start, e.time_range.end))
+    busy = {n: [0.0] * len(dev[n]) for n in names}
+    windows = sorted((lo, hi, n, i) for n in names for i, (lo, hi) in enumerate(sorted(dev[n])))
+    for e in events:
+        if e.device_type == DeviceType.CPU or e.name in names:
+            continue
+        for lo, hi, n, i in windows:
+            if lo <= e.time_range.start <= hi:
+                busy[n][i] += e.time_range.elapsed_us() / 1e3
+                break
+    return {n: busy[n] if len(dev[n]) == host[n] else None for n in names}
 
 
 def phase_profile(round_ms, dev):
@@ -1373,7 +1703,8 @@ def phase_times(dev, k_in):
                               library_ms=timer(lambda: torch.matmul(x, a_tt)),
                               library="GEMM only")
 
-    for name, key in (("qgamp_step", "qgamp"), ("qgamp_step[64 rows]", "qgamp64")):
+    for name, key in (("qgamp_step", "qgamp"), ("qgamp_step[64 rows]", "qgamp64"),
+                      ("qgamp_step[80 rows]", "qgamp80")):
         qa = k_in[key]["args"]
         ghat, nug, shat, theta, words, al, lo, hi, a, L, em, bits = qa
         nb_ = ghat.shape[0]
@@ -1422,7 +1753,8 @@ def phase_times(dev, k_in):
               f"({blocks} blocks): {ms:.4f} ms, alpha max rel err {rel:.3g}, {n_diff} differing "
               f"code lanes" + (" (the chooser's pick)" if c == pick[1] else ""))
     for kind, key, mod in (("qgamp", "qgamp", q_mod), ("qgamp", "qgamp64", q_mod),
-                           ("gamp", "gamp", g_mod), ("gamp", "gamp300", g_mod),
+                           ("qgamp", "qgamp80", q_mod), ("gamp", "gamp", g_mod),
+                           ("gamp", "gamp300", g_mod),
                            ("gamp", "gamp64", g_mod), ("gamp", "gamp30", g_mod),
                            ("gamp", "gamp100", g_mod)):
         step = getattr(mod, f"{kind}_step")
@@ -1621,6 +1953,7 @@ KERNELS = {
                                    "encode10"),
     "gamp_step[30 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp30"),
     "gamp_step[100 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp100"),
+    "qgamp_step[80 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp80"),
 }
 
 
@@ -1686,6 +2019,9 @@ def main() -> int:
     round_ms.update(channel_ms)
     knob_launches, knob_ms = phase_knobs(dev)
     round_ms.update(knob_ms)
+    stream_launches, stream_ms = phase_stream(dev)
+    round_ms.update(stream_ms)
+    record_launches = phase_record(dev)
     phase_profile(round_ms, dev)
     times = phase_times(dev, k_in)
     for label, (_, _, ms, _) in round_ms.items():
@@ -1695,7 +2031,8 @@ def main() -> int:
     launches = main_path_launches(per_run, staged)
     launches["bqcs_encode_fused"] += qiht_encode
     for kname, n in (list(routes_launches.items()) + list(channel_launches.items())
-                     + list(knob_launches.items())):
+                     + list(knob_launches.items()) + list(stream_launches.items())
+                     + list(record_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

@@ -13,9 +13,10 @@ the reference's rows: every method with lloyd_max, then fedqcs-ae and
 fedqcs-ea with the dithered_uniform and vq codebooks.  The uplink is
 ``--channel`` (ideal, awgn, rayleigh, mimo_mac) with ``--snr-db``,
 ``--n-rx`` and ``--csi-error``; a code-domain method falls back to the
-ideal uplink, as in the reference.  ``--record`` is not ported yet and
-fails with the port's ``NotImplementedError``, naming the ROADMAP.md item
-that ports it.
+ideal uplink, as in the reference.  ``--record RUN_DIR`` writes each row's
+round and eval events (``repro_torch.obs``; one run directory per row under
+RUN_DIR when there are several), which ``python -m repro_torch.obs
+summarize <run_dir>`` renders.
 
 Uses real MNIST if $MNIST_DIR points at the IDX files, else the
 deterministic synthMNIST surrogate.
@@ -24,9 +25,9 @@ deterministic synthMNIST surrogate.
 import argparse
 import dataclasses
 
-from repro_torch import not_in_slice
 from repro_torch.core.compression import FedQCSConfig
 from repro_torch.fed.channel import get_channel_family
+from repro_torch.obs import JsonlRecorder
 from repro_torch.paper.mlp import run_federated
 
 METHODS = ["fedqcs-ea", "fedqcs-ae", "qcs-qiht", "qcs-dither", "signsgd", "none"]
@@ -66,11 +67,9 @@ def main():
     ap.add_argument("--chunk", type=int, default=0,
                     help="clients per client-pass chunk (0 = whole cohort in one pass)")
     ap.add_argument("--record", default=None, metavar="RUN_DIR",
-                    help="record round/eval events to RUN_DIR (not ported)")
+                    help="record round/eval events to RUN_DIR (repro_torch.obs)")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args()
-    if args.record:
-        raise not_in_slice("run recording (--record, the telemetry layer)", "item 8")
 
     fed = FedQCSConfig(reduction_ratio=args.R, bits=args.Q, s_ratio=args.s_ratio,
                        gamp_iters=25, gamp_variance_mode="scalar",
@@ -115,12 +114,23 @@ def main():
             print(f"  ({m}: noisy uplink unsupported -> ideal channel)")
             kw["channel"] = "ideal"
         row_fed = dataclasses.replace(fed, codebook=cbk, bits=q, vq_dim=args.vq_dim)
-        r = run_federated(m, steps=args.steps, fed_cfg=row_fed,
-                          eval_every=max(args.steps // 10, 1), device=args.device, **kw)
-        nm = sum(r.nmses) / len(r.nmses) if r.nmses else float("nan")
         label = m if cbk == "lloyd_max" else f"{m}+{cbk}"
+        recorder = None
+        if args.record:
+            run_dir = f"{args.record}/{label}" if len(rows) > 1 else args.record
+            recorder = JsonlRecorder(
+                run_dir, config={"method": m, "codebook": cbk, "Q": q, **cohort_kw})
+        r = run_federated(m, steps=args.steps, fed_cfg=row_fed,
+                          eval_every=max(args.steps // 10, 1), device=args.device,
+                          obs=recorder, **kw)
+        if recorder is not None:
+            recorder.close()
+        nm = sum(r.nmses) / len(r.nmses) if r.nmses else float("nan")
         print(f"{label:24s} {r.bits_per_entry:10.2f} {r.accs[-1]:9.3f} {nm:9.3f} {r.wall_s:5.0f}s")
         print(f"  acc trace: {[round(a, 3) for a in r.accs]}")
+    if args.record:
+        print(f"run log(s) in {args.record}: "
+              f"render with `python -m repro_torch.obs summarize <run_dir>`")
 
 
 if __name__ == "__main__":

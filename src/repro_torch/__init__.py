@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of the FedQCS system in ``repro``.
 
 Mirrors ``repro``'s layout module for module (``core/``, ``kernels/``,
-``fed/``, ``optim/``, ``data/``, ``paper/``) and keeps its public names, so
-every ported module has exactly one reference module.  The port imports
+``fed/``, ``obs/``, ``optim/``, ``data/``, ``paper/``) and keeps its public
+names, so every ported module has exactly one reference module.  The port imports
 ``torch``, numpy and the standard library only; it never imports ``jax`` or
 anything of ``repro``.
 
@@ -23,7 +23,10 @@ chunked and two-phase EA engine (``core/recon_engine.py``) and the
 ``iid``, ``shard``, ``dirichlet`` and ``paper`` partitions, the ``full``,
 ``uniform`` and ``async`` schedulers, the FedAvg, FedAvgM and FedAdam
 servers (Adam or SGD, fp32 or blockwise-int8 states), the AE decode in G
-groups, the chunked client pass and the per-client loop oracle.  The five
+groups, the chunked client pass and the per-client loop oracle; the
+streaming PS (``core/aggregator.py``, ``fed/stream.py``, the engine's
+``stream=`` rounds) and the run telemetry (``obs/``: recorders, spans, the
+``python -m repro_torch.obs`` reader, the engine's round events).  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

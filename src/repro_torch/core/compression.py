@@ -427,3 +427,22 @@ class BQCSCodec:
     def dequantize_packed(self, words: torch.Tensor) -> torch.Tensor:
         """Reconstruction values straight from packed wire words (..., W)."""
         return self.codebook.decode_packed(words, self.cfg.m)
+
+    # -- decode health -------------------------------------------------------
+    def clip_saturation(self, codes_or_words: torch.Tensor, packed: bool = True) -> torch.Tensor:
+        """Fraction of code lanes pinned at an extreme codebook level -- the
+        quantizer clip-saturation rate (``repro_torch.obs`` decode health).
+
+        Scalar families order their levels, so index 0 / L-1 means the input
+        overshot the quantizer's support.  Vector codebooks have no level
+        order, so vq reports a constant 0.  A 0-d tensor on the payload's
+        device (no host sync); padding lanes of packed words are excluded by
+        the unpack slice."""
+        q = self.codebook
+        if q.dim != 1:
+            return torch.zeros((), device=codes_or_words.device)
+        idx = self.unpack(codes_or_words) if packed else codes_or_words
+        extreme = (idx == 0) | (idx == q.n_levels - 1)
+        # the count times the f32 reciprocal of the lane count, rounded as
+        # the reference's mean rounds it
+        return torch.sum(extreme, dtype=torch.float32) * (1.0 / extreme.numel())

@@ -19,9 +19,10 @@ bounds what is live at once and how long each problem iterates:
 The two-phase sweep (:func:`ea_decode_two_phase`) runs a scalar-variance
 pass everywhere, then re-solves with exact variance only the blocks whose
 converged flag is still false; its survivor set is data-dependent, so it
-syncs with the host once.  Sharding the chunks over a mesh, the
-segment-local decode and the decode from streamed statistics are not
-ported and raise ``NotImplementedError``.
+syncs with the host once.  :func:`decode_from_stats` finalizes a streamed
+round (``fed/stream.py``) from its folded partial statistics.  Sharding the
+chunks over a mesh and the segment-local decode are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,14 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch import not_in_slice
-from repro_torch.core.gamp import GampConfig, GampInfo, _qem_gamp_xla, qem_gamp, qem_gamp_packed
+from repro_torch.core.gamp import (
+    GampConfig,
+    GampInfo,
+    _qem_gamp_xla,
+    em_gamp,
+    qem_gamp,
+    qem_gamp_packed,
+)
 
 __all__ = [
     "ReconSpec",
@@ -282,7 +290,32 @@ def ea_decode_two_phase(
     return torch.einsum("k,kbn->bn", rhos, ghat.reshape(k, nb, n)), stats
 
 
-def decode_from_stats(codec, stats, gamp=None, **kwargs):
-    """Finalizes a streamed round from folded partial statistics (not
-    ported)."""
-    raise not_in_slice("the decode from streamed statistics (decode_from_stats)", "item 7")
+def decode_from_stats(
+    codec,
+    stats,  # core.aggregator.PartialStats (the folded round total)
+    gamp: Optional[GampConfig] = None,
+    *,
+    use_kernels: bool = False,
+    with_info: bool = False,
+):
+    """Finalizes a streamed round straight from folded partial sufficient
+    statistics (``core/aggregator.py``) -> (nb, N) aggregated blocks.
+    ``with_info`` returns ``(blocks, GampInfo | None)``: the finalize
+    EM-GAMP's decode health on the "ae" path, None on "ea" (whose GAMP ran
+    per ingest batch; ``StreamingPS`` accumulates that).
+
+    "ea" stats hold the raw-weighted sum of per-client GAMP estimates, so
+    finalization is the 1/W renormalization.  "ae" stats hold the Bussgang
+    aggregate's (y, nu, energy) accumulated with RAW weights; after the 1/W
+    and 1/W^2 rescale one EM-GAMP inversion finishes the decode as
+    ``reconstruction.aggregate_and_estimate`` does (on the kernel route,
+    ``gamp_step`` at nb rows)."""
+    from repro_torch.core.aggregator import normalized_stats  # layering
+    from repro_torch.core.reconstruction import gamp_config_from  # layering
+
+    y, nu, energy = normalized_stats(stats)
+    if stats.mode == "ea":
+        return (y, None) if with_info else y
+    gamp = gamp or gamp_config_from(codec)
+    return em_gamp(y, nu, codec.a, gamp, init_var=energy, use_kernels=use_kernels,
+                   with_info=with_info)

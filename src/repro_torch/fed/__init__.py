@@ -1,4 +1,4 @@
-"""The federated cohort engine, ported to PyTorch (barrier rounds):
+"""The federated cohort engine, ported to PyTorch:
 
   * :mod:`repro_torch.fed.partition`  -- IID / label-shard / Dirichlet(alpha)
     / paper partitioners over labeled datasets;
@@ -8,11 +8,14 @@
     awgn, rayleigh, mimo_mac);
   * :mod:`repro_torch.fed.server_opt` -- FedAvg / FedAvgM / FedAdam;
   * :mod:`repro_torch.fed.engine`     -- the vmapped (optionally chunked)
-    cohort round, with the per-client loop oracle.
+    cohort round, with the per-client loop oracle;
+  * :mod:`repro_torch.fed.stream`     -- the streaming round mode:
+    arrival-ordered sub-cohort batches through a bounded ingest buffer into
+    a carry-save tree of partial Bussgang/EA sufficient statistics, with a
+    deadline cutoff that degrades into the non-participation contract.
 
-The names of ``repro.fed`` that belong to the streaming PS and the token
-federation (``TokenClientData``, ``StreamConfig``, ``StreamingPS``,
-``BoundedIngestBuffer``, ``stream_decode``) are not ported yet.
+The token federation of ``repro.fed`` (``TokenClientData``) is not ported
+yet.
 """
 
 from repro_torch.fed.channel import (
@@ -28,9 +31,11 @@ from repro_torch.fed.engine import ArrayClientData, CohortConfig, CohortEngine
 from repro_torch.fed.partition import PartitionConfig, partition_indices
 from repro_torch.fed.scheduler import SchedulerConfig, SchedulerState, select_cohort
 from repro_torch.fed.server_opt import ServerOptConfig
+from repro_torch.fed.stream import BoundedIngestBuffer, StreamConfig, StreamingPS, stream_decode
 
 __all__ = [
     "ArrayClientData",
+    "BoundedIngestBuffer",
     "CHANNEL_FAMILIES",
     "ChannelConfig",
     "ChannelFamily",
@@ -41,9 +46,12 @@ __all__ = [
     "SchedulerConfig",
     "SchedulerState",
     "ServerOptConfig",
+    "StreamConfig",
+    "StreamingPS",
     "get_channel_family",
     "partition_indices",
     "realize_uplink",
     "register_channel_family",
     "select_cohort",
+    "stream_decode",
 ]

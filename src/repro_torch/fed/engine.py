@@ -27,6 +27,22 @@ cohort slot with ``rho_k = 0`` -- scheduler dropout or channel outage --
 contributes nothing, and its error-feedback residual carries the full
 gradient forward.
 
+With ``stream=`` (a :class:`~repro_torch.fed.stream.StreamConfig`; fedqcs-ae
+and fedqcs-ea only) the PS pass is a streamed round instead: the cohort's
+payloads arrive over simulated time in sub-cohort batches, fold into
+partial sufficient statistics (``fed/stream.py``) and decode at the
+deadline; a client that misses it is a non-participant (weight 0, full
+residual carry, un-stamped), as under channel outage.
+
+Telemetry (``obs=``, a recorder of ``repro_torch.obs``): an active recorder
+makes the PS pass also compute the decode health (GAMP iterations and
+convergence, the quantizer's clip saturation, the combiner's CSI health),
+ends each round phase -- ``uplink``, ``client_pass``, ``decode`` or
+``fold``, ``apply`` -- in a device synchronise inside its timing span, and
+records one ``round`` event per round (stats, staleness, wire bytes, norms,
+``phase_ms``, ``round_ms``).  The null recorder (the default) adds no
+synchronise and times nothing, so unrecorded rounds are unchanged.
+
 Every random tensor of a round -- the uplink's fading gains, fading matrix,
 CSI error and receive noise, and each client's dither -- comes through ONE
 seam, ``draw(round, purpose, shape, client=None)``, which returns a CPU
@@ -34,9 +50,13 @@ float32 tensor.  The default, :func:`seeded_draw`, seeds a CPU
 ``torch.Generator`` from ``(cohort.seed, round, purpose[, client])``, so a
 round on the card and the same round on the CPU see the same draws.  The
 reference draws these from ``jax.random``; its tests inject the
-reference's draws through ``CohortEngine(draw=...)``.
+reference's draws through ``CohortEngine(draw=...)``.  A streamed round
+draws each client's receive noise on its own (``client=`` its id), so the
+draw does not depend on how arrivals batch up, and a multiple-access
+uplink's per-batch noise under ``"batch_noise"`` with ``client=`` the batch's
+admission index.
 
-The streamed client pass and the telemetry hooks raise
+The per-tensor layouts and the segment-streamed client pass raise
 ``NotImplementedError``.
 """
 
@@ -51,8 +71,14 @@ import torch
 
 from repro_torch import entry_device, not_in_slice
 from repro_torch.core import baselines, bussgang
-from repro_torch.core.compression import BQCSCodec, FedQCSConfig, Layout, blocks_to_tree
-from repro_torch.core.gamp import em_gamp
+from repro_torch.core.compression import (
+    BQCSCodec,
+    FedQCSConfig,
+    Layout,
+    blocks_to_tree,
+    packed_width,
+)
+from repro_torch.core.gamp import em_gamp, gamp_health
 from repro_torch.core.reconstruction import (
     aggregate_and_estimate,
     estimate_and_aggregate_packed,
@@ -66,6 +92,16 @@ from repro_torch.fed.channel import (
 )
 from repro_torch.fed.scheduler import SchedulerConfig, SchedulerState, select_cohort
 from repro_torch.fed.server_opt import ServerOptConfig, init_server_state, server_update
+from repro_torch.fed.stream import (
+    StreamConfig,
+    StreamingPS,
+    batch_arrivals,
+    late_discount,
+    simulate_arrivals,
+    stream_decode,
+)
+from repro_torch.obs import NULL_RECORDER
+from repro_torch.obs.trace import SUB_PHASES, SpanCollector, span
 
 __all__ = ["CohortConfig", "CohortEngine", "ArrayClientData", "seeded_draw",
            "METHODS", "EF_METHODS"]
@@ -104,6 +140,7 @@ _DRAWS = {
     "h_err": (3, "normal"),  # mimo_mac CSI estimate error, (n_rx, C)
     "noise": (4, "normal"),  # receive noise, the reception's shape
     "dither": (5, "uniform"),  # one client's qcs-dither draw on [-0.5, 0.5)
+    "batch_noise": (6, "normal"),  # a streamed mimo_mac batch's receive noise (n_rx, nb, M)
 }
 
 
@@ -167,7 +204,9 @@ class CohortEngine:
     draw seam (:func:`seeded_draw`, bound to ``cohort.seed``).  ``dither``
     is the ``qcs-dither`` codec (its signs and rows may be replaced before
     the first round).  ``last_ghat`` holds the decoded (nb, N) aggregate of
-    the latest round.
+    the latest round.  ``stream`` selects streamed rounds (module
+    docstring).  ``obs`` is a ``repro_torch.obs`` recorder (default: the
+    null recorder); its ``active`` flag is read once, here.
     """
 
     def __init__(
@@ -180,12 +219,21 @@ class CohortEngine:
         sched: SchedulerConfig = SchedulerConfig(),
         chan: ChannelConfig = ChannelConfig(),
         server: ServerOptConfig = ServerOptConfig(),
+        stream: Optional[StreamConfig] = None,
+        obs: Any = None,
         device="cuda",
         a: Optional[torch.Tensor] = None,
         draw: Optional[Callable[..., torch.Tensor]] = None,
     ):
         if cohort.method not in METHODS:
             raise ValueError(f"unknown method {cohort.method!r} (choose from {METHODS})")
+        if stream is not None and cohort.method not in ("fedqcs-ae", "fedqcs-ea"):
+            raise ValueError(
+                f"streaming rounds fold Bussgang/EA sufficient statistics, which "
+                f"only the fedqcs methods produce; got {cohort.method!r}"
+            )
+        if stream is not None and cohort.groups != 1:
+            raise ValueError("streaming fedqcs-ae has no group structure (groups must be 1)")
         # gating by the channel family's traits, as the reference does
         fam = get_channel_family(chan.kind)
         if not fam.exact_codes and cohort.method != "fedqcs-ae":
@@ -201,6 +249,10 @@ class CohortEngine:
         self._chan_family = fam
         self.device = entry_device(device)
         self.cohort, self.sched, self.chan, self.server = cohort, sched, chan, server
+        self.stream = stream
+        self.obs = obs if obs is not None else NULL_RECORDER
+        self._collect = bool(self.obs.active)  # static: read once
+        self._spans = SpanCollector() if self._collect else None
         self.fed_cfg = fed_cfg or FedQCSConfig()
         self.grad_fn = grad_fn
         self.data = data
@@ -225,6 +277,21 @@ class CohortEngine:
         self.round = 0
         self.last_ghat: Optional[torch.Tensor] = None
         self._vgrad = torch.func.vmap(lambda b: self.grad_fn(self.params, b))
+        if stream is not None:
+            # one StreamingPS serves every round
+            self._stream_ps = StreamingPS(
+                self.codec, mode="ae" if cohort.method == "fedqcs-ae" else "ea",
+                gamp=self.gamp, stream=stream, use_kernels=self.fed_cfg.use_kernels,
+                recon_chunk=self.fed_cfg.recon_chunk,
+                chan=self.chan if fam.multiple_access else None,
+                collect_health=self._collect,
+            )
+
+    def _sync(self) -> None:
+        """The end of a timed phase when recording: wait for the device, so
+        each phase's device time lands in its own span."""
+        if self._collect and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _grad_blocks(self, batch) -> torch.Tensor:
         """(C, ...) cohort batch -> (C, nb, N) gradient blocks, one vmapped
@@ -302,6 +369,14 @@ class CohortEngine:
         Bussgang term in em_gamp's noise_var."""
         stats: Dict[str, torch.Tensor] = {}
         method = self.cohort.method
+        collect = self._collect
+        if collect and self.codec is not None:
+            # quantizer clip-saturation rate off the wire payload (vq: 0)
+            if "words" in payload:
+                stats["clip_saturation"] = self.codec.clip_saturation(payload["words"])
+            else:
+                stats["clip_saturation"] = self.codec.clip_saturation(payload["codes"],
+                                                                      packed=False)
         true_sum = torch.einsum("k,kbn->bn", rhos, blocks)
         if method == "none":
             ghat = true_sum
@@ -322,8 +397,12 @@ class CohortEngine:
             ghat = torch.einsum("k,kbn->bn", rhos, parts.reshape(c, nb, -1))
         elif method == "fedqcs-ea":
             ghat = estimate_and_aggregate_packed(
-                self.codec, payload["words"], payload["alpha"], rhos, self.gamp
+                self.codec, payload["words"], payload["alpha"], rhos, self.gamp,
+                with_info=collect,
             )
+            if collect:
+                ghat, ginfo = ghat
+                stats.update(gamp_health(ginfo, live=payload["alpha"] > 0))
         else:  # fedqcs-ae
             words, alphas = payload["words"], payload["alpha"]
             q = self.codec.codebook
@@ -334,8 +413,11 @@ class CohortEngine:
                 stats["nu_channel"] = torch.zeros((), device=self.device)
                 ghat = aggregate_and_estimate(
                     self.codec, self.codec.unpack(words), alphas, rhos,
-                    groups=self.cohort.groups, gamp=self.gamp,
+                    groups=self.cohort.groups, gamp=self.gamp, with_info=collect,
                 )
+                if collect:
+                    ghat, ginfo = ghat
+                    stats.update(gamp_health(ginfo))
             else:
                 deq = self.codec.dequantize(self.codec.unpack(words))  # (C, nb, M)
                 w = bussgang.bussgang_weight(rhos[:, None], alphas, q)  # (C, nb)
@@ -347,8 +429,11 @@ class CohortEngine:
                     eta = mimo_tx_gain(w, active)
                     x = (eta * w)[..., None] * deq  # (C, nb, M) transmit rows
                     y_rx = fam.transmit(self.chan, real, x, draw)
-                    y, nu_ch = fam.combine(self.chan, real, y_rx, w, active, psi=q.psi,
-                                           tx_gain=eta)
+                    combined = fam.combine(self.chan, real, y_rx, w, active, psi=q.psi,
+                                           tx_gain=eta, with_aux=collect)
+                    y, nu_ch = combined[:2]
+                    if collect:  # the combiner's CSI health
+                        stats.update(combined[2])
                 else:
                     # per-client reception: equalized rows + their variance,
                     # Bussgang-combined at the PS (eqs. 23-24 + the channel term)
@@ -359,52 +444,192 @@ class CohortEngine:
                 stats["nu_channel"] = torch.mean(nu_ch)
                 energy = bussgang.signal_energy(alphas, rhos, self.fed_cfg.m, self.n)
                 ghat = em_gamp(y, nu_q + nu_ch, self.codec.a, self.gamp, init_var=energy,
-                               use_kernels=self.fed_cfg.use_kernels)
+                               use_kernels=self.fed_cfg.use_kernels, with_info=collect)
+                if collect:
+                    ghat, ginfo = ghat
+                    stats.update(gamp_health(ginfo))
         if self.cohort.record_nmse and method != "none":
             num = torch.sum((ghat - true_sum) ** 2)
             stats["nmse"] = num / (torch.sum(true_sum**2) + 1e-30)
         return ghat, stats
 
+    # -- round loop ---------------------------------------------------------
+
+    def _staleness(self, prev_sched, ids, t) -> np.ndarray:
+        """Cohort staleness at selection time: rounds since each member's
+        last successful participation (0 for never-participated)."""
+        last = prev_sched.last_round[ids]
+        return np.where(last < 0, 0, t - 1 - last)
+
+    def _wire_up_bytes(self, participating: float):
+        """Uplink wire cost this round: the participants' packed words plus
+        one f32 alpha per block for the fedqcs/qiht families, 1 bit/entry for
+        signsgd; None where the method has no defined wire format."""
+        method = self.cohort.method
+        if self.codec is not None and method in EF_METHODS:
+            q = self.codec.codebook
+            w = packed_width(q.n_codes(self.fed_cfg.m), q.bits)
+            return participating * self.nb * (w * 32 + 32) / 8.0
+        if method == "signsgd":
+            return participating * self.nb * self.n / 8.0
+        return None
+
+    def _record_round(self, t, out, staleness, ghat) -> None:
+        """Assembles and records the round event (host side, once per
+        round): the returned stats plus staleness, wire bytes, norms and the
+        phase timings."""
+        event: Dict[str, Any] = dict(out)
+        event["round"] = t
+        event["staleness_mean"] = float(np.mean(staleness)) if len(staleness) else 0.0
+        wire = self._wire_up_bytes(out["participating"])
+        if wire is not None:
+            event["wire_up_bytes"] = wire
+        # model broadcast: every cohort member pulls the nbar f32 params
+        event["wire_down_bytes"] = float(out["cohort"]) * self.layout.nbar * 4.0
+        pn2 = sum(torch.sum(torch.square(self.params[k])) for k in sorted(self.params))
+        un, pn = torch.stack([torch.sqrt(torch.sum(torch.square(ghat))),
+                              torch.sqrt(pn2)]).tolist()
+        event["update_norm"], event["param_norm"] = un, pn
+        phase = self._spans.drain()
+        event["phase_ms"] = phase
+        event["round_ms"] = sum(v for k, v in phase.items() if k not in SUB_PHASES)
+        self.obs.record("round", event)
+
+    def _uplink(self, t, n_cohort):
+        """The round's channel realization (on the host, then moved) and its
+        outage mask as numpy."""
+        real = realize_uplink(self.chan, lambda p, shape: self.draw(t, p, shape),
+                              n_cohort, self.nb)
+        mask = real.mask.cpu().numpy()
+        return real.to(self.device), mask
+
+    @staticmethod
+    def _normalized(r: torch.Tensor) -> torch.Tensor:
+        total = torch.sum(r)
+        return torch.where(total > 0, r / torch.clamp(total, min=1e-12), torch.zeros_like(r))
+
+    def _apply(self, t, jids, new_res, ghat) -> None:
+        self.residuals[jids] = new_res
+        self.params, self.server_state = server_update(
+            self.server, blocks_to_tree(ghat, self.layout), self.server_state, self.params, t
+        )
+        self.last_ghat = ghat
+
     def run_round(self) -> Dict[str, float]:
         """One federated round; advances params/residuals/server state and
         returns the round's stats (python floats)."""
+        if self.stream is not None:
+            return self._run_round_streaming()
         t = self.round
         prev_sched = self.sched_state
         ids, rho0, new_sched = select_cohort(self.sched, prev_sched, t, self.data.counts)
+        stale = self._staleness(prev_sched, ids, t) if self._collect else ()
         # the uplink is realized on the host, before the cohort passes
-        real = realize_uplink(self.chan, lambda p, shape: self.draw(t, p, shape),
-                              len(ids), self.nb)
-        mask = real.mask.cpu().numpy()
+        with span("uplink", self._spans):
+            real, mask = self._uplink(t, len(ids))
+            self._sync()
         # channel outage is a failed participation: those clients keep their
         # last successful round (their residual carries the full gradient)
         dead = ids[mask == 0]
         if len(dead):
             new_sched.last_round[dead] = prev_sched.last_round[dead]
         self.sched_state = new_sched
-        real = real.to(self.device)
-        r = torch.as_tensor(rho0 * mask, dtype=torch.float32, device=self.device)
-        total = torch.sum(r)
-        rhos = torch.where(total > 0, r / torch.clamp(total, min=1e-12), torch.zeros_like(r))
-        unit_dither = None
-        if self.dither is not None:
-            shape = self._dither_rows()
-            unit_dither = torch.cat(
-                [self.draw(t, "dither", shape, client=int(i)) for i in ids]).to(self.device)
+        rhos = self._normalized(
+            torch.as_tensor(rho0 * mask, dtype=torch.float32, device=self.device))
         jids = torch.as_tensor(ids, device=self.device)
-        batch = self.data.cohort_batch(t, ids)
-        payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], rhos,
-                                                     unit_dither)
-        ghat, stats = self._ps(payload, blocks, rhos, real,
-                               lambda p, shape: self.draw(t, p, shape).to(self.device))
-        self.residuals[jids] = new_res
-        self.params, self.server_state = server_update(
-            self.server, blocks_to_tree(ghat, self.layout), self.server_state, self.params, t
-        )
-        self.last_ghat = ghat
+        with span("client_pass", self._spans):
+            unit_dither = None
+            if self.dither is not None:
+                shape = self._dither_rows()
+                unit_dither = torch.cat(
+                    [self.draw(t, "dither", shape, client=int(i)) for i in ids]).to(self.device)
+            batch = self.data.cohort_batch(t, ids)
+            payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], rhos,
+                                                         unit_dither)
+            self._sync()
+        with span("decode", self._spans):
+            ghat, stats = self._ps(payload, blocks, rhos, real,
+                                   lambda p, shape: self.draw(t, p, shape).to(self.device))
+            self._sync()
+        with span("apply", self._spans):
+            self._apply(t, jids, new_res, ghat)
+            self._sync()
         self.round = t + 1
         out = {k: float(v) for k, v in stats.items()}
         out["cohort"] = len(ids)
         out["participating"] = float(torch.sum(rhos > 0))
+        if self._collect:
+            self._record_round(t, out, stale, ghat)
+        return out
+
+    def _run_round_streaming(self) -> Dict[str, float]:
+        """A streamed round: the same client pass, then the PS folds
+        arrival-ordered sub-cohort payload batches through the bounded
+        ingest buffer into partial sufficient statistics and decodes at the
+        deadline.  Weights fold raw (scheduler rho x outage mask x arrival x
+        lateness discount); a missed deadline is a non-participation: weight
+        0 (full residual carry) and un-stamped, as channel outage."""
+        t = self.round
+        prev_sched = self.sched_state
+        ids, rho0, new_sched = select_cohort(self.sched, prev_sched, t, self.data.counts)
+        stale = self._staleness(prev_sched, ids, t) if self._collect else ()
+        with span("uplink", self._spans):
+            real, mask = self._uplink(t, len(ids))
+            self._sync()
+        cfg = self.stream
+        alive = (np.asarray(rho0) > 0) & (mask > 0)
+        times = simulate_arrivals(cfg, t, len(ids), alive)
+        arrived = times <= cfg.deadline
+        w_raw = (np.asarray(rho0, np.float64) * mask * arrived
+                 * late_discount(cfg, times)).astype(np.float32)
+        dead = ids[(mask == 0) | ~arrived]
+        if len(dead):
+            new_sched.last_round[dead] = prev_sched.last_round[dead]
+        self.sched_state = new_sched
+        jw = torch.as_tensor(w_raw, device=self.device)
+        rhos = self._normalized(jw)  # the nmse reference weighting
+        jids = torch.as_tensor(ids, device=self.device)
+        with span("client_pass", self._spans):
+            batch = self.data.cohort_batch(t, ids)
+            payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], jw)
+            self._sync()
+        fam = self._chan_family
+        nu_chan = noise = chan_real = chan_draw = None
+        batches = batch_arrivals(times, cfg.deadline, cfg.batch_clients)
+        with span("fold", self._spans):
+            if fam.multiple_access:
+                # each arrival batch is one superimposed sub-cohort reception
+                # over this round's H, with its own receive noise
+                chan_real = real
+
+                def chan_draw(i, shape):
+                    return self.draw(t, "batch_noise", shape, client=i).to(self.device)
+            elif not fam.exact_codes:
+                # per-client receive noise: independent of the batching
+                nu_chan = fam.effective_noise(real)
+                noise = torch.stack([self.draw(t, "noise", (self.nb, self.fed_cfg.m),
+                                               client=int(i)) for i in ids]).to(self.device)
+            ghat, sinfo = stream_decode(
+                self.codec, payload["words"], payload["alpha"], w_raw, batches,
+                nu_chan=nu_chan, noise=noise, chan_real=chan_real, chan_draw=chan_draw,
+                ps=self._stream_ps,
+            )
+            self._sync()
+        with span("apply", self._spans):
+            self._apply(t, jids, new_res, ghat)
+            self._sync()
+        self.round = t + 1
+        out = {k: float(v) for k, v in sinfo.items() if k != "participating"}
+        if self.cohort.record_nmse:
+            true_sum = torch.einsum("k,kbn->bn", rhos, blocks)
+            num = torch.sum((ghat - true_sum) ** 2)
+            out["nmse"] = float(num / (torch.sum(true_sum**2) + 1e-30))
+        out["cohort"] = len(ids)
+        out["participating"] = float(np.sum(w_raw > 0))
+        out["arrived"] = float(np.sum(arrived))
+        if self._collect:
+            out["clip_saturation"] = float(self.codec.clip_saturation(payload["words"]))
+            self._record_round(t, out, stale, ghat)
         return out
 
     def run(self, rounds: int) -> List[Dict[str, float]]:
@@ -447,15 +672,17 @@ def _smoke_main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches for the encode-stream gradient hook")
     ap.add_argument("--stream", type=int, default=0, metavar="BATCH",
-                    help="streaming PS mode: sub-cohort ingest batch size (not ported yet)")
+                    help="streaming PS mode: sub-cohort ingest batch size (0 = barrier round)")
     ap.add_argument("--deadline", type=float, default=8.0)
     ap.add_argument("--record", default=None, metavar="RUN_DIR",
-                    help="write the run's events to this directory (not ported yet)")
+                    help="write events.jsonl + meta.json to this run dir (repro_torch.obs)")
     args = ap.parse_args(argv)
-    if args.stream > 0:
-        raise not_in_slice("the streaming PS round (--stream)", "item 7")
+
+    recorder = None
     if args.record:
-        raise not_in_slice("the run recorder (--record)", "item 8")
+        from repro_torch.obs import JsonlRecorder
+
+        recorder = JsonlRecorder(args.record, config=vars(args))
 
     x, y = toy_classification()
     parts = partition_indices(
@@ -481,10 +708,16 @@ def _smoke_main(argv=None):
             csi_error=args.csi_error,
         ),
         server=ServerOptConfig(kind="fedadam", lr=0.01),
+        stream=StreamConfig(batch_clients=args.stream, deadline=args.deadline)
+        if args.stream > 0 else None,
+        obs=recorder,
         device=args.device,
     )
     for i, stats in enumerate(engine.run(args.rounds)):
         print("round", i, stats)
         if not all(np.isfinite(v) for v in stats.values()):
             raise RuntimeError(f"round {i}: non-finite stats {stats}")
+    if recorder is not None:
+        recorder.close()
+        print("recorded:", recorder.run_dir)
     print("smoke ok:", args.clients, "clients,", args.rounds, "rounds")

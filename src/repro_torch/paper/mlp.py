@@ -6,13 +6,16 @@ The MLP is an ``nn.Module`` whose parameters keep the reference's names and
 layouts (``w1`` (784, 20), ``b1`` (20,), ``w2`` (20, 10), ``b2`` (10,)), so
 the block grid and the wire are the reference's.  The round engine works on
 plain parameter dicts through ``torch.func.functional_call``.
+:func:`mlp_engine` builds the experiment's cohort engine and
+:func:`run_federated` drives it, recording round and ``eval`` events when
+given a recorder (``obs=``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from repro_torch.fed.engine import ArrayClientData, CohortConfig, CohortEngine
 from repro_torch.fed.partition import PartitionConfig, partition_indices
 from repro_torch.fed.scheduler import SchedulerConfig
 from repro_torch.fed.server_opt import ServerOptConfig
+from repro_torch.fed.stream import StreamConfig
 
 N_IN, N_HID, N_OUT = 784, 20, 10  # N_bar = 15,910
 Params = Dict[str, torch.Tensor]
@@ -69,6 +73,11 @@ def mlp_loss(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -torch.mean(torch.gather(logp, 1, y[:, None]))
 
 
+def device_grad(params: Params, x: torch.Tensor, y: torch.Tensor) -> Params:
+    """One device's gradient of the loss on (x, y)."""
+    return torch.func.grad(mlp_loss)(params, x, y)
+
+
 def accuracy(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.argmax(mlp_logits(params, x), dim=-1) == y).float())
 
@@ -87,6 +96,69 @@ class RunResult:
     wall_s: float
     round_ms: List[float]  # host wall time of each run_round (synchronised)
     last_ghat: torch.Tensor  # the last round's decoded (nb, N) aggregate
+
+
+def mlp_engine(
+    method: str,
+    k_devices: int = 30,
+    fed_cfg: Optional[FedQCSConfig] = None,
+    lr: float = 0.003,
+    seed: int = 0,
+    batch_per_device: int = 1,
+    groups: int = 1,
+    record_nmse: bool = True,
+    partition: str = "paper",
+    alpha: float = 0.1,
+    scheduler: str = "full",
+    sample_frac: float = 1.0,
+    dropout: float = 0.0,
+    channel: str = "ideal",
+    snr_db: float = 20.0,
+    n_rx: int = 8,
+    csi_error: float = 0.0,
+    combiner: str = "lmmse",
+    server: str = "fedadam",
+    chunk: int = 0,
+    impl: str = "vmap",
+    stream: Optional[StreamConfig] = None,
+    obs: Any = None,
+    device="cuda",
+    params: Optional[Params] = None,
+    a: Optional[torch.Tensor] = None,
+) -> Tuple[CohortEngine, Tuple[np.ndarray, np.ndarray]]:
+    """The cohort engine of the paper's experiment, before its first round,
+    and the test split ``(x, y)``: what :func:`run_federated` drives (its
+    arguments are the engine's), for callers that step the engine
+    themselves.  Two calls with the same arguments give engines in the same
+    state."""
+    dev = entry_device(device)
+    (xtr, ytr, xte, yte), _ = mnist.load(seed)
+    parts = partition_indices(
+        ytr, k_devices, PartitionConfig(kind=partition, alpha=alpha, seed=seed)
+    )
+    fed_cfg = fed_cfg or FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25)
+    # Paper blocking: B=10 blocks -> N = ceil(15910/10) = 1591.
+    fed_cfg = dataclasses.replace(fed_cfg, block_size=1591)
+    if params is None:
+        params = init_mlp(seed, dev)
+    engine = CohortEngine(
+        params,
+        mlp_grad_fn,
+        ArrayClientData(xtr, ytr, parts, batch_size=batch_per_device, seed=seed, device=dev),
+        fed_cfg=fed_cfg,
+        cohort=CohortConfig(method=method, groups=groups, record_nmse=record_nmse,
+                            chunk=chunk, impl=impl, seed=seed),
+        sched=SchedulerConfig(kind=scheduler, sample_frac=sample_frac,
+                              dropout_prob=dropout, seed=seed),
+        chan=ChannelConfig(kind=channel, snr_db=snr_db, n_rx=n_rx, csi_error=csi_error,
+                           combiner=combiner),
+        server=ServerOptConfig(kind=server, lr=lr, b1=0.9, b2=0.999, eps=1e-8),
+        stream=stream,
+        obs=obs,
+        device=dev,
+        a=a,
+    )
+    return engine, (xte, yte)
 
 
 def run_federated(
@@ -113,6 +185,8 @@ def run_federated(
     server: str = "fedadam",
     chunk: int = 0,
     impl: str = "vmap",
+    obs: Any = None,  # repro_torch.obs recorder (None = the null recorder)
+    stream: Optional[StreamConfig] = None,  # streamed rounds (fedqcs-ae / fedqcs-ea)
     device="cuda",
     params: Optional[Params] = None,
     a: Optional[torch.Tensor] = None,
@@ -128,32 +202,22 @@ def run_federated(
     port's own seeded draws.  ``channel`` with ``snr_db``, ``n_rx``,
     ``csi_error`` and ``combiner`` is the uplink (``fed/channel.py``; the
     reference's ``run_federated`` has no ``combiner`` argument and always
-    combines with lmmse); only ``fedqcs-ae`` runs over a noisy one."""
-    dev = entry_device(device)
-    (xtr, ytr, xte, yte), _ = mnist.load(seed)
-    parts = partition_indices(
-        ytr, k_devices, PartitionConfig(kind=partition, alpha=alpha, seed=seed)
+    combines with lmmse); only ``fedqcs-ae`` runs over a noisy one.
+
+    ``obs`` threads into the engine: round events flow to its sink, and each
+    evaluation is recorded as an ``eval`` event, so ``python -m
+    repro_torch.obs summarize <run_dir>`` renders the run.  ``stream``
+    (not an argument of the reference's ``run_federated``, whose engine
+    takes it) runs streamed rounds."""
+    engine, (xte, yte) = mlp_engine(
+        method, k_devices=k_devices, fed_cfg=fed_cfg, lr=lr, seed=seed,
+        batch_per_device=batch_per_device, groups=groups, record_nmse=record_nmse,
+        partition=partition, alpha=alpha, scheduler=scheduler, sample_frac=sample_frac,
+        dropout=dropout, channel=channel, snr_db=snr_db, n_rx=n_rx, csi_error=csi_error,
+        combiner=combiner, server=server, chunk=chunk, impl=impl, stream=stream, obs=obs,
+        device=device, params=params, a=a,
     )
-    fed_cfg = fed_cfg or FedQCSConfig(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25)
-    # Paper blocking: B=10 blocks -> N = ceil(15910/10) = 1591.
-    fed_cfg = dataclasses.replace(fed_cfg, block_size=1591)
-    if params is None:
-        params = init_mlp(seed, dev)
-    engine = CohortEngine(
-        params,
-        mlp_grad_fn,
-        ArrayClientData(xtr, ytr, parts, batch_size=batch_per_device, seed=seed, device=dev),
-        fed_cfg=fed_cfg,
-        cohort=CohortConfig(method=method, groups=groups, record_nmse=record_nmse,
-                            chunk=chunk, impl=impl, seed=seed),
-        sched=SchedulerConfig(kind=scheduler, sample_frac=sample_frac,
-                              dropout_prob=dropout, seed=seed),
-        chan=ChannelConfig(kind=channel, snr_db=snr_db, n_rx=n_rx, csi_error=csi_error,
-                           combiner=combiner),
-        server=ServerOptConfig(kind=server, lr=lr, b1=0.9, b2=0.999, eps=1e-8),
-        device=dev,
-        a=a,
-    )
+    dev = engine.device
     accs, nmses, losses, round_ms = [], [], [], []
     xte_t = torch.as_tensor(xte, device=dev)
     yte_t = torch.as_tensor(yte, dtype=torch.int64, device=dev)
@@ -166,7 +230,11 @@ def run_federated(
             nmses.append(stats["nmse"])
         if t % eval_every == 0 or t == steps - 1:
             with torch.no_grad():
-                accs.append(float(accuracy(engine.params, xte_t, yte_t)))
-                losses.append(float(mlp_loss(engine.params, xte_t, yte_t)))
-    bits = 32.0 if method == "none" else 1.0 if method == "signsgd" else fed_cfg.bits_per_entry
+                acc = float(accuracy(engine.params, xte_t, yte_t))
+                loss = float(mlp_loss(engine.params, xte_t, yte_t))
+            accs.append(acc)
+            losses.append(loss)
+            engine.obs.record("eval", {"round": t, "accuracy": acc, "loss": loss})
+    cfg = engine.fed_cfg
+    bits = 32.0 if method == "none" else 1.0 if method == "signsgd" else cfg.bits_per_entry
     return RunResult(accs, nmses, losses, bits, time.time() - t0, round_ms, engine.last_ghat)

@@ -130,6 +130,7 @@ def _gamp_state(nb, n, m, L, seed, dev):
 @pytest.mark.parametrize("nb,n,m,q,em", [
     (8, 256, 64, 3, True), (13, 300, 100, 2, True), (37, 512, 171, 4, True),
     (300, 1591, 530, 3, True), (301, 256, 85, 3, True), (300, 1591, 530, 3, False),
+    (80, 1591, 530, 3, True),  # one fold of the streamed EA decode (8 clients x 10 blocks)
 ])
 @pytest.mark.parametrize("packed", [True, False])
 def test_qgamp_step_matches_plain(cuda, nb, n, m, q, em, packed, rows, cluster):
@@ -741,3 +742,43 @@ def test_loop_oracle_wire_matches_vmap_on_the_card(cuda, monkeypatch):
     assert torch.equal(words[0], words[2])
     assert res.nmses == seen["vmap"][1].nmses
     assert torch.equal(res.last_ghat, seen["vmap"][1].last_ghat)
+
+
+# -- slice 10: the streamed rounds, the recorder ----------------------------------
+
+
+@pytest.mark.parametrize("method", ["fedqcs-ae", "fedqcs-ea"])
+def test_streamed_round_on_the_card_matches_the_cpu(cuda, method):
+    """A streamed round in 8-client batches on the kernel route: the fused
+    encoder once, then 25 gamp_step launches on 10 rows (the AE finalize)
+    or 4 folds of 25 qgamp_step launches on 80 rows (EA); the decoded
+    aggregate within NMSE 1e-3 of the same round with the plain versions on
+    the CPU."""
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import qgamp_step as q_mod
+    from repro_torch.paper.mlp import run_federated
+
+    stream = StreamConfig(batch_clients=8, buffer_batches=2, fanout=2, deadline=1e9)
+    enc_mod.launches = g_mod.launches = q_mod.launches = 0
+    card = run_federated(method, steps=1, device="cuda", fed_cfg=_kernel_cfg(), stream=stream)
+    want = (25, 0) if method == "fedqcs-ae" else (0, 100)
+    assert enc_mod.launches == 1 and (g_mod.launches, q_mod.launches) == want
+    cpu = run_federated(method, steps=1, device="cpu", fed_cfg=_kernel_cfg(), stream=stream)
+    assert _nmse(card.last_ghat.cpu(), cpu.last_ghat) <= 1e-3
+
+
+def test_recorded_round_on_the_card_is_unchanged(cuda):
+    """Recording (a device sync at the end of each phase, the decode
+    health) changes no value of a round on the card."""
+    from repro_torch.obs import InMemoryRecorder
+    from repro_torch.paper.mlp import run_federated
+
+    rec = InMemoryRecorder()
+    recorded = run_federated("fedqcs-ea", steps=2, device="cuda", fed_cfg=_kernel_cfg(), obs=rec)
+    plain = run_federated("fedqcs-ea", steps=2, device="cuda", fed_cfg=_kernel_cfg())
+    assert recorded.nmses == plain.nmses and torch.equal(recorded.last_ghat, plain.last_ghat)
+    rounds = [e for e in rec.events if e["kind"] == "round"]
+    assert [set(e["phase_ms"]) for e in rounds] == [{"uplink", "client_pass", "decode",
+                                                     "apply"}] * 2

@@ -72,9 +72,8 @@ from torch_fed_parity import engines, nmse, port_engine, reference_round  # noqa
 
 jax.config.update("jax_platform_name", "cpu")
 
-# the streaming PS and the token federation come with ROADMAP items 7 and 11
-UNPORTED_FED = {"TokenClientData", "StreamConfig", "StreamingPS", "BoundedIngestBuffer",
-                "stream_decode"}
+# the token federation comes with ROADMAP item 11
+UNPORTED_FED = {"TokenClientData"}
 
 
 def T(x):
@@ -588,13 +587,34 @@ def test_fed_smoke_runs_two_rounds_on_the_cpu():
     assert "round 1" in text and "smoke ok: 8 clients, 2 rounds" in text
 
 
+# Explicit ids keep each case's name from before the streaming PS (item 7)
+# and the telemetry (item 8) were ported: those two flags now run their
+# round (``ported``) instead of raising.
 @pytest.mark.parametrize("flags,item", [
-    (["--layout", "per_tensor"], "item 9"), (["--encode-stream"], "item 9"),
-    (["--stream", "4"], "item 7"), (["--record", "run"], "item 8"),
+    pytest.param(["--layout", "per_tensor"], "item 9", id="flags0-item 9"),
+    pytest.param(["--encode-stream"], "item 9", id="flags1-item 9"),
+    pytest.param(["--stream", "4"], "ported", id="flags2-item 7"),
+    pytest.param(["--record", "RUN"], "ported", id="flags3-item 8"),
 ])
-def test_fed_smoke_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        teng._smoke_main(["--device", "cpu", "--rounds", "1"] + flags)
+def test_fed_smoke_unported_flags_raise(flags, item, tmp_path):
+    argv = ["--device", "cpu", "--rounds", "1"] + [
+        str(tmp_path / "run") if f == "RUN" else f for f in flags]
+    if item != "ported":
+        with pytest.raises(NotImplementedError, match=item):
+            teng._smoke_main(argv)
+        return
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        teng._smoke_main(argv)
+    text = out.getvalue()
+    assert "round 0" in text and "smoke ok: 8 clients, 1 rounds" in text
+    if "--stream" in flags:
+        assert "'batches_admitted': 2.0" in text  # 8 clients in batches of 4
+    else:
+        from repro.obs.reader import load_rounds, validate_dir
+
+        assert validate_dir(str(tmp_path / "run")) == []
+        assert len(load_rounds(str(tmp_path / "run"))) == 1
 
 
 def test_run_federated_passes_the_knobs(monkeypatch):

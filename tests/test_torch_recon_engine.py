@@ -352,16 +352,40 @@ def test_dead_rows_converged_zero_and_padding_invariant():
     assert _nmse(padded, ghat) <= 1e-4 and not padded[1].any()
 
 
+def _decode_from_stats_matches_reference(tc):
+    """``decode_from_stats`` (ported since) on folded AE and EA statistics of
+    one 5-client payload, against the reference's on the same inputs."""
+    from repro.core import aggregator as jagg
+    from repro_torch.core import aggregator as tagg
+
+    kw = dict(block_size=256, reduction_ratio=4, gamp_iters=10, gamp_variance_mode="scalar")
+    jc = jcomp.BQCSCodec(jcomp.FedQCSConfig(**kw))
+    tc = tcomp.BQCSCodec(tcomp.FedQCSConfig(**kw), a=T(np.array(jc.a)), device="cpu")
+    rng = np.random.default_rng(7)
+    blocks = rng.normal(size=(5, 2, 256)).astype(np.float32)
+    words, alphas, _ = jax.vmap(jc.compress_blocks_packed)(J(blocks), J(np.zeros_like(blocks)))
+    w = np.asarray([0.5, 1.5, 0.0, 2.0, 1.0], np.float32)
+    ghat = rng.normal(size=(5, 2, 256)).astype(np.float32)
+    for js, ts, tol in (
+        (jagg.ae_batch_stats(jc, words, alphas, J(w)),
+         tagg.ae_batch_stats(tc, T(np.array(words)), T(np.array(alphas)), T(w)), 1e-6),
+        (jagg.ea_batch_stats(J(ghat), J(w)), tagg.ea_batch_stats(T(ghat), T(w)), 1e-12),
+    ):
+        assert _nmse(tre.decode_from_stats(tc, ts), jre.decode_from_stats(jc, js)) <= tol
+
+
 # Explicit ids keep each case's name from before ReconSpec(channel=...) (item
-# 5) and the AE decode in G groups (item 6) were ported: those cases became
+# 5), the AE decode in G groups (item 6) and the decode from streamed
+# statistics (item 7) were ported: the first two cases became
 # tests/test_torch_channel.py's api.reconstruct parity test and
-# tests/test_torch_knobs.py's grouped-decode tests.
+# tests/test_torch_knobs.py's grouped-decode tests; route2 now holds
+# decode_from_stats against the reference (item "ported").
 @pytest.mark.parametrize("route,item", [
     pytest.param(lambda tc: tre.chunked_rows(None, (torch.zeros(4),), 2, 1, mesh=object()),
                  "item 10", id="route0-item 10"),
     pytest.param(lambda tc: tre.ea_decode_segments(tc, None, None, None, None, packed=True),
                  "item 9", id="route1-item 9"),
-    pytest.param(lambda tc: tre.decode_from_stats(tc, None), "item 7", id="route2-item 7"),
+    pytest.param(_decode_from_stats_matches_reference, "ported", id="route2-item 7"),
     pytest.param(lambda tc: tapi.reconstruct(tc, [], [], None, recon=tre.ReconSpec(mode="ea"),
                                              emit=print), "item 9", id="route5-item 9"),
     pytest.param(lambda tc: tc.compress_tree({"w": torch.zeros(3)}, torch.zeros((1, 256)),
@@ -369,6 +393,9 @@ def test_dead_rows_converged_zero_and_padding_invariant():
 ])
 def test_engine_routes_outside_the_slice_raise(route, item):
     tc = tcomp.BQCSCodec(tcomp.FedQCSConfig(block_size=256, reduction_ratio=4), device="cpu")
+    if item == "ported":
+        route(tc)
+        return
     with pytest.raises(NotImplementedError, match=item):
         route(tc)
 

@@ -10,7 +10,11 @@ milliseconds in either package.  The port takes the reference's draws
 through its draw seam (``CohortEngine(draw=...)``): :func:`reference_draw`
 computes each one with ``jax.random`` along the reference engine's own key
 path (``fold_in(PRNGKey(seed), round)``, split into the channel and noise
-keys; a client's dither key is ``fold_in`` of the round key with its id).
+keys; a client's dither key is ``fold_in`` of the round key with its id; a
+streamed round's per-client receive noise and a streamed multiple-access
+batch's noise are ``fold_in`` of the noise key with the client's id or the
+batch's admission index).  ``stream`` and ``obs`` build both engines with
+streamed rounds (the StreamConfig's fields) and a recorder each.
 """
 
 import numpy as np
@@ -24,12 +28,14 @@ from repro.fed import engine as jeng
 from repro.fed.channel import ChannelConfig as JChan
 from repro.fed.scheduler import SchedulerConfig as JSched
 from repro.fed.server_opt import ServerOptConfig as JSrv
+from repro.fed.stream import StreamConfig as JStream
 from repro_torch.core.baselines import DitherCodec
 from repro_torch.core.compression import FedQCSConfig as TCfg
 from repro_torch.fed import engine as teng
 from repro_torch.fed.channel import ChannelConfig as TChan
 from repro_torch.fed.scheduler import SchedulerConfig as TSched
 from repro_torch.fed.server_opt import ServerOptConfig as TSrv
+from repro_torch.fed.stream import StreamConfig as TStream
 
 D_IN, D_OUT, CLIENTS, LR = 32, 8, 6, 0.003
 FED = dict(block_size=64, reduction_ratio=4, bits=3, s_ratio=0.2, gamp_iters=10)
@@ -47,8 +53,9 @@ def reference_draw(seed: int):
         elif purpose in ("h", "h_err"):
             k_h, k_e = jax.random.split(k_chan)
             x = jax.random.normal(k_h if purpose == "h" else k_e, shape, jnp.float32)
-        elif purpose == "noise":
-            x = jax.random.normal(k_noise, shape, jnp.float32)
+        elif purpose in ("noise", "batch_noise"):
+            key = k_noise if client is None else jax.random.fold_in(k_noise, client)
+            x = jax.random.normal(key, shape, jnp.float32)
         else:  # dither
             key = jax.random.fold_in(kr, client)
             x = jax.random.uniform(key, shape, minval=-0.5, maxval=0.5)
@@ -96,7 +103,7 @@ def _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw):
 
 
 def port_engine(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=None,
-                cohort_kw=None, server_kw=None, a=None, draw=None):
+                cohort_kw=None, server_kw=None, a=None, draw=None, stream=None, obs=None):
     """The port's engine over the federation; with no ``a`` and ``draw``, on
     its own sensing matrix and draws (no JAX work)."""
     c = _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw)
@@ -106,16 +113,19 @@ def port_engine(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw
         teng.ArrayClientData(x, y, parts, batch_size=4, seed=seed, device="cpu"),
         fed_cfg=TCfg(**c["fed"]), cohort=teng.CohortConfig(**c["cohort"]),
         sched=TSched(**c["sched"]), chan=TChan(**(chan_kw or {})),
-        server=TSrv(**c["server"]), device="cpu", a=a, draw=draw,
+        server=TSrv(**c["server"]), stream=None if stream is None else TStream(**stream),
+        obs=obs, device="cpu", a=a, draw=draw,
     )
 
 
 def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=None,
-            cohort_kw=None, server_kw=None):
+            cohort_kw=None, server_kw=None, stream=None, obs=(None, None)):
     """(reference engine, port engine) over the same federation, with the
     reference's sensing matrix, dither codec and draws in the port's.
     ``sched_kw``, ``cohort_kw`` and ``server_kw`` override the full
-    scheduler, the cohort defaults and FedAdam."""
+    scheduler, the cohort defaults and FedAdam; ``stream`` (StreamConfig
+    fields) selects streamed rounds in both, ``obs`` is (reference
+    recorder, port recorder)."""
     c = _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw)
     x, y, parts, params = _data()
     je = jeng.CohortEngine(
@@ -123,11 +133,12 @@ def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=Non
         jeng.ArrayClientData(x, y, parts, batch_size=4, seed=seed),
         fed_cfg=JCfg(**c["fed"]), cohort=jeng.CohortConfig(**c["cohort"]),
         sched=JSched(**c["sched"]), chan=JChan(**(chan_kw or {})),
-        server=JSrv(**c["server"]),
+        server=JSrv(**c["server"]), stream=None if stream is None else JStream(**stream),
+        obs=obs[0],
     )
     a = None if je.codec is None else torch.tensor(np.asarray(je.codec.a))
     te = port_engine(method, chan_kw, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw,
-                     a=a, draw=reference_draw(seed))
+                     a=a, draw=reference_draw(seed), stream=stream, obs=obs[1])
     if je._dither is not None:
         jd = je._dither
         te.dither = DitherCodec(jd.n, jd.m, jd.bits,
@@ -137,18 +148,23 @@ def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=Non
 
 
 def reference_round(je):
-    """One reference round; returns (stats, decoded aggregate)."""
+    """One reference round (barrier or streamed); returns (stats, decoded
+    aggregate)."""
     seen = {}
-    ps = je._ps_jit
+    ps, decode = je._ps_jit, jeng.stream_decode
 
-    def capture(*args):
-        out = ps(*args)
+    def capture(*args, **kwargs):
+        out = (ps if je.stream is None else decode)(*args, **kwargs)
         seen["ghat"] = out[0]
         return out
 
     je._ps_jit = capture
-    stats = je.run_round()
-    je._ps_jit = ps
+    jeng.stream_decode = capture
+    try:
+        stats = je.run_round()
+    finally:
+        je._ps_jit = ps
+        jeng.stream_decode = decode
     return stats, np.asarray(seen["ghat"])
 
 

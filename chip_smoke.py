@@ -21,7 +21,11 @@ Phases (any failure raises and the script exits non-zero):
     gamp_step at 30 and 100 rows (the AE decode in 3 and 10 groups) and the
     fused encoder at 10 rows (one client of the loop oracle: bit-identical
     to the 300-row launch's first 10 rows); qgamp_step at 80 rows (one fold
-    of [stream]'s EA decode).
+    of [stream]'s EA decode); at [layout]'s shapes, the fused encoder at 390
+    rows and at 30 rows (S = 159, and a bias segment's s = 79; the 30-row
+    launch at S = 159 bit-identical to the 390-row launch's first rows),
+    qgamp_step at 390 rows (a partial last tile) with the 25-step EA driver,
+    at 30 and at 104 rows, gamp_step at 13 rows with the 25-step AE driver.
  3. [staged] The staged encode path of ``kernels/ops.py``
     (``block_sparsify`` -> ``bqcs_encode`` -> ``pack_codes``) with its launch
     counts set to 0 just before and read just after, held against the
@@ -78,7 +82,20 @@ Phases (any failure raises and the script exits non-zero):
     stamped); awgn 20 dB batched by 8 against by 30 (NMSE <= 1e-8); and
     mimo_mac lmmse (n_rx = 8).  Wall, launches, live statistics bytes and
     buffer occupancy printed.
- 10. [record] ``run_federated(obs=JsonlRecorder(dir))``, 3 rounds each of
+ 10. [layout] The MLP's per-tensor layout (b1, b2, w1, w2: 1, 1, 10 and
+    1 block rows, 13 a client) through ``run_federated`` on the kernel route,
+    2 rounds each: EA and AE one-pass rounds (the encoder at 390 rows,
+    qgamp_step at 390, gamp_step at 13), ``encode_stream`` EA (encoder
+    launches of 30, 30, 300 and 30 rows; round 0's wire and the residuals
+    and parameters after 2 rounds bit-identical to the one-pass run),
+    per-segment budgets (s = 79 on the biases), ``grad_accum=2`` with batch
+    2 a client, streamed AE and EA rounds (EA folds of 8 x 13 = 104 rows,
+    NMSE <= 1e-8 to the barrier round); each round 0 against the plain
+    versions (NMSE <= 1e-3); ``api.reconstruct(emit=)`` on a round's
+    payload (4 segments: qgamp_step at 30 and 300 rows; NMSE <= 1e-4 to the
+    whole-grid decode); the default route's streamed vs one-pass wire
+    (differing lanes counted, each near a threshold).
+ 11. [record] ``run_federated(obs=JsonlRecorder(dir))``, 3 rounds each of
     fedqcs-ae and fedqcs-ea (a temporary directory): the run directory
     validates, the stats and decoded aggregate equal an unrecorded run's,
     and each round's ``phase_ms`` (uplink, client_pass, decode, apply; each
@@ -86,19 +103,21 @@ Phases (any failure raises and the script exits non-zero):
     reader's summary; each phase's device busy time from a traced run
     with the phases as profiler ranges; then a streamed AE engine under an
     ``InMemoryRecorder`` (phases uplink, client_pass, fold, apply).
- 11. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
-    [main], [routes], [baselines], [channels], [knobs] and [stream]: each
+ 12. [profile] One ``torch.profiler`` trace of 3 rounds per configuration of
+    [main], [routes], [baselines], [channels], [knobs], [stream] and
+    [layout]: each
     round's device busy time (the device events that start inside its
     ``run_round``), the steady rounds' mean beside their unprofiled wall
     time (the idle share), and the top device events.
- 12. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 13. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
     encoder's, for the record.  [tune]: the staged bqcs_encode (300 rows)
     at every cluster size, each held against the plain version first;
-    qgamp_step at 64, 80 and 300 rows and gamp_step at 10, 30, 64, 100 and
-    300 rows at every (rows per tile, cluster), each held against the plain step
+    qgamp_step at 30, 64, 80, 104, 300 and 390 rows and gamp_step at 10,
+    13, 30, 64, 100 and 300 rows at every (rows per tile, cluster), each
+    held against the plain step
     first, and at the chooser's pick without the EM refresh.  The
     chooser's pick is marked.
 
@@ -141,6 +160,12 @@ CHUNK_ROWS = 64  # [routes]' recon_chunk: 300 EA rows -> 5 chunks, the last with
 STREAM = dict(batch_clients=8, buffer_batches=2, fanout=2, deadline=1e9)
 FOLD_ROWS = STREAM["batch_clients"] * 10
 STREAM_BATCHES = -(-K // STREAM["batch_clients"])
+# [layout]: the MLP's per-tensor layout at N = 1591 -- b1 (20), b2 (10), w1
+# (15,680), w2 (200) in sorted order, 1, 1, 10 and 1 block rows: 13 a client,
+# 390 a cohort; a 0.05 budget on the biases keeps s = 79 of their 1591
+LAYOUT_SEG_ROWS = (1, 1, 10, 1)
+LAYOUT_ROWS = K * sum(LAYOUT_SEG_ROWS)
+BIAS_S = 79
 
 # The main-path runs: (method, codebook, GAMP variance mode, rounds, the
 # launches per round of each kernel module).  The dithered EA decode and the
@@ -392,6 +417,32 @@ def staged_vs_plain(x, a_tt, taus, cluster=None):
     return rel, float(torch.max(torch.abs(alpha - alpha_p))), n_diff
 
 
+def qgamp_inputs(rows: int, seed: int, a, taus, dev):
+    """One qgamp_step's arguments at ``rows`` rows, drawn from a seed: a GAMP
+    state and Q = 3 packed codes consistent with it (x ~ N(phat, nu_p)), as
+    the reference's kernel tests draw them.  Returns (the generator, so
+    callers draw on from it, the arguments)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compression import pack_codes
+    from repro_torch.core.gamp import tau_tables
+
+    L = 3
+    lo, hi = tau_tables(taus)
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    ghat = t(rng.normal(0, 0.1, (rows, N)))
+    nug = t(rng.uniform(0.01, 0.1, (rows, N)))
+    shat = t(rng.normal(0, 0.1, (rows, M)))
+    theta = t(np.concatenate([np.full((rows, 1), 0.9), np.full((rows, L), 0.1 / L),
+                              rng.normal(0, 0.1, (rows, L)), np.full((rows, L), 0.01)], 1))
+    al2 = t(rng.uniform(0.8, 1.25, (rows, 1)))
+    x = al2 * (ghat @ a.T) + t(rng.normal(0, 0.1, (rows, M)))
+    qwords = pack_codes(torch.searchsorted(taus, x.contiguous()).to(torch.int32), Q)
+    return rng, (ghat, nug, shat, theta, qwords, al2, lo, hi, a, L, True, Q)
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version at the main path's shapes."""
     import numpy as np
@@ -399,7 +450,7 @@ def phase_kernels(dev):
 
     from repro_torch.core import bussgang
     from repro_torch.core.codebook import make_codebook
-    from repro_torch.core.compression import pack_codes, packed_width, unpack_codes
+    from repro_torch.core.compression import packed_width, unpack_codes
     from repro_torch.core.gamp import GampConfig, qem_gamp_packed, tau_tables
     from repro_torch.core.sensing import sensing_matrix
     from repro_torch.kernels import block_topk as t_mod
@@ -508,20 +559,9 @@ def phase_kernels(dev):
     L = 3
 
     # -- one qgamp_step on 300 rows (state and codes from a seed) ----------------
-    rng = np.random.default_rng(1)
+    rng, qargs = qgamp_inputs(rows, 1, a, taus, dev)
+    ghat, nug, shat, theta = qargs[:4]
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    ghat = t(rng.normal(0, 0.1, (rows, N)))
-    nug = t(rng.uniform(0.01, 0.1, (rows, N)))
-    shat = t(rng.normal(0, 0.1, (rows, M)))
-    theta = t(np.concatenate([np.full((rows, 1), 0.9), np.full((rows, L), 0.1 / L),
-                              rng.normal(0, 0.1, (rows, L)), np.full((rows, L), 0.01)], 1))
-    al2 = t(rng.uniform(0.8, 1.25, (rows, 1)))
-    # codes consistent with the state (x ~ N(phat, nu_p)), as the reference's
-    # kernel tests draw them
-    x = al2 * (ghat @ a.T) + t(rng.normal(0, 0.1, (rows, M)))
-    qcodes = torch.searchsorted(taus, x.contiguous()).to(torch.int32)
-    qwords = pack_codes(qcodes, Q)
-    qargs = (ghat, nug, shat, theta, qwords, al2, lo, hi, a, L, True, Q)
     n0 = q_mod.launches
     errs, shapes = step_vs_plain("qgamp", qargs, dev)
     # -- the 25-step EA driver on the encoder's words (incl. the dead row) -------
@@ -597,27 +637,15 @@ def phase_kernels(dev):
               f"launches {n_k}")
 
     # -- the fused encoder at 10 rows (one client: [knobs]' loop oracle) ---------
-    k300 = out["encode"]
-    b10, r10 = blocks[:10].contiguous(), resid0[:10].contiguous()
-    a_t, tab = k300["args"][2], k300["args"][3]
-    n0 = enc_mod.launches
-    w10, al10, res10 = bqcs_encode_fused(b10, r10, a_t, tab, S, M, Q, **k300["kwargs"])
-    n_enc = launched(enc_mod, n0, 1)
-    w_p, al_p, res_p = ref.bqcs_encode_fused_ref(b10, r10, a_t[:, :M], tab, S, Q)
+    out["encode10"] = encoder_vs_plain("lloyd_max at 10 rows (one client)",
+                                       blocks[:10].contiguous(), resid0[:10].contiguous(), a,
+                                       out["encode"], S)
     words300, alpha300, _ = enc_out["lloyd_max"]
-    torch.cuda.synchronize()
+    w10, al10, _ = out["encode10"]["out"]
     check(torch.equal(w10, words300[:10]) and torch.equal(al10, alpha300[:10]),
           "the fused encoder at 10 rows must give the 300-row launch's first 10 rows bit for bit")
-    check(torch.equal(res10, res_p), "10-row encoder resid must be bit-identical to the plain")
-    kept10 = kept[:10]
-    out["encode10"] = dict(
-        max_abs_err=float(torch.max(torch.abs(al10 - al_p))), kept=int(kept10.sum()),
-        a_rows=int(kept10.any(dim=0).sum()), args=(b10, r10, a_t, tab, S, M, Q),
-        kwargs=k300["kwargs"], words=w10.shape[1],
-    )
-    print(f"[encode] lloyd_max at 10 rows (one client): words and alpha bit-identical to the "
-          f"300-row launch's first 10 rows, resid bit-identical to the plain version, alpha max "
-          f"abs err {out['encode10']['max_abs_err']:.3g}; launches {n_enc}")
+    print("[encode] 10-row launch: words and alpha bit-identical to the 300-row launch's first "
+          "10 rows")
 
     # -- both step kernels at one chunk of the chunked EA decode ([routes]) ------
     for kind, key, args, mod in (("qgamp", "qgamp64", qargs, q_mod),
@@ -642,6 +670,136 @@ def phase_kernels(dev):
     print(f"[qgamp_step] one step, {FOLD_ROWS} rows (one fold of the streamed EA decode: "
           f"{STREAM['batch_clients']} clients x 10 blocks), (rows per tile, cluster) {shapes}: "
           f"allclose rtol 1e-3 atol 1e-5, max abs err {max(errs):.3g}; launches {n_k}")
+    out.update(layout_kernels(dev, a, out, args300))
+    return out
+
+
+def encoder_vs_plain(label, blocks, resid0, a, k300, s):
+    """The fused lloyd_max encoder at ``s`` against its plain version:
+    resid bit-identical, alpha to 1e-6 relative, a differing code only
+    within 1e-5 of a threshold, pad lanes 0.  Returns the [time] record."""
+    import torch
+
+    from repro_torch.core.compression import unpack_codes
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
+
+    a_t, tab = k300["args"][2], k300["args"][3]
+    rows = blocks.shape[0]
+    n0 = enc_mod.launches
+    words, alpha, resid = bqcs_encode_fused(blocks, resid0, a_t, tab, s, M, Q, **k300["kwargs"])
+    n_enc = enc_mod.launches - n0
+    w_p, al_p, res_p = ref.bqcs_encode_fused_ref(blocks, resid0, a_t[:, :M], tab, s, Q)
+    torch.cuda.synchronize()
+    check(n_enc == 1, f"{label}: {n_enc} launches, want 1")
+    check(torch.equal(resid, res_p), f"{label}: resid must be bit-identical to the plain")
+    rel = float(torch.max(torch.abs(alpha - al_p) / torch.clamp(torch.abs(al_p), min=1e-30)))
+    check(rel <= 1e-6, f"{label}: alpha rtol {rel:.3g} > 1e-6")
+    sparse, _ = ref.block_topk_ref(blocks + resid0, s)
+    diff = unpack_codes(words, Q, M) != unpack_codes(w_p, Q, M)
+    gap = torch.amin(torch.abs(((sparse * al_p[:, None]) @ a.T)[..., None] - tab), dim=-1)
+    n_diff = int(diff.sum())
+    if n_diff:
+        check(float(gap[diff].max()) < 1e-5, f"{label}: a differing code lane is not within "
+              "1e-5 of a threshold")
+    full = unpack_codes(words, Q, words.shape[1] * (32 // Q))
+    check(not bool(full[:, M:].any()), f"{label}: pad lanes must carry code 0")
+    kept = sparse != 0
+    print(f"[encode] {label}: {rows}x{N} S={s} Q={Q}: resid bit-identical, alpha max rel err "
+          f"{rel:.3g}, {n_diff} differing code lanes of {diff.numel()} (each within 1e-5 of a "
+          f"threshold); launches {n_enc}")
+    return dict(max_abs_err=float(torch.max(torch.abs(alpha - al_p))), kept=int(kept.sum()),
+                a_rows=int(kept.any(dim=0).sum()),
+                args=(blocks, resid0, a_t, tab, s, M, Q), kwargs=k300["kwargs"],
+                words=words.shape[1], out=(words, alpha, resid))
+
+
+def layout_kernels(dev, a, k_in, args300):
+    """[kernels] at the per-tensor layout's shapes ([layout]): the fused
+    encoder at 390 rows (one pass over 30 clients x 13 rows) and at 30 rows
+    (one client segment of one row each) with S = 159 and with a bias
+    segment's budget s = 79 -- the 30-row launch at S = 159 bit-identical
+    to the 390-row launch's first 30 rows; qgamp_step at 390 rows (4 rows x
+    cluster 2, a partial last tile) with the 25-step EA driver on the
+    390-row words, at 30 rows (a segment-local decode) and at 104 rows (a
+    streamed EA fold of 8 clients x 13 rows); gamp_step at 13 rows with the
+    25-step AE driver on the Bussgang aggregate of the 390-row words."""
+    import torch
+
+    from repro_torch.core import bussgang
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qgamp_step as q_mod
+
+    out = {}
+    rows = LAYOUT_ROWS
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    blocks = (0.05 * torch.randn((rows, N), generator=gen)).to(dev)
+    resid0 = (0.01 * torch.randn((rows, N), generator=gen)).to(dev)
+    blocks[3] = 0.0
+    resid0[3] = 0.0  # one dead row
+    k300 = k_in["encode"]
+    out["encode390"] = encoder_vs_plain(f"lloyd_max at {rows} rows (30 clients x 13)", blocks,
+                                        resid0, a, k300, S)
+    b30, r30 = blocks[:K].contiguous(), resid0[:K].contiguous()
+    out["encode30"] = encoder_vs_plain(f"lloyd_max at {K} rows, a bias segment's s={BIAS_S}",
+                                       b30, r30, a, k300, BIAS_S)
+    same = encoder_vs_plain(f"lloyd_max at {K} rows, S={S}", b30, r30, a, k300, S)["out"]
+    words, alpha, _ = out["encode390"]["out"]
+    check(all(torch.equal(x, y[:K]) for x, y in zip(same, out["encode390"]["out"])),
+          f"the fused encoder at {K} rows must give the {rows}-row launch's first rows bit for bit")
+    print(f"[encode] {K}-row launch at S={S}: words, alpha and resid bit-identical to the "
+          f"{rows}-row launch's first {K} rows")
+
+    # qgamp_step at 390 rows, state and codes from a seed as at 300 rows
+    taus = k300["args"][3]
+    _, qargs = qgamp_inputs(rows, 2, a, taus, dev)
+    for nb in (rows, K, STREAM["batch_clients"] * 13):
+        args = tuple(v[:nb].contiguous() if torch.is_tensor(v) and v.dim() and v.shape[0] == rows
+                     else v for v in qargs)
+        n0 = q_mod.launches
+        errs, shapes = step_vs_plain("qgamp", args, dev)
+        extra = ""
+        if nb == rows:
+            ea_k = ops.qgamp_ea_run_packed(words, alpha, a, taus, bits=Q, m=M)
+            with plain_kernels():
+                ea_p = ops.qgamp_ea_run_packed(words, alpha, a, taus, bits=Q, m=M)
+            e_ea = nmse(ea_k, ea_p)
+            check(e_ea <= 1e-4, f"EA driver at {rows} rows: NMSE {e_ea:.3g} > 1e-4")
+            check(not bool(ea_k[3].any()), "dead row must decode to exactly zero")
+            extra = f"; 25-step EA driver on the {rows}-row encoder's words: NMSE {e_ea:.3g}"
+        n_k = q_mod.launches - n0
+        check(n_k == len(shapes) + (ITERS if nb == rows else 0), f"qgamp_step {nb} rows: "
+              f"{n_k} launches")
+        out[f"qgamp{nb}"] = dict(max_abs_err=max(errs), args=args, gemm=(args[0], args[2], a))
+        print(f"[qgamp_step] one step, {nb} rows, (rows per tile, cluster) {shapes}: allclose "
+              f"rtol 1e-3 atol 1e-5, max abs err {max(errs):.3g}{extra}; launches {n_k}")
+
+    # gamp_step at 13 rows: the per-tensor AE decode
+    args13 = tuple(v[:13].contiguous() if torch.is_tensor(v) and v.dim() and v.shape[0] == K * 10
+                   else v for v in args300)
+    n0 = g_mod.launches
+    errs, shapes = step_vs_plain("gamp", args13, dev)
+    cb = make_codebook(dataclasses.replace(fed_cfg(), block_size=N))
+    w3, a3 = words.reshape(K, 13, -1), alpha.reshape(K, 13)
+    rhos = torch.full((K,), 1.0 / K, device=dev)
+    y_ae = bussgang.aggregate_packed(w3, a3, rhos, cb, M)
+    nu_ae = bussgang.effective_noise_var(a3, rhos, cb)
+    e_in = bussgang.signal_energy(a3, rhos, M, N)
+    ae_k = ops.gamp_ae_run(y_ae, nu_ae, a, e_in)
+    with plain_kernels():
+        ae_p = ops.gamp_ae_run(y_ae, nu_ae, a, e_in)
+    e_ae = nmse(ae_k, ae_p)
+    check(e_ae <= 1e-4, f"AE driver at 13 rows: NMSE {e_ae:.3g} > 1e-4")
+    n_k = g_mod.launches - n0
+    check(n_k == len(shapes) + ITERS, f"gamp_step 13 rows: {n_k} launches")
+    out["gamp13"] = dict(max_abs_err=max(errs), args=args13, gemm=(args13[0], args13[2], a))
+    print(f"[gamp_step] one step, 13 rows (the per-tensor AE decode), (rows per tile, cluster) "
+          f"{shapes}: allclose rtol 2e-4 atol 1e-6, max abs err {max(errs):.3g}; 25-step AE "
+          f"driver on the Bussgang aggregate of the {rows}-row words: NMSE {e_ae:.3g}; launches "
+          f"{n_k}")
     return out
 
 
@@ -747,39 +905,42 @@ def phase_main_path(dev):
 @contextlib.contextmanager
 def captured_rounds():
     """Records each round's client-pass payload (``words`` or ``codes``,
-    ``alpha``) and blocks, the engine, the PS pass's decoded aggregate,
-    stats and channel mask, and QIHT's per-row decode where it runs (one
-    dict per round) while runs go on."""
+    ``alpha``) and blocks, the engine, the decoded aggregate it applies
+    (barrier or streamed), the PS pass's stats and channel mask, and QIHT's
+    per-row decode where it runs (one dict per round) while runs go on."""
     from repro_torch.core import baselines
     from repro_torch.fed.engine import CohortEngine
 
     rounds = []
-    client_pass, ps = CohortEngine._client_pass, CohortEngine._ps
+    client_pass, ps, apply = CohortEngine._client_pass, CohortEngine._ps, CohortEngine._apply
     qiht = baselines.qiht_reconstruct
 
-    def cp(self, *args):
-        out = client_pass(self, *args)
+    def cp(self, *args, **kwargs):
+        out = client_pass(self, *args, **kwargs)
         rounds.append(dict(engine=self, words=out[0].get("words"), codes=out[0].get("codes"),
                            alpha=out[0].get("alpha"), blocks=out[1]))
         return out
 
     def psf(self, payload, blocks, rhos, real=None, draw=None):
         out = ps(self, payload, blocks, rhos, real, draw)
-        rounds[-1].update(ghat=out[0], stats=out[1], rhos=rhos,
-                          mask=None if real is None else real.mask)
+        rounds[-1].update(stats=out[1], rhos=rhos, mask=None if real is None else real.mask)
         return out
+
+    def apply_f(self, t, jids, new_res, ghat):  # barrier and streamed rounds
+        rounds[-1]["ghat"] = ghat
+        return apply(self, t, jids, new_res, ghat)
 
     def qiht_f(*args, **kwargs):
         out = qiht(*args, **kwargs)
         rounds[-1]["qiht"] = out
         return out
 
-    CohortEngine._client_pass, CohortEngine._ps = cp, psf
+    CohortEngine._client_pass, CohortEngine._ps, CohortEngine._apply = cp, psf, apply_f
     baselines.qiht_reconstruct = qiht_f
     try:
         yield rounds
     finally:
-        CohortEngine._client_pass, CohortEngine._ps = client_pass, ps
+        CohortEngine._client_pass, CohortEngine._ps, CohortEngine._apply = client_pass, ps, apply
         baselines.qiht_reconstruct = qiht
 
 
@@ -1406,6 +1567,201 @@ def phase_stream(dev):
     return launches, round_ms
 
 
+def bias_budget(name, shape):
+    """[layout]'s per-segment budget: s_ratio 0.05 on the biases (s = 79),
+    the config's 0.1 (S = 159) elsewhere."""
+    return 0.05 if name.startswith("['b") else None
+
+
+def phase_layout(dev):
+    """[layout] The MLP's per-tensor layout (13 block rows a client) through
+    ``run_federated`` at full width on the kernel route, each run's launch
+    counts set to 0 just before and read just after, and round 0 of each
+    against the same round with the plain versions (NMSE <= 1e-3): (a) EA
+    and (b) AE one-pass rounds (the encoder at 390 rows; qgamp_step at 390,
+    gamp_step at 13); (c) ``encode_stream`` EA (four encoder launches a
+    round, 30, 30, 300 and 30 rows): round 0's wire and the residuals and
+    parameters after 2 rounds bit-identical to (a); (d) per-segment budgets
+    (s = 79 on the biases); (e) ``grad_accum=2`` with batch 2 a client;
+    (f) ``api.reconstruct(emit=)`` on (a)'s round-0 payload: 4 segments,
+    qgamp_step at 30 and 300 rows, within NMSE 1e-4 of the whole-grid
+    decode; (g) streamed AE and EA rounds over the per-tensor layout (EA
+    folds 8 clients x 13 rows = 104) against (a)/(b) (NMSE <= 1e-8); (h)
+    the default route's (no kernel) streamed vs one-pass wire, differing
+    lanes counted, each within 1e-5 of a threshold.  Returns (the launches
+    by KERNELS name, label -> (method, config, round walls, arguments) for
+    [profile])."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.compression import BQCSCodec, CompressedGradient
+    from repro_torch.core.layout import GradientLayout
+    from repro_torch.core.sensing import project_blocks
+    from repro_torch.core.sparsify import block_sparsify
+    from repro_torch.fed.stream import StreamConfig
+    from repro_torch.paper.mlp import init_mlp, run_federated
+
+    zero = dict(encode=0, qgamp=0, gamp=0, topk=0, staged=0)
+    names = ("bqcs_encode_fused", "bqcs_encode_fused[390 rows]", "bqcs_encode_fused[30 rows]",
+             "qgamp_step", "qgamp_step[390 rows]", "qgamp_step[30 rows]",
+             "qgamp_step[104 rows]", "gamp_step[13 rows]")
+    launches = {k: 0 for k in names}
+    round_ms, runs = {}, {}
+    n_small = sum(r == 1 for r in LAYOUT_SEG_ROWS)  # 1-row segments: 30-row launches
+    budgets = GradientLayout.per_tensor(init_mlp(0, device="cpu"), N, s_ratio=bias_budget)
+    check(budgets.segment_s(S) == [BIAS_S, BIAS_S, S, S], f"budgets {budgets.segment_s(S)}")
+    per_tensor = dict(layout="per_tensor")
+    streamed = dict(layout="per_tensor", encode_stream=True)
+    # label -> (method, run_federated arguments, launches a round by KERNELS name)
+    plan = {
+        "fedqcs-ea per_tensor": ("fedqcs-ea", per_tensor, {
+            "bqcs_encode_fused[390 rows]": 1, "qgamp_step[390 rows]": ITERS}),
+        "fedqcs-ae per_tensor": ("fedqcs-ae", per_tensor, {
+            "bqcs_encode_fused[390 rows]": 1, "gamp_step[13 rows]": ITERS}),
+        "fedqcs-ea per_tensor encode_stream": ("fedqcs-ea", streamed, {
+            "bqcs_encode_fused[30 rows]": n_small, "bqcs_encode_fused": 1,
+            "qgamp_step[390 rows]": ITERS}),
+        "fedqcs-ea per-segment budgets": ("fedqcs-ea", dict(layout=budgets, encode_stream=True), {
+            "bqcs_encode_fused[30 rows]": n_small, "bqcs_encode_fused": 1,
+            "qgamp_step[390 rows]": ITERS}),
+        "fedqcs-ea per_tensor grad_accum=2 batch 2": ("fedqcs-ea", dict(
+            streamed, grad_accum=2, batch_per_device=2), {
+            "bqcs_encode_fused[30 rows]": n_small, "bqcs_encode_fused": 1,
+            "qgamp_step[390 rows]": ITERS}),
+        "fedqcs-ae per_tensor streamed": ("fedqcs-ae", dict(
+            per_tensor, stream=StreamConfig(**STREAM)), {
+            "bqcs_encode_fused[390 rows]": 1, "gamp_step[13 rows]": ITERS}),
+        "fedqcs-ea per_tensor streamed": ("fedqcs-ea", dict(
+            per_tensor, stream=StreamConfig(**STREAM)), {
+            "bqcs_encode_fused[390 rows]": 1, "qgamp_step[104 rows]": STREAM_BATCHES * ITERS}),
+    }
+    module = {"bqcs_encode_fused": "encode", "qgamp_step": "qgamp", "gamp_step": "gamp"}
+    for label, (method, kw, per_round) in plan.items():
+        want = dict(zero)
+        for kname, n in per_round.items():
+            want[module[kname.split("[")[0]]] += n * ROUNDS_NEW
+        with captured_rounds() as rec:
+            zero_counts()
+            res = run_federated(method, steps=ROUNDS_NEW, eval_every=1, device=dev,
+                                fed_cfg=fed_cfg(), **kw)
+            counts = read_counts()
+        check(counts == want, f"[layout] {label}: launches {counts}, want {want}")
+        check(all(np.isfinite(res.nmses)) and max(res.nmses) < 1.0, f"{label} nmse {res.nmses}")
+        eng = rec[-1]["engine"]
+        check(eng.nb == 13 and tuple(rec[0]["ghat"].shape) == (13, N), f"{label}: nb {eng.nb}")
+        with plain_kernels():
+            plain = run_federated(method, steps=1, device=dev, fed_cfg=fed_cfg(), **kw)
+        e = nmse(rec[0]["ghat"], plain.last_ghat)
+        check(e <= 1e-3, f"[layout] {label}: kernel round vs plain round NMSE {e:.3g} > 1e-3")
+        for kname, n in per_round.items():
+            launches[kname] += n * ROUNDS_NEW
+        runs[label] = (rec, res)
+        round_ms[label] = (method, fed_cfg(), res.round_ms, kw)
+        print(f"[layout] {label}: nmse {[round(v, 6) for v in res.nmses]} accuracy "
+              f"{[round(v, 4) for v in res.accs]} round ms {[round(v, 2) for v in res.round_ms]} "
+              f"launches {counts} ({per_round} a round); round 0 vs the plain versions on the "
+              f"card: NMSE {e:.3g} (<= 1e-3)")
+
+    # (c) the streamed encode against the one-pass encode from the same seed
+    (one, res_1), (two, res_2) = (runs["fedqcs-ea per_tensor"],
+                                  runs["fedqcs-ea per_tensor encode_stream"])
+    e1, e2 = one[-1]["engine"], two[-1]["engine"]
+    check(torch.equal(one[0]["words"], two[0]["words"])
+          and torch.equal(one[0]["alpha"], two[0]["alpha"]),
+          "[layout] round 0: the streamed encode's wire differs from the one-pass encode's")
+    check(torch.equal(e1.residuals, e2.residuals)
+          and all(torch.equal(e1.params[k], e2.params[k]) for k in e1.params)
+          and res_1.nmses == res_2.nmses,
+          "[layout] encode_stream vs one pass: residuals, parameters or nmse differ after "
+          f"{ROUNDS_NEW} rounds")
+    print(f"[layout] encode_stream vs one pass, same seed: round 0 wire bit-identical "
+          f"({one[0]['words'].numel()} words), residuals and parameters after {ROUNDS_NEW} rounds "
+          "bit-identical")
+    # the bias rows hold 20 and 10 nonzeros, fewer than either budget keeps,
+    # so s = 79 must leave round 0's wire as S = 159 left it
+    bud = runs["fedqcs-ea per-segment budgets"][0][0]
+    check(torch.equal(bud["words"], two[0]["words"]) and torch.equal(bud["alpha"],
+                                                                      two[0]["alpha"]),
+          "[layout] budgets: s = 79 on rows of <= 20 nonzeros changed the wire")
+    print(f"[layout] per-segment budgets (s = {BIAS_S} on the bias rows, which hold 20 and 10 "
+          f"nonzeros): round 0 wire bit-identical to the S = {S} streamed round's")
+
+    # (f) the segment-local decode of (a)'s round-0 payload
+    r0 = one[0]
+    codec, layout = r0["engine"].codec, r0["engine"].layout
+    pays = [CompressedGradient(r0["words"][k], r0["alpha"][k], layout.nbar, M, Q)
+            for k in range(K)]
+    ea = api.ReconSpec(mode="ea")
+    whole = api.reconstruct(codec, pays, r0["rhos"], layout, recon=ea)
+    fired = []
+    zero_counts()
+    seg_tree = api.reconstruct(codec, pays, r0["rhos"], layout, recon=ea,
+                               emit=lambda seg, leaves: fired.append((seg.name, len(leaves))))
+    counts = read_counts()
+    check(counts == dict(zero, qgamp=len(LAYOUT_SEG_ROWS) * ITERS),
+          f"[layout] emit decode launches {counts}")
+    launches["qgamp_step[30 rows]"] += n_small * ITERS
+    launches["qgamp_step"] += ITERS
+    with plain_kernels():
+        seg_plain = api.reconstruct(codec, pays, r0["rhos"], layout, recon=ea,
+                                    emit=lambda seg, leaves: None)
+    flat = lambda tr: torch.cat([tr[k].reshape(-1) for k in sorted(tr)])  # noqa: E731
+    e_whole, e_plain = nmse(flat(seg_tree), flat(whole)), nmse(flat(seg_tree), flat(seg_plain))
+    check(len(fired) == len(LAYOUT_SEG_ROWS) and e_whole <= 1e-4 and e_plain <= 1e-3,
+          f"[layout] emit decode: fired {fired}, NMSE {e_whole:.3g} to the whole grid, "
+          f"{e_plain:.3g} to the plain versions")
+
+    def wall_ms(fn, reps: int = 3) -> float:  # host clock around synced calls
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    ms_whole = wall_ms(lambda: api.reconstruct(codec, pays, r0["rhos"], layout, recon=ea))
+    ms_seg = wall_ms(lambda: api.reconstruct(codec, pays, r0["rhos"], layout, recon=ea,
+                                             emit=lambda seg, leaves: None))
+    print(f"[layout] api.reconstruct(emit=) on round 0's payload: fired {fired}; launches "
+          f"{counts} (qgamp_step at 30, 30, 300 and 30 rows); NMSE {e_whole:.3g} to the "
+          f"whole-grid decode (<= 1e-4), {e_plain:.3g} to the plain versions (<= 1e-3); wall "
+          f"{ms_seg:.3f} ms against {ms_whole:.3f} ms for the whole grid (host clock, synced)")
+
+    # (g) streamed rounds over the per-tensor layout against the barrier rounds
+    for method, barrier in (("fedqcs-ae", "fedqcs-ae per_tensor"),
+                            ("fedqcs-ea", "fedqcs-ea per_tensor")):
+        e = nmse(runs[f"{method} per_tensor streamed"][0][0]["ghat"], runs[barrier][0][0]["ghat"])
+        check(e <= 1e-8, f"[layout] {method} streamed vs barrier round 0: NMSE {e:.3g} > 1e-8")
+        print(f"[layout] {method} per_tensor streamed vs the barrier round from the same seed: "
+              f"round 0 NMSE {e:.3g} (<= 1e-8)")
+
+    # (h) the default route's streamed vs one-pass wire on (a)'s round-0 gradients
+    blocks = r0["blocks"].reshape(-1, N)
+    xla = BQCSCodec(dataclasses.replace(fed_cfg(), block_size=N, use_kernels=False),
+                    a=codec.a, device=dev)
+    zeros = torch.zeros_like(blocks)
+    one_pass = xla.compress_blocks_packed(blocks, zeros)[0].reshape(K, 13, -1)
+    b3 = r0["blocks"]
+    seg_words = torch.cat([xla.compress_blocks_packed(
+        b3[:, seg.row_slice].reshape(-1, N), zeros[:K * seg.rows])[0].reshape(K, seg.rows, -1)
+        for seg in layout.segments], dim=1)
+    diff = xla.unpack(seg_words) != xla.unpack(one_pass)
+    n_diff = int(diff.sum())
+    if n_diff:
+        sparse, _ = block_sparsify(blocks, S)
+        x, _ = project_blocks(sparse, xla.a.T)
+        gap = torch.amin(torch.abs(x[..., None] - xla.codebook.thresholds_t(dev)), dim=-1)
+        check(float(gap.reshape(diff.shape)[diff].max()) < 1e-5,
+              "[layout] default route: a streamed wire lane differs away from a threshold")
+    print(f"[layout] default route (no kernel), streamed vs one-pass wire on round 0's "
+          f"gradients: {n_diff} of {diff.numel()} code lanes differ (each within 1e-5 of a "
+          "threshold)")
+    torch.cuda.synchronize()
+    return launches, round_ms
+
+
 def phase_record(dev):
     """[record] ``run_federated(obs=JsonlRecorder(dir))``: 3 recorded rounds
     each of fedqcs-ae and fedqcs-ea (run directories in a temporary
@@ -1664,7 +2020,9 @@ def phase_times(dev, k_in):
     for name, key in (("bqcs_encode_fused", "encode"), ("bqcs_encode_fused[dither]",
                                                           "encode_dither"),
                       ("bqcs_encode_fused[vq]", "encode_vq"),
-                      ("bqcs_encode_fused[10 rows]", "encode10")):
+                      ("bqcs_encode_fused[10 rows]", "encode10"),
+                      ("bqcs_encode_fused[390 rows]", "encode390"),
+                      ("bqcs_encode_fused[30 rows]", "encode30")):
         k = k_in[key]
         blocks, resid0, a_t, tab, s, m, q = k["args"]
         kw = k["kwargs"]
@@ -1704,7 +2062,8 @@ def phase_times(dev, k_in):
                               library="GEMM only")
 
     for name, key in (("qgamp_step", "qgamp"), ("qgamp_step[64 rows]", "qgamp64"),
-                      ("qgamp_step[80 rows]", "qgamp80")):
+                      ("qgamp_step[80 rows]", "qgamp80"), ("qgamp_step[390 rows]", "qgamp390"),
+                      ("qgamp_step[30 rows]", "qgamp30"), ("qgamp_step[104 rows]", "qgamp104")):
         qa = k_in[key]["args"]
         ghat, nug, shat, theta, words, al, lo, hi, a, L, em, bits = qa
         nb_ = ghat.shape[0]
@@ -1724,7 +2083,7 @@ def phase_times(dev, k_in):
 
     for name, key in (("gamp_step", "gamp"), ("gamp_step[300 rows]", "gamp300"),
                       ("gamp_step[64 rows]", "gamp64"), ("gamp_step[30 rows]", "gamp30"),
-                      ("gamp_step[100 rows]", "gamp100")):
+                      ("gamp_step[100 rows]", "gamp100"), ("gamp_step[13 rows]", "gamp13")):
         ga = k_in[key]["args"]
         b_ms, b_by = gamp_step_bound(ga[0].shape[0])
         g2, s2, a2 = k_in[key]["gemm"]
@@ -1753,10 +2112,11 @@ def phase_times(dev, k_in):
               f"({blocks} blocks): {ms:.4f} ms, alpha max rel err {rel:.3g}, {n_diff} differing "
               f"code lanes" + (" (the chooser's pick)" if c == pick[1] else ""))
     for kind, key, mod in (("qgamp", "qgamp", q_mod), ("qgamp", "qgamp64", q_mod),
-                           ("qgamp", "qgamp80", q_mod), ("gamp", "gamp", g_mod),
-                           ("gamp", "gamp300", g_mod),
+                           ("qgamp", "qgamp80", q_mod), ("qgamp", "qgamp390", q_mod),
+                           ("qgamp", "qgamp30", q_mod), ("qgamp", "qgamp104", q_mod),
+                           ("gamp", "gamp", g_mod), ("gamp", "gamp300", g_mod),
                            ("gamp", "gamp64", g_mod), ("gamp", "gamp30", g_mod),
-                           ("gamp", "gamp100", g_mod)):
+                           ("gamp", "gamp100", g_mod), ("gamp", "gamp13", g_mod)):
         step = getattr(mod, f"{kind}_step")
         args = k_in[key]["args"]
         nb_ = args[0].shape[0]
@@ -1954,6 +2314,14 @@ KERNELS = {
     "gamp_step[30 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp30"),
     "gamp_step[100 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp100"),
     "qgamp_step[80 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp80"),
+    "bqcs_encode_fused[390 rows]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                    "encode390"),
+    "bqcs_encode_fused[30 rows]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                   "encode30"),
+    "qgamp_step[390 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp390"),
+    "qgamp_step[30 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp30"),
+    "qgamp_step[104 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp104"),
+    "gamp_step[13 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp13"),
 }
 
 
@@ -2021,6 +2389,8 @@ def main() -> int:
     round_ms.update(knob_ms)
     stream_launches, stream_ms = phase_stream(dev)
     round_ms.update(stream_ms)
+    layout_launches, layout_ms = phase_layout(dev)
+    round_ms.update(layout_ms)
     record_launches = phase_record(dev)
     phase_profile(round_ms, dev)
     times = phase_times(dev, k_in)
@@ -2032,7 +2402,7 @@ def main() -> int:
     launches["bqcs_encode_fused"] += qiht_encode
     for kname, n in (list(routes_launches.items()) + list(channel_launches.items())
                      + list(knob_launches.items()) + list(stream_launches.items())
-                     + list(record_launches.items())):
+                     + list(layout_launches.items()) + list(record_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

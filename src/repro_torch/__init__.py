@@ -25,8 +25,10 @@ chunked and two-phase EA engine (``core/recon_engine.py``) and the
 servers (Adam or SGD, fp32 or blockwise-int8 states), the AE decode in G
 groups, the chunked client pass and the per-client loop oracle; the
 streaming PS (``core/aggregator.py``, ``fed/stream.py``, the engine's
-``stream=`` rounds) and the run telemetry (``obs/``: recorders, spans, the
-``python -m repro_torch.obs`` reader, the engine's round events).  The five
+``stream=`` rounds), the run telemetry (``obs/``: recorders, spans, the
+``python -m repro_torch.obs`` reader, the engine's round events) and the
+per-tensor block layouts (``core/layout.py``) with the segment-streamed
+client encode and the segment-local EA decode.  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

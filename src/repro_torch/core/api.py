@@ -8,10 +8,11 @@
 
 ``ReconSpec`` (core/recon_engine.py) says HOW the PS reconstructs: mode,
 AE grouping, chunking, kernel routing.  The pre-spec ``mode=``/``groups=``
-keywords still work as a deprecated shim.  The monolithic layout is the
-only one ported; the segment-local decode (``emit=``) raises
-``NotImplementedError``.  ``ReconSpec(channel=(y_eff, nu_eff))``
-decodes one received multiple-access observation (``fed/channel.py``).
+keywords still work as a deprecated shim.  ``layout=`` picks the block
+geometry (``core/layout.py``: monolithic by default, or per-tensor), and
+``reconstruct(emit=)`` decodes an EA round a layout segment at a time.
+``ReconSpec(channel=(y_eff, nu_eff))`` decodes one received
+multiple-access observation (``fed/channel.py``).
 """
 
 from __future__ import annotations
@@ -22,17 +23,16 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from repro_torch import not_in_slice
 from repro_torch.core import bussgang
 from repro_torch.core.compression import (
     BQCSCodec,
     CompressedGradient,
     FedQCSConfig,
-    Layout,
     blocks_to_tree,
 )
 from repro_torch.core.gamp import em_gamp, gamp_health
-from repro_torch.core.recon_engine import ReconSpec
+from repro_torch.core.layout import GradientLayout
+from repro_torch.core.recon_engine import ReconSpec, ea_decode_segments
 from repro_torch.core.reconstruction import (
     aggregate_and_estimate,
     estimate_and_aggregate_packed,
@@ -42,7 +42,7 @@ from repro_torch.core.reconstruction import (
 __all__ = [
     "FedQCSConfig",
     "BQCSCodec",
-    "Layout",
+    "GradientLayout",
     "ReconSpec",
     "make_codec",
     "init_state",
@@ -66,16 +66,19 @@ def make_codec(cfg: FedQCSConfig, device="cuda", a: Optional[torch.Tensor] = Non
 
 
 def init_state(
-    codec: BQCSCodec, grads_template: Any, layout: Optional[Layout] = None
+    codec: BQCSCodec, grads_template: Any, layout: Optional[GradientLayout] = None
 ) -> CompressorState:
     return CompressorState(residual=codec.zero_residual(grads_template, layout))
 
 
 def compress(codec: BQCSCodec, grads: Any, state: CompressorState,
-             layout: Optional[Layout] = None):
+             layout: Optional[GradientLayout] = None):
     """Worker side: returns (CompressedGradient, layout, new state).  The
-    payload's ``codes`` are the packed uint32 wire words; pass the returned
-    layout to :func:`reconstruct`."""
+    payload's ``codes`` are the packed uint32 wire words.  ``layout`` is the
+    block geometry (default monolithic); a per-tensor layout with
+    per-segment sparsity budgets is encoded a segment at a time
+    (``compress_tree_streamed``).  The returned spec IS the layout: pass it
+    to :func:`reconstruct`."""
     payload, spec, new_res = codec.compress_tree(grads, state.residual, layout)
     return payload, spec, CompressorState(residual=new_res)
 
@@ -84,7 +87,7 @@ def reconstruct(
     codec: BQCSCodec,
     payloads: Sequence[CompressedGradient],
     rhos: Sequence[float],
-    spec: Layout,
+    spec: Any,
     recon: Optional[ReconSpec] = None,
     mode: Optional[str] = None,
     groups: Optional[int] = None,
@@ -101,6 +104,14 @@ def reconstruct(
     flags and ``iters`` counts ((K, nb) on EA, (nb,) on AE) and their
     summary (``gamp_iters_mean`` / ``gamp_iters_max`` /
     ``gamp_converged_frac``, live problems only).
+
+    ``spec`` is the layout :func:`compress` returned (a
+    :class:`GradientLayout`, or the legacy ``(treedef, shapes)`` tuple).
+    With an EA spec and a layout, ``emit(segment, {leaf id: tensor})``
+    turns the decode segment-local (``recon_engine.ea_decode_segments``):
+    it fires with each segment's decoded leaves as soon as its rows solve,
+    and the returned dict matches the whole-grid decode up to float
+    reassociation.
     """
     if recon is None:
         if mode is not None or groups is not None:
@@ -119,12 +130,23 @@ def reconstruct(
             "pass either recon=ReconSpec(...) or the deprecated "
             "mode=/groups= keywords, not both"
         )
-    if emit is not None:
-        raise not_in_slice("the segment-local decode (reconstruct(emit=...))", "item 9")
     recon = recon.resolve(codec.cfg)
     alphas = torch.stack([p.alpha for p in payloads])
     rhos = torch.as_tensor(rhos, dtype=torch.float32, device=alphas.device)
     live = None
+    if emit is not None:
+        if recon.mode != "ea" or not isinstance(spec, GradientLayout):
+            raise ValueError(
+                "segment-local decode (emit=...) needs recon mode 'ea' and a "
+                "GradientLayout spec"
+            )
+        if recon.return_info:
+            raise ValueError("emit=... does not carry decode-health info")
+        words = torch.stack([p.codes for p in payloads])
+        blocks = ea_decode_segments(codec, words, alphas, rhos, spec, packed=True,
+                                    use_kernels=recon.use_kernels, chunk=recon.chunk,
+                                    emit=emit)
+        return blocks_to_tree(blocks, spec, payloads[0].nbar)
     if recon.mode == "ea":
         # the payload words pass straight to the packed engine
         words = torch.stack([p.codes for p in payloads])
@@ -153,9 +175,10 @@ def reconstruct(
             codec, codes, alphas, rhos, groups=recon.groups, use_kernels=recon.use_kernels,
             with_info=recon.return_info,
         )
+    nbar = payloads[0].nbar
     if not recon.return_info:
-        return blocks_to_tree(blocks, spec)
+        return blocks_to_tree(blocks, spec, nbar)
     blocks, ginfo = blocks
     info = {"converged": ginfo.converged, "iters": ginfo.iters}
     info.update(gamp_health(ginfo, live))
-    return blocks_to_tree(blocks, spec), info
+    return blocks_to_tree(blocks, spec, nbar), info

@@ -24,20 +24,22 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch import entry_device, not_in_slice
+from repro_torch import entry_device
 from repro_torch.core import sensing, sparsify
 from repro_torch.core.codebook import Codebook, index_bits, make_codebook
+from repro_torch.core.layout import GradientLayout
 
 __all__ = [
     "FedQCSConfig",
     "BQCSCodec",
     "CompressedGradient",
-    "Layout",
+    "GradientLayout",
     "flatten_to_blocks",
+    "flatten_to_blocks_batched",
     "blocks_to_tree",
     "pack_codes",
     "unpack_codes",
@@ -153,72 +155,43 @@ class CompressedGradient:
 
 
 # ---------------------------------------------------------------------------
-# parameter dict <-> blocks (the monolithic layout)
+# parameter dict <-> blocks (core/layout.py owns the geometry)
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class Layout:
-    """Monolithic block geometry of a parameter dict.
-
-    The reference flattens a dict pytree in SORTED key order (``b1, b2, w1,
-    w2`` for the paper's MLP): that order is the wire layout of the block
-    grid, so the port sorts too rather than following insertion order.
-    Leaves are flattened row-major, concatenated, zero-padded once at the
-    end to ``rows * n``.
-    """
-
-    names: Tuple[str, ...]
-    shapes: Tuple[Tuple[int, ...], ...]
-    n: int
-
-    @property
-    def sizes(self) -> Tuple[int, ...]:
-        return tuple(math.prod(shape) for shape in self.shapes)
-
-    @property
-    def nbar(self) -> int:
-        return sum(self.sizes)
-
-    @property
-    def rows(self) -> int:
-        return -(-self.nbar // self.n)
-
-    @classmethod
-    def monolithic(cls, tree: Dict[str, torch.Tensor], n: int) -> "Layout":
-        names = tuple(sorted(tree))
-        return cls(names, tuple(tuple(tree[k].shape) for k in names), n)
-
-    def to_blocks_batched(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Every leaf carries a leading batch axis -> (batch, rows, N)."""
-        batch = tree[self.names[0]].shape[0]
-        flat = torch.cat([tree[k].reshape(batch, -1) for k in self.names], dim=1)
-        pad = self.rows * self.n - self.nbar
-        if pad:
-            flat = torch.nn.functional.pad(flat, (0, pad))
-        return flat.reshape(batch, self.rows, self.n)
-
-    def to_blocks(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.to_blocks_batched({k: v[None] for k, v in tree.items()})[0]
-
-    def tree_from_blocks(self, blocks: torch.Tensor) -> Dict[str, torch.Tensor]:
-        flat = blocks.reshape(-1)[: self.nbar]
-        out, off = {}, 0
-        for name, shape, size in zip(self.names, self.shapes, self.sizes):
-            out[name] = flat[off : off + size].reshape(shape)
-            off += size
-        return out
-
-
-def flatten_to_blocks(tree: Dict[str, torch.Tensor], n: int):
-    """(blocks (rows, N), layout, nbar) -- the reference's monolithic flatten."""
-    layout = Layout.monolithic(tree, n)
+def flatten_to_blocks(tree: Dict[str, torch.Tensor], n: int, row_multiple: int = 1):
+    """(blocks (rows, N), layout, nbar): every leaf in sorted key order,
+    concatenated, zero-padded once to a multiple of N (and ``rows`` to a
+    multiple of ``row_multiple``) -- the monolithic :class:`GradientLayout`."""
+    layout = GradientLayout.monolithic(tree, n, row_multiple=row_multiple)
     return layout.to_blocks(tree), layout, layout.nbar
 
 
-def blocks_to_tree(blocks: torch.Tensor, layout: Layout) -> Dict[str, torch.Tensor]:
-    """Inverse of :func:`flatten_to_blocks`."""
-    return layout.tree_from_blocks(blocks)
+def flatten_to_blocks_batched(tree: Dict[str, torch.Tensor], n: int, row_multiple: int = 1):
+    """Batched variant: every leaf carries a leading batch axis; returns
+    (batch, rows, N) blocks, the UNBATCHED layout and nbar."""
+    keys = tuple(sorted(tree))
+    shapes = tuple((tuple(tree[k].shape[1:]), tree[k].dtype) for k in keys)
+    layout = GradientLayout.from_shapes(keys, shapes, n, row_multiple=row_multiple)
+    return layout.to_blocks_batched(tree), layout, layout.nbar
+
+
+def blocks_to_tree(blocks: torch.Tensor, spec, nbar: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`flatten_to_blocks`.  ``spec`` is a
+    :class:`GradientLayout` (``nbar`` is then ignored: the layout knows its
+    own unpadding) or the legacy ``(treedef, shapes)`` tuple, whose
+    ``treedef`` is the dict's sorted key tuple."""
+    if isinstance(spec, GradientLayout):
+        return spec.tree_from_blocks(blocks)
+    treedef, shapes = spec
+    flat = blocks.reshape(-1)[:nbar]
+    out, off = {}, 0
+    for key, (shape, dtype) in zip(treedef, shapes):
+        size = math.prod(int(d) for d in shape) if shape else 1
+        out[key] = flat[off : off + size].reshape(shape).to(dtype)
+        off += size
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -388,28 +361,68 @@ class BQCSCodec:
         x, alpha = sensing.project_blocks(sparse, self._a.T)
         return self.codebook.encode(x), alpha, new_residual
 
+    def layout_for(self, grads_like: Dict[str, torch.Tensor], per_tensor: bool = False,
+                   **kwargs) -> GradientLayout:
+        """This codec's block layout for a gradient dict: monolithic (the
+        default wire geometry) or per-tensor (independently padded leaf
+        segments, the streaming geometry; ``kwargs`` go to
+        :meth:`GradientLayout.per_tensor`)."""
+        n = self.cfg.block_size
+        if per_tensor:
+            return GradientLayout.per_tensor(grads_like, n, **kwargs)
+        return GradientLayout.monolithic(grads_like, n, **kwargs)
+
     def compress_tree(
         self, grads: Dict[str, torch.Tensor], residual_blocks: torch.Tensor,
-        layout: Optional[Layout] = None,
+        layout: Optional[GradientLayout] = None,
     ):
-        """Whole-tree encode over the monolithic layout (the default wire
-        geometry): blocks, one encoder pass over the full grid.  Returns
-        ``(CompressedGradient, layout, new_residual)``."""
+        """Whole-tree encode: blocks per ``layout`` (default monolithic), one
+        encoder pass over the full grid.  Per-segment ``s`` budgets take the
+        segment loop instead (:meth:`compress_tree_streamed`: the same wire
+        bits where the budgets agree).  Returns ``(CompressedGradient,
+        layout, new_residual)``."""
         cfg = self.cfg
         if layout is None:
-            layout = Layout.monolithic(grads, cfg.block_size)
-        elif not isinstance(layout, Layout):
-            raise not_in_slice("per-tensor layouts and per-segment top-S budgets", "item 9")
+            layout = GradientLayout.monolithic(grads, cfg.block_size)
+        if any(s != cfg.s for s in layout.segment_s(cfg.s)):
+            return self.compress_tree_streamed(grads, residual_blocks, layout)
         words, alpha, new_res = self.compress_blocks_packed(layout.to_blocks(grads),
                                                             residual_blocks)
         payload = CompressedGradient(words, alpha, layout.nbar, cfg.m, self.codebook.bits)
         return payload, layout, new_res
 
+    def compress_tree_streamed(
+        self, grads: Dict[str, torch.Tensor], residual_blocks: torch.Tensor,
+        layout: GradientLayout,
+    ):
+        """Segment-streamed encode: the encoder runs one layout segment at a
+        time (segment i's blocks built from its own leaves, encoded with its
+        own top-S budget, its residual rows carried, then dropped), so the
+        live encoder memory is the LARGEST segment's
+        (``layout.encoder_live_bytes``).  On the kernel route each segment
+        is one launch of the fused encoder.  Every encoder stage is per
+        block row, so the concatenated wire is BIT-IDENTICAL to the one-pass
+        :meth:`compress_tree` over the same layout.  ``residual_blocks`` is
+        the full ``(rows, N)`` grid, and the new residual comes back so."""
+        cfg = self.cfg
+        words, alphas, residuals = [], [], []
+        for seg, seg_blocks in layout.iter_segment_blocks(grads):
+            w, al, res = self.compress_blocks_packed(
+                seg_blocks, residual_blocks[seg.row_slice],
+                s=seg.s if seg.s is not None else cfg.s,
+            )
+            words.append(w)
+            alphas.append(al)
+            residuals.append(res)
+        payload = CompressedGradient(torch.cat(words), torch.cat(alphas), layout.nbar, cfg.m,
+                                     self.codebook.bits)
+        return payload, layout, torch.cat(residuals)
+
     def zero_residual(
-        self, grads_like: Dict[str, torch.Tensor], layout: Optional[Layout] = None
+        self, grads_like: Dict[str, torch.Tensor], layout: Optional[GradientLayout] = None
     ) -> torch.Tensor:
         if layout is None:
-            layout = Layout.monolithic(grads_like, self.cfg.block_size)
+            layout = GradientLayout.monolithic(grads_like, self.cfg.block_size)
         return torch.zeros((layout.rows, layout.n), dtype=torch.float32, device=self.device)
 
     # -- wire --------------------------------------------------------------

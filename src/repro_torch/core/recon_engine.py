@@ -20,9 +20,10 @@ The two-phase sweep (:func:`ea_decode_two_phase`) runs a scalar-variance
 pass everywhere, then re-solves with exact variance only the blocks whose
 converged flag is still false; its survivor set is data-dependent, so it
 syncs with the host once.  :func:`decode_from_stats` finalizes a streamed
-round (``fed/stream.py``) from its folded partial statistics.  Sharding the
-chunks over a mesh and the segment-local decode are not ported and raise
-``NotImplementedError``.
+round (``fed/stream.py``) from its folded partial statistics, and
+:func:`ea_decode_segments` decodes a layout segment at a time
+(``core/layout.py``).  Sharding the chunks over a mesh is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -225,9 +226,40 @@ def ea_decode(
     return torch.einsum("k,kbn->bn", rhos, flat.reshape(k, nb, -1))
 
 
-def ea_decode_segments(codec, obs, alphas, rhos, layout, gamp=None, **kwargs):
-    """Segment-local EA decode over a per-tensor layout (not ported)."""
-    raise not_in_slice("the segment-local EA decode (ea_decode_segments)", "item 9")
+def ea_decode_segments(
+    codec,
+    obs: torch.Tensor,  # (K, nb, n_codes) uint8 codes or (K, nb, W) uint32 words
+    alphas: torch.Tensor,  # (K, nb)
+    rhos: torch.Tensor,  # (K,)
+    layout,  # core.layout.GradientLayout (the round's block geometry)
+    gamp: Optional[GampConfig] = None,
+    *,
+    packed: bool,
+    use_kernels: bool = False,
+    chunk: int = 0,
+    emit=None,  # callback(segment, {leaf id: tensor}) per decoded segment
+) -> torch.Tensor:
+    """Segment-local FedQCS-EA decode: each layout segment's ``(K, rows)``
+    block problems solve and aggregate on their own (one :func:`ea_decode`
+    a segment), and ``emit(segment, leaves)`` fires with that segment's
+    decoded leaves as soon as it is done, without waiting for the rest of
+    the model.  Every segment is its own chunked solve, so no chunk
+    straddles two tensors (build per-tensor layouts with
+    ``row_multiple=chunk`` to keep the chunks full).  Each GAMP problem is
+    one (worker, block) row, so the result matches :func:`ea_decode` over
+    the whole grid up to float reassociation (products over other row
+    counts round differently, and GAMP iterates on them).  Returns the
+    aggregated ``(nb, N)`` block grid."""
+    if layout.rows != obs.shape[1]:
+        raise ValueError(f"layout has {layout.rows} block rows, payloads have {obs.shape[1]}")
+    parts = []
+    for seg in layout.segments:
+        agg = ea_decode(codec, obs[:, seg.row_slice], alphas[:, seg.row_slice], rhos, gamp,
+                        packed=packed, use_kernels=use_kernels, chunk=chunk)
+        if emit is not None:
+            emit(seg, layout.segment_leaves(seg.index, agg))
+        parts.append(agg)
+    return torch.cat(parts)
 
 
 def ea_decode_two_phase(

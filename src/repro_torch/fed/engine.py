@@ -56,8 +56,19 @@ draw does not depend on how arrivals batch up, and a multiple-access
 uplink's per-batch noise under ``"batch_noise"`` with ``client=`` the batch's
 admission index.
 
-The per-tensor layouts and the segment-streamed client pass raise
-``NotImplementedError``.
+The block layout (``core/layout.py``) is built once, in the constructor:
+monolithic by default, ``cohort.layout="per_tensor"`` for independently
+padded leaf segments, or an explicit ``GradientLayout`` (``layout=``, with
+per-segment sparsity budgets if it has them).  With ``cohort.encode_stream``
+the client pass takes the gradient one layout segment at a time
+(``_client_pass_streamed``: one encode per segment, so the encoder holds one
+segment's ``(C, rows, N)`` blocks, never the whole grid; the wire is
+bit-identical to the one-pass encode), from one batched gradient pass
+(``cohort.grad_accum`` microbatches a client) or from a caller's
+``grad_segments_fn(params, batch, layout)``, which yields ``(segment index,
+(C, rows, N) blocks)`` in any order.  The interleaved producer that yields
+segments as the backward pass makes them (``make_interleaved_segments``)
+needs the model zoo and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,11 +85,11 @@ from repro_torch.core import baselines, bussgang
 from repro_torch.core.compression import (
     BQCSCodec,
     FedQCSConfig,
-    Layout,
     blocks_to_tree,
     packed_width,
 )
 from repro_torch.core.gamp import em_gamp, gamp_health
+from repro_torch.core.layout import GradientLayout
 from repro_torch.core.reconstruction import (
     aggregate_and_estimate,
     estimate_and_aggregate_packed,
@@ -104,7 +115,7 @@ from repro_torch.obs import NULL_RECORDER
 from repro_torch.obs.trace import SUB_PHASES, SpanCollector, span
 
 __all__ = ["CohortConfig", "CohortEngine", "ArrayClientData", "seeded_draw",
-           "METHODS", "EF_METHODS"]
+           "make_interleaved_segments", "METHODS", "EF_METHODS"]
 
 EF_METHODS = ("fedqcs-ae", "fedqcs-ea", "qcs-qiht")
 METHODS = EF_METHODS + ("qcs-dither", "signsgd", "none")
@@ -121,16 +132,44 @@ class CohortConfig:
     dither_n: int = 2048  # qcs-dither re-blocking size (power of 2)
     record_nmse: bool = True
     seed: int = 0
+    # block layout of the gradient wire (core/layout.py): "monolithic" or
+    # "per_tensor"; an explicit GradientLayout (CohortEngine(layout=)) wins
     layout: str = "monolithic"
+    # segment-streamed client encode: one layout segment at a time
     encode_stream: bool = False
+    # microbatches a client for encode_stream's gradient pass (summed, then
+    # divided by grad_accum)
     grad_accum: int = 1
 
 
-def _check_ported(c: CohortConfig) -> None:
+def _check_cohort(c: CohortConfig) -> None:
+    """The reference's gates on the cohort's knobs, in its order (the
+    method is known)."""
     if c.impl not in ("vmap", "loop"):
         raise ValueError(f"unknown impl {c.impl!r} (choose 'vmap' or 'loop')")
-    if c.layout != "monolithic" or c.encode_stream or c.grad_accum != 1:
-        raise not_in_slice("per-tensor layouts and the streamed encode", "item 9")
+    if c.layout not in ("monolithic", "per_tensor"):
+        raise ValueError(
+            f"unknown layout {c.layout!r} (choose 'monolithic' or "
+            "'per_tensor', or pass an explicit GradientLayout)"
+        )
+    if c.encode_stream and c.method not in EF_METHODS:
+        raise ValueError(
+            "encode_stream drives the BQCS encoder one layout segment at a "
+            f"time, which only the error-feedback codec methods {EF_METHODS} "
+            f"use; got {c.method!r}"
+        )
+    if c.encode_stream and c.impl == "loop":
+        raise ValueError(
+            "encode_stream is a vmapped-encode path; the per-client loop "
+            "oracle encodes whole block grids (impl='vmap')"
+        )
+    if c.grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {c.grad_accum}")
+    if c.grad_accum > 1 and not c.encode_stream:
+        raise ValueError(
+            "grad_accum microbatching is the encode_stream gradient hook's "
+            "knob; set encode_stream=True"
+        )
 
 
 # purpose -> (stream tag, distribution) of the round's random tensors
@@ -206,7 +245,11 @@ class CohortEngine:
     the first round).  ``last_ghat`` holds the decoded (nb, N) aggregate of
     the latest round.  ``stream`` selects streamed rounds (module
     docstring).  ``obs`` is a ``repro_torch.obs`` recorder (default: the
-    null recorder); its ``active`` flag is read once, here.
+    null recorder); its ``active`` flag is read once, here.  ``layout`` is
+    an explicit ``GradientLayout`` (over ``cohort.layout``);
+    ``grad_segments_fn(params, batch, layout)`` replaces the streamed
+    pass's segment source (``cohort.encode_stream`` only).  ``spec`` is
+    ``layout``.
     """
 
     def __init__(
@@ -221,12 +264,19 @@ class CohortEngine:
         server: ServerOptConfig = ServerOptConfig(),
         stream: Optional[StreamConfig] = None,
         obs: Any = None,
+        layout: Optional[GradientLayout] = None,
+        grad_segments_fn: Optional[Callable[[Any, Any, GradientLayout], Any]] = None,
         device="cuda",
         a: Optional[torch.Tensor] = None,
         draw: Optional[Callable[..., torch.Tensor]] = None,
     ):
         if cohort.method not in METHODS:
             raise ValueError(f"unknown method {cohort.method!r} (choose from {METHODS})")
+        _check_cohort(cohort)
+        if grad_segments_fn is not None and not cohort.encode_stream:
+            raise ValueError(
+                "grad_segments_fn feeds the segment-streamed encode; set encode_stream=True"
+            )
         if stream is not None and cohort.method not in ("fedqcs-ae", "fedqcs-ea"):
             raise ValueError(
                 f"streaming rounds fold Bussgang/EA sufficient statistics, which "
@@ -245,7 +295,6 @@ class CohortEngine:
             )
         if cohort.groups != 1 and (cohort.method != "fedqcs-ae" or not fam.exact_codes):
             raise ValueError("groups != 1 is only defined for fedqcs-ae over an ideal uplink")
-        _check_ported(cohort)
         self._chan_family = fam
         self.device = entry_device(device)
         self.cohort, self.sched, self.chan, self.server = cohort, sched, chan, server
@@ -258,9 +307,34 @@ class CohortEngine:
         self.data = data
         self.draw = draw or functools.partial(seeded_draw, cohort.seed)
         self.params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
+        # the layout is built once and shared by every pass; it IS the spec
         n = self.fed_cfg.block_size
-        self.layout = Layout.monolithic(self.params, n)
+        if layout is not None:
+            if layout.n != n:
+                raise ValueError(
+                    f"explicit layout has block size {layout.n}, "
+                    f"FedQCSConfig.block_size is {n}"
+                )
+            self.layout = layout
+        elif cohort.layout == "per_tensor":
+            self.layout = GradientLayout.per_tensor(self.params, n)
+        else:
+            self.layout = GradientLayout.monolithic(self.params, n)
+        if self.layout.kind == "per_tensor" and cohort.method == "qcs-dither":
+            raise ValueError(
+                "qcs-dither re-blocks the monolithic flat vector; a per-tensor "
+                "layout interleaves per-segment padding into that vector, so "
+                "its geometry does not apply (use the monolithic layout)"
+            )
+        if not cohort.encode_stream and any(seg.s is not None for seg in self.layout.segments):
+            raise ValueError(
+                "per-segment sparsity budgets only take effect on the "
+                "segment-streamed encode; set encode_stream=True"
+            )
+        self.spec = self.layout
+        self.nbar = self.layout.nbar
         self.nb, self.n = self.layout.rows, n
+        self._grad_segments_fn = grad_segments_fn
         self.clients = len(data.counts)
         ef = cohort.method in EF_METHODS
         self.codec = BQCSCodec(self.fed_cfg, a=a, device=self.device) if ef else None
@@ -311,11 +385,101 @@ class CohortEngine:
         """qcs-dither's re-blocking of the flat vector: (rows, M) per client."""
         return -(-self.layout.nbar // self.cohort.dither_n), self.dither.m
 
-    def _client_pass(self, batch, residuals, rhos, unit_dither=None):
+    def _grads_tree(self, batch) -> Dict[str, torch.Tensor]:
+        """(C, ...) cohort batch -> the batched gradient dict (leaves keep
+        their shapes under a leading client axis); the streamed pass slices
+        layout segments out of it.  ``cohort.grad_accum`` > 1 splits each
+        client's samples into that many microbatches and sums their
+        gradients in the reference's order (the first, then each of the
+        rest in turn) before dividing by the count."""
+        acc = self.cohort.grad_accum
+        if acc <= 1:
+            return self._vgrad(batch)
+        c, bsz = next(iter(batch.values())).shape[:2]
+        if bsz % acc:
+            raise ValueError(f"grad_accum={acc} must divide the per-client batch size {bsz}")
+        mb = bsz // acc
+        micro = [{k: v.reshape((c, acc, mb) + tuple(v.shape[2:]))[:, i] for k, v in batch.items()}
+                 for i in range(acc)]
+        gsum = self._vgrad(micro[0])
+        for b in micro[1:]:
+            g = self._vgrad(b)
+            gsum = {k: gsum[k] + g[k] for k in gsum}
+        return {k: v / acc for k, v in gsum.items()}
+
+    def _grad_segments(self, batch):
+        """The streamed pass's segment source: yields ``(segment index,
+        (C, rows, N) blocks)`` in any order.  By default one batched
+        gradient pass (:meth:`_grads_tree`) with each layout segment sliced
+        out of it; a ``grad_segments_fn(params, batch, layout)`` given to
+        the constructor yields them instead (e.g. as a backward pass
+        produces them)."""
+        if self._grad_segments_fn is not None:
+            yield from self._grad_segments_fn(self.params, batch, self.layout)
+            return
+        grads = self._grads_tree(batch)
+        for seg in self.layout.segments:
+            yield seg.index, self.layout.segment_blocks_batched(grads, seg.index)
+
+    def _client_pass_streamed(self, batch, residuals, rhos, rhos_nmse):
+        """Segment-streamed client pass (``cohort.encode_stream``): the
+        gradient arrives one layout segment at a time and each segment is
+        encoded on its own (one fused-encoder launch on the kernel route,
+        with the segment's top-S budget), so the encoder holds one
+        segment's ``(C, rows, N)`` blocks, never the whole grid.  The wire
+        is bit-identical to the one-pass encode.  The nmse reference folds
+        into a running ``(nb, N)`` ``true_sum`` (weights ``rhos_nmse``)
+        rather than carrying every client's blocks to the PS.  Returns
+        ``(payload, None, new residuals)``."""
+        segs = self.layout.segments
+        nseg = len(segs)
+        pay: List[Any] = [None] * nseg
+        res: List[Any] = [None] * nseg
+        tsum: List[Any] = [None] * nseg
+        seg_s = self.layout.segment_s(self.fed_cfg.s)
+        # "backward" spans the producer's next(), "encode_overlap" the encode
+        # of what it yielded
+        it = self._grad_segments(batch)
+        while True:
+            with span("backward", self._spans):
+                nxt = next(it, None)
+            if nxt is None:
+                break
+            idx, seg_blocks = nxt
+            if not 0 <= idx < nseg:
+                raise ValueError(
+                    f"grad_segments_fn yielded segment index {idx}, layout has {nseg} segments"
+                )
+            if pay[idx] is not None:
+                raise ValueError(
+                    f"grad_segments_fn yielded segment {idx} ({segs[idx].name!r}) twice -- a "
+                    "second payload would silently drop the first from the wire"
+                )
+            with span("encode_overlap", self._spans):
+                pay[idx], res[idx] = self._encode(seg_blocks, residuals[:, segs[idx].row_slice],
+                                                  rhos, None, s=seg_s[idx])
+                if self.cohort.record_nmse:
+                    tsum[idx] = torch.einsum("k,kbn->bn", rhos_nmse, seg_blocks)
+        missing = [i for i, p in enumerate(pay) if p is None]
+        if missing:
+            raise ValueError(f"grad_segments_fn never yielded segments {missing}")
+        payload = {k: torch.cat([p[k] for p in pay], dim=1) for k in pay[0]}
+        if self.cohort.record_nmse:
+            payload["true_sum"] = torch.cat(tsum)
+        return payload, None, torch.cat(res, dim=1)
+
+    def _client_pass(self, batch, residuals, rhos, unit_dither=None, rhos_nmse=None):
         """Gradients (always batched) + the method's encode: over all
         C * nb rows at once, or with ``impl="loop"`` one client at a time
-        (the per-client payloads and residuals concatenated).
-        ``unit_dither`` is the cohort's (C * rows, M) qcs-dither draw."""
+        (the per-client payloads and residuals concatenated), or with
+        ``cohort.encode_stream`` a layout segment at a time.
+        ``unit_dither`` is the cohort's (C * rows, M) qcs-dither draw;
+        ``rhos_nmse`` the nmse reference's weights where they are not
+        ``rhos`` (a streamed round encodes with raw weights).  Returns
+        (payload, blocks or None, new residuals)."""
+        if self.cohort.encode_stream:
+            return self._client_pass_streamed(batch, residuals, rhos,
+                                              rhos if rhos_nmse is None else rhos_nmse)
         blocks = self._grad_blocks(batch)
         if self.cohort.impl != "loop":
             payload, new_res = self._encode(blocks, residuals, rhos, unit_dither)
@@ -329,25 +493,28 @@ class CohortEngine:
         payload = {k: torch.cat([o[0][k] for o in outs]) for k in outs[0][0]}
         return payload, blocks, torch.cat([o[1] for o in outs])
 
-    def _encode(self, blocks, residuals, rhos, unit_dither):
-        """The method's encode of (C, nb, N) blocks -> (payload, new
-        residuals)."""
-        c = blocks.shape[0]
+    def _encode(self, blocks, residuals, rhos, unit_dither, s: Optional[int] = None):
+        """The method's encode of (C, rows, N) blocks -> (payload, new
+        residuals): the whole grid, or one layout segment's rows with its
+        top-S budget ``s`` (the codec's ``s`` when None).  fedqcs-ae and
+        fedqcs-ea carry the packed words (AE unpacks them at the PS),
+        qcs-qiht the index view."""
+        c, rows = blocks.shape[:2]
         method = self.cohort.method
         payload: Dict[str, torch.Tensor] = {}
         new_res = residuals
         if method in EF_METHODS:
-            flat_b = blocks.reshape(c * self.nb, self.n)
-            flat_r = residuals.reshape(c * self.nb, self.n)
+            flat_b = blocks.reshape(c * rows, self.n)
+            flat_r = residuals.reshape(c * rows, self.n)
             if method == "qcs-qiht":  # the uint8 index view
-                codes, alpha, enc_res = self.codec.compress_blocks(flat_b, flat_r)
-                payload["codes"] = codes.reshape(c, self.nb, -1)
+                codes, alpha, enc_res = self.codec.compress_blocks(flat_b, flat_r, s)
+                payload["codes"] = codes.reshape(c, rows, -1)
             else:  # the packed wire words
-                words, alpha, enc_res = self.codec.compress_blocks_packed(flat_b, flat_r)
-                payload["words"] = words.reshape(c, self.nb, -1)
-            payload["alpha"] = alpha.reshape(c, self.nb)
+                words, alpha, enc_res = self.codec.compress_blocks_packed(flat_b, flat_r, s)
+                payload["words"] = words.reshape(c, rows, -1)
+            payload["alpha"] = alpha.reshape(c, rows)
             live = (rhos > 0)[:, None, None]
-            new_res = torch.where(live, enc_res.reshape(c, self.nb, self.n), blocks + residuals)
+            new_res = torch.where(live, enc_res.reshape(c, rows, self.n), blocks + residuals)
         elif method == "qcs-dither":
             nbar, dn = self.layout.nbar, self.cohort.dither_n
             rows, _ = self._dither_rows()
@@ -360,6 +527,14 @@ class CohortEngine:
         elif method == "signsgd":
             payload["signs"] = baselines.signsgd_compress(blocks)
         return payload, new_res
+
+    @staticmethod
+    def _true_sum(payload, blocks, rhos):
+        """The true aggregate: folded per segment by the streamed encode, or
+        the rho-weighted sum of the cohort's blocks (None without either)."""
+        if "true_sum" in payload:
+            return payload["true_sum"]
+        return None if blocks is None else torch.einsum("k,kbn->bn", rhos, blocks)
 
     def _ps(self, payload, blocks, rhos, real=None, draw=None):
         """Reconstruction once per round from the stacked payloads.  ``real``
@@ -377,7 +552,7 @@ class CohortEngine:
             else:
                 stats["clip_saturation"] = self.codec.clip_saturation(payload["codes"],
                                                                       packed=False)
-        true_sum = torch.einsum("k,kbn->bn", rhos, blocks)
+        true_sum = self._true_sum(payload, blocks, rhos)
         if method == "none":
             ghat = true_sum
         elif method == "signsgd":
@@ -448,7 +623,7 @@ class CohortEngine:
                 if collect:
                     ghat, ginfo = ghat
                     stats.update(gamp_health(ginfo))
-        if self.cohort.record_nmse and method != "none":
+        if self.cohort.record_nmse and true_sum is not None and method != "none":
             num = torch.sum((ghat - true_sum) ** 2)
             stats["nmse"] = num / (torch.sum(true_sum**2) + 1e-30)
         return ghat, stats
@@ -484,8 +659,18 @@ class CohortEngine:
         wire = self._wire_up_bytes(out["participating"])
         if wire is not None:
             event["wire_up_bytes"] = wire
+            if self.codec is not None and len(self.layout.segments) > 1:
+                # each layout segment's share of the uplink (its pad rows
+                # are overhead the monolithic layout would not pay)
+                q = self.codec.codebook
+                w = packed_width(q.n_codes(self.fed_cfg.m), q.bits)
+                event["wire_segments"] = [
+                    {"name": seg.name, "rows": seg.rows, "pad": seg.pad,
+                     "bytes": out["participating"] * seg.rows * (w * 32 + 32) / 8.0}
+                    for seg in self.layout.segments
+                ]
         # model broadcast: every cohort member pulls the nbar f32 params
-        event["wire_down_bytes"] = float(out["cohort"]) * self.layout.nbar * 4.0
+        event["wire_down_bytes"] = float(out["cohort"]) * self.nbar * 4.0
         pn2 = sum(torch.sum(torch.square(self.params[k])) for k in sorted(self.params))
         un, pn = torch.stack([torch.sqrt(torch.sum(torch.square(ghat))),
                               torch.sqrt(pn2)]).tolist()
@@ -591,7 +776,8 @@ class CohortEngine:
         jids = torch.as_tensor(ids, device=self.device)
         with span("client_pass", self._spans):
             batch = self.data.cohort_batch(t, ids)
-            payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], jw)
+            payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], jw,
+                                                         rhos_nmse=rhos)
             self._sync()
         fam = self._chan_family
         nu_chan = noise = chan_real = chan_draw = None
@@ -621,7 +807,7 @@ class CohortEngine:
         self.round = t + 1
         out = {k: float(v) for k, v in sinfo.items() if k != "participating"}
         if self.cohort.record_nmse:
-            true_sum = torch.einsum("k,kbn->bn", rhos, blocks)
+            true_sum = self._true_sum(payload, blocks, rhos)
             num = torch.sum((ghat - true_sum) ** 2)
             out["nmse"] = float(num / (torch.sum(true_sum**2) + 1e-30))
         out["cohort"] = len(ids)
@@ -634,6 +820,16 @@ class CohortEngine:
 
     def run(self, rounds: int) -> List[Dict[str, float]]:
         return [self.run_round() for _ in range(rounds)]
+
+
+def make_interleaved_segments(model_cfg: Any, layout: GradientLayout, grad_accum: int = 1,
+                              layer_chunks: int = 1):
+    """The ``grad_segments_fn`` that interleaves the encode with backprop,
+    yielding each segment's blocks as its layer's cotangents are made (the
+    reference's ``repro.models.segment_tap``).  It stages the model zoo's
+    families, so it waits for the zoo's port."""
+    raise not_in_slice("the interleaved segment producer (make_interleaved_segments)",
+                       "item 11b")
 
 
 # ---------------------------------------------------------------------------
@@ -666,9 +862,9 @@ def _smoke_main(argv=None):
     ap.add_argument("--method", default="fedqcs-ae", choices=METHODS)
     ap.add_argument("--chunk", type=int, default=0)
     ap.add_argument("--layout", default="monolithic", choices=("monolithic", "per_tensor"),
-                    help="gradient block layout (per_tensor is not ported yet)")
+                    help="gradient block layout (per_tensor = independently padded leaf segments)")
     ap.add_argument("--encode-stream", action="store_true",
-                    help="stream the client encode one layout segment at a time (not ported yet)")
+                    help="stream the client encode one layout segment at a time")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches for the encode-stream gradient hook")
     ap.add_argument("--stream", type=int, default=0, metavar="BATCH",

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch import entry_device
 from repro_torch.core.compression import FedQCSConfig
+from repro_torch.core.layout import GradientLayout
 from repro_torch.data import mnist
 from repro_torch.fed.channel import ChannelConfig
 from repro_torch.fed.engine import ArrayClientData, CohortConfig, CohortEngine
@@ -122,6 +123,9 @@ def mlp_engine(
     impl: str = "vmap",
     stream: Optional[StreamConfig] = None,
     obs: Any = None,
+    layout: Union[str, GradientLayout] = "monolithic",
+    encode_stream: bool = False,
+    grad_accum: int = 1,
     device="cuda",
     params: Optional[Params] = None,
     a: Optional[torch.Tensor] = None,
@@ -130,7 +134,9 @@ def mlp_engine(
     and the test split ``(x, y)``: what :func:`run_federated` drives (its
     arguments are the engine's), for callers that step the engine
     themselves.  Two calls with the same arguments give engines in the same
-    state."""
+    state.  ``layout`` is ``cohort.layout`` ("monolithic" or "per_tensor")
+    or an explicit ``GradientLayout`` of the MLP's parameters at N = 1591;
+    ``encode_stream`` and ``grad_accum`` are the cohort's."""
     dev = entry_device(device)
     (xtr, ytr, xte, yte), _ = mnist.load(seed)
     parts = partition_indices(
@@ -147,7 +153,9 @@ def mlp_engine(
         ArrayClientData(xtr, ytr, parts, batch_size=batch_per_device, seed=seed, device=dev),
         fed_cfg=fed_cfg,
         cohort=CohortConfig(method=method, groups=groups, record_nmse=record_nmse,
-                            chunk=chunk, impl=impl, seed=seed),
+                            chunk=chunk, impl=impl, seed=seed,
+                            layout=layout if isinstance(layout, str) else layout.kind,
+                            encode_stream=encode_stream, grad_accum=grad_accum),
         sched=SchedulerConfig(kind=scheduler, sample_frac=sample_frac,
                               dropout_prob=dropout, seed=seed),
         chan=ChannelConfig(kind=channel, snr_db=snr_db, n_rx=n_rx, csi_error=csi_error,
@@ -155,6 +163,7 @@ def mlp_engine(
         server=ServerOptConfig(kind=server, lr=lr, b1=0.9, b2=0.999, eps=1e-8),
         stream=stream,
         obs=obs,
+        layout=None if isinstance(layout, str) else layout,
         device=dev,
         a=a,
     )
@@ -187,6 +196,9 @@ def run_federated(
     impl: str = "vmap",
     obs: Any = None,  # repro_torch.obs recorder (None = the null recorder)
     stream: Optional[StreamConfig] = None,  # streamed rounds (fedqcs-ae / fedqcs-ea)
+    layout: Union[str, GradientLayout] = "monolithic",  # or "per_tensor", or a layout
+    encode_stream: bool = False,  # the segment-streamed client encode
+    grad_accum: int = 1,  # encode_stream's microbatches a client
     device="cuda",
     params: Optional[Params] = None,
     a: Optional[torch.Tensor] = None,
@@ -207,14 +219,17 @@ def run_federated(
     ``obs`` threads into the engine: round events flow to its sink, and each
     evaluation is recorded as an ``eval`` event, so ``python -m
     repro_torch.obs summarize <run_dir>`` renders the run.  ``stream``
-    (not an argument of the reference's ``run_federated``, whose engine
-    takes it) runs streamed rounds."""
+    runs streamed rounds, and ``layout``, ``encode_stream`` and
+    ``grad_accum`` pick the block layout and the segment-streamed encode
+    (:func:`mlp_engine`); none of the four is an argument of the
+    reference's ``run_federated``, whose engine takes them."""
     engine, (xte, yte) = mlp_engine(
         method, k_devices=k_devices, fed_cfg=fed_cfg, lr=lr, seed=seed,
         batch_per_device=batch_per_device, groups=groups, record_nmse=record_nmse,
         partition=partition, alpha=alpha, scheduler=scheduler, sample_frac=sample_frac,
         dropout=dropout, channel=channel, snr_db=snr_db, n_rx=n_rx, csi_error=csi_error,
         combiner=combiner, server=server, chunk=chunk, impl=impl, stream=stream, obs=obs,
+        layout=layout, encode_stream=encode_stream, grad_accum=grad_accum,
         device=device, params=params, a=a,
     )
     dev = engine.device

@@ -282,7 +282,7 @@ def test_api_reconstruct_with_a_channel_observation():
         pays_j.append(pj)
         pays_t.append(tcomp.CompressedGradient(T(np.array(pj.codes)), T(np.array(pj.alpha)),
                                                pj.nbar, pj.m, pj.bits))
-    spec_t = tcomp.Layout.monolithic({k: torch.zeros(v.shape) for k, v in g.items()}, 256)
+    spec_t = tcomp.GradientLayout.monolithic({k: torch.zeros(v.shape) for k, v in g.items()}, 256)
     rhos = [0.5, 0.3, 0.2]
     # one superimposed reception over a 4-antenna MAC, combined by the reference
     cfg = jch.ChannelConfig(kind="mimo_mac", n_rx=4, snr_db=15.0)

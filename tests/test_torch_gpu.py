@@ -109,6 +109,27 @@ def test_encoder_main_path_shape(cuda):
     check_encoder(blocks, resid, a, taus, s=159, bits=3)
 
 
+# the per-tensor layout's launches: one pass over 30 clients x 13 rows, and
+# a one-row segment of 30 clients at S and at a bias budget of s = 79
+@pytest.mark.parametrize("nb,s", [(390, 159), (30, 159), (30, 79)])
+def test_encoder_layout_shapes(cuda, nb, s):
+    blocks, resid, a, taus = _encode_inputs(nb, 1591, 530, 3, seed=nb + s, dev=cuda)
+    check_encoder(blocks, resid, a, taus, s=s, bits=3)
+
+
+def test_encoder_segments_match_one_pass(cuda):
+    """Each block row is its own CTA: launches over the segments' rows (30,
+    300 and 60 of 390) give the one-pass launch's words, alphas and
+    residuals bit for bit."""
+    blocks, resid, a, taus = _encode_inputs(390, 1591, 530, 3, seed=5, dev=cuda)
+    a_t = ops.encoder_a_t(a, _codebook("lloyd_max", 1590, 3))
+    one = bqcs_encode_fused(blocks, resid, a_t, taus, 159, 530, 3)
+    parts = [bqcs_encode_fused(blocks[lo:hi].contiguous(), resid[lo:hi].contiguous(), a_t, taus,
+                               159, 530, 3) for lo, hi in ((0, 30), (30, 330), (330, 390))]
+    for i in range(3):
+        assert torch.equal(torch.cat([p[i] for p in parts]), one[i])
+
+
 def _gamp_state(nb, n, m, L, seed, dev):
     rng = np.random.default_rng(seed)
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -131,6 +152,9 @@ def _gamp_state(nb, n, m, L, seed, dev):
     (8, 256, 64, 3, True), (13, 300, 100, 2, True), (37, 512, 171, 4, True),
     (300, 1591, 530, 3, True), (301, 256, 85, 3, True), (300, 1591, 530, 3, False),
     (80, 1591, 530, 3, True),  # one fold of the streamed EA decode (8 clients x 10 blocks)
+    # the per-tensor layout (13 rows a client): the one-pass EA decode (a
+    # partial last tile of 4 rows), a segment-local decode, a streamed fold
+    (390, 1591, 530, 3, True), (30, 1591, 530, 3, True), (104, 1591, 530, 3, True),
 ])
 @pytest.mark.parametrize("packed", [True, False])
 def test_qgamp_step_matches_plain(cuda, nb, n, m, q, em, packed, rows, cluster):
@@ -182,6 +206,7 @@ def test_qgamp_step_refused_shape_raises(cuda, rows, cluster):
     (1, 1591, 530, 3, True), (300, 1591, 530, 3, True), (10, 300, 100, 1, True),
     (10, 300, 100, 8, True), (10, 1591, 530, 3, False),
     (30, 1591, 530, 3, True), (100, 1591, 530, 3, True),  # the AE decode at G = 3 and 10
+    (13, 1591, 530, 3, True),  # the per-tensor AE decode
 ])
 def test_gamp_step_matches_plain(cuda, nb, n, m, L, em, rows, cluster):
     rng, ghat, nug, shat, theta, a = _gamp_state(nb, n, m, L, nb + L, cuda)
@@ -782,3 +807,56 @@ def test_recorded_round_on_the_card_is_unchanged(cuda):
     rounds = [e for e in rec.events if e["kind"] == "round"]
     assert [set(e["phase_ms"]) for e in rounds] == [{"uplink", "client_pass", "decode",
                                                      "apply"}] * 2
+
+
+# -- slice 11: the per-tensor layout, the streamed encode ---------------------
+
+
+@pytest.mark.parametrize("method,kernel", [("fedqcs-ae", "gamp_step"), ("fedqcs-ea", "qgamp_step")])
+def test_per_tensor_round_on_the_card_matches_the_cpu(cuda, method, kernel):
+    """A round over the per-tensor layout (13 block rows a client): the
+    fused encoder once at 390 rows, 25 step launches (gamp_step at 13 rows
+    or qgamp_step at 390); the decoded aggregate within NMSE 1e-3 of the
+    same round with the plain versions on the CPU."""
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import qgamp_step as q_mod
+    from repro_torch.paper.mlp import run_federated
+
+    enc_mod.launches = g_mod.launches = q_mod.launches = 0
+    card = run_federated(method, steps=1, device="cuda", fed_cfg=_kernel_cfg(),
+                         layout="per_tensor")
+    step = {"gamp_step": g_mod, "qgamp_step": q_mod}[kernel]
+    assert enc_mod.launches == 1 and step.launches == 25
+    cpu = run_federated(method, steps=1, device="cpu", fed_cfg=_kernel_cfg(), layout="per_tensor")
+    assert tuple(card.last_ghat.shape) == (13, 1591)
+    assert _nmse(card.last_ghat.cpu(), cpu.last_ghat) <= 1e-3
+
+
+def test_encode_stream_wire_matches_one_pass_on_the_card(cuda, monkeypatch):
+    """The segment-streamed encode launches the fused encoder once per
+    segment (30, 30, 300 and 30 rows); its wire, and the round it feeds,
+    are the one-pass encode's bit for bit."""
+    from repro_torch.fed import engine as teng
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.paper.mlp import run_federated
+
+    words = []
+    client_pass = teng.CohortEngine._client_pass
+
+    def capture(self, *args, **kwargs):
+        out = client_pass(self, *args, **kwargs)
+        words.append(out[0]["words"])
+        return out
+
+    monkeypatch.setattr(teng.CohortEngine, "_client_pass", capture)
+    seen = {}
+    for stream in (False, True):
+        enc_mod.launches = 0
+        res = run_federated("fedqcs-ea", steps=2, device="cuda", fed_cfg=_kernel_cfg(),
+                            layout="per_tensor", encode_stream=stream)
+        seen[stream] = (enc_mod.launches, res)
+    assert seen[False][0] == 2 and seen[True][0] == 8
+    assert torch.equal(words[0], words[2])
+    assert seen[True][1].nmses == seen[False][1].nmses
+    assert torch.equal(seen[True][1].last_ghat, seen[False][1].last_ghat)

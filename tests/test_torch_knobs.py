@@ -587,12 +587,13 @@ def test_fed_smoke_runs_two_rounds_on_the_cpu():
     assert "round 1" in text and "smoke ok: 8 clients, 2 rounds" in text
 
 
-# Explicit ids keep each case's name from before the streaming PS (item 7)
-# and the telemetry (item 8) were ported: those two flags now run their
-# round (``ported``) instead of raising.
+# Explicit ids keep each case's name from before the per-tensor layouts
+# (item 9), the streaming PS (item 7) and the telemetry (item 8) were
+# ported: those flags now run their round (``ported``) instead of raising.
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--layout", "per_tensor"], "item 9", id="flags0-item 9"),
-    pytest.param(["--encode-stream"], "item 9", id="flags1-item 9"),
+    pytest.param(["--layout", "per_tensor", "--record", "RUN"], "ported", id="flags0-item 9"),
+    pytest.param(["--layout", "per_tensor", "--encode-stream", "--grad-accum", "2",
+                  "--method", "fedqcs-ea", "--record", "RUN"], "ported", id="flags1-item 9"),
     pytest.param(["--stream", "4"], "ported", id="flags2-item 7"),
     pytest.param(["--record", "RUN"], "ported", id="flags3-item 8"),
 ])
@@ -614,7 +615,10 @@ def test_fed_smoke_unported_flags_raise(flags, item, tmp_path):
         from repro.obs.reader import load_rounds, validate_dir
 
         assert validate_dir(str(tmp_path / "run")) == []
-        assert len(load_rounds(str(tmp_path / "run"))) == 1
+        [event] = load_rounds(str(tmp_path / "run"))
+        if "--layout" in flags:  # the toy's b (4,) and w (32, 4): 1 and 2 rows
+            assert [s["name"] for s in event["wire_segments"]] == ["['b']", "['w']"]
+            assert ("backward" in event["phase_ms"]) == ("--encode-stream" in flags)
 
 
 def test_run_federated_passes_the_knobs(monkeypatch):

@@ -374,22 +374,83 @@ def _decode_from_stats_matches_reference(tc):
         assert _nmse(tre.decode_from_stats(tc, ts), jre.decode_from_stats(jc, js)) <= tol
 
 
+def _segment_payloads(chunk=0):
+    """Three clients' per-tensor payloads (N = 256) encoded by the reference,
+    with the port's codec on the same A: (reference codec, port codec,
+    reference layout, port layout, words, alphas, rhos)."""
+    from repro.core.layout import GradientLayout as JLayout
+    from repro_torch.core.layout import GradientLayout as TLayout
+
+    kw = dict(block_size=256, reduction_ratio=4, gamp_iters=10, recon_chunk=chunk)
+    jc = jcomp.BQCSCodec(jcomp.FedQCSConfig(**kw))
+    tc = tcomp.BQCSCodec(tcomp.FedQCSConfig(**kw), a=T(np.array(jc.a)), device="cpu")
+    rng = np.random.default_rng(11)
+    tree = {"b": rng.normal(size=(40,)), "w": rng.standard_t(4, size=(30, 20)) * 0.1}
+    tree = {k: v.astype(np.float32) for k, v in tree.items()}
+    jl = JLayout.per_tensor({k: J(v) for k, v in tree.items()}, 256)
+    tl = TLayout.per_tensor({k: T(v) for k, v in tree.items()}, 256)
+    blocks = np.stack([np.asarray(jl.to_blocks({k: J((i + 1) * v) for k, v in tree.items()}))
+                       for i in range(3)])
+    words, alphas, _ = jax.vmap(jc.compress_blocks_packed)(J(blocks), J(np.zeros_like(blocks)))
+    rhos = np.asarray([0.5, 0.3, 0.2], np.float32)
+    return jc, tc, jl, tl, np.array(words), np.array(alphas), rhos
+
+
+def _ea_decode_segments_matches_reference(_tc):
+    """``ea_decode_segments`` (ported since) with 2-row chunks against the
+    reference's on the same words: NMSE <= 1e-4, one emit a segment."""
+    jc, tc, jl, tl, words, alphas, rhos = _segment_payloads(chunk=2)
+    seen = []
+    got = tre.ea_decode_segments(tc, T(words), T(alphas), T(rhos), tl, packed=True, chunk=2,
+                                 emit=lambda seg, leaves: seen.append(sorted(leaves)))
+    want = jre.ea_decode_segments(jc, J(words), J(alphas), J(rhos), jl, packed=True, chunk=2)
+    assert seen == [[0], [1]] and _nmse(got, want) <= 1e-4
+
+
+def _reconstruct_emit_matches_reference(_tc):
+    """``api.reconstruct(emit=)`` (ported since) against the reference's."""
+    jc, tc, jl, tl, words, alphas, rhos = _segment_payloads()
+    pays = [tcomp.CompressedGradient(T(w), T(a), tl.nbar, 64, 2) for w, a in zip(words, alphas)]
+    jpays = [jcomp.CompressedGradient(J(w), J(a), jl.nbar, 64, 2) for w, a in zip(words, alphas)]
+    fired = []
+    got = tapi.reconstruct(tc, pays, rhos, tl, recon=tre.ReconSpec(mode="ea"),
+                           emit=lambda seg, leaves: fired.append(seg.name))
+    want = japi.reconstruct(jc, jpays, rhos, jl, recon=japi.ReconSpec(mode="ea"),
+                            emit=lambda seg, leaves: None)
+    assert fired == ["['b']", "['w']"]
+    assert all(_nmse(got[k], want[k]) <= 1e-4 for k in want)
+
+
+def _compress_tree_per_tensor_matches_reference(_tc):
+    """``compress_tree`` over a per-tensor layout (ported since): the one-pass
+    encode of that layout's grid, words equal to the reference's."""
+    jc, tc, jl, tl, _, _, _ = _segment_payloads()
+    rng = np.random.default_rng(5)
+    tree = {"b": rng.normal(size=(40,)).astype(np.float32),
+            "w": rng.normal(size=(30, 20)).astype(np.float32)}
+    pay, spec, res = tc.compress_tree({k: T(v) for k, v in tree.items()},
+                                      tc.zero_residual({}, tl), tl)
+    jpay, _, jres = jc.compress_tree({k: J(v) for k, v in tree.items()},
+                                     jnp.zeros((jl.rows, 256)), jl)
+    assert spec is tl and tuple(pay.codes.shape) == (4, 4)  # 1 + 3 rows, 64 lanes of 2 bits
+    assert np.array_equal(pay.codes.numpy(), np.asarray(jpay.codes))
+    assert np.array_equal(res.numpy(), np.asarray(jres))
+
+
 # Explicit ids keep each case's name from before ReconSpec(channel=...) (item
-# 5), the AE decode in G groups (item 6) and the decode from streamed
-# statistics (item 7) were ported: the first two cases became
-# tests/test_torch_channel.py's api.reconstruct parity test and
-# tests/test_torch_knobs.py's grouped-decode tests; route2 now holds
-# decode_from_stats against the reference (item "ported").
+# 5), the AE decode in G groups (item 6), the decode from streamed
+# statistics (item 7) and the per-tensor layouts (item 9) were ported: the
+# first two cases became tests/test_torch_channel.py's api.reconstruct parity
+# test and tests/test_torch_knobs.py's grouped-decode tests; routes 1, 2, 5
+# and 6 now hold the ported function against the reference (item
+# "ported").
 @pytest.mark.parametrize("route,item", [
     pytest.param(lambda tc: tre.chunked_rows(None, (torch.zeros(4),), 2, 1, mesh=object()),
                  "item 10", id="route0-item 10"),
-    pytest.param(lambda tc: tre.ea_decode_segments(tc, None, None, None, None, packed=True),
-                 "item 9", id="route1-item 9"),
+    pytest.param(_ea_decode_segments_matches_reference, "ported", id="route1-item 9"),
     pytest.param(_decode_from_stats_matches_reference, "ported", id="route2-item 7"),
-    pytest.param(lambda tc: tapi.reconstruct(tc, [], [], None, recon=tre.ReconSpec(mode="ea"),
-                                             emit=print), "item 9", id="route5-item 9"),
-    pytest.param(lambda tc: tc.compress_tree({"w": torch.zeros(3)}, torch.zeros((1, 256)),
-                                             layout=()), "item 9", id="route6-item 9"),
+    pytest.param(_reconstruct_emit_matches_reference, "ported", id="route5-item 9"),
+    pytest.param(_compress_tree_per_tensor_matches_reference, "ported", id="route6-item 9"),
 ])
 def test_engine_routes_outside_the_slice_raise(route, item):
     tc = tcomp.BQCSCodec(tcomp.FedQCSConfig(block_size=256, reduction_ratio=4), device="cpu")

@@ -111,14 +111,14 @@ FED = dict(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25, use_kernels=Tr
            gamp_variance_mode="scalar", block_size=1591)
 
 
-def _reference_round(method, data):
+def _reference_round(method, data, cohort_kw):
     """One reference round, set up exactly as paper/mlp.run_federated does,
     capturing the PS pass's decoded blocks and the wire payload."""
     xtr, ytr, _, _, parts = data
     params = jmlp.init_mlp(jax.random.PRNGKey(0))
     eng = jeng.CohortEngine(
         params, jmlp.mlp_grad_fn, jeng.ArrayClientData(xtr, ytr, parts, batch_size=1, seed=0),
-        fed_cfg=JCfg(**FED), cohort=jeng.CohortConfig(method=method, seed=0),
+        fed_cfg=JCfg(**FED), cohort=jeng.CohortConfig(method=method, seed=0, **cohort_kw),
         sched=JSched(kind="full", seed=0), chan=JChan(kind="ideal"),
         server=JSrv(kind="fedadam", lr=0.003, b1=0.9, b2=0.999, eps=1e-8),
     )
@@ -141,15 +141,18 @@ def _reference_round(method, data):
             np.asarray(codes), np.asarray(eng.residuals))
 
 
-@pytest.mark.parametrize("method", ["fedqcs-ae", "fedqcs-ea"])
-def test_one_full_width_round_matches_reference(method, data):
+def _full_width_round(method, data, cohort_kw):
+    """One full-width round in both packages from the same parameters and A,
+    held to the module's contracts; returns the count of differing wire
+    lanes."""
     xtr, ytr, _, _, parts = data
-    params_np, a_np, stats_j, ghat_j, new_j, codes_j, res_j = _reference_round(method, data)
+    params_np, a_np, stats_j, ghat_j, new_j, codes_j, res_j = _reference_round(method, data,
+                                                                               cohort_kw)
     params_t, a_t = from_reference(params_np, a_np)
     eng = teng.CohortEngine(
         params_t, tmlp.mlp_grad_fn,
         teng.ArrayClientData(xtr, ytr, parts, batch_size=1, seed=0, device="cpu"),
-        fed_cfg=TCfg(**FED), cohort=teng.CohortConfig(method=method, seed=0),
+        fed_cfg=TCfg(**FED), cohort=teng.CohortConfig(method=method, seed=0, **cohort_kw),
         sched=TSched(kind="full", seed=0),
         server=tmlp.ServerOptConfig(kind="fedadam", lr=0.003, b1=0.9, b2=0.999, eps=1e-8),
         device="cpu", a=a_t,
@@ -174,13 +177,25 @@ def test_one_full_width_round_matches_reference(method, data):
     assert abs(stats_t["nmse"] - float(stats_j["nmse"])) <= 1e-3
     assert stats_t["cohort"] == K and stats_t["participating"] == K
     np.testing.assert_allclose(eng.residuals.numpy(), res_j, rtol=1e-4, atol=1e-6)
-    gj = dict(zip(("b1", "b2", "w1", "w2"), np.split(
-        ghat_j.reshape(-1)[:15910], np.cumsum([20, 10, 15680])[:3])))
+    gj = {k: v.numpy() for k, v in eng.layout.tree_from_blocks(torch.tensor(ghat_j)).items()}
     big = 1e-4 * np.abs(ghat_j).max()
     for k, v in new_j.items():
         mask = np.abs(gj[k].reshape(v.shape)) > big
         np.testing.assert_allclose(eng.params[k].numpy()[mask], v[mask], rtol=0, atol=1e-6)
         assert np.all(np.abs(eng.params[k].numpy() - v) <= 2 * 0.003 + 1e-6)
+    return n_diff
+
+
+@pytest.mark.parametrize("method", ["fedqcs-ae", "fedqcs-ea"])
+def test_one_full_width_round_matches_reference(method, data):
+    _full_width_round(method, data, {})
+
+
+def test_one_full_width_per_tensor_round_matches_reference(data):
+    """The paper's round over the per-tensor layout (13 block rows a client)
+    with the segment-streamed encode: every wire lane equal."""
+    assert _full_width_round("fedqcs-ea", data, dict(layout="per_tensor",
+                                                     encode_stream=True)) == 0
 
 
 def test_run_federated_on_the_cpu():
@@ -191,15 +206,31 @@ def test_run_federated_on_the_cpu():
     assert res.last_ghat.shape == (10, 1591) and bool(torch.isfinite(res.last_ghat).all())
 
 
+def _per_tensor_engine_builds_once():
+    """The per-tensor cohort config builds its layout once, in the
+    constructor: the paper's MLP in 13 block rows, the residuals on them."""
+    mono, _ = tmlp.mlp_engine("fedqcs-ea", k_devices=4, device="cpu",
+                              fed_cfg=TCfg(**dict(FED, use_kernels=False)))
+    assert mono.layout.kind == "monolithic" and mono.nb == 10
+    eng = teng.CohortEngine(mono.params, tmlp.mlp_grad_fn, mono.data, fed_cfg=mono.fed_cfg,
+                            cohort=teng.CohortConfig(method="fedqcs-ea", layout="per_tensor"),
+                            device="cpu")
+    assert eng.spec is eng.layout and eng.layout.kind == "per_tensor"
+    assert eng.nb == 13 and tuple(eng.residuals.shape) == (4, 13, 1591)
+
+
 # Explicit ids keep each case's name from before the baselines (item 3), the
-# noisy uplinks (item 5) and the round's remaining knobs (item 6) were
-# ported; their raise cases became the parity tests of
-# tests/test_torch_baselines.py, tests/test_torch_channel.py and
-# tests/test_torch_knobs.py.
+# noisy uplinks (item 5), the round's remaining knobs (item 6) and the
+# per-tensor layouts (item 9) were ported; their raise cases became the
+# parity tests of tests/test_torch_baselines.py, tests/test_torch_channel.py,
+# tests/test_torch_knobs.py and tests/test_torch_layout.py, and route5 now
+# builds a per-tensor engine (item "ported").
 @pytest.mark.parametrize("route,item", [
-    pytest.param(lambda: teng._check_ported(teng.CohortConfig(layout="per_tensor")), "item 9",
-                 id="route5-item 9"),
+    pytest.param(_per_tensor_engine_builds_once, "ported", id="route5-item 9"),
 ])
 def test_round_routes_outside_the_slice_raise(route, item):
+    if item == "ported":
+        route()
+        return
     with pytest.raises(NotImplementedError, match=item):
         route()

@@ -103,9 +103,11 @@ def _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw):
 
 
 def port_engine(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=None,
-                cohort_kw=None, server_kw=None, a=None, draw=None, stream=None, obs=None):
+                cohort_kw=None, server_kw=None, a=None, draw=None, stream=None, obs=None,
+                layout=None):
     """The port's engine over the federation; with no ``a`` and ``draw``, on
-    its own sensing matrix and draws (no JAX work)."""
+    its own sensing matrix and draws (no JAX work).  ``layout`` is an
+    explicit ``GradientLayout``."""
     c = _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw)
     x, y, parts, params = _data()
     return teng.CohortEngine(
@@ -114,18 +116,20 @@ def port_engine(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw
         fed_cfg=TCfg(**c["fed"]), cohort=teng.CohortConfig(**c["cohort"]),
         sched=TSched(**c["sched"]), chan=TChan(**(chan_kw or {})),
         server=TSrv(**c["server"]), stream=None if stream is None else TStream(**stream),
-        obs=obs, device="cpu", a=a, draw=draw,
+        obs=obs, layout=layout, device="cpu", a=a, draw=draw,
     )
 
 
 def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=None,
-            cohort_kw=None, server_kw=None, stream=None, obs=(None, None)):
+            cohort_kw=None, server_kw=None, stream=None, obs=(None, None),
+            layouts=(None, None)):
     """(reference engine, port engine) over the same federation, with the
     reference's sensing matrix, dither codec and draws in the port's.
     ``sched_kw``, ``cohort_kw`` and ``server_kw`` override the full
     scheduler, the cohort defaults and FedAdam; ``stream`` (StreamConfig
     fields) selects streamed rounds in both, ``obs`` is (reference
-    recorder, port recorder)."""
+    recorder, port recorder), ``layouts`` (reference layout, port layout)
+    explicit ``GradientLayout``s."""
     c = _configs(method, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw)
     x, y, parts, params = _data()
     je = jeng.CohortEngine(
@@ -134,11 +138,12 @@ def engines(method, chan_kw=None, fed_kw=None, dropout=0.0, seed=0, sched_kw=Non
         fed_cfg=JCfg(**c["fed"]), cohort=jeng.CohortConfig(**c["cohort"]),
         sched=JSched(**c["sched"]), chan=JChan(**(chan_kw or {})),
         server=JSrv(**c["server"]), stream=None if stream is None else JStream(**stream),
-        obs=obs[0],
+        obs=obs[0], layout=layouts[0],
     )
     a = None if je.codec is None else torch.tensor(np.asarray(je.codec.a))
     te = port_engine(method, chan_kw, fed_kw, dropout, seed, sched_kw, cohort_kw, server_kw,
-                     a=a, draw=reference_draw(seed), stream=stream, obs=obs[1])
+                     a=a, draw=reference_draw(seed), stream=stream, obs=obs[1],
+                     layout=layouts[1])
     if je._dither is not None:
         jd = je._dither
         te.dither = DitherCodec(jd.n, jd.m, jd.bits,
@@ -190,9 +195,8 @@ def check_round(je, te, ghat_tol):
     np.testing.assert_allclose(te.residuals.numpy(), np.asarray(je.residuals),
                                rtol=1e-5, atol=1e-7)
     assert np.array_equal(te.sched_state.last_round, je.sched_state.last_round)
-    flat = ghat_j.reshape(-1)
-    gj = {"b": flat[:D_OUT].reshape(D_OUT), "w": flat[D_OUT:D_OUT * (D_IN + 1)].reshape(
-        D_IN, D_OUT)}
+    # the reference's aggregate per parameter, through the round's layout
+    gj = {k: v.numpy() for k, v in te.layout.tree_from_blocks(torch.tensor(ghat_j)).items()}
     big = 1e-4 * np.abs(ghat_j).max()
     for k, v in je.params.items():
         v = np.asarray(v)

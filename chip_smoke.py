@@ -109,7 +109,22 @@ Phases (any failure raises and the script exits non-zero):
     round's device busy time (the device events that start inside its
     ``run_round``), the steady rounds' mean beside their unprofiled wall
     time (the idle share), and the top device events.
- 13. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 13. [train] The pod-level FedQCS train step (``runtime/steps.py``) on
+    Qwen3-0.6B as published (28 layers, d_model 1024, vocab 151,936, bf16;
+    2 pods x 2,337,792 block rows of N = 255, M = 85, Q = 3, S = 12):
+    (a) two full-width ``impl="auto"`` steps each of AE and EA in one
+    ``torch.profiler`` trace (loss, wall, device busy, launches: the
+    encoder twice, then 15 gamp_step or qgamp_step; peak device memory),
+    one more step untraced, the loss finite and the parameters moved;
+    each kernel on a 65,536-row slice of a real step's blocks against its
+    plain version and both 15-step drivers (NMSE <= 1e-4); [time] at the
+    step's shapes.  At 2 layers and full width: (b) ``impl="shard_map"``
+    at world size 1 over NCCL (gather_codes AE and EA, psum_dequant AE)
+    against ``impl="auto"`` at one pod, ``auto_sharded`` against ``auto``,
+    the baseline; (c) the decoded aggregate of a real step's blocks on the
+    kernel route against the plain versions (AE and EA, NMSE <= 1e-3);
+    (d) a checkpoint saved, restored and replayed 2 steps bit for bit.
+ 14. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
@@ -2296,6 +2311,661 @@ def phase_levels(dev, k_in, levels):
                   + " (checked against the plain versions)")
 
 
+# [train]: the pod-level FedQCS train step (runtime/steps.py) on Qwen3-0.6B
+# as published (configs/qwen3_0_6b.py): 2 pods, the launcher's batch 16 x
+# seq 64 and FedQCS point (N = 255, R = 3 -> M = 85, Q = 3 -> W = 9 words,
+# s_ratio 0.05 -> S = 12, 15 scalar-variance GAMP iterations), the kernel
+# route.  (a) runs every layer; (b)-(d) keep every width and cut the depth
+# to TRAIN_CUT_LAYERS (the embedding is most of a pod's rows either way).
+TRAIN_ARCH, TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-0.6b", 2, 16, 64
+TRAIN_N, TRAIN_ITERS, TRAIN_CUT_LAYERS, SLICE_ROWS = 255, 15, 2, 65_536
+TRAIN_RANGE = "chip_smoke.train_step"
+
+
+def train_fed(**kw):
+    from repro_torch.core.compression import FedQCSConfig
+
+    return FedQCSConfig(block_size=TRAIN_N, reduction_ratio=3, bits=3, s_ratio=0.05,
+                        gamp_iters=TRAIN_ITERS, gamp_variance_mode="scalar", use_kernels=True,
+                        **kw)
+
+
+def train_opt():
+    """The launcher's optimizer at its default 100 steps."""
+    from repro_torch.optim.adam import OptConfig
+
+    return OptConfig(lr=3e-3, warmup_steps=20, decay_steps=100)
+
+
+def train_state(cfg, fed, params, dev, pods: int = TRAIN_PODS, **kw):
+    """The port's train state (``steps.init_train_state``) around a clone of
+    ``params`` (drawn once for every mode)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.runtime import steps
+
+    return steps.init_train_state(cfg, train_opt(), fed, 0, n_pods=pods, device=dev,
+                                  params=tree_util.tree_map(torch.clone, params), **kw)
+
+
+def max_param_gap(a, b) -> float:
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    return max(float(torch.max(torch.abs(x.float() - tree_util.get(b, p).float())))
+               for p, x in tree_util.leaves(a))
+
+
+def pod_blocks(state, batch, cfg):
+    """Each pod's gradient blocks on the train step's layout ((pods, nb, N)),
+    as ``impl="auto"`` builds them."""
+    from repro_torch.runtime import steps
+
+    res = state["residual"]
+    return steps.pod_blocks(state["params"], batch, cfg, res.shape[0], TRAIN_N, res.device)[1]
+
+
+def traced_steps(fn, state, batches):
+    """Runs the steps under one ``torch.profiler`` trace, each inside a
+    ``record_function`` range ending in a device sync; returns (state, per
+    step (loss, wall ms under the trace, device busy ms, launches, peak
+    bytes, device event name -> [count, ms]))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            with record_function(TRAIN_RANGE):
+                state, m = fn(state, batch)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+            out.append([loss, 1e3 * (time.perf_counter() - t0), None, read_counts(),
+                        torch.cuda.max_memory_allocated(), {}])
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == TRAIN_RANGE and e.device_type == DeviceType.CPU)
+    dspans = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.name == TRAIN_RANGE and e.device_type != DeviceType.CPU)
+    if len(dspans) == len(spans):
+        spans = [(min(h[0], d[0]), max(h[1], d[1])) for h, d in zip(spans, dspans)]
+    busy = [0.0] * len(spans)
+    per = [{} for _ in spans]
+    for e in events:
+        if e.device_type == DeviceType.CPU or e.name == TRAIN_RANGE:
+            continue
+        for i, (lo, hi) in enumerate(spans):
+            if lo <= e.time_range.start <= hi:
+                ms = e.time_range.elapsed_us() / 1e3
+                busy[i] += ms
+                c, t = per[i].get(e.name, (0, 0.0))
+                per[i][e.name] = (c + 1, t + ms)
+                break
+    if len(spans) == len(out):
+        for rec, b, p in zip(out, busy, per):
+            rec[2], rec[5] = b, p
+    return state, out
+
+
+def step_vs_exact(kind: str, args, dev, strict: bool = True):
+    """One GAMP step kernel at the chooser's pick and at cluster 1 against
+    the plain step in fp32 and evaluated in float64 (the exact step), at the
+    tests' tolerances (rtol 2e-4 / atol 1e-6 for gamp_step, 1e-3 / 1e-5 for
+    qgamp_step).  ``strict``: every output of the kernel and of the plain
+    fp32 step within tolerance of the exact step (at millions of outputs two
+    fp32 evaluations, each summing in its own order, part past it on a few
+    elements: PERF.md §6).  Otherwise only counted.  Returns (max abs
+    err per output against the fp32 plain step, against the exact step,
+    outputs past the tolerance: kernel vs exact, plain vs exact, kernel vs
+    plain; the shapes run)."""
+    import torch
+
+    from repro_torch.core.compression import unpack_codes
+    from repro_torch.kernels import gamp_step as g_mod
+    from repro_torch.kernels import qgamp_step as q_mod
+    from repro_torch.kernels import ref
+
+    d = lambda x: x.double() if x.is_floating_point() else x  # noqa: E731
+    if kind == "qgamp":
+        ghat, nug, shat, theta, obs, alpha, lo, hi, a, L, em, bits = args
+        codes = unpack_codes(obs, bits, shat.shape[1])
+        plain_args = (ghat, nug, shat, theta, codes, alpha, lo, hi, a, L, em)
+        plain, mod, rtol, atol = ref.qgamp_step_ref, q_mod, 1e-3, 1e-5
+    else:
+        plain_args, plain, mod, rtol, atol = args, ref.gamp_step_ref, g_mod, 2e-4, 1e-6
+    p32 = plain(*plain_args)
+    exact = plain(*(d(x) if isinstance(x, torch.Tensor) else x for x in plain_args))
+    names = ("ghat", "nu_g", "shat", "theta")
+
+    def past(x, ref_):
+        return int(torch.sum(torch.abs(x.double() - ref_.double())
+                             > atol + rtol * torch.abs(ref_.double())))
+
+    counts = [0, sum(past(p_, e_) for p_, e_ in zip(p32, exact)), 0]
+    rows, cluster = mod.launch_shape(args[0].shape[0],
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    shapes = [(rows, cluster)] + ([(rows, 1)] if cluster > 1 else [])
+    errs, exact_errs = [0.0] * 4, [0.0] * 4
+    for r, c in shapes:
+        got = getattr(mod, f"{kind}_step")(*args, _rows=r, _cluster=c)
+        torch.cuda.synchronize()
+        for i, (k_, p_, e_) in enumerate(zip(got, p32, exact)):
+            errs[i] = max(errs[i], float(torch.max(torch.abs(k_ - p_))))
+            exact_errs[i] = max(exact_errs[i], float(torch.max(torch.abs(k_.double() - e_))))
+            counts[0] += past(k_, e_)
+            counts[2] += past(k_, p_)
+    if strict:
+        check(counts[0] == 0 and counts[1] == 0,
+              f"{kind}_step {args[0].shape[0]} rows at {shapes}: {counts[0]} kernel and "
+              f"{counts[1]} plain fp32 outputs past rtol {rtol} / atol {atol} of the float64 "
+              f"step ({names})")
+    return errs, exact_errs, counts, shapes
+
+
+def encoder_agrees(label, b0, r0, got, plain, a, tab, q: int, m: int):
+    """The encoder's contract against its plain version on the same rows:
+    resid bit-identical, alpha within 1e-6 relative, a differing code lane
+    only where y lies within 1e-5 of a threshold, pad lanes 0.  Returns
+    (alpha's max rel err, differing code lanes, lanes, kept entries)."""
+    import torch
+
+    from repro_torch.core.compression import unpack_codes
+
+    words, alpha, res_k = got
+    w_p, al_p, res_p = plain
+    check(torch.equal(res_k, res_p), f"{label}: resid must be bit-identical")
+    rel = float(torch.max(torch.abs(alpha - al_p) / torch.clamp(torch.abs(al_p), min=1e-30)))
+    check(rel <= 1e-6, f"{label}: alpha rtol {rel:.3g} > 1e-6")
+    diff = unpack_codes(words, q, m) != unpack_codes(w_p, q, m)
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = torch.nonzero(diff.any(dim=1)).squeeze(1)  # only the rows that differ
+        sparse = (b0[rows] + r0[rows]) - res_p[rows]
+        gap = torch.amin(torch.abs(((sparse * al_p[rows, None]) @ a.T)[..., None] - tab), dim=-1)
+        check(float(gap[diff[rows]].max()) < 1e-5, f"{label}: a differing code lane is not "
+              "within 1e-5 of a threshold")
+    full = unpack_codes(words, q, words.shape[1] * (32 // q))
+    check(not bool(full[:, m:].any()), f"{label}: pad lanes must carry code 0")
+    kept = int(((b0 + r0) != res_p).sum())
+    return rel, n_diff, diff.numel(), kept
+
+
+def step_agrees(label, got, plain, rtol: float, atol: float) -> float:
+    """A step kernel's outputs against the plain fp32 step's on the same
+    state: NMSE <= 1e-4 on each output (the drivers' contract; at millions
+    of rows the two fp32 evaluations part past the tests' allclose on a few
+    elements, counted here: PERF.md §6).  Returns the max abs error."""
+    import torch
+
+    names = ("ghat", "nu_g", "shat", "theta")
+    errs = [nmse(k, p) for k, p in zip(got, plain)]
+    past = [int(torch.sum(torch.abs(k - p) > atol + rtol * torch.abs(p)))
+            for k, p in zip(got, plain)]
+    worst = max(float(torch.max(torch.abs(k - p))) for k, p in zip(got, plain))
+    print(f"{label}: NMSE to the plain fp32 step "
+          + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs))
+          + f" (<= 1e-4); outputs past rtol {rtol} / atol {atol} "
+          + ", ".join(f"{n} {c}" for n, c in zip(names, past))
+          + f" of {sum(k.numel() for k in got):,}; max abs err {worst:.3g}")
+    check(max(errs) <= 1e-4, f"{label}: NMSE {max(errs):.3g} > 1e-4")
+    return worst
+
+
+def train_kernel_slices(dev, fed, blocks, resid, a):
+    """(c) each kernel on a SLICE_ROWS-row slice of a real step's blocks
+    against its plain version: the encoder (resid bit-identical, alpha 1e-6
+    relative, codes near a threshold, pad lanes 0); gamp_step and qgamp_step
+    one step from the state 3 kernel iterations into their decodes (the
+    tests' allclose contracts); and both 15-step drivers against the plain
+    drivers (NMSE <= 1e-4).  Returns (name -> max abs err, timing inputs)."""
+    import torch
+
+    from repro_torch.core import bussgang
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.core.gamp import block_prior_energy, tau_tables
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
+    from repro_torch.kernels.gamp_step import gamp_step
+    from repro_torch.kernels.qgamp_step import qgamp_step
+
+    m, q, s = fed.m, fed.bits, fed.s
+    cb = make_codebook(fed)
+    a_t = ops.encoder_a_t(a, cb)
+    tab = cb.thresholds_t(dev)
+    # a slice from the middle of the grid (the MLP weights of the layers)
+    lo_row = blocks.shape[1] // 2
+    sl = slice(lo_row, lo_row + SLICE_ROWS)
+    b0, r0 = blocks[0, sl].contiguous(), resid[0, sl].contiguous()
+    words, alpha, res_k = bqcs_encode_fused(b0, r0, a_t, tab, s, m, q)
+    plain = ref.bqcs_encode_fused_ref(b0, r0, a_t[:, :m], tab, s, q)
+    torch.cuda.synchronize()
+    rel, n_diff, lanes, kept = encoder_agrees("[train] encoder slice", b0, r0,
+                                              (words, alpha, res_k), plain, a, tab, q, m)
+    errs = {"encode255": float(torch.max(torch.abs(alpha - plain[1])))}
+    print(f"[train] (c) encoder, {SLICE_ROWS} rows x N={TRAIN_N} of a real step's blocks, "
+          f"M={m} Q={q} W={words.shape[1]} S={s}: resid bit-identical, alpha max rel err "
+          f"{rel:.3g}, {n_diff} differing code lanes of {lanes} (each within 1e-5 of a "
+          f"threshold), {kept} kept entries")
+    # the AE decode of the two pods' slices; the EA decode of pod 0's words
+    enc = [bqcs_encode_fused(blocks[p, sl].contiguous(), resid[p, sl].contiguous(), a_t, tab,
+                             s, m, q) for p in range(blocks.shape[0])]
+    wds = torch.stack([e[0] for e in enc])
+    als = torch.stack([e[1] for e in enc])
+    rhos = torch.full((blocks.shape[0],), 1.0 / blocks.shape[0], device=dev)
+    y = bussgang.aggregate_packed(wds, als, rhos, cb, m)
+    nu = bussgang.effective_noise_var(als, rhos, cb)
+    energy = bussgang.signal_energy(als, rhos, m, TRAIN_N)
+    gs = ops._init_state(energy, TRAIN_N, m, 3, 0.9)
+    nud = nu[:, None].contiguous()
+    # the AE step from the decode's first state (strict), and 3 iterations
+    # in, where shat = (y - phat) / (nu_p + nu_d) divides fp32 rounding of
+    # phat by variances of ~1e-9 (counted: even the plain fp32 step parts
+    # from the exact one there)
+    g0 = step_vs_exact("gamp", (*gs, y, nud, a, 3, True), dev)
+    for _ in range(3):
+        gs = gamp_step(*gs, y, nud, a)
+    g3 = step_vs_exact("gamp", (*gs, y, nud, a, 3, True), dev, strict=False)
+    lo, hi = tau_tables(tab)
+    safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
+    qs = ops._init_state(block_prior_energy(alpha, m, TRAIN_N), TRAIN_N, m, 3, 0.9)
+    for _ in range(3):
+        qs = qgamp_step(*qs, words, safe[:, None].contiguous(), lo, hi, a, bits=q)
+    q3 = step_vs_exact("qgamp", (*qs, words, safe[:, None].contiguous(), lo, hi, a, 3, True, q),
+                       dev)
+    errs["gamp255"], errs["qgamp255"] = max(g0[0]), max(q3[0])
+    ae_k = ops.gamp_ae_run(y, nu, a, energy, iters=TRAIN_ITERS)
+    ea_k = ops.qgamp_ea_run_packed(words, alpha, a, tab, bits=q, m=m, iters=TRAIN_ITERS)
+    with plain_kernels():
+        ae_p = ops.gamp_ae_run(y, nu, a, energy, iters=TRAIN_ITERS)
+        ea_p = ops.qgamp_ea_run_packed(words, alpha, a, tab, bits=q, m=m, iters=TRAIN_ITERS)
+    ae_nmse, ea_nmse = nmse(ae_k, ae_p), nmse(ea_k, ea_p)
+    check(ae_nmse <= 1e-4 and ea_nmse <= 1e-4,
+          f"[train] 15-step drivers on the slice: NMSE AE {ae_nmse:.3g}, EA {ea_nmse:.3g}")
+    for label, (err, exact_err, counts, shapes) in (
+            ("gamp_step, the AE decode's first step", g0),
+            ("gamp_step, 3 iterations into the AE decode", g3),
+            ("qgamp_step, 3 iterations into the EA decode", q3)):
+        print(f"[train] (c) {label} ({SLICE_ROWS} rows) at {shapes}: outputs past the tolerance "
+              f"of the float64 step: kernel {counts[0]}, plain fp32 {counts[1]} (of "
+              f"{len(shapes)} x {SLICE_ROWS} x (2N+M+10)); kernel vs plain fp32 {counts[2]}; "
+              f"max abs err vs float64 {[f'{e:.3g}' for e in exact_err]}, vs plain "
+              f"{[f'{e:.3g}' for e in err]}")
+    print(f"[train] (c) 15-step drivers vs plain on the slice: NMSE AE {ae_nmse:.3g}, EA "
+          f"{ea_nmse:.3g}")
+    return errs
+
+
+def train_encode_time(dev, fed, b0, r0, a, timer):
+    """[time] the encoder at the train step's shape on pod 0's whole grid of
+    a real step (nb rows), beside its plain version, and held to the
+    encoder's contract against it on those rows.  Returns (the record, the
+    words and alphas it encodes).  Bounds count each input read once and
+    each output written once; the product's FLOPs count the entries this
+    encode kept."""
+    import torch
+
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bqcs_encode_fused import bqcs_encode_fused
+
+    m, q, s, n = fed.m, fed.bits, fed.s, TRAIN_N
+    cb = make_codebook(fed)
+    a_t, tab = ops.encoder_a_t(a, cb), cb.thresholds_t(dev)
+    rows = b0.shape[0]
+    words, alpha, new_res = bqcs_encode_fused(b0, r0, a_t, tab, s, m, q)
+    plain = ref.bqcs_encode_fused_ref(b0, r0, a_t[:, :m], tab, s, q)
+    torch.cuda.synchronize()
+    rel, n_diff, lanes, kept = encoder_agrees(f"[train] encoder at {rows} rows", b0, r0,
+                                              (words, alpha, new_res), plain, a, tab, q, m)
+    err = float(torch.max(torch.abs(alpha - plain[1])))
+    print(f"[train] (c) encoder on pod 0's whole grid ({rows:,} rows x N={n}) of a real step: "
+          f"resid bit-identical, alpha max rel err {rel:.3g}, {n_diff} differing code lanes of "
+          f"{lanes:,} (each within 1e-5 of a threshold), {kept:,} kept entries")
+    del new_res, plain
+    torch.cuda.empty_cache()
+    a_rows = n  # every row of A^T is touched somewhere in a grid of millions of rows
+    nbytes = (4 * (3 * rows * n + a_rows * a_t.shape[1]) + 4 * rows * (words.shape[1] + 1)
+              + 4 * tab.numel())
+    b_ms, b_by = bound_ms(nbytes, 2 * kept * m)
+    rec = dict(ms=timer(lambda: bqcs_encode_fused(b0, r0, a_t, tab, s, m, q), reps=5),
+               plain_ms=timer(lambda: ref.bqcs_encode_fused_ref(b0, r0, a_t[:, :m], tab, s, q),
+                              reps=3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, rows=rows, err=err)
+    return rec, words, alpha
+
+
+def train_step_times(dev, fed, words, alpha, a, timer):
+    """[time] gamp_step and qgamp_step at the train step's shapes on pod 0's
+    nb rows (3 iterations into their decodes of pod 0's words), each beside
+    its plain version and the cuBLAS GEMMs of its two products, and held
+    against the plain step there (:func:`step_agrees`); qgamp_step also at
+    the EA decode's pods x nb rows, each half bit-identical to the nb-row
+    launch (same tile shape, rows independent; the plain step's temporaries
+    at that size do not fit beside the state)."""
+    import torch
+
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.core.gamp import block_prior_energy, tau_tables
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gamp_step import gamp_step
+    from repro_torch.kernels.qgamp_step import qgamp_step
+
+    m, q, n, L = fed.m, fed.bits, TRAIN_N, 3
+    cb = make_codebook(fed)
+    tab = cb.thresholds_t(dev)
+    rows = words.shape[0]
+    res = {}
+    # gamp_step: the AE observation of pod 0's codes alone (rho = 1)
+    from repro_torch.core import bussgang
+
+    one = torch.ones((1,), device=dev)
+    y = bussgang.aggregate_packed(words[None], alpha[None], one, cb, m)
+    nu = bussgang.effective_noise_var(alpha[None], one, cb)
+    energy = bussgang.signal_energy(alpha[None], one, m, n)
+    gs = ops._init_state(energy, n, m, L, 0.9)
+    nud = nu[:, None].contiguous()
+    for _ in range(3):
+        gs = gamp_step(*gs, y, nud, a)
+    state = 4 * rows * (2 * n + m + 1 + 3 * L)
+    b_ms, b_by = bound_ms(2 * state + 4 * m * n + 4 * rows * m + 4 * rows, 4 * rows * n * m)
+    plain = ref.gamp_step_ref(*gs, y, nud, a)  # first: its temporaries are the peak
+    err = step_agrees(f"[train] (c) gamp_step at {rows:,} rows, 3 iterations into the AE "
+                      "decode", gamp_step(*gs, y, nud, a), plain, 2e-4, 1e-6)
+    del plain
+    torch.cuda.empty_cache()
+    ghat, _, shat, _ = gs
+    res[f"gamp_step[N={n}]"] = dict(
+        ms=timer(lambda: gamp_step(*gs, y, nud, a), reps=5),
+        plain_ms=timer(lambda: ref.gamp_step_ref(*gs, y, nud, a), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: (torch.matmul(ghat, a.T), torch.matmul(shat, a)), reps=5),
+        library="GEMMs only", rows=rows, err=err)
+    del gs, ghat, shat, y
+    torch.cuda.empty_cache()
+    lo, hi = tau_tables(tab)
+    safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))[:, None].contiguous()
+    qs = ops._init_state(block_prior_energy(alpha, m, n), n, m, L, 0.9)
+    for _ in range(3):
+        qs = qgamp_step(*qs, words, safe, lo, hi, a, bits=q)
+    from repro_torch.core.compression import unpack_codes
+
+    ref_codes = unpack_codes(words, q, m)
+    nbytes = 2 * state + 4 * m * n + 4 * words.numel() + 4 * rows + 8 * lo.numel()
+    b_ms, b_by = bound_ms(nbytes, 4 * rows * n * m)
+    plain = ref.qgamp_step_ref(*qs, ref_codes, safe, lo, hi, a)
+    got = qgamp_step(*qs, words, safe, lo, hi, a, bits=q)
+    err = step_agrees(f"[train] (c) qgamp_step at {rows:,} rows, 3 iterations into the EA "
+                      "decode", got, plain, 1e-3, 1e-5)
+    del plain
+    torch.cuda.empty_cache()
+    # the EA decode's whole batch: the two pods' problems, one launch
+    qs2 = tuple(torch.cat([x, x]) for x in qs)
+    words2, safe2 = torch.cat([words, words]), torch.cat([safe, safe])
+    got2 = qgamp_step(*qs2, words2, safe2, lo, hi, a, bits=q)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x2[:rows], x) and torch.equal(x2[rows:], x)
+               for x2, x in zip(got2, got))
+    check(same, f"[train] qgamp_step at {2 * rows} rows: each half must be bit-identical to "
+          f"the {rows}-row launch")
+    print(f"[train] (c) qgamp_step at {2 * rows:,} rows (the EA decode's pods x nb): each half "
+          f"bit-identical to the {rows:,}-row launch")
+    del got, got2
+    torch.cuda.empty_cache()
+    ms2 = timer(lambda: qgamp_step(*qs2, words2, safe2, lo, hi, a, bits=q), reps=5)
+    b2, by2 = bound_ms(2 * nbytes, 8 * rows * n * m)
+    print(f"[time] qgamp_step[N={n}] at {2 * rows} rows (the EA decode's pods x nb): kernel "
+          f"{ms2:.4f} ms | bound {b2:.4f} ms ({by2})")
+    del qs2, words2, safe2
+    torch.cuda.empty_cache()
+    ghat, _, shat, _ = qs
+    res[f"qgamp_step[N={n}]"] = dict(
+        ms=timer(lambda: qgamp_step(*qs, words, safe, lo, hi, a, bits=q), reps=5),
+        plain_ms=timer(lambda: ref.qgamp_step_ref(*qs, ref_codes, safe, lo, hi, a), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: (torch.matmul(ghat, a.T), torch.matmul(shat, a)), reps=5),
+        library="GEMMs only", rows=rows, err=err)
+    del qs, ghat, shat, ref_codes
+    return res
+
+
+def print_train_times(res: dict) -> None:
+    for name, r in res.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ({r['library']})"
+        print(f"[time] {name} at {r['rows']} rows: kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
+              f"library {lib}")
+
+
+def phase_train(dev):
+    """[train] The pod-level FedQCS train step (``runtime/steps.py``) on
+    Qwen3-0.6B (see TRAIN_*).  (a) Two full-width steps of ``impl="auto"``,
+    AE and then EA, in one ``torch.profiler`` trace (each step a range
+    ending in a device sync: loss, wall under the trace, device busy,
+    launches per kernel, peak device memory), then one more step unprofiled
+    (its wall); the loss finite and the parameters moved.  Then (c) each
+    kernel on a slice of a real step's blocks, and on pod 0's whole grid
+    beside its [time] at the step's shapes.  (b) At TRAIN_CUT_LAYERS layers: ``impl="shard_map"`` at world
+    size 1 over NCCL (gather_codes AE and EA, psum_dequant AE) against
+    ``impl="auto"`` at one pod, ``auto_sharded`` against ``auto``, and the
+    baseline.  (c) At TRAIN_CUT_LAYERS layers, the decoded aggregate of a
+    real step's blocks on the kernel route against the plain versions (AE
+    and EA, NMSE <= 1e-3).  (d) A checkpoint saved on the card, restored
+    and replayed 2 steps: identical parameters, moments and residuals.
+    Returns (launches by KERNELS name, max abs errors, [time] records)."""
+    import dataclasses as dc
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.launch.mesh import make_debug_mesh, make_single_device_mesh
+    from repro_torch.models import model as model_api
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.collectives import fedqcs_vmapped_allreduce
+
+    cfg = get_config(TRAIN_ARCH)
+    ds = TokenDataset(cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    batches = [ds.get_batch(t, device=dev) for t in range(3)]
+    mesh = make_single_device_mesh()
+    launches = {f"bqcs_encode_fused[N={TRAIN_N}]": 0, f"gamp_step[N={TRAIN_N}]": 0,
+                f"qgamp_step[N={TRAIN_N}]": 0}
+    t0 = time.perf_counter()
+    params0 = model_api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(int(p.numel()) for _, p in tree_util.leaves(params0))
+    rows = steps.block_rows(cfg, train_fed())
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat_policy}: {n_params:,} parameters "
+          f"(param_count {cfg.param_count():,}), drawn in {time.perf_counter() - t0:.1f} s; "
+          f"{TRAIN_PODS} pods x {rows:,} block rows of N={TRAIN_N} (M={train_fed().m}, "
+          f"S={train_fed().s}, Q={train_fed().bits}); batch {TRAIN_BATCH} x seq {TRAIN_SEQ}")
+    errs, times = {}, {}
+    # (a) full width, AE then EA
+    want = {"ae": dict(encode=TRAIN_PODS, gamp=TRAIN_ITERS, qgamp=0),
+            "ea": dict(encode=TRAIN_PODS, gamp=0, qgamp=TRAIN_ITERS)}
+    for mode in ("ae", "ea"):
+        fed = train_fed(recon_mode=mode)
+        fn = steps.make_train_step(cfg, train_opt(), fed, mesh, device=dev)
+        # no name holds the fresh state, so each step's input is freed as
+        # the step replaces it (the peak is one step's, not two states')
+        state, recs = traced_steps(fn, train_state(cfg, fed, params0, dev), batches[:2])
+        for t, (loss, wall, busy, counts, peak, events) in enumerate(recs):
+            got = {k: counts[k] for k in want[mode]}
+            check(got == want[mode], f"[train] {mode} step {t}: launches {got}, want "
+                  f"{want[mode]}")
+            check(bool(np.isfinite(loss)), f"[train] {mode} step {t}: loss {loss}")
+            busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+            print(f"[train] (a) {mode.upper()} step {t}: loss {loss:.6f}, wall {wall:.3f} ms "
+                  f"(under the trace), device busy {busy_s}, launches encoder "
+                  f"{counts['encode']}, gamp_step {counts['gamp']}, qgamp_step "
+                  f"{counts['qgamp']}, max_memory_allocated {peak / 2**30:.3f} GiB")
+            top = sorted(events.items(), key=lambda kv: -kv[1][1])[:6]
+            print(f"[train] (a) {mode.upper()} step {t} device time by event: "
+                  + "; ".join(f"{k[:48]} x{c} {ms:.3f} ms" for k, (c, ms) in top))
+            launches[f"bqcs_encode_fused[N={TRAIN_N}]"] += counts["encode"]
+            launches[f"gamp_step[N={TRAIN_N}]"] += counts["gamp"]
+            launches[f"qgamp_step[N={TRAIN_N}]"] += counts["qgamp"]
+        moved = max_param_gap(state["params"], params0)
+        check(moved > 0, f"[train] {mode}: the parameters did not move")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = fn(state, batches[2])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        print(f"[train] (a) {mode.upper()} step 2 (no trace): loss {loss:.6f}, wall "
+              f"{1e3 * (time.perf_counter() - t1):.3f} ms, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; parameters moved by up "
+              f"to {moved:.3g} over steps 0-1")
+        if mode == "ea":
+            blocks = pod_blocks(state, batches[0], cfg)
+            resid = state["residual"]
+            del state
+            codec_a = steps.BQCSCodec(fed, device=dev).a
+            errs.update(train_kernel_slices(dev, fed, blocks, resid, codec_a))
+            b0, r0 = blocks[0].clone(), resid[0].clone()  # pod 0's grid
+            del blocks, resid
+            torch.cuda.empty_cache()
+            timer = GpuTimer()
+            rec, words, alpha = train_encode_time(dev, fed, b0, r0, codec_a, timer)
+            times[f"bqcs_encode_fused[N={TRAIN_N}]"] = rec
+            del b0, r0
+            torch.cuda.empty_cache()
+            times.update(train_step_times(dev, fed, words, alpha, codec_a, timer))
+            for key, name in (("encode255", "bqcs_encode_fused"), ("gamp255", "gamp_step"),
+                              ("qgamp255", "qgamp_step")):
+                errs[key] = max(errs[key], times[f"{name}[N={TRAIN_N}]"]["err"])
+            print_train_times(times)
+            del words, alpha
+        else:
+            del state
+        torch.cuda.empty_cache()
+    del params0
+    torch.cuda.empty_cache()
+    # (b)-(d) at the published widths, TRAIN_CUT_LAYERS layers
+    cut = dc.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    p_cut = model_api.init_params(cut, seed=1, device=dev)
+    ae, ea = train_fed(), train_fed(recon_mode="ea")
+
+    def one(fn, state, label, want_counts):
+        zero_counts()
+        new, m = fn(state, batches[0])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {k: counts[k] for k in want_counts}
+        check(got == want_counts, f"[train] {label}: launches {got}, want {want_counts}")
+        check(bool(np.isfinite(loss)) and max_param_gap(new["params"], state["params"]) > 0,
+              f"[train] {label}: loss {loss} or parameters did not move")
+        return new, loss
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            for label, fed in (("gather_codes AE", ae), ("gather_codes EA", ea),
+                               ("psum_dequant AE", dc.replace(ae, wire_mode="psum_dequant"))):
+                pod = steps.make_train_step(cut, train_opt(), fed, make_debug_mesh(1),
+                                            impl="shard_map", device=dev)
+                auto = steps.make_train_step(cut, train_opt(), fed, mesh, device=dev)
+                start = train_state(cut, fed, p_cut, dev, pods=1)
+                dec = dict(encode=1, gamp=0 if fed.recon_mode == "ea" else TRAIN_ITERS,
+                           qgamp=TRAIN_ITERS if fed.recon_mode == "ea" else 0)
+                got, l_pod = one(pod, start, f"shard_map {label}", dec)
+                want_s, l_auto = one(auto, start, f"auto, 1 pod, {label}", dec)
+                gap = max_param_gap(got["params"], want_s["params"])
+                dres = float(torch.max(torch.abs(got["residual"] - want_s["residual"])))
+                check(abs(l_pod - l_auto) <= 1e-5 and dres <= 1e-5 and gap <= 2 * 3e-3,
+                      f"[train] shard_map {label} vs auto: loss {l_pod} vs {l_auto}, residual "
+                      f"{dres:.3g}, parameters {gap:.3g}")
+                print(f"[train] (b) shard_map (NCCL, world size 1) {label}: loss {l_pod:.6f} "
+                      f"(auto at 1 pod {l_auto:.6f}), residual max gap {dres:.3g}, parameters "
+                      f"max gap {gap:.3g} (<= 2 lr); launches {dec}")
+                del got, want_s, start
+        finally:
+            dist.destroy_process_group()
+    sharded = steps.make_train_step(cut, train_opt(), ae, mesh, impl="auto_sharded", device=dev)
+    auto = steps.make_train_step(cut, train_opt(), ae, mesh, device=dev)
+    start = train_state(cut, ae, p_cut, dev)
+    start_sh = train_state(cut, ae, p_cut, dev, mesh=mesh, impl="auto_sharded")
+    nb_local = steps.shard_block_geometry(cut, ae, mesh)[0]
+    check(start_sh["residual"].shape == (TRAIN_PODS, nb_local, TRAIN_N),
+          f"[train] auto_sharded residual {tuple(start_sh['residual'].shape)}, want "
+          f"{(TRAIN_PODS, nb_local, TRAIN_N)}")
+    dec = dict(encode=TRAIN_PODS, gamp=TRAIN_ITERS, qgamp=0)
+    got, l_sh = one(sharded, start_sh, "auto_sharded AE", dec)
+    want_s, l_auto = one(auto, start, "auto AE", dec)
+    gap = max_param_gap(got["params"], want_s["params"])
+    check(abs(l_sh - l_auto) <= 1e-5 and gap <= 2 * 3e-3,
+          f"[train] auto_sharded vs auto: loss {l_sh} vs {l_auto}, parameters {gap:.3g}")
+    print(f"[train] (b) auto_sharded AE ({nb_local:,} rows a pod, no 512 padding): loss "
+          f"{l_sh:.6f} (auto {l_auto:.6f}), parameters max gap {gap:.3g}; launches {dec}")
+    del got, want_s, start_sh
+    base = steps.make_train_step(cut, train_opt(), None, mesh, device=dev)
+    _, l_base = one(base, train_state(cut, None, p_cut, dev), "baseline",
+                    dict(encode=0, gamp=0, qgamp=0))
+    print(f"[train] (b) baseline (no FedQCS): loss {l_base:.6f}, no kernel launched")
+    # (c) the decoded aggregate, kernel route vs plain versions
+    blocks = pod_blocks(start, batches[0], cut)
+    part = torch.ones((TRAIN_PODS,), device=dev)
+    for label, fed in (("AE", ae), ("EA", ea)):
+        codec = steps.BQCSCodec(fed, device=dev)
+        g_k, r_k = fedqcs_vmapped_allreduce(blocks, start["residual"], codec, part)
+        with plain_kernels():
+            g_p, r_p = fedqcs_vmapped_allreduce(blocks, start["residual"], codec, part)
+        torch.cuda.synchronize()
+        e = nmse(g_k, g_p)
+        check(e <= 1e-3 and torch.equal(r_k, r_p),
+              f"[train] (c) {label} aggregate: NMSE {e:.3g} to the plain versions, residuals "
+              f"bit-identical {torch.equal(r_k, r_p)}")
+        print(f"[train] (c) {label} decoded aggregate of a real step's blocks ({TRAIN_PODS} x "
+              f"{blocks.shape[1]:,} rows, {TRAIN_CUT_LAYERS} layers at full width): NMSE "
+              f"{e:.3g} to the plain versions (<= 1e-3), residuals bit-identical")
+        del g_k, r_k, g_p, r_p
+    del blocks
+    # (d) save, go on 2 steps; restore, replay the 2
+    state = start
+    for t in range(2):
+        state, _ = auto(state, batches[t])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp, keep=1)
+        t1 = time.perf_counter()
+        ckpt.save(2, state)
+        ckpt.wait()
+        save_s = time.perf_counter() - t1
+        cont = state
+        for t in range(2, 4):
+            cont, _ = auto(cont, batches[t % 3])
+        template = {k: v for k, v in state.items()}
+        t1 = time.perf_counter()
+        restored, step = ckpt.restore(template, device=dev)
+        restore_s = time.perf_counter() - t1
+    check(step == 2, f"[train] (d) restored step {step}")
+    for t in range(2, 4):
+        restored, _ = auto(restored, batches[t % 3])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a_, tree_util.get(restored, p))
+               for p, a_ in tree_util.leaves(cont) if not isinstance(a_, tuple))
+    check(same, "[train] (d) the replay after restore must be bit-identical")
+    print(f"[train] (d) checkpoint of the {TRAIN_CUT_LAYERS}-layer state saved in {save_s:.2f} "
+          f"s, restored in {restore_s:.2f} s; 2 replayed steps bit-identical to the run that "
+          f"went on (parameters, moments, residuals)")
+    return launches, errs, times
+
+
 # JSON name -> (source, the Pallas site it replaces, phase_kernels key)
 KERNELS = {
     "bqcs_encode_fused": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode"),
@@ -2322,6 +2992,10 @@ KERNELS = {
     "qgamp_step[30 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp30"),
     "qgamp_step[104 rows]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp104"),
     "gamp_step[13 rows]": ("gamp_step.cu", "gamp_step.py:108", "gamp13"),
+    f"bqcs_encode_fused[N={TRAIN_N}]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                         "encode255"),
+    f"gamp_step[N={TRAIN_N}]": ("gamp_step.cu", "gamp_step.py:108", "gamp255"),
+    f"qgamp_step[N={TRAIN_N}]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp255"),
 }
 
 
@@ -2393,7 +3067,10 @@ def main() -> int:
     round_ms.update(layout_ms)
     record_launches = phase_record(dev)
     phase_profile(round_ms, dev)
+    train_launches, train_errs, train_times_ = phase_train(dev)
+    k_in.update({k: {"max_abs_err": v} for k, v in train_errs.items()})
     times = phase_times(dev, k_in)
+    times.update(train_times_)
     for label, (_, _, ms, _) in round_ms.items():
         steady = sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else float("nan")
         print(f"[round] {label}: wall ms per round {[round(v, 3) for v in ms]}, "
@@ -2402,7 +3079,8 @@ def main() -> int:
     launches["bqcs_encode_fused"] += qiht_encode
     for kname, n in (list(routes_launches.items()) + list(channel_launches.items())
                      + list(knob_launches.items()) + list(stream_launches.items())
-                     + list(layout_launches.items()) + list(record_launches.items())):
+                     + list(layout_launches.items()) + list(record_launches.items())
+                     + list(train_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

@@ -1,0 +1,8 @@
+"""Command-R 35B [hf:CohereForAI/c4ai-command-r-v01]: GQA, no bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-35b", family="dense",
+    n_layers=40, d_model=8192, n_heads=64, n_kv_heads=8,
+    d_ff=22528, vocab_size=256000, rope_theta=8e6,
+)

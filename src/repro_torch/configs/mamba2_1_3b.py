@@ -1,0 +1,9 @@
+"""Mamba2-1.3B [arXiv:2405.21060]: attention-free SSD."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b", family="ssm",
+    n_layers=48, d_model=2048, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab_size=50280, ssm_state=128, ssm_head_dim=64,
+    tie_embeddings=True, subquadratic=True,
+)

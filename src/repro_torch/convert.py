@@ -22,12 +22,24 @@ import torch
 from repro_torch.optim.adam import QLeaf
 
 
+def _param(v, device) -> torch.Tensor:
+    """One parameter as a float32 tensor; a bfloat16 one (the model zoo's
+    default dtype) stays bfloat16, carried through float32 exactly."""
+    arr = np.asarray(v)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(np.asarray(arr, np.float32), device=device)
+
+
 def from_reference(
-    params_np: Dict[str, np.ndarray], a_np: Optional[np.ndarray] = None, device="cpu"
-) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
-    """(params dict, sensing matrix or None) as float32 tensors on ``device``."""
+    params_np: Dict[str, Any], a_np: Optional[np.ndarray] = None, device="cpu"
+) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
+    """(params dict, sensing matrix or None) as tensors on ``device``.  The
+    parameter dict may be flat or nested (the model zoo's trees); the
+    structure and key order are kept."""
     params = {
-        k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in params_np.items()
+        k: from_reference(v, device=device)[0] if isinstance(v, dict) else _param(v, device)
+        for k, v in params_np.items()
     }
     a = None if a_np is None else torch.tensor(np.asarray(a_np, np.float32), device=device)
     return params, a

@@ -31,7 +31,7 @@ import torch
 from repro_torch import entry_device
 from repro_torch.core import sensing, sparsify
 from repro_torch.core.codebook import Codebook, index_bits, make_codebook
-from repro_torch.core.layout import GradientLayout
+from repro_torch.core.layout import GradientLayout, assemble, flatten_tree
 
 __all__ = [
     "FedQCSConfig",
@@ -100,7 +100,7 @@ class FedQCSConfig:
         if self.recon_mode == "ea" and self.wire_mode != "gather_codes":
             raise ValueError(
                 "recon_mode='ea' needs the per-worker codes on the PS side, "
-                "i.e. wire_mode='gather_codes'; "
+                "i.e. wire_mode='gather_codes' (see DESIGN.md); "
                 f"got wire_mode={self.wire_mode!r}"
             )
         if self.recon_chunk < 0:
@@ -160,9 +160,10 @@ class CompressedGradient:
 
 
 def flatten_to_blocks(tree: Dict[str, torch.Tensor], n: int, row_multiple: int = 1):
-    """(blocks (rows, N), layout, nbar): every leaf in sorted key order,
-    concatenated, zero-padded once to a multiple of N (and ``rows`` to a
-    multiple of ``row_multiple``) -- the monolithic :class:`GradientLayout`."""
+    """(blocks (rows, N), layout, nbar): every leaf in ``jax.tree_util``
+    order (keys sorted at every level, depth first), concatenated,
+    zero-padded once to a multiple of N (and ``rows`` to a multiple of
+    ``row_multiple``) -- the monolithic :class:`GradientLayout`."""
     layout = GradientLayout.monolithic(tree, n, row_multiple=row_multiple)
     return layout.to_blocks(tree), layout, layout.nbar
 
@@ -170,9 +171,9 @@ def flatten_to_blocks(tree: Dict[str, torch.Tensor], n: int, row_multiple: int =
 def flatten_to_blocks_batched(tree: Dict[str, torch.Tensor], n: int, row_multiple: int = 1):
     """Batched variant: every leaf carries a leading batch axis; returns
     (batch, rows, N) blocks, the UNBATCHED layout and nbar."""
-    keys = tuple(sorted(tree))
-    shapes = tuple((tuple(tree[k].shape[1:]), tree[k].dtype) for k in keys)
-    layout = GradientLayout.from_shapes(keys, shapes, n, row_multiple=row_multiple)
+    treedef, leaves = flatten_tree(tree)
+    shapes = tuple((tuple(leaf.shape[1:]), leaf.dtype) for leaf in leaves)
+    layout = GradientLayout.from_shapes(treedef, shapes, n, row_multiple=row_multiple)
     return layout.to_blocks_batched(tree), layout, layout.nbar
 
 
@@ -181,17 +182,17 @@ def blocks_to_tree(blocks: torch.Tensor, spec, nbar: Optional[int] = None
     """Inverse of :func:`flatten_to_blocks`.  ``spec`` is a
     :class:`GradientLayout` (``nbar`` is then ignored: the layout knows its
     own unpadding) or the legacy ``(treedef, shapes)`` tuple, whose
-    ``treedef`` is the dict's sorted key tuple."""
+    ``treedef`` lists each leaf's key (or key path) in order."""
     if isinstance(spec, GradientLayout):
         return spec.tree_from_blocks(blocks)
     treedef, shapes = spec
     flat = blocks.reshape(-1)[:nbar]
-    out, off = {}, 0
-    for key, (shape, dtype) in zip(treedef, shapes):
+    out, off = [], 0
+    for shape, dtype in shapes:
         size = math.prod(int(d) for d in shape) if shape else 1
-        out[key] = flat[off : off + size].reshape(shape).to(dtype)
+        out.append(flat[off : off + size].reshape(shape).to(dtype))
         off += size
-    return out
+    return assemble(treedef, out)
 
 
 # ---------------------------------------------------------------------------

@@ -17,12 +17,13 @@ geometry:
     encoder's live memory is the largest segment's, not the model's) and
     decoded segment by segment (``recon_engine.ea_decode_segments``).
 
-Trees are flat ``name -> tensor`` dicts (the paper's MLP, ``fed/toy.py``).
-Leaves are ordered as ``jax.tree_util`` orders a dict's, by sorted key, and
-named in its ``keystr`` form (``"['w1']"``), so segment names, ``s_ratio``
-and ``split`` arguments and the engine's ``wire_segments`` events read the
-same as the reference's.  Nested trees (the model zoo's) wait for ROADMAP
-item 11: a leaf that is itself a dict raises ``NotImplementedError``.
+Trees are dicts of tensors, flat (the paper's MLP, ``fed/toy.py``) or
+nested (the model zoo's ``params["layers"]["attn"]["wq"]``).  Leaves are
+ordered as ``jax.tree_util`` orders a dict tree -- keys sorted at every
+level, depth first (``repro_torch.tree.leaves``) -- and named in its
+``keystr`` form (``"['w1']"``, ``"['layers']['attn']['wq']"``), so block
+rows, segment names, ``s_ratio`` and ``split`` arguments and the engine's
+``wire_segments`` events read the same as the reference's.
 
 All geometry -- sizes, offsets, row counts -- is Python ints, computed at
 construction.  A segment whose padded span exceeds int32 raises
@@ -39,7 +40,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import not_in_slice
+from repro_torch import tree as tree_util
 
 __all__ = [
     "LayoutSegment",
@@ -71,18 +72,32 @@ def _check_int32(span: int, what: str) -> None:
     )
 
 
-def _flatten(tree: Tree) -> Tuple[Tuple[str, ...], List[torch.Tensor]]:
-    """(sorted keys, leaves in that order) of a flat parameter dict."""
-    keys = tuple(sorted(tree))
-    for k in keys:
-        if isinstance(tree[k], dict):
-            raise not_in_slice(f"nested parameter trees (leaf {k!r} is a dict)", "item 11")
-    return keys, [tree[k] for k in keys]
+def flatten_tree(tree: Tree) -> Tuple[Tuple, List[torch.Tensor]]:
+    """(treedef, leaves in ``jax.tree_util`` order) of a parameter dict.
+    The treedef holds one entry a leaf: its key for a top-level leaf (a
+    flat dict's treedef is its sorted key tuple), else its key path."""
+    items = tree_util.leaves(tree)
+    return (tuple(p[0] if len(p) == 1 else p for p, _ in items),
+            [leaf for _, leaf in items])
 
 
-def _keystr(key: str) -> str:
-    """``jax.tree_util.keystr`` of a dict key: ``['w1']``."""
-    return f"[{key!r}]"
+def _path(entry) -> Tuple[str, ...]:
+    """A treedef entry as a key path."""
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _keystr(entry) -> str:
+    """``jax.tree_util.keystr`` of a treedef entry: ``['w1']``,
+    ``['layers']['attn']['wq']``."""
+    return tree_util.keystr(_path(entry))
+
+
+def assemble(treedef: Sequence, leaves: Sequence) -> Tree:
+    """The dict (nested where the treedef's entries are paths) holding
+    ``leaves`` in treedef order -- the inverse of the flatten."""
+    if all(isinstance(e, str) for e in treedef):
+        return dict(zip(treedef, leaves))
+    return tree_util.unflatten(zip((_path(e) for e in treedef), leaves))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,15 +139,16 @@ class GradientLayout:
     """The parameter dict <-> block-grid spec: keys, leaf shapes, segments.
 
     This object *is* the spec the codec, engine and API pass around
-    (``blocks_to_tree`` takes it directly).  ``treedef`` is the dict's
-    sorted key tuple, the port's counterpart of the reference's treedef.
+    (``blocks_to_tree`` takes it directly).  ``treedef`` lists the leaves
+    in order, each by its key (top-level leaves) or key path (nested
+    leaves): the port's counterpart of the reference's treedef.
     Immutable and hashable; all tensor work happens in :meth:`to_blocks`
     and :meth:`tree_from_blocks`, driven by the Python geometry.
     """
 
     n: int  # block size N
     row_multiple: int
-    treedef: Tuple[str, ...]  # the dict's keys, sorted
+    treedef: Tuple  # per leaf, in order: its key, or its key path when nested
     shapes: Shapes  # per-leaf (shape, dtype)
     segments: Tuple[LayoutSegment, ...]
     nbar: int  # total scalars across all leaves (pre-padding)
@@ -143,7 +159,7 @@ class GradientLayout:
     @classmethod
     def monolithic(cls, tree: Tree, n: int, row_multiple: int = 1) -> "GradientLayout":
         """One segment covering every leaf, padded once at the end."""
-        keys, leaves = _flatten(tree)
+        keys, leaves = flatten_tree(tree)
         shapes = tuple((tuple(l.shape), l.dtype) for l in leaves)
         return cls.from_shapes(keys, shapes, n, row_multiple=row_multiple)
 
@@ -195,7 +211,7 @@ class GradientLayout:
         ``name[a:b]``, never coalesced with its neighbours.  ``s_ratio`` is
         asked with the leaf's name, so every part inherits its budget.
         """
-        keys, leaves = _flatten(tree)
+        keys, leaves = flatten_tree(tree)
         shapes = tuple((tuple(l.shape), l.dtype) for l in leaves)
         return cls.from_shapes_per_tensor(
             keys, shapes, n, row_multiple=row_multiple, names=[_keystr(k) for k in keys],
@@ -350,20 +366,26 @@ class GradientLayout:
         """Flattens, concatenates and zero-pads one segment's leaves (the
         leading ``batch`` axes pass through); a sliced segment takes only its
         ``[offset, offset + size)`` span of each leaf."""
-        lead = tuple(leaves[seg.leaf_ids[0]].shape[:batch]) if seg.leaf_ids else ()
-        parts = []
+        first = leaves[seg.leaf_ids[0]]
+        lead = tuple(first.shape[:batch])
+
+        def piece(i, size, off):
+            flat = leaves[i].reshape(lead + (-1,))
+            return flat if off == 0 and size == flat.shape[-1] else flat.narrow(-1, off, size)
+
+        if len(seg.leaf_ids) == 1 and not seg.pad:
+            return piece(seg.leaf_ids[0], seg.sizes[0], seg.leaf_offsets[0]).to(torch.float32)
+        # one f32 buffer, filled leaf by leaf: no concatenated copy beside
+        # a padded one (a model's grid is GBs)
+        out = torch.zeros(lead + (seg.size + seg.pad,), dtype=torch.float32, device=first.device)
+        pos = 0
         for i, size, off in zip(seg.leaf_ids, seg.sizes, seg.leaf_offsets):
-            flat = leaves[i].reshape(lead + (-1,)).to(torch.float32)
-            if off != 0 or size != flat.shape[-1]:
-                flat = flat.narrow(-1, off, size)
-            parts.append(flat)
-        flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        if seg.pad:
-            flat = torch.nn.functional.pad(flat, (0, seg.pad))
-        return flat
+            out[..., pos:pos + size] = piece(i, size, off)
+            pos += size
+        return out
 
     def _leaves(self, tree: Tree) -> List[torch.Tensor]:
-        return _flatten(tree)[1]
+        return flatten_tree(tree)[1]
 
     def segment_blocks(self, tree: Tree, index: int) -> torch.Tensor:
         """One segment's ``(rows, N)`` block view, built from ITS leaves only
@@ -444,7 +466,7 @@ class GradientLayout:
                 raise ValueError(f"leaf {lid} pieces cover {cursor} of {size} scalars")
             flat = plist[0][1] if len(plist) == 1 else torch.cat([p for _, p in plist], dim=-1)
             out[lid] = flat.reshape(shape).to(dtype)
-        return dict(zip(self.treedef, out))
+        return assemble(self.treedef, out)
 
     def tree_from_blocks(self, blocks: torch.Tensor) -> Tree:
         """Inverse of :meth:`to_blocks` (unpad per segment, reshape leaves;

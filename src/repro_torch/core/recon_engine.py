@@ -22,8 +22,8 @@ converged flag is still false; its survivor set is data-dependent, so it
 syncs with the host once.  :func:`decode_from_stats` finalizes a streamed
 round (``fed/stream.py``) from its folded partial statistics, and
 :func:`ea_decode_segments` decodes a layout segment at a time
-(``core/layout.py``).  Sharding the chunks over a mesh is not ported and
-raises ``NotImplementedError``.
+(``core/layout.py``).  With a ``mesh``, the chunks are shared over the
+processes of one of its axes (``chunked_rows``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch import not_in_slice
 from repro_torch.core.gamp import (
     GampConfig,
     GampInfo,
@@ -132,18 +131,30 @@ def chunked_rows(
 ) -> torch.Tensor:
     """Streams row-aligned ``inputs`` through ``solve(*chunk_inputs) ->
     (chunk, out_width)`` in ``ceil(rows / chunk)`` chunks of ``chunk`` rows,
-    the last zero-padded with dead rows.  ``chunk <= 0``, or a chunk
-    covering all rows, degrades to one direct call."""
-    if mesh is not None:
-        raise not_in_slice(f"the chunked decode sharded over a mesh axis {axis_name!r}",
-                           "item 10")
+    the last zero-padded with dead rows.  With a ``mesh``
+    (``launch/mesh.py``), the chunks are shared over the processes of its
+    ``axis_name`` axis: the chunk count is padded to the axis size, each
+    rank solves its contiguous share and an ``all_gather`` gives every rank
+    the whole result.  ``chunk <= 0``, or a chunk covering all rows without
+    a mesh, degrades to one direct call."""
     rows = inputs[0].shape[0]
-    if chunk <= 0 or chunk >= rows:
+    if chunk <= 0 or (chunk >= rows and mesh is None):
         return solve(*inputs)
     nch = -(-rows // chunk)
+    lo, hi = 0, nch
+    if mesh is not None:
+        ndev = mesh.shape[axis_name]
+        nch = -(-nch // ndev) * ndev
+        rank = mesh.check_group(axis_name)
+        lo, hi = rank * (nch // ndev), (rank + 1) * (nch // ndev)
     padded = _pad_rows_zero(inputs, rows, nch * chunk)
-    outs = [solve(*(x[i * chunk:(i + 1) * chunk] for x in padded)) for i in range(nch)]
-    return torch.cat(outs).reshape(nch * chunk, out_width)[:rows]
+    outs = [solve(*(x[i * chunk:(i + 1) * chunk] for x in padded)) for i in range(lo, hi)]
+    out = torch.cat(outs).reshape((hi - lo) * chunk, out_width)
+    if mesh is not None:
+        from repro_torch.runtime.collectives import all_gather
+
+        out = all_gather(out, mesh.group(axis_name)).reshape(nch * chunk, out_width)
+    return out[:rows]
 
 
 def ea_solve_flat(

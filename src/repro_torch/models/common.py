@@ -1,0 +1,220 @@
+"""Shared building blocks of the model zoo, dense pieces (port of
+``repro.models.common``).
+
+Parameters are nested dicts of tensors; every block has an ``init_*``
+that draws from a seeded CPU ``torch.Generator`` and an ``apply``
+function.  Compute runs in the config dtype (bf16 by default) with fp32
+norm, softmax-max and probability-sum accumulation, in the reference's
+order of operations.  M-RoPE and ``layer_norm`` (the VLM and audio
+families) wait for ROADMAP.md item 11.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import cs
+
+_INIT_STD = 0.02
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def dense_init(gen: Optional[torch.Generator], shape, dtype,
+               fan_in: Optional[int] = None) -> torch.Tensor:
+    """Normal draws (CPU generator, fp32) times 0.02 or 1/sqrt(fan_in).  No
+    generator: an unallocated ``meta`` tensor (the shapes alone)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    scale = _INIT_STD if fan_in is None else float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
+    return (torch.randn(shape, generator=gen, dtype=torch.float32) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, dim // 2), fp32."""
+    half = dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exponent)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, S, H, dh), positions (B, S) -> rotated x (the two halves of
+    the head dimension rotate together)."""
+    cos, sin = _rope_angles(positions, x.shape[-1], theta)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA with optional qk-norm and bias; causal, training path)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, layers: int) -> dict:
+    """Stacked (``layers``, ...) attention weights, keys in sorted order."""
+    d, dh, dt = cfg.d_model, cfg.head_dim, dtype_of(cfg)
+    hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    p = {}
+    if cfg.qkv_bias:
+        p["bk"] = torch.zeros((layers, hkv), dtype=dt)
+        p["bq"] = torch.zeros((layers, hq), dtype=dt)
+        p["bv"] = torch.zeros((layers, hkv), dtype=dt)
+    if cfg.qk_norm:
+        p["k_norm"] = torch.ones((layers, dh), dtype=dt)
+        p["q_norm"] = torch.ones((layers, dh), dtype=dt)
+    p["wk"] = dense_init(gen, (layers, d, hkv), dt, d)
+    p["wo"] = dense_init(gen, (layers, hq, d), dt, hq)
+    p["wq"] = dense_init(gen, (layers, d, hq), dt, d)
+    p["wv"] = dense_init(gen, (layers, d, hkv), dt, d)
+    return p
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """q (B, Sq, H, dh), k/v (B, Sk, KVH, dh) -> (B, Sq, H, dh).  The S x S
+    chain stays in the compute dtype; the row max and row sum run fp32."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        scores = scores.masked_fill(~mask, float("-inf"))
+    m = torch.clamp(torch.amax(scores, dim=-1, keepdim=True).float(), min=-1e30)
+    p = torch.exp(scores - m.to(scores.dtype))
+    l = torch.sum(p, dim=-1, dtype=torch.float32)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    denom = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    out = out / denom.to(out.dtype)
+    return out.reshape(b, sq, h, dh)
+
+
+def apply_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention of one layer's weights ``p`` (the training
+    path; the cached decode is item 11's serve step)."""
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, dh)
+    k = k.reshape(b, s, cfg.n_kv_heads, dh)
+    v = v.reshape(b, s, cfg.n_kv_heads, dh)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    q = cs(q, "batch", "seq", "heads", None)
+    out = _sdpa(q, k, v, causal=causal).reshape(b, s, cfg.n_heads * dh)
+    return cs(out @ p["wo"], "batch", "seq", "dmodel")
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, f: int, dtype, layers: int) -> dict:
+    return {
+        "wg": dense_init(gen, (layers, d, f), dtype, d),
+        "wi": dense_init(gen, (layers, d, f), dtype, d),
+        "wo": dense_init(gen, (layers, f, d), dtype, f),
+    }
+
+
+def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["wi"]
+    h = F.silu(x @ p["wg"]) * h
+    h = cs(h, "batch", "seq", "ff")
+    return cs(h @ p["wo"], "batch", "seq", "dmodel")
+
+
+# ---------------------------------------------------------------------------
+# embedding, head and loss
+# ---------------------------------------------------------------------------
+
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = dtype_of(cfg)
+    p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, cfg.d_model)
+    return p
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # F.embedding: its backward on the card sums each token's rows in a
+    # fixed order (a replayed step is bit-identical)
+    return cs(F.embedding(tokens, p["embed"]), "batch", "seq", "dmodel")
+
+
+def logits_from(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    out = x @ p["embed"].T if cfg.tie_embeddings else x @ p["lm_head"]
+    return cs(out, "batch", "seq", "vocab")
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean token cross-entropy.  The exp() intermediate stays in the
+    logits dtype; the row max and the probability sum run fp32."""
+    m = torch.amax(logits.float(), dim=-1)
+    p = torch.exp(logits - m[..., None].to(logits.dtype))
+    lse = torch.log(torch.sum(p, dim=-1, dtype=torch.float32)) + m
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold.float()
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def head_loss_params(params: dict, cfg: ModelConfig) -> dict:
+    """The parameter subtree the LM-head stage touches: ``final_norm`` and
+    the token matrices the logits read (all of ``tok`` when tied)."""
+    tok = params["tok"] if cfg.tie_embeddings else {"lm_head": params["tok"]["lm_head"]}
+    return {"final_norm": params["final_norm"], "tok": tok}
+
+
+def head_loss(p: dict, x: torch.Tensor, ctx: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Final RMS norm -> (tied) logits -> mean token cross-entropy."""
+    hidden = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    logits = logits_from(p["tok"], hidden, cfg)
+    return softmax_cross_entropy(logits, ctx["labels"], ctx.get("mask"))
+
+
+def remat_policy(cfg: ModelConfig) -> bool:
+    """Whether a layer's activations are recomputed in the backward pass
+    (``torch.utils.checkpoint`` per layer).  The reference's ``minimal``
+    policy saves the weight products and ``full`` nothing; the port
+    recomputes the whole layer for both.  It changes memory, not values."""
+    if cfg.remat_policy not in ("none", "minimal", "full"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return cfg.remat_policy != "none"

@@ -1,5 +1,6 @@
-"""Adam and SGD with momentum over parameter dicts, with fp32 or
-blockwise-int8 moment states (port of ``repro.optim.adam``).
+"""Adam and SGD with momentum over parameter dicts (flat, or nested as the
+model zoo's), with fp32 or blockwise-int8 moment states (port of
+``repro.optim.adam``).
 
 The update is written out as the reference writes it -- bias terms
 ``1 - b**t`` in float32, ``mhat / (sqrt(vhat) + eps)`` -- rather than
@@ -15,12 +16,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-Params = Dict[str, torch.Tensor]
+from repro_torch import tree as tree_util
+
+Params = Dict[str, Any]  # name -> tensor, or name -> nested dict of tensors
 
 _QBLOCK = 256
 
@@ -118,43 +121,54 @@ def _check(cfg: OptConfig) -> None:
 
 
 def init_state(cfg: OptConfig, params: Params) -> Dict[str, dict]:
-    """{"m": ..., "v": ...} for Adam, {"m": ...} for SGD: fp32 zeros or
-    their QLeafs."""
+    """{"m": ..., "v": ...} for Adam, {"m": ...} for SGD: trees of the
+    parameters' structure (flat or nested), fp32 zeros or their QLeafs."""
     _check(cfg)
     zeros = lambda p: _maybe_q(  # noqa: E731
         torch.zeros(p.shape, dtype=torch.float32, device=p.device), cfg)
     names = ("m", "v") if cfg.kind == "adam" else ("m",)
-    return {s: {k: zeros(p) for k, p in params.items()} for s in names}
+    return {s: tree_util.tree_map(zeros, params) for s in names}
 
 
 def update(cfg: OptConfig, grads: Params, state, params: Params, step) -> Tuple[Params, dict]:
+    """One step over a flat or nested parameter dict; the new parameters and
+    state keep the parameters' structure and key order."""
     _check(cfg)
     lr = schedule(cfg, step)
+    paths = [p for p, _ in tree_util.leaves_in_order(params)]
+    g_of = {p: tree_util.get(grads, p) for p in paths}
     if cfg.grad_clip > 0:
-        gn = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
+        # the squared norms summed in the gradient tree's own order
+        gn = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                            for _, g in tree_util.leaves_in_order(grads)))
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-        grads = {k: g * clip for k, g in grads.items()}
+        g_of = {p: g * clip for p, g in g_of.items()}
+    m_of = {p: tree_util.get(state["m"], p) for p in paths}
     if cfg.kind == "sgd":
-        new_p, new_m = {}, {}
-        for k, p in params.items():
-            mf = cfg.momentum * _maybe_dq(state["m"][k]) + grads[k].float()
+        new_p, new_m = [], []
+        for path, p in tree_util.leaves_in_order(params):
+            mf = cfg.momentum * _maybe_dq(m_of[path]) + g_of[path].float()
             q = p.float() - lr * mf
             if cfg.weight_decay:
                 q = q - _f32_product(lr, cfg.weight_decay) * p.float()
-            new_p[k], new_m[k] = q.to(p.dtype), _maybe_q(mf, cfg)
-        return new_p, {"m": new_m}
+            new_p.append((path, q.to(p.dtype)))
+            new_m.append((path, _maybe_q(mf, cfg)))
+        return tree_util.unflatten(new_p), {"m": tree_util.unflatten(new_m)}
     t = np.float32(step) + np.float32(1.0)
     bias1 = float(np.float32(1.0) - np.float32(cfg.b1) ** t)  # f32, as the reference
     bias2 = float(np.float32(1.0) - np.float32(cfg.b2) ** t)
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        gf = grads[k].float()
-        mf = cfg.b1 * _maybe_dq(state["m"][k]) + (1 - cfg.b1) * gf
-        vf = cfg.b2 * _maybe_dq(state["v"][k], sqrt_domain=True) + (1 - cfg.b2) * (gf * gf)
+    new_p, new_m, new_v = [], [], []
+    for path, p in tree_util.leaves_in_order(params):
+        gf = g_of[path].float()
+        mf = cfg.b1 * _maybe_dq(m_of[path]) + (1 - cfg.b1) * gf
+        vf = (cfg.b2 * _maybe_dq(tree_util.get(state["v"], path), sqrt_domain=True)
+              + (1 - cfg.b2) * (gf * gf))
         step_dir = (mf / bias1) / (torch.sqrt(vf / bias2) + cfg.eps)
         q = p.float() - lr * step_dir
         if cfg.weight_decay:
             q = q - _f32_product(lr, cfg.weight_decay) * p.float()
-        new_p[k], new_m[k] = q.to(p.dtype), _maybe_q(mf, cfg)
-        new_v[k] = _maybe_q(vf, cfg, sqrt_domain=True)
-    return new_p, {"m": new_m, "v": new_v}
+        new_p.append((path, q.to(p.dtype)))
+        new_m.append((path, _maybe_q(mf, cfg)))
+        new_v.append((path, _maybe_q(vf, cfg, sqrt_domain=True)))
+    return tree_util.unflatten(new_p), {"m": tree_util.unflatten(new_m),
+                                        "v": tree_util.unflatten(new_v)}

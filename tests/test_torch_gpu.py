@@ -25,6 +25,10 @@ Tolerances, each with its reason:
   * bqcs_encode (staged): alpha rtol 1e-6, codes as the encoder's, at every
     cluster size, and bit-identical from one launch to the next (the
     cluster adds its partial tiles in rank order, no atomics).
+  * the train step's shapes (N = 255, 65,536 rows): the step kernels at the
+    tolerances above against the float64 step (two fp32 evaluations part
+    on a few of 5.6M outputs); one smoke-config step per impl on the card
+    against the CPU: loss 1e-5, residual 1e-5, parameters within 2 lr.
 """
 
 import functools
@@ -115,6 +119,13 @@ def test_encoder_main_path_shape(cuda):
 def test_encoder_layout_shapes(cuda, nb, s):
     blocks, resid, a, taus = _encode_inputs(nb, 1591, 530, 3, seed=nb + s, dev=cuda)
     check_encoder(blocks, resid, a, taus, s=s, bits=3)
+
+
+def test_encoder_train_step_shape(cuda):
+    """The train step's encode: N = 255 (odd), M = 85, Q = 3 (W = 9 words),
+    S = 12, on 65,536 rows."""
+    blocks, resid, a, taus = _encode_inputs(65536, 255, 85, 3, seed=7, dev=cuda)
+    check_encoder(blocks, resid, a, taus, s=12, bits=3)
 
 
 def test_encoder_segments_match_one_pass(cuda):
@@ -229,6 +240,51 @@ def test_gamp_step_refused_shape_raises(cuda, rows, cluster):
     nud = torch.full((10, 1), 0.05, device=cuda)
     with pytest.raises(RuntimeError, match="gamp_step_launch failed"):
         gamp_step(ghat, nug, shat, theta, y, nud, a, 3, True, _rows=rows, _cluster=cluster)
+
+
+# The train step's decodes (N = 255, M = 85, Q = 3 -> W = 9): 65,536 of
+# their millions of rows, which the chooser tiles as it tiles them all
+# (4 x 1).  Each output is held at the tolerance above against the plain
+# step evaluated in float64, at every (rows per tile, cluster): at 5.6M
+# outputs, two fp32 evaluations -- the kernel and the plain step, each
+# summing in its own order -- part past rtol 2e-4 / atol 1e-6 on 1-2
+# elements of gamp_step's shat (no element of either is outside it against
+# float64; PERF.md §6), so the exact step is the reference here; the
+# plain fp32 step is held to it too.
+@pytest.mark.parametrize("rows,cluster", [(None, None)] + [
+    (r, c) for r in GAMP_ROWS for c in GAMP_CLUSTERS])
+@pytest.mark.parametrize("kind", ["gamp", "qgamp"])
+def test_step_kernels_at_the_train_step_shape(cuda, kind, rows, cluster):
+    nb, n, m, L, q = 65536, 255, 85, 3, 3
+    rng, ghat, nug, shat, theta, a = _gamp_state(nb, n, m, L, nb + (L if kind == "gamp" else q),
+                                                 cuda)
+    d = lambda x: x.double()  # noqa: E731
+    if kind == "gamp":
+        y = torch.as_tensor(rng.normal(0, 1, (nb, m)).astype(np.float32), device=cuda)
+        nud = torch.full((nb, 1), 0.05, device=cuda)
+        out_k = gamp_step(ghat, nug, shat, theta, y, nud, a, L, True, _rows=rows,
+                          _cluster=cluster)
+        out_p = ref.gamp_step_ref(ghat, nug, shat, theta, y, nud, a, L, True)
+        exact = ref.gamp_step_ref(d(ghat), d(nug), d(shat), d(theta), d(y), d(nud), d(a), L, True)
+        rtol, atol = 2e-4, 1e-6
+    else:
+        from repro_torch.core.compression import pack_codes
+
+        alpha = torch.as_tensor(rng.uniform(0.8, 1.25, (nb, 1)).astype(np.float32), device=cuda)
+        x = alpha * (ghat @ a.T) + torch.as_tensor(
+            rng.normal(0, 0.1, (nb, m)).astype(np.float32), device=cuda)
+        taus = torch.as_tensor(design_lloyd_max(q).thresholds.astype(np.float32), device=cuda)
+        codes = torch.searchsorted(taus, x.contiguous()).to(torch.int32)
+        lo, hi = tau_tables(taus)
+        out_k = qgamp_step(ghat, nug, shat, theta, pack_codes(codes, q), alpha, lo, hi, a, L,
+                           True, q, _rows=rows, _cluster=cluster)
+        out_p = ref.qgamp_step_ref(ghat, nug, shat, theta, codes, alpha, lo, hi, a, L, True)
+        exact = ref.qgamp_step_ref(d(ghat), d(nug), d(shat), d(theta), codes, d(alpha), d(lo),
+                                   d(hi), d(a), L, True)
+        rtol, atol = 1e-3, 1e-5
+    for k, p, e in zip(out_k, out_p, exact):
+        torch.testing.assert_close(k.double(), e, rtol=rtol, atol=atol)
+        torch.testing.assert_close(p.double(), e, rtol=rtol, atol=atol)
 
 
 def _plain_ea_run(words, alpha, a, taus, bits, m, iters):
@@ -860,3 +916,67 @@ def test_encode_stream_wire_matches_one_pass_on_the_card(cuda, monkeypatch):
     assert torch.equal(words[0], words[2])
     assert seen[True][1].nmses == seen[False][1].nmses
     assert torch.equal(seen[True][1].last_ghat, seen[False][1].last_ghat)
+
+
+# One smoke-config train step per impl on the card against the same step on
+# the CPU (plain versions): the forward is fp32 on both, so the loss agrees
+# to 1e-5 and the residual to 1e-5; the decoded aggregate can part in a
+# near-zero entry's sign, which one Adam step turns into up to 2 lr.
+_STEP_FED = dict(block_size=256, reduction_ratio=2, bits=4, s_ratio=0.08, gamp_iters=15,
+                 gamp_variance_mode="scalar", use_kernels=True)
+
+
+def _smoke_step(device, impl, fed_kw, pods, mesh):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    cfg, opt = smoke_config("qwen3-0.6b"), OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100)
+    fed = None if fed_kw is None else FedQCSConfig(**{**_STEP_FED, **fed_kw})
+    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=pods, mesh=mesh, impl=impl,
+                                   device=device)
+    fn = steps.make_train_step(cfg, opt, fed, mesh, impl=impl, device=device,
+                               a=torch.randn((128, 256), generator=torch.Generator()
+                                             .manual_seed(1)) / np.sqrt(128))
+    return fn(state, TokenDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(
+        0, device=device))
+
+
+@pytest.mark.parametrize("impl,fed_kw", [
+    ("auto", {}), ("auto", {"recon_mode": "ea"}), ("auto_sharded", {}), ("baseline", None),
+    ("shard_map", {}), ("shard_map", {"recon_mode": "ea"}),
+])
+def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path, impl, fed_kw):
+    """impl="shard_map" runs at world size 1 over NCCL (one card) and is
+    held against one pod's impl="auto" step on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.launch.mesh import make_debug_mesh, make_single_device_mesh
+
+    mesh, pods, cpu_impl = make_single_device_mesh(), 2, impl
+    if impl == "shard_map":
+        dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                                world_size=1)
+        mesh, pods, cpu_impl = make_debug_mesh(1), 1, "auto"
+    j_impl = "auto" if impl == "baseline" else impl
+    try:
+        enc_mod.launches = 0
+        card, m_card = _smoke_step("cuda", j_impl, fed_kw, pods, mesh)
+        torch.cuda.synchronize()
+        launched = enc_mod.launches
+    finally:
+        if impl == "shard_map":
+            dist.destroy_process_group()
+    assert launched == (0 if fed_kw is None else pods)
+    cpu, m_cpu = _smoke_step("cpu", "auto" if cpu_impl == "baseline" else cpu_impl, fed_kw,
+                             pods, make_single_device_mesh())
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-5
+    if fed_kw is not None:
+        torch.testing.assert_close(card["residual"].cpu(), cpu["residual"], rtol=0, atol=1e-5)
+    worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu["params"], path))))
+                for path, p in tree_util.leaves(card["params"]))
+    assert worst <= 2 * 3e-3, worst

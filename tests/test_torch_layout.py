@@ -216,8 +216,10 @@ def test_int32_guard():
         TLayout.from_shapes_per_tensor(keys, [((INT32_MAX + 2,), torch.float32)] * 3, 1024)
     with pytest.raises(ValueError, match="s_ratio"):
         TLayout.per_tensor({"w": torch.zeros(8)}, 64, s_ratio=lambda n, s: 1.5)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TLayout.monolithic({"a": {"b": torch.zeros(3)}}, 64)
+    # a nested tree (ported since): leaves in jax.tree_util order, keystr names
+    nested = TLayout.per_tensor(
+        {"a": {"c": torch.zeros(3), "b": torch.ones(2)}, "d": torch.ones(1)}, 64)
+    assert [seg.name for seg in nested.segments] == ["['a']['b']", "['a']['c']", "['d']"]
 
 
 def test_owner_map_live_bytes_and_as_layout():

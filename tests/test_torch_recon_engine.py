@@ -374,6 +374,31 @@ def _decode_from_stats_matches_reference(tc):
         assert _nmse(tre.decode_from_stats(tc, ts), jre.decode_from_stats(jc, js)) <= tol
 
 
+def _chunked_rows_over_a_mesh_matches_reference(tc):
+    """``chunked_rows`` with a mesh (ported since): the chunks shared over a
+    one-process ``recon`` axis (a gloo group) give the unsharded result and
+    the reference's over its one-device ``recon`` mesh."""
+    import tempfile
+
+    import torch.distributed as dist
+    from jax.sharding import Mesh as JMesh
+
+    from repro_torch.launch.mesh import Mesh
+
+    x = np.random.default_rng(2).normal(size=(10, 5)).astype(np.float32)
+    want = jre.chunked_rows(lambda c: jnp.tanh(c) * 2.0, (J(x),), 3, 5,
+                            mesh=JMesh(np.array(jax.devices()[:1]), ("recon",)))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=0, world_size=1)
+        try:
+            got = tre.chunked_rows(lambda c: torch.tanh(c) * 2.0, (T(x),), 3, 5,
+                                   mesh=Mesh({"recon": 1}))
+        finally:
+            dist.destroy_process_group()
+    assert torch.equal(got, tre.chunked_rows(lambda c: torch.tanh(c) * 2.0, (T(x),), 3, 5))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
 def _segment_payloads(chunk=0):
     """Three clients' per-tensor payloads (N = 256) encoded by the reference,
     with the port's codec on the same A: (reference codec, port codec,
@@ -443,10 +468,9 @@ def _compress_tree_per_tensor_matches_reference(_tc):
 # first two cases became tests/test_torch_channel.py's api.reconstruct parity
 # test and tests/test_torch_knobs.py's grouped-decode tests; routes 1, 2, 5
 # and 6 now hold the ported function against the reference (item
-# "ported").
+# "ported"); route 0 (item 10) since the distributed steps were ported.
 @pytest.mark.parametrize("route,item", [
-    pytest.param(lambda tc: tre.chunked_rows(None, (torch.zeros(4),), 2, 1, mesh=object()),
-                 "item 10", id="route0-item 10"),
+    pytest.param(_chunked_rows_over_a_mesh_matches_reference, "ported", id="route0-item 10"),
     pytest.param(_ea_decode_segments_matches_reference, "ported", id="route1-item 9"),
     pytest.param(_decode_from_stats_matches_reference, "ported", id="route2-item 7"),
     pytest.param(_reconstruct_emit_matches_reference, "ported", id="route5-item 9"),

@@ -124,7 +124,29 @@ Phases (any failure raises and the script exits non-zero):
     the baseline; (c) the decoded aggregate of a real step's blocks on the
     kernel route against the plain versions (AE and EA, NMSE <= 1e-3);
     (d) a checkpoint saved, restored and replayed 2 steps bit for bit.
- 14. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 14. [serve] The serve path (``runtime/steps.py``: ``make_prefill_step``,
+    ``make_decode_step``) and the rest of the transformer family: MLA's
+    absorbed decode against its decompressed train attention (one
+    DeepSeek-V3 layer at full width, fp32, rtol 2e-3 / atol 2e-4);
+    Qwen2-VL-7B's prefill logits against sequential decode (full width, 4
+    layers, fp32, a text-only prompt, rtol/atol 2e-2); one Qwen3-MoE layer
+    at full width in fp32 on 64 tokens against a per-token loop over each
+    token's kept experts (drops included), zeroed experts giving exactly 0;
+    the MoE, MLA (+MTP) and VLM smoke configs in fp32 on the card against
+    the CPU (loss, gradients, prefill logits and cache, 8 decode steps) and
+    one ``impl="auto"`` FedQCS step of each, AE and EA, on the kernel route
+    against the plain versions (its launches counted in the JSON line).
+    Then Qwen3-MoE-235B-A22B (2 of 94 layers; prefill 4 x 2048), DeepSeek-V3
+    (1 dense + 1 MoE layer and the MTP block; prefill 2 x 1024, the latent
+    cache) and Qwen2-VL-7B (28 layers; prefill 2 x 2048: 512 patch and
+    1536 text positions) at every published width, bf16 weights drawn on
+    the card, each followed by 64 greedy tokens through ``donate=True``
+    decode steps (the first checked to change cache slot ``pos`` and no
+    other, bit for bit): weight bytes, prefill ms, decode ms a token
+    (median of 64) and tokens/s, peak memory, the dropped MoE pairs at the
+    prefill's capacity, and the prefill and 8 decode steps under
+    ``torch.profiler`` (device busy, idle share).
+ 15. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
@@ -167,6 +189,7 @@ SRC = ROOT / "src"
 # tensor cores.  A bound is the larger of bytes / rate and FLOPs / peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, on the tensor cores ([serve]'s bf16 GEMMs)
 K, N, M, Q, S, ITERS = 30, 1591, 530, 3, 159, 25
 CHUNK_ROWS = 64  # [routes]' recon_chunk: 300 EA rows -> 5 chunks, the last with 20 dead rows
 # [stream]'s StreamConfig: 8-client batches (K = 30 -> 3 full batches and one
@@ -2966,6 +2989,590 @@ def phase_train(dev):
     return launches, errs, times
 
 
+# [serve]: the serve steps (runtime/steps.py: make_prefill_step, then
+# make_decode_step with donate=True) on three configurations at every
+# published width, bf16 weights drawn on the card from seed 0: (label, arch,
+# depth cut, batch, patch positions, text positions).  (a) Qwen3-MoE-235B-A22B
+# at 2 of 94 layers; (b) DeepSeek-V3 at 1 dense + 1 MoE layer and its MTP
+# block (MLA's latent cache); (c) Qwen2-VL-7B at full depth, a 512-patch
+# prefix on a 16 x 32 grid (t = 0, h, w) and text at its slot index on all
+# three M-RoPE streams.  Each decodes SERVE_DECODE greedy tokens.
+SERVE_RUNS = (
+    ("a", "qwen3-moe-235b-a22b", dict(n_layers=2), 4, 0, 2048),
+    ("b", "deepseek-v3-671b", dict(n_layers=2, first_dense_layers=1), 2, 0, 1024),
+    ("c", "qwen2-vl-7b", {}, 2, 512, 1536),
+)
+SERVE_DECODE = 64
+SERVE_FAMILIES = ("qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b")
+
+
+def serve_prompt(cfg, b: int, sv: int, st: int, dev, seed: int = 1) -> dict:
+    """Uniform prompt tokens from a seeded card generator; a VLM prompt adds
+    ``sv`` patch embeddings (normal(0, 0.02)) and its (3, B, sv + st)
+    positions."""
+    import torch
+
+    from repro_torch.models.common import dtype_of
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, st), generator=gen, device=dev)}
+    if sv:
+        i = torch.arange(sv, device=dev)
+        text = torch.arange(sv, sv + st, device=dev)
+        grid = torch.stack([torch.zeros_like(i), i // 32, i % 32])  # (t, h, w)
+        pos = torch.cat([grid, text.expand(3, st)], dim=1)
+        batch["patches"] = (torch.randn((b, sv, cfg.d_model), generator=gen, device=dev)
+                            * 0.02).to(dtype_of(cfg))
+        batch["positions"] = pos[:, None].expand(3, b, sv + st).contiguous()
+    return batch
+
+
+def card_params(cfg, dev, seed: int):
+    """``cfg``'s tree drawn on the card from a seeded card generator, leaf by
+    leaf over ``init_params(device="meta")``, with ``init_params``'s scales:
+    a matrix normal times 1/sqrt(its fan-in) (its second-to-last axis),
+    the embedding table times 0.02, norm scales 1, biases 0 (a full-width
+    model in seconds; the CPU draw takes minutes)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.models import model as model_api
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def fill(path, v):
+        stacked = path[0] in ("layers", "layers_dense")  # a leading L axis
+        if v.dim() - stacked < 2:
+            return (torch.ones if "norm" in path[-1] or path[-1] in ("ln1", "ln2")
+                    else torch.zeros)(v.shape, dtype=v.dtype, device=dev)
+        scale = 0.02 if path == ("tok", "embed") else float(v.shape[-2]) ** -0.5
+        return (torch.randn(v.shape, generator=gen, device=dev) * scale).to(v.dtype)
+
+    meta = model_api.init_params(cfg, device="meta")
+    return tree_util.unflatten((path, fill(path, v)) for path, v in tree_util.leaves_in_order(meta))
+
+
+@contextlib.contextmanager
+def routed_pairs():
+    """Wraps ``models/moe.py::dispatch``, which ``apply_moe`` calls once a MoE
+    layer, and yields a list that gets one (kept pairs, distinct experts
+    with a kept pair, dropped pairs) a call: the routing of the calls made
+    inside, read from the model's own dispatch."""
+    import torch
+
+    from repro_torch.models import moe
+
+    rec, inner = [], moe.dispatch
+
+    def spy(topi, cap, n_experts):
+        out = inner(topi, cap, n_experts)
+        kept = out[3] < n_experts * cap
+        rec.append((int(kept.sum()), int(torch.unique(out[1][kept]).numel()),
+                    int((~kept).sum())))
+        return out
+
+    moe.dispatch = spy
+    try:
+        yield rec
+    finally:
+        moe.dispatch = inner
+
+
+def traced_ms(fn, n: int):
+    """(wall ms a call under the trace, device busy ms a call) of ``n``
+    calls of ``fn``, each ending in a device sync, under one
+    ``torch.profiler`` trace: busy is the summed time of the device events
+    (one stream, so they do not overlap); None when the trace holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / n
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type != DeviceType.CPU) / 1e3
+    return wall, (busy / n if busy else None)
+
+
+def serve_bounds(params, cfg, b: int, s: int, routing) -> tuple:
+    """The least time the card could take for this run's prefill of b x s
+    tokens and for one decode step at b x 1 at position s (the step the
+    trace replays), each (ms, "bytes" or "operations"): the larger of the
+    bytes over 3.35 TB/s and the bf16 operations over 989 TFLOP/s.
+    ``routing``: (prefill, decode), each the ``routed_pairs`` record of that
+    call (one (kept pairs, distinct experts, dropped pairs) a MoE layer).
+    Bytes: every weight the step runs read once -- of the expert stacks
+    only the experts that got a kept pair; not the embedding table, of
+    which it gathers a few rows, unless it is tied to the logits; not the
+    MTP block, which serving does not run -- plus the cache written
+    (prefill: s slots) or read (decode: slots 0..s).  Operations: 2 x each
+    matrix's entries a token, an expert's a kept (token, expert) pair; the
+    causal scores and their product with V (s (s + 1) / 2 query-key pairs
+    a sequence and head in prefill, s + 1 in decode); the logits of the
+    last position."""
+    from repro_torch import tree as tree_util
+
+    run = [(path, leaf) for path, leaf in tree_util.leaves(params) if path[0] != "mtp"
+           and (path != ("tok", "embed") or cfg.tie_embeddings)]
+    experts = [leaf for path, leaf in run if "experts" in path]
+    dense = [(path, leaf) for path, leaf in run if "experts" not in path]
+    # one expert of one layer: the stacks are (MoE layers, E, ...)
+    n_exp = max(1, (cfg.n_layers - cfg.first_dense_layers) * cfg.n_experts) if experts else 1
+    e_bytes = sum(v.numel() * v.element_size() for v in experts) / n_exp
+    e_entries = sum(v.numel() for v in experts) / n_exp
+    d_bytes = sum(v.numel() * v.element_size() for _, v in dense)
+    width = (cfg.kv_lora_rank + cfg.qk_rope_head_dim if cfg.use_mla
+             else 2 * cfg.n_kv_heads * cfg.head_dim)
+    cache_bytes = cfg.n_layers * b * width * 2  # a slot of every layer, bf16
+    dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim if cfg.use_mla else cfg.head_dim
+    dv = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
+
+    def ops(tokens: int, pairs: int, qk: float) -> float:
+        total = 2.0 * cfg.d_model * cfg.vocab_size * b  # the last position's logits
+        for path, leaf in dense:
+            stacked = path[0] in ("layers", "layers_dense")  # a leading L axis
+            if leaf.dim() - stacked < 2 or path[0] == "tok":
+                continue  # norms and biases; the logits are counted above
+            total += 2.0 * leaf.numel() * tokens
+        return (total + 2.0 * e_entries * pairs
+                + cfg.n_layers * 2.0 * b * cfg.n_heads * qk * (dqk + dv))
+
+    out = []
+    for rec, slots, tokens, qk in ((routing[0], s, b * s, s * (s + 1) / 2),
+                                   (routing[1], s + 1, b, s + 1)):
+        kept, distinct = sum(r[0] for r in rec), sum(r[1] for r in rec)
+        nbytes = d_bytes + distinct * e_bytes + cache_bytes * slots
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops(tokens, kept, qk) / BF16_FLOPS_PER_S
+        out.append((1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"))
+    return tuple(out)
+
+
+def serve_one(label, arch, cut, b, sv, st, dev, smi) -> None:
+    """One configuration of SERVE_RUNS: weights, prefill (a warm-up call
+    that records the MoE routing, then the timed one), the cache spliced to
+    smax, SERVE_DECODE donated decode steps (each timed to its device sync;
+    the first checked to change cache slot ``pos`` and no other, bit for
+    bit), a replay of the first step that records its routing, then the
+    prefill and 8 replays under ``torch.profiler`` (device busy, idle
+    share)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.models import model as model_api
+    from repro_torch.models.moe import capacity
+    from repro_torch.runtime import steps
+
+    cfg = dc.replace(get_config(arch), **cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = card_params(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    leaves = [v for _, v in tree_util.leaves(params)]
+    n_params = sum(v.numel() for v in leaves)
+    wbytes = sum(v.numel() * v.element_size() for v in leaves)
+    print(f"[serve] ({label}) {cfg.name}: {cfg.n_layers} of {get_config(arch).n_layers} layers"
+          + (f" ({cfg.first_dense_layers} dense)" if cfg.first_dense_layers else "")
+          + (", MTP block" if cfg.mtp else "") + f", d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params:,} parameters, {wbytes:,} weight bytes "
+          f"({wbytes / 2**30:.3f} GiB), drawn on the card in {time.perf_counter() - t0:.1f} s "
+          f"| {smi}")
+    mesh = make_single_device_mesh()
+    prompt = serve_prompt(cfg, b, sv, st, dev)
+    s = sv + st
+    smax = s + SERVE_DECODE
+    prefill = steps.make_prefill_step(cfg, mesh)
+    walls = []
+
+    def timed_prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(params, prompt)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    with routed_pairs() as rec:
+        timed_prefill()
+    routing = [rec]
+    logits, pc = timed_prefill()
+    check(logits.shape == (b, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"[serve] ({label}) prefill logits {tuple(logits.shape)} not finite or misshapen")
+    cache = model_api.init_cache(cfg, b, smax, device=dev)
+    for k, v in pc.items():
+        check(v.shape[2] == s, f"[serve] ({label}) prefill cache {k} {tuple(v.shape)}")
+        cache[k][:, :, :s] = v
+    del pc
+    decode = steps.make_decode_step(cfg, mesh, donate=True)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    ms, toks = [], [tok]
+    for t in range(SERVE_DECODE):
+        before = tree_util.tree_map(torch.clone, cache) if t == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, lo, new = decode(params, cache, tok, s + t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        toks.append(tok)
+        if before is not None:
+            for k in cache:
+                check(new[k] is cache[k], f"[serve] ({label}) donate=True must write the "
+                      f"caller's cache {k} in place")
+                diff = (new[k] != before[k]).reshape(*new[k].shape[:3], -1).any(-1)
+                slots = torch.nonzero(diff.any(0).any(0)).flatten().tolist()
+                check(slots == [s], f"[serve] ({label}) the donated decode at pos {s} changed "
+                      f"slots {slots[:8]} of {k}, want [{s}] only")
+            del before
+        cache = new
+    check(bool(torch.isfinite(lo).all()) and lo.shape == (b, 1, cfg.vocab_size),
+          f"[serve] ({label}) decode logits")
+    seq = torch.cat(toks, dim=1)
+    check(int(seq.min()) >= 0 and int(seq.max()) < cfg.vocab_size, f"[serve] ({label}) tokens")
+    med = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated()
+    with routed_pairs() as rec:  # a replay of the first step (its slot rewritten)
+        decode(params, cache, toks[0], s)
+    routing.append(rec)
+    # where the time goes: the prefill and 8 replays of the first decode
+    # step (the same work) under torch.profiler
+    pre_wall, pre_busy = traced_ms(lambda: prefill(params, prompt), 1)
+    dec_wall, dec_busy = traced_ms(lambda: decode(params, cache, toks[0], s), 8)
+    shares = [("not measured" if busy is None else f"device busy {busy:.3f} ms, idle share "
+               f"{1 - busy / wall:.3f}") for wall, busy in ((pre_wall, pre_busy),
+                                                            (dec_wall, dec_busy))]
+    (pre_bound, pre_by), (dec_bound, dec_by) = serve_bounds(params, cfg, b, s, routing)
+    print(f"[serve] ({label}) prefill {b} x {s} tokens"
+          + (f" ({sv} patch + {st} text positions)" if sv else "")
+          + f": {walls[1]:.3f} ms (first call, recording the routing, {walls[0]:.3f} ms); "
+          f"decode {SERVE_DECODE} tokens a sequence from smax {smax}, donate=True: median "
+          f"{med:.3f} ms a token (min {min(ms):.3f}, max {max(ms):.3f}), {b / med * 1e3:.1f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB | {smi}")
+    print(f"[serve] ({label}) under torch.profiler: prefill wall {pre_wall:.3f} ms, "
+          f"{shares[0]}; decode wall {dec_wall:.3f} ms a token, {shares[1]} | {smi}")
+    print(f"[serve] ({label}) bound (serve_bounds, this run's routing): prefill "
+          f"{pre_bound:.3f} ms ({pre_by}), decode {dec_bound:.3f} ms a token ({dec_by}) | {smi}")
+    print(f"[serve] ({label}) the donated decode at pos {s} changed cache slot {s} and no "
+          f"other, bit for bit; greedy tokens of sequence 0: {seq[0, :12].tolist()}")
+    if cfg.is_moe:
+        for name, tokens, rec in (("prefill", b * s, routing[0]), ("decode", b, routing[1])):
+            print(f"[serve] ({label}) MoE {name} ({tokens} tokens x top-"
+                  f"{cfg.n_experts_per_tok} over {cfg.n_experts} experts, capacity "
+                  f"{capacity(tokens, cfg)} slots an expert), per MoE layer: kept pairs "
+                  f"{[r[0] for r in rec]}, dropped {[r[2] for r in rec]}, experts with a "
+                  f"kept pair {[r[1] for r in rec]}")
+    del params, cache, prompt, logits, lo
+    torch.cuda.empty_cache()
+
+
+def serve_mla_check(dev) -> None:
+    """MLA's absorbed decode against its decompressed train attention (the
+    reference's contract, rtol 2e-3 / atol 2e-4): one DeepSeek-V3 MLA layer
+    at full width in fp32, 16 positions of 2 sequences decoded one at a
+    time from an empty latent cache, every position held."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mla
+
+    cfg = dc.replace(get_config("deepseek-v3-671b"), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lp = tree_util.tree_map(lambda v: v[0], mla.init_mla(gen, cfg, 1))
+    lp = tree_util.tree_map(lambda v: v.to(dev), lp)
+    b, s = 2, 16
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.1
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    with torch.inference_mode():
+        train = mla.apply_mla_train(lp, x, pos, cfg)
+        cache = {"ckv": torch.zeros((b, s, cfg.kv_lora_rank), device=dev),
+                 "kr": torch.zeros((b, s, cfg.qk_rope_head_dim), device=dev)}
+        outs = []
+        for t in range(s):
+            out, cache = mla.apply_mla_decode(lp, x[:, t:t + 1], pos[:, t:t + 1], cfg, cache, t)
+            outs.append(out)
+    dec = torch.cat(outs, dim=1)
+    err = float(torch.max(torch.abs(dec - train)))
+    ok = bool(torch.allclose(dec, train, rtol=2e-3, atol=2e-4))
+    check(ok, f"[serve] MLA absorbed decode vs decompressed train attention: max abs err {err:.3g}")
+    print(f"[serve] MLA (DeepSeek-V3 layer at full width, fp32: {cfg.n_heads} heads, ranks "
+          f"{cfg.q_lora_rank}/{cfg.kv_lora_rank}, rope {cfg.qk_rope_head_dim}): the absorbed "
+          f"decode of {s} positions x {b} sequences equals the decompressed train attention, "
+          f"max abs err {err:.3g} (rtol 2e-3 / atol 2e-4)")
+    del lp, cache, train, dec, outs
+    torch.cuda.empty_cache()
+
+
+def serve_mrope_check(dev) -> None:
+    """Prefill's last logits against sequential decode (the reference's
+    contract, rtol/atol 2e-2) on Qwen2-VL-7B at full width in fp32, 4
+    layers, a text-only prompt (no patches; positions 0..S-1 on all three
+    M-RoPE streams, which decode gives slot ``pos``)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as model_api
+
+    cfg = dc.replace(get_config("qwen2-vl-7b"), dtype="float32", n_layers=4)
+    params = card_params(cfg, dev, seed=5)
+    b, s = 2, 16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    batch = {"tokens": tokens, "patches": torch.zeros((b, 0, cfg.d_model), device=dev),
+             "positions": torch.arange(s, device=dev).expand(3, b, s)}
+    with torch.inference_mode():
+        lp, _ = model_api.prefill(params, batch, cfg)
+        cache = model_api.init_cache(cfg, b, s, device=dev)
+        for t in range(s):
+            ld, cache = model_api.decode_step(params, cache, tokens[:, t:t + 1], t, cfg,
+                                              inplace=True)
+    err = float(torch.max(torch.abs(lp - ld)))
+    check(bool(torch.allclose(lp, ld, rtol=2e-2, atol=2e-2)),
+          f"[serve] Qwen2-VL prefill vs sequential decode: max abs err {err:.3g}")
+    print(f"[serve] M-RoPE + GQA cache (Qwen2-VL-7B at full width, 4 layers, fp32, sections "
+          f"{cfg.mrope_sections}): prefill's last logits equal {s} sequential decode steps', "
+          f"max abs err {err:.3g} (rtol/atol 2e-2)")
+    del params, cache, lp, ld
+    torch.cuda.empty_cache()
+
+
+def serve_moe_check(dev) -> None:
+    """One Qwen3-MoE layer at full width in fp32 on 64 tokens against a
+    per-token loop: each kept (token, expert) pair adds w * expert(x), a
+    pair past its expert's capacity (the first ``cap`` tokens of each
+    expert, in token order, are kept) adds nothing; zeroed experts give
+    exactly 0.  The tokens share a common direction, so some experts
+    overflow."""
+    import dataclasses as dc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+
+    cfg = dc.replace(get_config("qwen3-moe-235b-a22b"), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = tree_util.tree_map(lambda v: v[0].to(dev), moe.init_moe(gen, cfg, 1))
+    t, k, e = 64, cfg.n_experts_per_tok, cfg.n_experts
+    x = (torch.randn((1, t, cfg.d_model), generator=gen, device=dev) * 0.5
+         + torch.randn((1, 1, cfg.d_model), generator=gen, device=dev))
+    cap = moe.capacity(t, cfg)
+    with torch.inference_mode():
+        y = moe.apply_moe(p, x, cfg)[0]
+        probs = torch.softmax(x[0] @ p["router"], dim=-1).cpu().tolist()
+        want = torch.zeros_like(y)
+        load = [0] * e
+        kept = dropped = 0
+        for i in range(t):
+            top = sorted(range(e), key=lambda j: (-probs[i][j], j))[:k]
+            norm = sum(probs[i][j] for j in top)
+            for j in top:
+                load[j] += 1
+                if load[j] > cap:
+                    dropped += 1
+                    continue
+                kept += 1
+                ex = p["experts"]
+                h = F.silu(x[0, i] @ ex["wg"][j]) * (x[0, i] @ ex["wi"][j])
+                want[i] += (probs[i][j] / norm) * (h @ ex["wo"][j])
+        zero = {"router": p["router"],
+                "experts": {n: torch.zeros_like(v) for n, v in p["experts"].items()}}
+        y0 = moe.apply_moe(zero, x, cfg)
+    err = float(torch.max(torch.abs(y - want)))
+    check(dropped > 0 and bool(torch.allclose(y, want, rtol=1e-4, atol=1e-5)),
+          f"[serve] MoE dispatch vs the per-token loop: max abs err {err:.3g}, {dropped} dropped")
+    check(bool((y0 == 0).all()), "[serve] zeroed experts must give exactly 0")
+    print(f"[serve] MoE dispatch (Qwen3-MoE layer at full width, fp32, {t} tokens, capacity "
+          f"{cap}): {kept} kept and {dropped} dropped pairs, equal to the per-token loop, max "
+          f"abs err {err:.3g} (rtol 1e-4 / atol 1e-5); zeroed experts give exactly 0")
+    del p, zero, x, y, want
+    torch.cuda.empty_cache()
+
+
+def serve_family_vs_cpu(arch, dev) -> None:
+    """``arch``'s smoke config in fp32 on the card against the same model on
+    the CPU: the loss (1e-5) and every gradient leaf (rtol 1e-4 / atol
+    1e-5: an embedding row's gradient sums O(1) terms of each of its tokens
+    that cancel to ~1e-3, and two summation orders part there by ~3e-6),
+    prefill's logits and cache, and 8 decode steps fed the CPU's greedy
+    tokens (logits each step and the final cache, rtol 1e-4 / atol
+    1e-5)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import model as model_api
+    from repro_torch.runtime import steps
+
+    cfg = smoke_config(arch)
+
+    def run(device, feed=None):
+        params = model_api.init_params(cfg, seed=3, device=device)
+        gen = torch.Generator().manual_seed(4)
+        b, s, sv = 2, 24, (6 if cfg.family == "vlm" else 0)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s - sv), generator=gen),
+                 "labels": torch.randint(0, cfg.vocab_size, (b, s - sv), generator=gen)}
+        if sv:
+            batch["patches"] = torch.randn((b, sv, cfg.d_model), generator=gen) * 0.02
+            batch["positions"] = torch.stack([torch.arange(s), torch.arange(s) // 2,
+                                              torch.arange(s) % 3])[:, None].expand(3, b, s)
+        batch = {k: v.to(device) for k, v in batch.items()}
+        loss, grads = steps.value_and_grad(params, batch, cfg)
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        logits, pc = steps.make_prefill_step(cfg, None)(params, prompt)
+        cache = model_api.init_cache(cfg, b, s + 8, device=device)
+        for k, v in pc.items():
+            cache[k][:, :, :s] = v
+        decode = steps.make_decode_step(cfg, None)
+        tok, outs, toks = torch.argmax(logits[:, -1], -1)[:, None], [], []
+        for t in range(8):
+            tok = tok if feed is None else feed[t].to(device)
+            toks.append(tok.cpu())
+            tok, lo, cache = decode(params, cache, tok, s + t)
+            outs.append(lo.cpu())
+        cpu_ = lambda tree: tree_util.tree_map(lambda v: v.cpu(), tree)
+        return (float(loss), cpu_(grads), logits.cpu(), cpu_(pc), outs, toks, cpu_(cache))
+
+    cpu = run("cpu")
+    card = run(dev, feed=cpu[5])
+    gap = lambda a, b_: float(torch.max(torch.abs(a - b_)))
+    close = lambda a, b_, rtol, atol: bool(torch.allclose(a, b_, rtol=rtol, atol=atol))
+    check(abs(card[0] - cpu[0]) <= 1e-5, f"[serve] {arch} smoke: loss {card[0]} vs {cpu[0]}")
+    g_err, bad = 0.0, []
+    for path, g in tree_util.leaves(card[1]):
+        want = tree_util.get(cpu[1], path)
+        if not close(g, want, 1e-4, 1e-5):
+            past = torch.abs(g - want) > 1e-5 + 1e-4 * torch.abs(want)
+            i = int(torch.argmax((torch.abs(g - want) - 1e-4 * torch.abs(want)).flatten()))
+            bad.append(f"{path}: {int(past.sum())} of {g.numel()} past, max abs err "
+                       f"{gap(g, want):.3g}, worst {float(g.flatten()[i]):.6g} vs "
+                       f"{float(want.flatten()[i]):.6g}, |want| max {float(want.abs().max()):.3g}")
+        g_err = max(g_err, gap(g, want))
+    check(not bad, f"[serve] {arch} smoke: gradients " + "; ".join(bad))
+    f_err = gap(card[2], cpu[2])
+    check(close(card[2], cpu[2], 1e-4, 1e-5), f"[serve] {arch} smoke: prefill logits")
+    for idx in (3, 6):
+        for k, v in card[idx].items():
+            check(close(v, cpu[idx][k], 1e-4, 1e-5), f"[serve] {arch} smoke: cache {k}")
+            f_err = max(f_err, gap(v, cpu[idx][k]))
+    for t, (a_, b_) in enumerate(zip(card[4], cpu[4])):
+        check(close(a_, b_, 1e-4, 1e-5), f"[serve] {arch} smoke: decode step {t} logits")
+        f_err = max(f_err, gap(a_, b_))
+    print(f"[serve] {arch} smoke config (fp32) on the card vs the CPU: loss {card[0]:.6f} "
+          f"(CPU {cpu[0]:.6f}), gradients max abs err {g_err:.3g} (rtol 1e-4 / atol 1e-5); "
+          f"prefill logits and cache, 8 decode steps' logits and cache max abs err {f_err:.3g} "
+          f"(rtol 1e-4 / atol 1e-5)")
+
+
+def serve_family_train_steps(arch, dev) -> dict:
+    """One ``impl="auto"`` FedQCS step (2 pods, [train]'s FedQCS point:
+    N = 255, the kernel route) of ``arch``'s smoke config, AE and EA, with
+    the launch counts set to 0 just before and read just after, held
+    against the same step with the plain versions swapped in: the decoded
+    aggregate the step applied (Adam's first moment, 0.1 x the clipped
+    aggregate after a first step) to NMSE <= 1e-3, as [train] (c) holds it;
+    the loss, the residual to 1e-5 and the parameters within 2 lr.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.models import model as model_api
+    from repro_torch.runtime import steps
+
+    cfg = smoke_config(arch)
+    batch = TokenDataset(cfg.vocab_size, batch=8, seq=16, seed=7).get_batch(0, device=dev)
+    if cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(2)
+        batch["patches"] = (torch.randn((8, 4, cfg.d_model), generator=gen) * 0.02).to(dev)
+        batch["positions"] = torch.arange(20, device=dev).expand(3, 8, 20)
+    params = model_api.init_params(cfg, seed=0, device=dev)
+    total = {"encode": 0, "gamp": 0, "qgamp": 0}
+    for mode in ("ae", "ea"):
+        fed = train_fed(recon_mode=mode)
+        fn = steps.make_train_step(cfg, train_opt(), fed, make_single_device_mesh(), device=dev)
+        zero_counts()
+        got, m = fn(train_state(cfg, fed, params, dev), batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict(encode=TRAIN_PODS, gamp=TRAIN_ITERS if mode == "ae" else 0,
+                    qgamp=TRAIN_ITERS if mode == "ea" else 0)
+        check({k: counts[k] for k in want} == want,
+              f"[serve] {arch} {mode} train step launches {counts}, want {want}")
+        with plain_kernels():
+            plain, mp = fn(train_state(cfg, fed, params, dev), batch)
+        moment = [torch.cat([v.flatten() for _, v in tree_util.leaves_in_order(st["opt"]["m"])])
+                  for st in (got, plain)]
+        agg = nmse(*moment)
+        dres = float(torch.max(torch.abs(got["residual"] - plain["residual"])))
+        gap = max_param_gap(got["params"], plain["params"])
+        check(agg <= 1e-3 and float(torch.sum(moment[1] ** 2)) > 0,
+              f"[serve] {arch} {mode} step: the applied aggregate is at NMSE {agg:.3g} to the "
+              f"plain versions'")
+        check(bool(np.isfinite(loss)) and abs(loss - float(mp["loss"])) <= 1e-5 and dres <= 1e-5
+              and gap <= 2 * 3e-3, f"[serve] {arch} {mode} step vs the plain versions: loss "
+              f"{loss} vs {float(mp['loss'])}, residual {dres:.3g}, parameters {gap:.3g}")
+        print(f"[serve] {arch} smoke config, one impl=\"auto\" FedQCS {mode.upper()} step on the "
+              f"kernel route ({got['residual'].shape[1]:,} rows a pod of N={TRAIN_N}): loss "
+              f"{loss:.6f}, launches {want}; against the plain versions: the applied aggregate "
+              f"(Adam's first moment) at NMSE {agg:.3g} (<= 1e-3), residual max gap {dres:.3g}, "
+              f"parameters max gap {gap:.3g} (<= 2 lr)")
+        for key in total:
+            total[key] += counts[key]
+    return total
+
+
+def phase_serve(dev, smi) -> dict:
+    """[serve] The serve path: the MLA, M-RoPE/GQA-cache and MoE-dispatch
+    checks at full width in fp32; the three new families' smoke configs on
+    the card against the CPU and their FedQCS train steps on the kernel
+    route; then SERVE_RUNS (a)-(c) at full width, one after another.
+    Returns the train steps' launches by KERNELS name."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_mla_check(dev)
+    serve_mrope_check(dev)
+    serve_moe_check(dev)
+    launches = {f"bqcs_encode_fused[N={TRAIN_N}]": 0, f"gamp_step[N={TRAIN_N}]": 0,
+                f"qgamp_step[N={TRAIN_N}]": 0}
+    for arch in SERVE_FAMILIES:
+        serve_family_vs_cpu(arch, dev)
+        counts = serve_family_train_steps(arch, dev)
+        launches[f"bqcs_encode_fused[N={TRAIN_N}]"] += counts["encode"]
+        launches[f"gamp_step[N={TRAIN_N}]"] += counts["gamp"]
+        launches[f"qgamp_step[N={TRAIN_N}]"] += counts["qgamp"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in SERVE_RUNS:
+        serve_one(*run, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 # JSON name -> (source, the Pallas site it replaces, phase_kernels key)
 KERNELS = {
     "bqcs_encode_fused": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode"),
@@ -3068,6 +3675,7 @@ def main() -> int:
     record_launches = phase_record(dev)
     phase_profile(round_ms, dev)
     train_launches, train_errs, train_times_ = phase_train(dev)
+    serve_launches = phase_serve(dev, smi)
     k_in.update({k: {"max_abs_err": v} for k, v in train_errs.items()})
     times = phase_times(dev, k_in)
     times.update(train_times_)
@@ -3080,7 +3688,7 @@ def main() -> int:
     for kname, n in (list(routes_launches.items()) + list(channel_launches.items())
                      + list(knob_launches.items()) + list(stream_launches.items())
                      + list(layout_launches.items()) + list(record_launches.items())
-                     + list(train_launches.items())):
+                     + list(train_launches.items()) + list(serve_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of the FedQCS system in ``repro``.
 
 Mirrors ``repro``'s layout module for module (``core/``, ``kernels/``,
-``fed/``, ``obs/``, ``optim/``, ``data/``, ``paper/``) and keeps its public
+``fed/``, ``obs/``, ``optim/``, ``data/``, ``paper/``, ``configs/``,
+``models/``, ``runtime/``, ``launch/``, ``checkpoint/``) and keeps its public
 names, so every ported module has exactly one reference module.  The port imports
 ``torch``, numpy and the standard library only; it never imports ``jax`` or
 anything of ``repro``.
@@ -28,7 +29,13 @@ streaming PS (``core/aggregator.py``, ``fed/stream.py``, the engine's
 ``stream=`` rounds), the run telemetry (``obs/``: recorders, spans, the
 ``python -m repro_torch.obs`` reader, the engine's round events) and the
 per-tensor block layouts (``core/layout.py``) with the segment-streamed
-client encode and the segment-local EA decode.  The five
+client encode and the segment-local EA decode; the model zoo's
+transformer family (dense GQA, MoE, MLA with multi-token prediction, and
+the Qwen2-VL backbone with M-RoPE over patch prefixes: ``models/``) with
+the pod-level FedQCS train step (``runtime/steps.py``,
+``python -m repro_torch.launch.train``) and the serve steps (KV and MLA
+latent caches, prefill, decode: ``make_prefill_step``,
+``make_decode_step``, ``examples/serve_lm_torch.py``).  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

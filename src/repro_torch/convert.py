@@ -35,8 +35,12 @@ def from_reference(
     params_np: Dict[str, Any], a_np: Optional[np.ndarray] = None, device="cpu"
 ) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
     """(params dict, sensing matrix or None) as tensors on ``device``.  The
-    parameter dict may be flat or nested (the model zoo's trees); the
-    structure and key order are kept."""
+    parameter dict may be flat or nested (the model zoo's trees, with fp32
+    leaves such as the MoE router among bf16 ones); the structure, key
+    order and each leaf's dtype are kept.  A serve cache (the reference's
+    ``{"k", "v"}`` or MLA ``{"ckv", "kr"}`` of ``prefill``/``init_cache``)
+    carries across the same way, so decode can start from the reference's
+    own cache."""
     params = {
         k: from_reference(v, device=device)[0] if isinstance(v, dict) else _param(v, device)
         for k, v in params_np.items()

@@ -1,17 +1,19 @@
-"""Shared building blocks of the model zoo, dense pieces (port of
+"""Shared building blocks of the model zoo's transformer family (port of
 ``repro.models.common``).
 
 Parameters are nested dicts of tensors; every block has an ``init_*``
-that draws from a seeded CPU ``torch.Generator`` and an ``apply``
+that draws from a seeded ``torch.Generator`` and an ``apply``
 function.  Compute runs in the config dtype (bf16 by default) with fp32
 norm, softmax-max and probability-sum accumulation, in the reference's
-order of operations.  M-RoPE and ``layer_norm`` (the VLM and audio
-families) wait for ROADMAP.md item 11.
+order of operations.  Attention has the training path and the cached
+decode path (a KV cache written at ``cache_pos``); rotary embeddings are
+standard or Qwen2-VL's M-RoPE.  ``layer_norm``, cross-attention and the
+GELU MLP (the audio family) wait for ROADMAP.md item 11.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +31,14 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def dense_init(gen: Optional[torch.Generator], shape, dtype,
                fan_in: Optional[int] = None) -> torch.Tensor:
-    """Normal draws (CPU generator, fp32) times 0.02 or 1/sqrt(fan_in).  No
-    generator: an unallocated ``meta`` tensor (the shapes alone)."""
+    """Normal draws (fp32, on the generator's device) times 0.02 or
+    1/sqrt(fan_in).  No generator: an unallocated ``meta`` tensor (the
+    shapes alone)."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
     scale = _INIT_STD if fan_in is None else float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
-    return (torch.randn(shape, generator=gen, dtype=torch.float32) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+            * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -62,13 +66,63 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x (B, S, H, dh), positions (B, S) -> rotated x (the two halves of
     the head dimension rotate together)."""
     cos, sin = _rope_angles(positions, x.shape[-1], theta)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  positions (3, B, S) are the (t, h, w)
+    streams; ``sections`` partition the *half* head dimension, and each
+    section rotates with its own stream."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to half the head dim {half}")
+    cos_parts, sin_parts, off = [], [], 0
+    for i, sec in enumerate(sections):
+        exponent = torch.arange(off, off + sec, dtype=torch.float32, device=x.device) / half
+        freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exponent)
+        ang = positions[i].float()[..., None] * freqs  # (B, S, sec)
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        off += sec
+    cos = torch.cat(cos_parts, dim=-1)[:, :, None, :]
+    sin = torch.cat(sin_parts, dim=-1)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The config's rotary embedding: M-RoPE over (3, B, S) positions when
+    it has ``mrope_sections``, else RoPE over (B, S)."""
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def update_slot(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """Writes ``new`` (B, s, ...) into ``buf`` (B, Smax, ...) at sequence
+    slot ``pos``, in place, and returns ``buf``: the reference's
+    ``jax.lax.dynamic_update_slice(buf, new, (0, pos, 0, ...))``, whose start
+    index clamps to ``[0, Smax - s]`` (a ``pos`` past the end writes the
+    last slot).  ``pos`` is an int or a 0-d tensor; nothing syncs with the
+    device."""
+    s, smax = new.shape[1], buf.shape[1]
+    start = torch.clamp(torch.as_tensor(pos, device=buf.device), 0, smax - s)
+    idx = start.to(torch.int64) + torch.arange(s, device=buf.device)
+    return buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
+def valid_slots(smax: int, pos, device) -> torch.Tensor:
+    """(Smax,) bool: the cache slots ``<= pos`` (the unclamped ``pos``)."""
+    return torch.arange(smax, device=device) <= torch.as_tensor(pos, device=device)
+
+
 # ---------------------------------------------------------------------------
-# attention (GQA with optional qk-norm and bias; causal, training path)
+# attention (GQA with optional qk-norm and bias; training and decode paths)
 # ---------------------------------------------------------------------------
 
 
@@ -91,19 +145,24 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, layers: int) -> dict:
     return p
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset=0,
+          kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, dh), k/v (B, Sk, KVH, dh) -> (B, Sq, H, dh).  The S x S
-    chain stays in the compute dtype; the row max and row sum run fp32."""
+    chain stays in the compute dtype; the row max and row sum run fp32.
+    ``q_offset``: the absolute position of q[0] (decode); ``kv_len_mask``:
+    (B, Sk) bool of the valid cache slots (decode)."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, dh)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
     if causal:
-        qpos = torch.arange(sq, device=q.device)
+        qpos = torch.arange(sq, device=q.device) + q_offset
         kpos = torch.arange(sk, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
         scores = scores.masked_fill(~mask, float("-inf"))
+    if kv_len_mask is not None:
+        scores = scores.masked_fill(~kv_len_mask[:, None, None, None, :], float("-inf"))
     m = torch.clamp(torch.amax(scores, dim=-1, keepdim=True).float(), min=-1e30)
     p = torch.exp(scores - m.to(scores.dtype))
     l = torch.sum(p, dim=-1, dtype=torch.float32)
@@ -113,10 +172,19 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> to
     return out.reshape(b, sq, h, dh)
 
 
-def apply_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention of one layer's weights ``p`` (the training
-    path; the cached decode is item 11's serve step)."""
+def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
+                    cfg: ModelConfig, causal: bool = True, cache: Optional[dict] = None,
+                    cache_pos=None):
+    """One layer's attention with weights ``p``: ``(out, kv)``.
+
+    Train/prefill (``cache=None``): full-sequence attention; ``kv`` is the
+    layer's ``{"k", "v"}`` (B, S, KVH, dh) after the norm and the rotary
+    embedding, what prefill keeps as the cache (the reference recomputes
+    the same values outside its scan).  Decode: ``cache`` is ``{"k", "v"}``
+    (B, Smax, KVH, dh); the new K/V are written into it at ``cache_pos``
+    in place (:func:`update_slot`), attention runs over the slots
+    ``<= cache_pos``, and ``kv`` is that cache.  Cross-attention (the audio
+    family) is ROADMAP.md item 11."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = x @ p["wq"]
@@ -131,11 +199,20 @@ def apply_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: Mode
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = rotate(q, positions, cfg)
+        k = rotate(k, positions, cfg)
     q = cs(q, "batch", "seq", "heads", None)
-    out = _sdpa(q, k, v, causal=causal).reshape(b, s, cfg.n_heads * dh)
-    return cs(out @ p["wo"], "batch", "seq", "dmodel")
+    if cache is not None:
+        ck = update_slot(cache["k"], k, cache_pos)
+        cv = update_slot(cache["v"], v, cache_pos)
+        kv = {"k": ck, "v": cv}
+        valid = valid_slots(ck.shape[1], cache_pos, x.device)[None].expand(b, -1)
+        out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), causal=False, kv_len_mask=valid)
+    else:
+        kv = {"k": k, "v": v}
+        out = _sdpa(q, k, v, causal=causal)
+    out = out.reshape(b, s, cfg.n_heads * dh)
+    return cs(out @ p["wo"], "batch", "seq", "dmodel"), kv
 
 
 # ---------------------------------------------------------------------------

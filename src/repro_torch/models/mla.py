@@ -1,0 +1,123 @@
+"""Multi-head latent attention, DeepSeek-V3 (port of ``repro.models.mla``).
+
+Train and prefill decompress the latents into full per-head K/V (plain
+GEMMs).  Decode keeps the *compressed* latent ``ckv`` (kv_lora_rank) and
+the shared rope key ``kr`` as the cache -- (rank + rope) values a token
+instead of 2 H dh -- and absorbs the up-projections into the query and
+output transforms, so attention contracts against the latent directly.
+Both paths keep the reference's fp32 score scale and its ``-1e30`` mask.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (
+    apply_rope,
+    dense_init,
+    dtype_of,
+    rms_norm,
+    update_slot,
+    valid_slots,
+)
+from repro_torch.models.sharding import cs
+
+_MASKED = -1e30
+
+
+def init_mla(gen, cfg: ModelConfig, layers: int) -> dict:
+    """Stacked (``layers``, ...) MLA weights, keys in sorted order."""
+    d, h, dt = cfg.d_model, cfg.n_heads, dtype_of(cfg)
+    qk_nope, qk_rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "kv_norm_lr": torch.ones((layers, rkv), dtype=dt),
+        "q_norm_lr": torch.ones((layers, rq), dtype=dt),
+        "w_dkv": dense_init(gen, (layers, d, rkv), dt, d),
+        "w_dq": dense_init(gen, (layers, d, rq), dt, d),
+        "w_kr": dense_init(gen, (layers, d, qk_rope), dt, d),
+        "w_uk": dense_init(gen, (layers, rkv, h * qk_nope), dt, rkv),
+        "w_uq": dense_init(gen, (layers, rq, h * (qk_nope + qk_rope)), dt, rq),
+        "w_uv": dense_init(gen, (layers, rkv, h * dv), dt, rkv),
+        "wo": dense_init(gen, (layers, h * dv, d), dt, h * dv),
+    }
+
+
+def _sqrt_dk(cfg: ModelConfig) -> np.float32:
+    """sqrt(qk_nope + qk_rope) in fp32.  The train path multiplies the fp32
+    scores by its reciprocal, the decode path divides by it (as the
+    reference does each)."""
+    return np.sqrt(np.float32(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim))
+
+
+def _queries(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    qk_nope, qk_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rms_norm(x @ p["w_dq"], p["q_norm_lr"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.n_heads, qk_nope + qk_rope)
+    return q[..., :qk_nope], apply_rope(q[..., qk_nope:], positions, cfg.rope_theta)
+
+
+def latents(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The layer's cache entries for ``x``: ``ckv`` (B, S, r), the normed
+    latent, and ``kr`` (B, S, rope), the rotated shared key."""
+    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm_lr"], cfg.norm_eps)
+    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return {"ckv": ckv, "kr": kr}
+
+
+def mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence causal MLA (the decompressed path): ``(out, latents)``
+    -- prefill keeps the latents as the cache."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qk_nope, qk_rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _queries(p, x, positions, cfg)
+    lat = latents(p, x, positions, cfg)
+    k_nope = (lat["ckv"] @ p["w_uk"]).reshape(b, s, h, qk_nope)
+    v = (lat["ckv"] @ p["w_uv"]).reshape(b, s, h, dv)
+    k_rope = lat["kr"][:, :, None, :].expand(b, s, h, qk_rope)
+    q = cs(torch.cat([q_nope, q_rope], dim=-1), "batch", "seq", "heads", None)
+    kk = cs(torch.cat([k_nope, k_rope], dim=-1), "batch", "seq", "heads", None)
+    inv_sqrt_dk = float(np.float32(1.0) / _sqrt_dk(cfg))
+    scores = torch.einsum("bqhd,bshd->bhqs", q, kk).float() * inv_sqrt_dk
+    mask = torch.arange(s, device=x.device)[None, :] <= torch.arange(s, device=x.device)[:, None]
+    scores = torch.where(mask[None, None], scores, torch.tensor(_MASKED, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(b, s, h * dv)
+    return cs(out @ p["wo"], "batch", "seq", "dmodel"), lat
+
+
+def apply_mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence causal MLA (the decompressed path)."""
+    return mla_train(p, x, positions, cfg)[0]
+
+
+def apply_mla_decode(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                     cache: dict, cache_pos):
+    """The absorbed decode of x (B, 1, D): ``(out, cache)``.  ``cache`` is
+    ``{"ckv" (B, Smax, r), "kr" (B, Smax, rope)}``; the new latents are
+    written into it at ``cache_pos`` in place (the reference's clamped
+    ``dynamic_update_slice``) and attention runs over the slots
+    ``<= cache_pos``."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qk_nope, dv, r = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    q_nope, q_rope = _queries(p, x, positions, cfg)
+    new = latents(p, x, positions, cfg)
+    ckv = update_slot(cache["ckv"], new["ckv"], cache_pos)
+    kr = update_slot(cache["kr"], new["kr"], cache_pos)
+    out_cache = {"ckv": ckv, "kr": kr}
+    ckv_x, kr_x = ckv.to(x.dtype), kr.to(x.dtype)
+    # absorb W_uk into the query: q_abs (B, 1, H, r)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, p["w_uk"].reshape(r, h, qk_nope))
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv_x)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, kr_x)).float() / float(_sqrt_dk(cfg))
+    valid = valid_slots(ckv.shape[1], cache_pos, x.device)
+    scores = torch.where(valid, scores, torch.tensor(_MASKED, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckv_x)  # the latent context
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, p["w_uv"].reshape(r, h, dv)).reshape(b, s, h * dv)
+    return cs(out @ p["wo"], "batch", "seq", "dmodel"), out_cache

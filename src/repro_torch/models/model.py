@@ -3,11 +3,12 @@
 
 Every architecture exposes the reference's entry points: ``init_params``,
 ``train_loss``, ``prefill``, ``decode_step`` and ``init_cache``.  The port
-carries the ``dense`` family (``models/transformer.py``); the ``moe``,
-``vlm``, ``ssm``, ``hybrid`` and ``audio`` families raise, naming ROADMAP.md
-item 11.  :func:`input_specs` gives each input of a step as a
-:class:`TensorSpec` (shape and dtype), the reference's ShapeDtypeStruct
-stand-ins.
+carries the transformer family -- ``dense``, ``moe`` and ``vlm``
+(``models/transformer.py``); the ``ssm``, ``hybrid`` and ``audio``
+families raise, naming ROADMAP.md item 11.  :func:`input_specs` gives each
+input of a step as a :class:`TensorSpec` (shape and dtype), the
+reference's ShapeDtypeStruct stand-ins; token ids and positions are int64,
+torch's index dtype, where the reference's are int32.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import entry_device, not_in_slice
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import batch_generator
 from repro_torch.models import transformer
@@ -39,6 +41,8 @@ SHAPES: Dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
 }
 
+_VIS_FRAC = 4  # vlm: 1/4 of the sequence budget is patch embeddings
+
 
 @dataclasses.dataclass(frozen=True)
 class TensorSpec:
@@ -49,7 +53,7 @@ class TensorSpec:
 
 
 def _module(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise not_in_slice(f"the {cfg.family!r} model family ({cfg.name})", "item 11")
     return transformer
 
@@ -64,42 +68,69 @@ def train_loss(params, batch, cfg: ModelConfig):
     return _module(cfg).train_loss(params, batch, cfg)
 
 
-def init_cache(cfg: ModelConfig, batch: int, smax: int):
-    return _module(cfg).init_cache(cfg, batch, smax)
+def init_cache(cfg: ModelConfig, batch: int, smax: int, device="cuda"):
+    return _module(cfg).init_cache(cfg, batch, smax, device)
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
-    return _module(cfg).decode_step(params, cache, tokens, pos, cfg)
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, inplace: bool = False):
+    return _module(cfg).decode_step(params, cache, tokens, pos, cfg, inplace)
 
 
 def prefill(params, batch, cfg: ModelConfig):
     return _module(cfg).prefill(params, batch, cfg)
 
 
+def supports_cell(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """Whether (arch x shape) is in contract: (ok, the reason if not)."""
+    cell = SHAPES[shape]
+    if cell.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k requires sub-quadratic attention (see DESIGN.md)"
+    if cell.kind == "decode" and not cfg.supports_decode:
+        return False, "architecture has no decode step"
+    return True, ""
+
+
 def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, Any]:
-    """The train or prefill batch of a dense model as TensorSpecs (tokens
-    are int64, torch's index dtype).  Decode inputs hold the KV cache:
-    item 11."""
+    """The step's inputs as TensorSpecs: the train or prefill batch (the
+    VLM's: text tokens, a quarter of the sequence as patch embeddings, and
+    (3, B, S) positions), or the decode inputs (tokens (B, 1), ``pos`` and
+    the cache of ``seq`` slots)."""
     _module(cfg)
     cell = SHAPES[shape]
-    if cell.kind == "decode":
-        raise not_in_slice("the decode step's inputs (the KV cache)", "item 11")
     b, s = cell.batch, cell.seq
-    specs = {"tokens": TensorSpec((b, s), torch.int64)}
+    i64 = torch.int64
+    if cell.kind == "decode":
+        cache = tree_util.tree_map(lambda v: TensorSpec(tuple(v.shape), v.dtype),
+                                   init_cache(cfg, b, s, device="meta"))
+        return {"tokens": TensorSpec((b, 1), i64), "pos": TensorSpec((), i64), "cache": cache}
+    st = s - s // _VIS_FRAC if cfg.family == "vlm" else s
+    specs = {"tokens": TensorSpec((b, st), i64)}
+    if cfg.family == "vlm":
+        specs["patches"] = TensorSpec((b, s - st, cfg.d_model), dtype_of(cfg))
+        specs["positions"] = TensorSpec((3, b, s), i64)
     if cell.kind == "train":
-        specs["labels"] = TensorSpec((b, s), torch.int64)
+        specs["labels"] = TensorSpec((b, st), i64)
     return specs
 
 
 def make_batch(cfg: ModelConfig, shape: str, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """A random batch matching :func:`input_specs` (uniform tokens from a
-    seeded CPU generator), moved to ``device``."""
+    """Random inputs matching :func:`input_specs`, drawn from a seeded CPU
+    generator and moved to ``device``: uniform token ids (and ``pos``),
+    M-RoPE positions 0..S-1 on every stream (the reference's fill), and
+    normal(0, 0.02) floats (patches, a decode cache).  ``device="meta"``
+    draws nothing."""
     dev = entry_device(device)
     gen = batch_generator(seed)
-    out = {}
-    for name, spec in input_specs(cfg, shape).items():
+
+    def fill(spec: TensorSpec) -> torch.Tensor:
         if spec.dtype == torch.int64:
-            out[name] = torch.randint(0, max(2, cfg.vocab_size), spec.shape, generator=gen)
-        else:
-            out[name] = (torch.randn(spec.shape, generator=gen) * 0.02).to(dtype_of(cfg))
-    return {k: v.to(dev) for k, v in out.items()}
+            if len(spec.shape) == 3 and spec.shape[0] == 3:
+                return torch.arange(spec.shape[-1]).expand(spec.shape).contiguous()
+            return torch.randint(0, max(2, cfg.vocab_size), spec.shape, generator=gen)
+        return (torch.randn(spec.shape, generator=gen) * 0.02).to(spec.dtype)
+
+    specs = input_specs(cfg, shape)
+    if dev.type == "meta":
+        return tree_util.tree_map(lambda spec: torch.empty(spec.shape, dtype=spec.dtype,
+                                                           device=dev), specs)
+    return tree_util.tree_map(lambda spec: fill(spec).to(dev), specs)

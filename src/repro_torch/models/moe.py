@@ -1,0 +1,116 @@
+"""Mixture-of-experts FFN with sort-based capacity dispatch (port of
+``repro.models.moe``).
+
+Tokens are replicated k times, sorted by their assigned expert, ranked
+within their expert's group and written into an (E, C, D) buffer with
+capacity C = int(T k / E * cf + 1); the expert products are three dense
+(E, C, *) batched GEMMs.  A token past its expert's capacity goes to a
+trash slot and its share of the combine is lost (the reference's
+capacity-factor semantics).  The router is an fp32 softmax over E, then
+top-k, renormalised; an optional shared expert (DeepSeek) is a dense MLP
+on every token.
+
+Three places where a port could part from the reference, and what this
+one does:
+
+  * ``jax.lax.top_k`` lets the lower index win a tie; ``torch.topk``
+    promises no order, so the top k are the first k of a stable
+    descending sort.
+  * The dispatch order is ``jnp.argsort``'s, which is stable:
+    ``torch.argsort(stable=True)``.  Which pairs pass the capacity depends
+    on it.
+  * The reference combines with a scatter-add into zeros, in the model
+    dtype, which on its CPU backend adds a token's k contributions in the
+    sorted (ascending expert) order.  The port gathers each token's k
+    contributions in that order and adds them one after another: the same
+    sums, and no atomics on the card (a replayed step is bit-identical).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import apply_mlp, dense_init, dtype_of, init_mlp
+from repro_torch.models.sharding import cs
+
+
+def init_moe(gen, cfg: ModelConfig, layers: int) -> dict:
+    """Stacked (``layers``, ...) MoE weights, keys in sorted order: the
+    ``experts``' (E, D, F) / (E, F, D) stacks, the fp32 ``router`` (D, E)
+    and the optional ``shared`` expert."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    dt = dtype_of(cfg)
+    p = {
+        "experts": {
+            "wg": dense_init(gen, (layers, e, d, f), dt, d),
+            "wi": dense_init(gen, (layers, e, d, f), dt, d),
+            "wo": dense_init(gen, (layers, e, f, d), dt, f),
+        },
+        "router": dense_init(gen, (layers, d, e), torch.float32, d),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, cfg.n_shared_experts * (cfg.shared_d_ff or f), dt, layers)
+    return p
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots an expert: the reference's ``int(T k / E * cf + 1)``."""
+    return int((tokens * cfg.n_experts_per_tok) / cfg.n_experts * cfg.capacity_factor + 1)
+
+
+def route(p: dict, xt: torch.Tensor, cfg: ModelConfig):
+    """(top-k weights renormalised, top-k expert ids), each (T, k): fp32
+    softmax over the experts, the lower expert id first on a tie."""
+    k = cfg.n_experts_per_tok
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = vals[:, :k], idx[:, :k]
+    return topw / torch.clamp(torch.sum(topw, dim=-1, keepdim=True), min=1e-9), topi
+
+
+def dispatch(topi: torch.Tensor, cap: int, n_experts: int):
+    """The sort-based dispatch of (T, k) expert ids: (``order``, the sorted
+    (token, choice) pairs' expert ids ``se`` and tokens ``st``, ``dest``: each
+    sorted pair's buffer slot, ``E * cap`` for a dropped pair)."""
+    t, k = topi.shape
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    st = torch.div(order, k, rounding_mode="floor")  # the k copies of token i sit at i*k..
+    counts = torch.bincount(se, minlength=n_experts)
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=topi.device) - start[se]
+    dest = torch.where(pos < cap, se * cap + pos, torch.full_like(se, n_experts * cap))
+    return order, se, st, dest
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D): route, dispatch, the expert GEMMs, the
+    weighted combine (+ the shared expert)."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.n_experts_per_tok, cfg.n_experts
+    cap = capacity(t, cfg)
+    xt = x.reshape(t, d)
+    topw, topi = route(p, xt, cfg)
+    order, _, st, dest = dispatch(topi, cap, e)
+    sw = topw.reshape(-1).to(x.dtype)[order]
+
+    buf = xt.new_zeros((e * cap + 1, d)).index_put((dest,), xt[st])
+    h = cs(buf[: e * cap].reshape(e, cap, d), "experts", None, None)
+    ex = p["experts"]
+    act = torch.matmul(h, ex["wi"]) * F.silu(torch.matmul(h, ex["wg"]))
+    act = cs(act, "experts", None, None)
+    out = torch.matmul(act, ex["wo"])
+    out_buf = torch.cat([out.reshape(e * cap, d), out.new_zeros((1, d))], dim=0)
+    ys = out_buf[dest] * sw[:, None]  # (T*k, D), sorted by expert
+    # each token's k contributions in sorted (ascending expert) order, added
+    # one after another from zero: the reference's scatter-add sums
+    by_token = ys[torch.argsort(st, stable=True)].reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y = y + by_token[:, j]
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x).reshape(t, d)
+    return cs(y.reshape(b, s, d), "batch", "seq", "dmodel")

@@ -1,14 +1,20 @@
-"""Decoder-only transformer, the dense GQA family (port of
-``repro.models.transformer``).
+"""Decoder-only transformer family: dense GQA, MoE, MLA with multi-token
+prediction, and the VLM backbone (M-RoPE over patch-embedding prefixes);
+training and serving (port of ``repro.models.transformer``).
 
 Layers are *stacked* on a leading L axis, as in the reference, so the
 parameter tree -- and with it the FedQCS block layout and the checkpoint
-entries -- is the reference's leaf for leaf.  The reference scans that
-axis; the port loops over it, recomputing each layer in the backward pass
-when the config's ``remat_policy`` asks for it (``torch.utils.checkpoint``).
+entries -- is the reference's leaf for leaf: ``layers`` (``attn``, ``ffn``,
+``ln1``, ``ln2``), for DeepSeek-V3 also ``layers_dense`` (its first dense
+layers) and the unstacked ``mtp`` block.  The reference scans that axis;
+the port loops over it, recomputing each layer in the backward pass when
+the config's ``remat_policy`` asks for it (``torch.utils.checkpoint``).
 
-MoE, MLA, multi-token prediction and the VLM inputs, and the serve steps
-(``init_cache``, ``prefill``, ``decode_step``), raise: ROADMAP.md item 11.
+Serving: :func:`init_cache` (a GQA cache ``k``/``v`` (L, B, Smax, KVH, dh)
+or an MLA latent cache ``ckv``/``kr`` (L, B, Smax, *)), :func:`prefill`
+(last-position logits and the cache of the prompt, taken from each
+layer's forward pass) and :func:`decode_step` (one token; the new K/V or
+latents written at ``pos``).
 """
 
 from __future__ import annotations
@@ -18,33 +24,25 @@ from typing import Any, Dict
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import entry_device, not_in_slice
+from repro_torch import entry_device
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
     apply_attention,
     apply_mlp,
+    dense_init,
     dtype_of,
     embed_tokens,
-    head_loss,
-    head_loss_params,
     init_attention,
     init_embed,
     init_mlp,
+    logits_from,
     remat_policy,
     rms_norm,
+    softmax_cross_entropy,
 )
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raises for the parts of the family that are not ported."""
-    for flag, what in ((cfg.family != "dense", f"the {cfg.family!r} model family"),
-                       (cfg.is_moe, "mixture-of-experts layers"),
-                       (cfg.use_mla, "multi-head latent attention"),
-                       (cfg.mtp, "multi-token prediction"),
-                       (cfg.mrope_sections is not None, "M-RoPE")):
-        if flag:
-            raise not_in_slice(f"{what} ({cfg.name})", "item 11")
+from repro_torch.models.mla import apply_mla_decode, init_mla, mla_train
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 # ---------------------------------------------------------------------------
@@ -52,25 +50,38 @@ def check_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """The reference's tree -- ``final_norm``, ``layers`` (``attn``, ``ffn``,
-    ``ln1``, ``ln2``, each stacked on L) and ``tok`` -- drawn on the CPU from
-    a generator seeded with ``seed`` and moved to ``device``.  Keys are
-    inserted in sorted order at every level (the reference's leaf order).
-    ``device="meta"`` gives the shapes and dtypes and allocates nothing."""
-    check_dense(cfg)
-    device = entry_device(device)
-    meta = device.type == "meta"
-    gen = None if meta else torch.Generator().manual_seed(int(seed))
-    dt, L, d = dtype_of(cfg), cfg.n_layers, cfg.d_model
-    tok = init_embed(gen, cfg)
-    layers = {
-        "attn": init_attention(gen, cfg, L),
-        "ffn": init_mlp(gen, d, cfg.d_ff, dt, L),
-        "ln1": torch.ones((L, d), dtype=dt),
-        "ln2": torch.ones((L, d), dtype=dt),
+def _init_layers(gen, cfg: ModelConfig, layers: int, moe: bool) -> dict:
+    dt, d = dtype_of(cfg), cfg.d_model
+    return {
+        "attn": init_mla(gen, cfg, layers) if cfg.use_mla else init_attention(gen, cfg, layers),
+        "ffn": init_moe(gen, cfg, layers) if moe else init_mlp(gen, d, cfg.d_ff, dt, layers),
+        "ln1": torch.ones((layers, d), dtype=dt),
+        "ln2": torch.ones((layers, d), dtype=dt),
     }
-    params = {"final_norm": torch.ones((d,), dtype=dt), "layers": layers, "tok": tok}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """The reference's tree -- ``final_norm``, ``layers`` (each leaf stacked
+    on L), ``layers_dense`` and ``mtp`` where the config has them, and
+    ``tok`` -- drawn on the CPU from a generator seeded with ``seed`` and
+    moved to ``device``.  Keys are inserted in sorted order at every level
+    (the reference's leaf order).  ``device="meta"`` gives the shapes and
+    dtypes and allocates nothing."""
+    device = entry_device(device)
+    gen = None if device.type == "meta" else torch.Generator().manual_seed(int(seed))
+    dt, d = dtype_of(cfg), cfg.d_model
+    n_dense = cfg.first_dense_layers if cfg.is_moe else 0  # ``layers_dense``
+    tok = init_embed(gen, cfg)
+    dense = _init_layers(gen, cfg, n_dense, moe=False) if n_dense else None
+    layers = _init_layers(gen, cfg, cfg.n_layers - n_dense, moe=cfg.is_moe)
+    params = {"final_norm": torch.ones((d,), dtype=dt), "layers": layers}
+    if dense is not None:
+        params["layers_dense"] = dense
+    if cfg.mtp:
+        layer = tree_util.tree_map(lambda v: v[0], _init_layers(gen, cfg, 1, moe=False))
+        params["mtp"] = {"layer": layer, "norm": torch.ones((d,), dtype=dt),
+                         "proj": dense_init(gen, (2 * d, d), dt, 2 * d)}
+    params["tok"] = tok
     return _to(params, device)
 
 
@@ -79,15 +90,26 @@ def _to(tree, device):
 
 
 # ---------------------------------------------------------------------------
-# forward (train)
+# forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+               moe: bool):
+    """One layer: ``(x, kv)``, ``kv`` the layer's K/V or MLA latents (what
+    prefill keeps as its cache)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + apply_attention(lp["attn"], h, positions, cfg, causal=True)
+    if cfg.use_mla:
+        attn_out, kv = mla_train(lp["attn"], h, positions, cfg)
+    else:
+        attn_out, kv = apply_attention(lp["attn"], h, positions, cfg, causal=True)
+    x = x + attn_out
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + apply_mlp(lp["ffn"], h)
+    return x + (apply_moe(lp["ffn"], h, cfg) if moe else apply_mlp(lp["ffn"], h)), kv
+
+
+def _layer_out(lp, x, positions, cfg, moe):
+    return _layer_fwd(lp, x, positions, cfg, moe)[0]
 
 
 def _unstack(stack: dict):
@@ -98,72 +120,188 @@ def _unstack(stack: dict):
             for i in range(len(items[0][1]))]
 
 
-def _run_stack(stack: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    remat = remat_policy(cfg)
+def _run_stack(stack: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+               moe: bool, kvs: list = None):
+    """The stack's layers in order; with ``kvs``, each layer's K/V (or
+    latents) is appended to it."""
+    remat = remat_policy(cfg) and torch.is_grad_enabled()
     for lp in _unstack(stack):
-        if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(_layer_fwd, lp, x, positions, cfg,
+        if kvs is not None:
+            x, kv = _layer_fwd(lp, x, positions, cfg, moe)
+            kvs.append(kv)
+        elif remat:
+            x = torch.utils.checkpoint.checkpoint(_layer_out, lp, x, positions, cfg, moe,
                                                   use_reentrant=False)
         else:
-            x = _layer_fwd(lp, x, positions, cfg)
+            x = _layer_out(lp, x, positions, cfg, moe)
     return x
 
 
+def _stacks(params: dict, cfg: ModelConfig):
+    """(stack, moe?) in execution order: ``layers_dense`` first."""
+    out = [(params["layers_dense"], False)] if "layers_dense" in params else []
+    return out + [(params["layers"], cfg.is_moe)]
+
+
 def forward_hidden(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    x = _run_stack(params["layers"], x, positions, cfg)
+    for stack, moe in _stacks(params, cfg):
+        x = _run_stack(stack, x, positions, cfg, moe)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 # -- train stages (the reference's stage protocol) ---------------------------
 
 
+def _positions(batch: dict, cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
+    """The VLM's (3, B, Sv + S) M-RoPE streams from the batch, else 0..S-1."""
+    if cfg.family == "vlm":
+        return batch["positions"]
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
 def train_ctx(batch: dict, cfg: ModelConfig) -> dict:
-    """Stage context: tokens, labels (+ mask), positions."""
+    """Stage context: tokens, labels (+ mask), positions (+ the VLM's
+    patches)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     ctx = {"tokens": tokens, "labels": batch["labels"]}
     if "mask" in batch:
         ctx["mask"] = batch["mask"]
-    ctx["positions"] = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    if cfg.family == "vlm":
+        ctx["patches"] = batch["patches"]
+    ctx["positions"] = _positions(batch, cfg, b, s, tokens.device)
     return ctx
 
 
 def embed_stage(sp: dict, ctx: dict, cfg: ModelConfig) -> torch.Tensor:
-    return embed_tokens(sp, ctx["tokens"], cfg)
+    """Token embedding (+ the VLM's patch prefix).  sp = {"embed": ...}."""
+    x = embed_tokens(sp, ctx["tokens"], cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([ctx["patches"].to(x.dtype), x], dim=1)
+    return x
 
 
-def stack_stage(stack: dict, x: torch.Tensor, ctx: dict, cfg: ModelConfig) -> torch.Tensor:
-    return _run_stack(stack, x, ctx["positions"], cfg)
+def stack_stage(stack: dict, x: torch.Tensor, ctx: dict, cfg: ModelConfig,
+                moe: bool = False) -> torch.Tensor:
+    """One stacked layer run (``moe``: its FFNs are MoE)."""
+    return _run_stack(stack, x, ctx["positions"], cfg, moe)
 
 
 def head_params(params: dict, cfg: ModelConfig) -> dict:
-    return head_loss_params(params, cfg)
+    """The head stage's subtree: ``final_norm``, the token matrices the
+    logits read (all of ``tok`` when tied or under MTP, which re-embeds the
+    shifted tokens; else ``lm_head``) and the MTP block."""
+    tok = params["tok"] if (cfg.tie_embeddings or cfg.mtp) else {
+        "lm_head": params["tok"]["lm_head"]}
+    hp = {"final_norm": params["final_norm"], "tok": tok}
+    if cfg.mtp:
+        hp["mtp"] = params["mtp"]
+    return hp
 
 
 def head_stage(hp: dict, x: torch.Tensor, ctx: dict, cfg: ModelConfig) -> torch.Tensor:
-    return head_loss(hp, x, ctx, cfg)
+    """Final norm -> (VLM: the text positions) -> logits -> cross-entropy
+    (+ 0.3 x the MTP loss)."""
+    hidden = rms_norm(x, hp["final_norm"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        hidden = hidden[:, -ctx["tokens"].shape[1]:]
+    loss = softmax_cross_entropy(logits_from(hp["tok"], hidden, cfg), ctx["labels"],
+                                 ctx.get("mask"))
+    if cfg.mtp:
+        loss = loss + 0.3 * _mtp_loss(hp, hidden, ctx["tokens"], ctx["labels"],
+                                      ctx["positions"], cfg)
+    return loss
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    check_dense(cfg)
     ctx = train_ctx(batch, cfg)
     x = embed_stage({"embed": params["tok"]["embed"]}, ctx, cfg)
-    x = stack_stage(params["layers"], x, ctx, cfg)
+    for stack, moe in _stacks(params, cfg):
+        x = stack_stage(stack, x, ctx, cfg, moe)
     return head_stage(head_params(params, cfg), x, ctx, cfg)
 
 
+def _mtp_loss(hp: dict, hidden, tokens, labels, positions, cfg: ModelConfig):
+    """DeepSeek-V3's multi-token prediction: at position t, h_t (normed) and
+    emb(token_{t+1}) through ``proj`` and one more layer predict
+    token_{t+2}."""
+    mp = hp["mtp"]
+    emb_next = embed_tokens(hp["tok"], tokens, cfg)[:, 1:]
+    x = torch.cat([rms_norm(hidden[:, :-1], mp["norm"], cfg.norm_eps), emb_next], dim=-1)
+    x = _layer_out(mp["layer"], x @ mp["proj"], positions[..., :-1], cfg, False)
+    return softmax_cross_entropy(logits_from(hp["tok"], x, cfg), labels[:, 1:])
+
+
 # ---------------------------------------------------------------------------
-# serving: item 11
+# serving: cache, prefill, decode
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, smax: int):
-    raise not_in_slice("the transformer's KV cache (init_cache)", "item 11")
+def init_cache(cfg: ModelConfig, batch: int, smax: int, device="cuda") -> dict:
+    """Zeros in the config dtype: ``ckv`` (L, B, Smax, r) and ``kr`` (L, B,
+    Smax, rope) under MLA, else ``k`` and ``v`` (L, B, Smax, KVH, dh);
+    ``device="meta"`` allocates nothing."""
+    dev = entry_device(device)
+    dt, L = dtype_of(cfg), cfg.n_layers
+    if cfg.use_mla:
+        shapes = {"ckv": (L, batch, smax, cfg.kv_lora_rank),
+                  "kr": (L, batch, smax, cfg.qk_rope_head_dim)}
+    else:
+        shapes = {k: (L, batch, smax, cfg.n_kv_heads, cfg.head_dim) for k in ("k", "v")}
+    return {k: torch.zeros(shape, dtype=dt, device=dev) for k, shape in shapes.items()}
 
 
-def prefill(params, batch, cfg: ModelConfig):
-    raise not_in_slice("the transformer's prefill step", "item 11")
+def _layer_decode(lp: dict, x: torch.Tensor, positions, cfg: ModelConfig, layer_cache: dict,
+                  pos, moe: bool) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        attn_out, _ = apply_mla_decode(lp["attn"], h, positions, cfg, layer_cache, pos)
+    else:
+        attn_out, _ = apply_attention(lp["attn"], h, positions, cfg, causal=False,
+                                      cache=layer_cache, cache_pos=pos)
+    x = x + attn_out
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + (apply_moe(lp["ffn"], h, cfg) if moe else apply_mlp(lp["ffn"], h))
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
-    raise not_in_slice("the transformer's decode step", "item 11")
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
+                inplace: bool = False):
+    """One-token decode: tokens (B, 1), ``pos`` the next write slot (an int
+    or a 0-d tensor).  Returns (logits (B, 1, V), the cache with every
+    layer's new K/V or latents at ``pos``).  ``inplace=True`` writes into
+    ``cache`` itself (the serve step's donation); else a copy is written
+    and ``cache`` is left as it was."""
+    if not inplace:
+        cache = tree_util.tree_map(torch.clone, cache)
+    b = tokens.shape[0]
+    x = embed_tokens(params["tok"], tokens, cfg)
+    pos_t = torch.as_tensor(pos, device=tokens.device)
+    lead = (3, b, 1) if cfg.mrope_sections is not None else (b, 1)
+    positions = pos_t.reshape((1,) * len(lead)).expand(lead)
+    layer = 0
+    for stack, moe in _stacks(params, cfg):
+        for lp in _unstack(stack):
+            x = _layer_decode(lp, x, positions, cfg, {k: v[layer] for k, v in cache.items()},
+                              pos_t, moe)
+            layer += 1
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_from(params["tok"], hidden, cfg), cache
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig):
+    """Full-sequence prefill: (last-position logits (B, 1, V), the cache
+    of the whole input -- (L, B, S, ...) K/V or latents, S the prompt
+    (VLM: patches + text) length)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(params["tok"], tokens, cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    positions = _positions(batch, cfg, b, s, tokens.device)
+    kvs = []
+    for stack, moe in _stacks(params, cfg):
+        x = _run_stack(stack, x, positions, cfg, moe, kvs)
+    cache = {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
+    del kvs
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_from(params["tok"], hidden[:, -1:], cfg), cache

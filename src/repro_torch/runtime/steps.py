@@ -22,7 +22,9 @@ fedqcs_pod_allreduce` (the packed words gathered, or the dequantized sums
     the parameters stay identical across pods without a broadcast.
 
 The steps run on the device the state lives on; the FedQCS codec is made
-on ``device``.  The serve steps are ROADMAP.md item 11.
+on ``device``.  The serve steps :func:`make_prefill_step` and
+:func:`make_decode_step` run the model's ``prefill`` and ``decode_step``
+under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -198,8 +200,14 @@ def value_and_grad(params, batch, cfg: ModelConfig):
 
 
 def _pod_batch(batch, pods: int, p: int):
-    """Pod ``p``'s share of the batch (batch dim split in ``pods``)."""
-    return {k: v.reshape((pods, -1) + tuple(v.shape[1:]))[p] for k, v in batch.items()}
+    """Pod ``p``'s share of the batch (batch dim split in ``pods``; the
+    VLM's (3, B, S) ``positions`` carry it second)."""
+    def share(name, v):
+        if name == "positions":
+            return v.reshape((v.shape[0], pods, -1) + tuple(v.shape[2:]))[:, p]
+        return v.reshape((pods, -1) + tuple(v.shape[1:]))[p]
+
+    return {k: share(k, v) for k, v in batch.items()}
 
 
 def pod_blocks(params, batch, cfg: ModelConfig, pods: int, n: int, device):
@@ -315,13 +323,41 @@ def make_train_step(
 
 
 # ---------------------------------------------------------------------------
-# serve steps: item 11
+# serve steps
 # ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig, mesh):
-    raise not_in_slice("the prefill step (make_prefill_step)", "item 11")
+    """Returns ``prefill_fn(params, batch) -> (last-position logits, cache)``,
+    run under ``torch.inference_mode()``."""
+
+    def prefill_fn(params, batch):
+        with torch.inference_mode():
+            return model_api.prefill(params, batch, cfg)
+
+    return prefill_fn
 
 
-def make_decode_step(cfg: ModelConfig, mesh):
-    raise not_in_slice("the decode step (make_decode_step)", "item 11")
+def make_decode_step(cfg: ModelConfig, mesh, donate: bool = True):
+    """Returns ``decode_fn(params, cache, tokens, pos) -> (next_tok, logits,
+    new_cache)``, run under ``torch.inference_mode()``: ``next_tok`` (B, 1)
+    is the greedy token (the first index wins a tie).  ``donate=True``
+    writes the new K/V into ``cache`` itself and returns it (the
+    counterpart of the reference's buffer donation); ``donate=False``
+    leaves ``cache`` as it was."""
+
+    def decode_fn(params, cache, tokens, pos):
+        with torch.inference_mode():
+            logits, new_cache = model_api.decode_step(params, cache, tokens, pos, cfg,
+                                                      inplace=donate)
+            next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return next_tok, logits, new_cache
+
+    return decode_fn
+
+
+def batch_shardings(cfg: ModelConfig, shape: str, mesh):
+    """The input specs' placement on a mesh: with one card a pod there is
+    nothing to place.  Data and model axes inside a pod: ROADMAP.md item
+    10b."""
+    raise not_in_slice("input shardings on a multi-card pod (batch_shardings)", "item 10b")

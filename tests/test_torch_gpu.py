@@ -980,3 +980,124 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path, impl, fed_kw):
     worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu["params"], path))))
                 for path, p in tree_util.leaves(card["params"]))
     assert worst <= 2 * 3e-3, worst
+
+
+# The transformer family's MoE, MLA (+MTP) and VLM smoke configs on the card
+# against the same model on the CPU, both fp32 (TF32 off): the loss within
+# 1e-5, every gradient leaf, prefill's logits and cache and 8 decode steps
+# (each fed the CPU's greedy token) rtol 1e-4 / atol 1e-5 -- the same
+# products in another summation order (an embedding row's gradient sums
+# O(1) terms that cancel to ~1e-3, where the two orders part by ~3e-6).
+_FAMILIES = ["qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b"]
+
+
+def _family_case(arch, device):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import model as M
+
+    cfg = smoke_config(arch)
+    params = M.init_params(cfg, seed=3, device=device)
+    gen = torch.Generator().manual_seed(4)
+    b, s, sv = 2, 24, (6 if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s - sv), generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (b, s - sv), generator=gen)}
+    if sv:
+        batch["patches"] = torch.randn((b, sv, cfg.d_model), generator=gen) * 0.02
+        batch["positions"] = torch.stack([torch.arange(s), torch.arange(s) // 2,
+                                          torch.arange(s) % 3])[:, None].expand(3, b, s)
+    return cfg, params, {k: v.to(device) for k, v in batch.items()}
+
+
+def _serve_run(arch, device, feed=None):
+    """(loss, grads, prefill logits, prefill cache, 8 decode logits, the
+    greedy tokens, the final cache) of ``arch``'s smoke config."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+
+    cfg, params, batch = _family_case(arch, device)
+    loss, grads = steps.value_and_grad(params, batch, cfg)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    logits, pc = steps.make_prefill_step(cfg, None)(params, prompt)
+    s = next(iter(pc.values())).shape[2]
+    cache = M.init_cache(cfg, 2, s + 8, device=device)
+    for k, v in pc.items():
+        cache[k][:, :, :s] = v
+    decode = steps.make_decode_step(cfg, None)
+    tok, outs, toks = torch.argmax(logits[:, -1], -1)[:, None], [], []
+    for t in range(8):
+        tok = tok if feed is None else feed[t].to(device)
+        toks.append(tok.cpu())
+        tok, lo, cache = decode(params, cache, tok, s + t)
+        outs.append(lo)
+    return loss, grads, logits, pc, outs, toks, cache
+
+
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_serve_family_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch import tree as tree_util
+
+    cpu = _serve_run(arch, "cpu")
+    card = _serve_run(arch, "cuda", feed=cpu[5])
+    assert abs(float(card[0]) - float(cpu[0])) <= 1e-5
+    for path, g in tree_util.leaves(card[1]):
+        torch.testing.assert_close(g.cpu(), tree_util.get(cpu[1], path), rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, p=path: f"{p}: {m}")
+    fwd = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(card[2].cpu(), cpu[2], **fwd)
+    for idx in (3, 6):  # the prefill cache, the cache after 8 decode steps
+        for k, v in card[idx].items():
+            torch.testing.assert_close(v.cpu(), cpu[idx][k], **fwd)
+    for t, (lo_card, lo_cpu) in enumerate(zip(card[4], cpu[4])):
+        torch.testing.assert_close(lo_card.cpu(), lo_cpu, **fwd, msg=lambda m, t=t: f"{t}: {m}")
+
+
+@pytest.mark.parametrize("mode", ["ae", "ea"])
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
+    """One impl="auto" FedQCS step of each new family's smoke config on the
+    kernel route (the encoder once a pod, then 15 gamp_step or qgamp_step
+    launches) against the same step on the CPU (the plain versions): the
+    aggregate the step applied (Adam's first moment, 0.1 x the clipped
+    aggregate after a first step) to NMSE <= 1e-3, the loss, the residual
+    and the parameters within 2 lr."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as gamp_mod
+    from repro_torch.kernels import qgamp_step as qgamp_mod
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    cfg, opt = smoke_config(arch), OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100)
+    fed = FedQCSConfig(**{**_STEP_FED, "recon_mode": mode})
+    a = torch.randn((128, 256), generator=torch.Generator().manual_seed(1)) / np.sqrt(128)
+    batch = TokenDataset(cfg.vocab_size, batch=8, seq=16, seed=7).get_batch(0, device="cpu")
+    if cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(2)
+        batch["patches"] = torch.randn((8, 4, cfg.d_model), generator=gen) * 0.02
+        batch["positions"] = torch.arange(20).expand(3, 8, 20)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for mod in (enc_mod, gamp_mod, qgamp_mod):
+            mod.launches = 0
+        state = steps.init_train_state(cfg, opt, fed, 0, n_pods=2, device=dev)
+        fn = steps.make_train_step(cfg, opt, fed, make_single_device_mesh(), device=dev, a=a)
+        new, m = fn(state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (new, float(m["loss"]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (enc_mod.launches, gamp_mod.launches, qgamp_mod.launches) == (
+                2, 15 if mode == "ae" else 0, 15 if mode == "ea" else 0)
+    (card, l_card), (cpu, l_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-5
+    torch.testing.assert_close(card["residual"].cpu(), cpu["residual"], rtol=0, atol=1e-5)
+    worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu["params"], path))))
+                for path, p in tree_util.leaves(card["params"]))
+    assert worst <= 2 * 3e-3, worst
+    moment = [torch.cat([v.cpu().flatten() for _, v in tree_util.leaves_in_order(st["opt"]["m"])])
+              for st in (card, cpu)]
+    assert float(torch.sum(moment[1] ** 2)) > 0
+    assert _nmse(*moment) <= 1e-3

@@ -4,14 +4,16 @@ greedy-decode (the port's counterpart of ``examples/serve_lm.py``).
     PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen3-moe-235b-a22b \\
         --tokens 24 --device cpu
 
-Runs the prefill -> decode cache handoff on the arch's reduced config:
-``make_prefill_step`` fills the cache of the prompt, the cache is spliced
-into one of ``prompt + tokens`` slots, and ``make_decode_step`` (donating
-the cache: each step writes its slot in place) decodes greedily.  A VLM
-prompt carries a patch prefix (a quarter of ``--prompt-len``) and its
-M-RoPE positions.  ``--device`` defaults to ``cuda``.  An arch whose
-family the port does not carry yet (ssm, hybrid, audio) raises, naming
-its ROADMAP.md item.
+Runs the prefill -> decode cache handoff for any architecture of the zoo
+on its reduced config: ``make_prefill_step`` fills the cache of the
+prompt, its self-attention K/V are grown to ``prompt + tokens`` slots
+(``model.grow_cache``; an SSM state is O(1) in the sequence and stays as
+it is), and ``make_decode_step`` (donating the cache: each step writes its
+slot and states in place) decodes greedily from position ``--prompt-len``.
+A VLM prompt carries a patch prefix (a quarter of ``--prompt-len``) and
+its M-RoPE positions; an audio prompt is ``--prompt-len`` frame
+embeddings (Whisper's prefill encodes them and decodes a BOS token).
+``--device`` defaults to ``cuda``.
 """
 
 import argparse
@@ -28,8 +30,11 @@ from repro_torch.runtime import steps
 
 def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 1) -> dict:
     """Uniform prompt tokens (a VLM: a patch prefix of prompt_len // 4
-    positions, then text, positions 0.. on all three M-RoPE streams)."""
+    positions, then text, positions 0.. on all three M-RoPE streams; the
+    audio family: normal(0, 0.02) frame embeddings)."""
     gen = batch_generator(seed)
+    if cfg.family == "audio":
+        return {"frames": torch.randn((batch, prompt_len, cfg.d_model), generator=gen) * 0.02}
     sv = prompt_len // 4 if cfg.family == "vlm" else 0
     out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len - sv), generator=gen)}
     if sv:
@@ -60,9 +65,7 @@ def main(argv=None):
     decode_fn = steps.make_decode_step(cfg, mesh, donate=True)
 
     logits, prompt_cache = prefill_fn(params, batch)
-    cache = M.init_cache(cfg, args.batch, smax, device=dev)
-    for k, v in prompt_cache.items():  # grow the prompt's cache to smax slots
-        cache[k][:, :, : v.shape[2]] = v
+    cache = M.grow_cache(prompt_cache, smax)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     outs = [tok]
     for t in range(args.tokens - 1):

@@ -29,13 +29,15 @@ streaming PS (``core/aggregator.py``, ``fed/stream.py``, the engine's
 ``stream=`` rounds), the run telemetry (``obs/``: recorders, spans, the
 ``python -m repro_torch.obs`` reader, the engine's round events) and the
 per-tensor block layouts (``core/layout.py``) with the segment-streamed
-client encode and the segment-local EA decode; the model zoo's
-transformer family (dense GQA, MoE, MLA with multi-token prediction, and
-the Qwen2-VL backbone with M-RoPE over patch prefixes: ``models/``) with
-the pod-level FedQCS train step (``runtime/steps.py``,
-``python -m repro_torch.launch.train``) and the serve steps (KV and MLA
-latent caches, prefill, decode: ``make_prefill_step``,
-``make_decode_step``, ``examples/serve_lm_torch.py``).  The five
+client encode and the segment-local EA decode; the model zoo's six
+families (dense GQA, MoE, MLA with multi-token prediction, the Qwen2-VL
+backbone with M-RoPE over patch prefixes, Mamba2's SSD, Zamba2's hybrid
+with a shared attention block, Whisper's encoder-decoder: ``models/``)
+with the pod-level FedQCS train step (``runtime/steps.py``,
+``python -m repro_torch.launch.train``) and the serve steps (KV, MLA
+latent, SSM state and cross-attention caches, prefill, decode:
+``make_prefill_step``, ``make_decode_step``,
+``examples/serve_lm_torch.py``).  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

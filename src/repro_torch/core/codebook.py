@@ -35,6 +35,7 @@ __all__ = [
     "as_codebook",
     "VectorCodebook",
     "make_codebook",
+    "register_codebook_family",
     "vq_nearest",
     "design_dithered_uniform",
     "design_vq",
@@ -292,23 +293,31 @@ def _build_vq(cfg) -> VectorCodebook:
 
 
 # cfg.codebook -> builder(cfg) -> Codebook
-_FAMILIES: Dict[str, Callable] = {
-    "lloyd_max": _build_lloyd_max,
-    "dithered_uniform": _build_dithered_uniform,
-    "vq": _build_vq,
-}
+CODEBOOK_FAMILIES: Dict[str, Callable] = {}
+
+
+def register_codebook_family(name: str, make: Callable) -> None:
+    """Registers ``make(cfg) -> Codebook`` under ``cfg.codebook == name``:
+    the plug-in point for a new codebook, which every layer downstream then
+    picks up."""
+    CODEBOOK_FAMILIES[name] = make
+
+
+register_codebook_family("lloyd_max", _build_lloyd_max)
+register_codebook_family("dithered_uniform", _build_dithered_uniform)
+register_codebook_family("vq", _build_vq)
 
 
 def make_codebook(cfg) -> Codebook:
     """Builds the protocol codebook named by ``cfg.codebook``; deterministic
     in the config, so every client and the PS derive the same tables."""
     try:
-        builder = _FAMILIES[cfg.codebook]
+        make = CODEBOOK_FAMILIES[cfg.codebook]
     except KeyError:
         raise ValueError(
-            f"unknown codebook {cfg.codebook!r} (known: {sorted(_FAMILIES)})"
+            f"unknown codebook {cfg.codebook!r} (known: {sorted(CODEBOOK_FAMILIES)})"
         ) from None
-    return builder(cfg)
+    return make(cfg)
 
 
 def as_codebook(obj) -> Codebook:

@@ -39,6 +39,7 @@ from repro_torch.core.codebook import as_codebook
 __all__ = [
     "GampConfig",
     "GampInfo",
+    "GampState",
     "gamp_health",
     "qem_gamp",
     "qem_gamp_packed",
@@ -69,6 +70,11 @@ class GampConfig:
     # end the plain loop once every block froze (outputs identical to the
     # fixed trip count; one host sync an iteration)
     early_stop: bool = False
+
+
+class GampState(tuple):
+    """(ghat, nu_g, shat, theta, converged, iters): the solver's opaque
+    loop carry."""
 
 
 class GampInfo(NamedTuple):

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sensing_matrix", "scale_factor", "project_blocks"]
+__all__ = ["sensing_matrix", "sensing_matrix_t", "scale_factor", "project_blocks"]
 
 
 def sensing_matrix(seed: int, m: int, n: int, device="cuda") -> torch.Tensor:
@@ -22,6 +22,12 @@ def sensing_matrix(seed: int, m: int, n: int, device="cuda") -> torch.Tensor:
     a = torch.randn((m, n), generator=gen, dtype=torch.float32)
     a = a / torch.sqrt(torch.tensor(float(m), dtype=torch.float32))
     return a.to(device)
+
+
+def sensing_matrix_t(seed: int, m: int, n: int, device="cuda") -> torch.Tensor:
+    """A^T in R^{n x m} (the entries of :func:`sensing_matrix`), the layout
+    of the batched projection ``Y = G @ A^T``."""
+    return sensing_matrix(seed, m, n, device).T
 
 
 def scale_factor(blocks: torch.Tensor, m: int, eps: float = 1e-20) -> torch.Tensor:

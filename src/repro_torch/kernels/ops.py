@@ -36,6 +36,7 @@ __all__ = [
     "bqcs_encode",
     "qgamp_step",
     "gamp_step",
+    "qgamp_ea_run",
     "qgamp_ea_run_packed",
     "gamp_ae_run",
 ]
@@ -122,6 +123,48 @@ def _init_state(init_var: torch.Tensor, n: int, m: int, L: int, lam0: float):
     return ghat, nu_g, shat, theta
 
 
+def _qgamp_ea(obs, alpha, a, taus, bits: int, m: int, n_components: int, iters: int,
+              em: bool, lam0: float) -> torch.Tensor:
+    """The EA solve of both entry points: ``obs`` is (nb, M) int32 codes
+    when ``bits == 0`` or (nb, W) uint32 wire words when ``bits == Q``."""
+    n = a.shape[1]
+    lo_tau, hi_tau = tau_tables(taus)
+    alpha = alpha.to(torch.float32)
+    alive = alpha > 0.0
+    safe_alpha = torch.where(alive, alpha, torch.ones_like(alpha))
+    init_var = block_prior_energy(alpha, m, n)
+    ghat, nu_g, shat, theta = _init_state(init_var, n, m, n_components, lam0)
+    alpha2d = safe_alpha[:, None].contiguous()
+    obs = obs.contiguous()
+    for _ in range(iters):
+        ghat, nu_g, shat, theta = qgamp_step(
+            ghat, nu_g, shat, theta, obs, alpha2d, lo_tau, hi_tau, a,
+            n_components=n_components, em=em, bits=bits,
+        )
+    ghat = torch.where(alive[:, None], ghat, torch.zeros_like(ghat))
+    root_m = float(np.sqrt(np.float32(m)))
+    true_norm = torch.where(alive, root_m / safe_alpha, torch.zeros_like(alpha))
+    return norm_guard(ghat, true_norm)
+
+
+def qgamp_ea_run(
+    codes: torch.Tensor,  # (nb, M) code indices (any integer dtype)
+    alpha: torch.Tensor,  # (nb,) transmitted scales (0 = dead block)
+    a: torch.Tensor,  # (M, N)
+    taus: torch.Tensor,  # (2^Q - 1,) interior Lloyd-Max thresholds
+    n_components: int = 3,
+    iters: int = 25,
+    em: bool = True,
+    lam0: float = 0.9,
+) -> torch.Tensor:
+    """EA reconstruction on code indices: ``iters`` launches of qgamp_step
+    on the (nb, M) codes, the reference's scalar-variance ``qem_gamp`` with
+    a fixed trip count.  Dead rows (alpha == 0) come out exactly zero; the
+    final norm guard clips against sqrt(M)/alpha.  Returns (nb, N)."""
+    return _qgamp_ea(codes.to(torch.int32), alpha, a, taus, 0, codes.shape[1], n_components,
+                     iters, em, lam0)
+
+
 def qgamp_ea_run_packed(
     words: torch.Tensor,  # (nb, W) uint32 packed wire words
     alpha: torch.Tensor,  # (nb,) transmitted scales (0 = dead block)
@@ -138,24 +181,7 @@ def qgamp_ea_run_packed(
     the wire words.  Dead rows (alpha == 0) run with alpha = 1 and come out
     exactly zero; the final norm guard clips against the transmitted norm
     sqrt(M)/alpha.  Returns (nb, N)."""
-    n = a.shape[1]
-    lo_tau, hi_tau = tau_tables(taus)
-    alpha = alpha.to(torch.float32)
-    alive = alpha > 0.0
-    safe_alpha = torch.where(alive, alpha, torch.ones_like(alpha))
-    init_var = block_prior_energy(alpha, m, n)
-    ghat, nu_g, shat, theta = _init_state(init_var, n, m, n_components, lam0)
-    alpha2d = safe_alpha[:, None].contiguous()
-    words = words.contiguous()
-    for _ in range(iters):
-        ghat, nu_g, shat, theta = qgamp_step(
-            ghat, nu_g, shat, theta, words, alpha2d, lo_tau, hi_tau, a,
-            n_components=n_components, em=em, bits=bits,
-        )
-    ghat = torch.where(alive[:, None], ghat, torch.zeros_like(ghat))
-    root_m = float(np.sqrt(np.float32(m)))
-    true_norm = torch.where(alive, root_m / safe_alpha, torch.zeros_like(alpha))
-    return norm_guard(ghat, true_norm)
+    return _qgamp_ea(words, alpha, a, taus, bits, m, n_components, iters, em, lam0)
 
 
 def gamp_ae_run(

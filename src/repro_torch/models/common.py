@@ -7,8 +7,8 @@ function.  Compute runs in the config dtype (bf16 by default) with fp32
 norm, softmax-max and probability-sum accumulation, in the reference's
 order of operations.  Attention has the training path and the cached
 decode path (a KV cache written at ``cache_pos``); rotary embeddings are
-standard or Qwen2-VL's M-RoPE.  ``layer_norm``, cross-attention and the
-GELU MLP (the audio family) wait for ROADMAP.md item 11.
+standard or Qwen2-VL's M-RoPE.  Cross-attention (K/V from an encoder) and
+the ungated GELU MLP serve the audio family.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.sharding import cs
 
@@ -51,6 +53,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float):
@@ -172,9 +183,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_off
     return out.reshape(b, sq, h, dh)
 
 
+def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, dh)
+
+
 def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
                     cfg: ModelConfig, causal: bool = True, cache: Optional[dict] = None,
-                    cache_pos=None):
+                    cache_pos=None, cross_kv=None):
     """One layer's attention with weights ``p``: ``(out, kv)``.
 
     Train/prefill (``cache=None``): full-sequence attention; ``kv`` is the
@@ -183,26 +199,33 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     the same values outside its scan).  Decode: ``cache`` is ``{"k", "v"}``
     (B, Smax, KVH, dh); the new K/V are written into it at ``cache_pos``
     in place (:func:`update_slot`), attention runs over the slots
-    ``<= cache_pos``, and ``kv`` is that cache.  Cross-attention (the audio
-    family) is ROADMAP.md item 11."""
+    ``<= cache_pos``, and ``kv`` is that cache.  Cross-attention:
+    ``cross_kv`` is the encoder's (k, v) (B, Se, KVH, dh), taken as they
+    are (no norm, no rotary, no cache write); ``kv`` holds them."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, dh)
-    k = k.reshape(b, s, cfg.n_kv_heads, dh)
-    v = v.reshape(b, s, cfg.n_kv_heads, dh)
+        q = q + p["bq"]
+    q = _split_heads(q, cfg.n_heads, dh)
+    if cross_kv is None:
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = _split_heads(k, cfg.n_kv_heads, dh)
+        v = _split_heads(v, cfg.n_kv_heads, dh)
+    else:
+        k, v = cross_kv
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if positions is not None:
+        if cross_kv is None:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None and cross_kv is None:
         q = rotate(q, positions, cfg)
         k = rotate(k, positions, cfg)
     q = cs(q, "batch", "seq", "heads", None)
-    if cache is not None:
+    if cache is not None and cross_kv is None:
         ck = update_slot(cache["k"], k, cache_pos)
         cv = update_slot(cache["v"], v, cache_pos)
         kv = {"k": ck, "v": cv}
@@ -216,21 +239,26 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU; the audio family's plain GELU)
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, d: int, f: int, dtype, layers: int) -> dict:
-    return {
-        "wg": dense_init(gen, (layers, d, f), dtype, d),
-        "wi": dense_init(gen, (layers, d, f), dtype, d),
-        "wo": dense_init(gen, (layers, f, d), dtype, f),
-    }
+def init_mlp(gen: torch.Generator, d: int, f: int, dtype, layers: int,
+             gated: bool = True) -> dict:
+    p = {"wg": dense_init(gen, (layers, d, f), dtype, d)} if gated else {}
+    p["wi"] = dense_init(gen, (layers, d, f), dtype, d)
+    p["wo"] = dense_init(gen, (layers, f, d), dtype, f)
+    return p
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU when ``p`` has ``wg``, else GELU in its tanh form (the
+    reference's ``jax.nn.gelu`` default)."""
     h = x @ p["wi"]
-    h = F.silu(x @ p["wg"]) * h
+    if "wg" in p:
+        h = F.silu(x @ p["wg"]) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
     h = cs(h, "batch", "seq", "ff")
     return cs(h @ p["wo"], "batch", "seq", "dmodel")
 
@@ -285,6 +313,37 @@ def head_loss(p: dict, x: torch.Tensor, ctx: dict, cfg: ModelConfig) -> torch.Te
     hidden = rms_norm(x, p["final_norm"], cfg.norm_eps)
     logits = logits_from(p["tok"], hidden, cfg)
     return softmax_cross_entropy(logits, ctx["labels"], ctx.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# layer stacks (the port's loop over the reference's scanned L axis)
+# ---------------------------------------------------------------------------
+
+
+def to_device(tree, device):
+    return tree_util.tree_map(lambda v: v.to(device), tree)
+
+
+def unstack_layers(stack: dict) -> list:
+    """The stacked tree as one tree a layer (``unbind``: one backward op
+    stacks every layer's gradient)."""
+    items = [(path, v.unbind(0)) for path, v in tree_util.leaves_in_order(stack)]
+    return [tree_util.unflatten((path, parts[i]) for path, parts in items)
+            for i in range(len(items[0][1]))]
+
+
+def run_layers(layer_fn, lps: list, x: torch.Tensor, cfg: ModelConfig, *args) -> torch.Tensor:
+    """``x = layer_fn(lp, x, cfg, *args)`` for each layer tree ``lp`` of
+    ``lps`` in order; under ``remat_policy`` (and with autograd on) each
+    layer is recomputed in the backward pass (``torch.utils.checkpoint``)."""
+    remat = remat_policy(cfg) and torch.is_grad_enabled()
+    for lp in lps:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, lp, x, cfg, *args,
+                                                  use_reentrant=False)
+        else:
+            x = layer_fn(lp, x, cfg, *args)
+    return x
 
 
 def remat_policy(cfg: ModelConfig) -> bool:

@@ -2,27 +2,28 @@
 ``repro.models.model``).
 
 Every architecture exposes the reference's entry points: ``init_params``,
-``train_loss``, ``prefill``, ``decode_step`` and ``init_cache``.  The port
-carries the transformer family -- ``dense``, ``moe`` and ``vlm``
-(``models/transformer.py``); the ``ssm``, ``hybrid`` and ``audio``
-families raise, naming ROADMAP.md item 11.  :func:`input_specs` gives each
-input of a step as a :class:`TensorSpec` (shape and dtype), the
-reference's ShapeDtypeStruct stand-ins; token ids and positions are int64,
-torch's index dtype, where the reference's are int32.
+``train_loss``, ``prefill``, ``decode_step`` and ``init_cache``, whatever
+its family: ``dense``, ``moe`` and ``vlm`` (``models/transformer.py``),
+``ssm`` (``models/ssm_lm.py``), ``hybrid`` (``models/hybrid.py``) and
+``audio`` (``models/encdec.py``).  :func:`input_specs` gives each input of
+a step as a :class:`TensorSpec` (shape and dtype), the reference's
+ShapeDtypeStruct stand-ins; token ids and positions are int64, torch's
+index dtype, where the reference's are int32.  :func:`grow_cache` makes a
+prefill cache room for decode steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import entry_device, not_in_slice
+from repro_torch import entry_device
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import batch_generator
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import dtype_of
 
 
@@ -42,6 +43,7 @@ SHAPES: Dict[str, ShapeCell] = {
 }
 
 _VIS_FRAC = 4  # vlm: 1/4 of the sequence budget is patch embeddings
+_AUDIO_TEXT_FRAC = 8  # audio: text tokens are 1/8 of the frame budget
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +55,14 @@ class TensorSpec:
 
 
 def _module(cfg: ModelConfig):
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise not_in_slice(f"the {cfg.family!r} model family ({cfg.name})", "item 11")
-    return transformer
+    return {
+        "dense": transformer,
+        "moe": transformer,
+        "vlm": transformer,
+        "ssm": ssm_lm,
+        "hybrid": hybrid,
+        "audio": encdec,
+    }[cfg.family]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -76,8 +83,35 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, inplace: bool = Fa
     return _module(cfg).decode_step(params, cache, tokens, pos, cfg, inplace)
 
 
-def prefill(params, batch, cfg: ModelConfig):
-    return _module(cfg).prefill(params, batch, cfg)
+def prefill(params, batch, cfg: ModelConfig, smax: Optional[int] = None):
+    """(last-position logits, the cache of the prompt).  The audio family
+    decodes its BOS token into a self-attention cache of ``smax`` slots
+    (default: the frame count)."""
+    mod = _module(cfg)
+    if cfg.family == "audio":
+        return mod.prefill(params, batch, cfg, smax or batch["frames"].shape[1])
+    return mod.prefill(params, batch, cfg)
+
+
+SLOT_LEAVES = ("k", "v", "ckv", "kr")  # cache leaves with a sequence-slot axis (dim 2)
+
+
+def grow_cache(cache: dict, smax: int) -> dict:
+    """A copy of a prefill cache with at least ``smax`` slots on each
+    self-attention leaf (its K/V or MLA latents: the prompt's slots, then
+    zeros), ready for decode steps at the positions after the prompt.  SSM
+    states are O(1) in the sequence and the encoder's cross K/V keep its
+    length: those leaves are copied as they are.  The prefill's cache is
+    left as it was."""
+    def grow(path, v):
+        if path[-1] not in SLOT_LEAVES or v.shape[2] >= smax:
+            return v.clone()
+        out = v.new_zeros(v.shape[:2] + (smax,) + v.shape[3:])
+        out[:, :, :v.shape[2]] = v
+        return out
+
+    return tree_util.unflatten((path, grow(path, v))
+                               for path, v in tree_util.leaves_in_order(cache))
 
 
 def supports_cell(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
@@ -93,8 +127,9 @@ def supports_cell(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
 def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, Any]:
     """The step's inputs as TensorSpecs: the train or prefill batch (the
     VLM's: text tokens, a quarter of the sequence as patch embeddings, and
-    (3, B, S) positions), or the decode inputs (tokens (B, 1), ``pos`` and
-    the cache of ``seq`` slots)."""
+    (3, B, S) positions; the audio family's: ``seq`` frame embeddings and,
+    to train, max(64, seq / 8) text tokens), or the decode inputs (tokens
+    (B, 1), ``pos`` and the cache of ``seq`` slots)."""
     _module(cfg)
     cell = SHAPES[shape]
     b, s = cell.batch, cell.seq
@@ -103,6 +138,13 @@ def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, Any]:
         cache = tree_util.tree_map(lambda v: TensorSpec(tuple(v.shape), v.dtype),
                                    init_cache(cfg, b, s, device="meta"))
         return {"tokens": TensorSpec((b, 1), i64), "pos": TensorSpec((), i64), "cache": cache}
+    if cfg.family == "audio":
+        specs = {"frames": TensorSpec((b, s, cfg.d_model), dtype_of(cfg))}
+        if cell.kind == "train":
+            st = max(64, s // _AUDIO_TEXT_FRAC)
+            specs["tokens"] = TensorSpec((b, st), i64)
+            specs["labels"] = TensorSpec((b, st), i64)
+        return specs
     st = s - s // _VIS_FRAC if cfg.family == "vlm" else s
     specs = {"tokens": TensorSpec((b, st), i64)}
     if cfg.family == "vlm":
@@ -117,7 +159,7 @@ def make_batch(cfg: ModelConfig, shape: str, seed: int = 0, device="cuda") -> Di
     """Random inputs matching :func:`input_specs`, drawn from a seeded CPU
     generator and moved to ``device``: uniform token ids (and ``pos``),
     M-RoPE positions 0..S-1 on every stream (the reference's fill), and
-    normal(0, 0.02) floats (patches, a decode cache).  ``device="meta"``
+    normal(0, 0.02) floats (patches, frames, a decode cache).  ``device="meta"``
     draws nothing."""
     dev = entry_device(device)
     gen = batch_generator(seed)

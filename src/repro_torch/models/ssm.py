@@ -1,0 +1,189 @@
+"""Mamba-2 (SSD, state-space duality) blocks: the chunked train scan and the
+O(1) decode step (port of ``repro.models.ssm``).
+
+The minimal SSD algorithm of the Mamba-2 paper (chunkwise: an intra-chunk
+quadratic term plus an inter-chunk state recurrence), with a single B/C
+group broadcast over the heads, a short causal depthwise conv on (x|B|C),
+softplus dt with a learned bias, and a gated RMSNorm before ``out_proj``.
+The scan's products are pairwise contractions (``C . B^T`` over the state,
+times the decay mask, then by x), so their order of sums does not depend
+on an einsum path optimizer, and the (B, H, C, L, L) decay mask is the one
+large intermediate.
+
+Decode carries ``conv`` (B, K-1, C_conv), the last pre-conv inputs, and
+``ssm`` (B, H, P, N) fp32, and does the exact one-step recurrence.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init, dtype_of, rms_norm
+from repro_torch.models.sharding import cs
+
+
+def _conv_channels(cfg: ModelConfig) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_state  # x | B | C
+
+
+def init_mamba(gen: Optional[torch.Generator], cfg: ModelConfig, layers: int) -> dict:
+    """Stacked (``layers``, ...) Mamba-2 weights, keys in sorted order:
+    ``a_log`` 0 (A = -1), ``d_skip`` 1 and ``dt_bias`` 0 in fp32, the rest in
+    the config dtype."""
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    dt, f32 = dtype_of(cfg), torch.float32
+    proj_out = 2 * di + 2 * n + h  # z | x | B | C | dt
+    return {
+        "a_log": torch.zeros((layers, h), dtype=f32),
+        "conv_b": torch.zeros((layers, _conv_channels(cfg)), dtype=dt),
+        "conv_w": dense_init(gen, (layers, cfg.ssm_conv_kernel, _conv_channels(cfg)), dt),
+        "d_skip": torch.ones((layers, h), dtype=f32),
+        "dt_bias": torch.zeros((layers, h), dtype=f32),
+        "gate_norm": torch.ones((layers, di), dtype=dt),
+        "in_proj": dense_init(gen, (layers, d, proj_out), dt, d),
+        "out_proj": dense_init(gen, (layers, di, d), dt, di),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., l) -> (..., l, l), out[i, j] = sum_{j < k <= i} x[k]; -inf above
+    the diagonal (a difference of cumulative sums, as the reference)."""
+    l = x.shape[-1]
+    csum = torch.cumsum(x, dim=-1)
+    seg = csum[..., :, None] - csum[..., None, :]
+    idx = torch.arange(l, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def _ssd_chunked(xh: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                 chunk: int):
+    """The chunked SSD scan.
+
+    xh (B, T, H, P) inputs (already dt-weighted), dta (B, T, H) dt * A
+    (negative), bm and cm (B, T, N) the single-group B and C.  Returns y
+    (B, T, H, P) and the final state (B, H, P, N)."""
+    b, t, h, p = xh.shape
+    n = bm.shape[-1]
+    t0 = t
+    pad = (-t) % chunk
+    if pad:  # zero-dt padding is a no-op on the recurrence (exp(0) = 1, dB x = 0)
+        zf = lambda v: F.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
+        xh, dta, bm, cm = zf(xh), zf(dta), zf(bm), zf(cm)
+        t = t + pad
+    c = t // chunk
+    x_ = xh.reshape(b, c, chunk, h, p)
+    a_ = dta.reshape(b, c, chunk, h).permute(0, 3, 1, 2)  # (B, H, C, L)
+    b_ = bm.reshape(b, c, chunk, n)
+    c__ = cm.reshape(b, c, chunk, n)
+
+    a_cum = torch.cumsum(a_, dim=-1)  # (B, H, C, L)
+    # 1. the intra-chunk (quadratic, attention-like) term: C . B^T, times
+    # the decay mask, by x
+    ll = torch.exp(_segsum(a_))  # (B, H, C, L, L)
+    cb = torch.einsum("bcln,bcsn->bcls", c__, b_)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", cb[:, None] * ll, x_)
+    # 2. each chunk's final state: x scaled by its decay to the chunk end, by B
+    decay_states = torch.exp(a_cum[..., -1:] - a_cum)  # (B, H, C, L)
+    xd = x_ * decay_states.permute(0, 2, 3, 1)[..., None]  # (B, C, L, H, P)
+    states = torch.einsum("bcln,bclhp->bchpn", b_, xd)
+    # 3. the inter-chunk recurrence over the chunk axis
+    states = torch.cat([torch.zeros_like(states[:, :1]), states], dim=1)  # (B, C+1, H, P, N)
+    a_last = F.pad(a_cum[..., -1], (1, 0))  # (B, H, C+1)
+    decay_chunk = torch.exp(_segsum(a_last))  # (B, H, C+1, C+1)
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
+    states, final = new_states[:, :-1], new_states[:, -1]
+    # 4. the states' contribution to the output: C . state, times the decay
+    out_decay = torch.exp(a_cum)  # (B, H, C, L)
+    y_off = (torch.einsum("bcln,bchpn->bclhp", c__, states)
+             * out_decay.permute(0, 2, 3, 1)[..., None])
+    y = (y_diag + y_off).reshape(b, t, h, p)[:, :t0]
+    return y, final
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time.  u (B, T, C), w (K, C); the taps
+    add in the reference's order."""
+    k, t = w.shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, k - 1, 0))
+    out = torch.zeros_like(u)
+    for i in range(k):
+        out = out + pad[:, i:i + t, :] * w[i]
+    return out + bias
+
+
+def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
+    di, n = cfg.d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * n]
+    dt = zxbcdt[..., di + di + 2 * n:]
+    return z, xbc, dt
+
+
+def _mamba_seq(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The full-sequence block: (out (B, T, D), the pre-conv x|B|C, the final
+    SSD state)."""
+    b, t, _ = x.shape
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    zxbcdt = x @ p["in_proj"]
+    z, xbc_pre, dt = _split_proj(zxbcdt, cfg)
+    xbc = F.silu(_causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
+    xs, bm, cm = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, T, H)
+    a = -torch.exp(p["a_log"])  # (H,)
+    xh = cs(xs.reshape(b, t, h, cfg.ssm_head_dim), "batch", "seq", "heads", None)
+    y, final = _ssd_chunked((xh * dt[..., None]).float(), dt * a, bm.float(), cm.float(),
+                            cfg.ssm_chunk)
+    y = y + xh.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(b, t, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return cs(y @ p["out_proj"], "batch", "seq", "dmodel"), xbc_pre, final
+
+
+def apply_mamba_train(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _mamba_seq(p, x, cfg)[0]
+
+
+def apply_mamba_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The train-path forward that also returns the decode cache (the conv
+    window of the last K-1 pre-conv inputs and the final SSD state), so
+    serving goes on from position T."""
+    out, xbc_pre, final = _mamba_seq(p, x, cfg)
+    return out, {"conv": xbc_pre[:, -(cfg.ssm_conv_kernel - 1):, :], "ssm": final}
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, layers: int, device) -> dict:
+    """Zeros: ``conv`` (layers, B, K-1, C_conv) in ``dtype``, ``ssm`` (layers,
+    B, H, P, N) fp32."""
+    return {
+        "conv": torch.zeros((layers, batch, cfg.ssm_conv_kernel - 1, _conv_channels(cfg)),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def apply_mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
+    """x (B, 1, D); the exact one-step recurrence.  Returns (y (B, 1, D),
+    the new ``{"conv", "ssm"}``); ``cache`` is left as it was."""
+    b = x.shape[0]
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    zxbcdt = x[:, 0] @ p["in_proj"]  # (B, proj)
+    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)  # (B, K, C)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"])
+    xs, bm, cm = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, H)
+    da = torch.exp(dt * -torch.exp(p["a_log"]))  # (B, H)
+    xh = xs.reshape(b, h, cfg.ssm_head_dim).float()
+    ssm = (cache["ssm"] * da[:, :, None, None]
+           + (xh * dt[:, :, None])[..., None] * bm.float()[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", ssm, cm.float())
+    y = y + xh * p["d_skip"][None, :, None]
+    y = y.reshape(b, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return (y @ p["out_proj"])[:, None, :], {"conv": window[:, 1:], "ssm": ssm}

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch import entry_device
 from repro_torch import tree as tree_util
@@ -37,9 +36,11 @@ from repro_torch.models.common import (
     init_embed,
     init_mlp,
     logits_from,
-    remat_policy,
     rms_norm,
+    run_layers,
     softmax_cross_entropy,
+    to_device,
+    unstack_layers,
 )
 from repro_torch.models.mla import apply_mla_decode, init_mla, mla_train
 from repro_torch.models.moe import apply_moe, init_moe
@@ -82,11 +83,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any
         params["mtp"] = {"layer": layer, "norm": torch.ones((d,), dtype=dt),
                          "proj": dense_init(gen, (2 * d, d), dt, 2 * d)}
     params["tok"] = tok
-    return _to(params, device)
-
-
-def _to(tree, device):
-    return tree_util.tree_map(lambda v: v.to(device), tree)
+    return to_device(params, device)
 
 
 # ---------------------------------------------------------------------------
@@ -108,32 +105,19 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     return x + (apply_moe(lp["ffn"], h, cfg) if moe else apply_mlp(lp["ffn"], h)), kv
 
 
-def _layer_out(lp, x, positions, cfg, moe):
+def _layer_out(lp, x, cfg, positions, moe):
     return _layer_fwd(lp, x, positions, cfg, moe)[0]
-
-
-def _unstack(stack: dict):
-    """The stacked tree as one tree a layer (``unbind``: one backward op
-    stacks every layer's gradient)."""
-    items = [(path, v.unbind(0)) for path, v in tree_util.leaves_in_order(stack)]
-    return [tree_util.unflatten((path, parts[i]) for path, parts in items)
-            for i in range(len(items[0][1]))]
 
 
 def _run_stack(stack: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                moe: bool, kvs: list = None):
     """The stack's layers in order; with ``kvs``, each layer's K/V (or
     latents) is appended to it."""
-    remat = remat_policy(cfg) and torch.is_grad_enabled()
-    for lp in _unstack(stack):
-        if kvs is not None:
-            x, kv = _layer_fwd(lp, x, positions, cfg, moe)
-            kvs.append(kv)
-        elif remat:
-            x = torch.utils.checkpoint.checkpoint(_layer_out, lp, x, positions, cfg, moe,
-                                                  use_reentrant=False)
-        else:
-            x = _layer_out(lp, x, positions, cfg, moe)
+    if kvs is None:
+        return run_layers(_layer_out, unstack_layers(stack), x, cfg, positions, moe)
+    for lp in unstack_layers(stack):
+        x, kv = _layer_fwd(lp, x, positions, cfg, moe)
+        kvs.append(kv)
     return x
 
 
@@ -228,7 +212,7 @@ def _mtp_loss(hp: dict, hidden, tokens, labels, positions, cfg: ModelConfig):
     mp = hp["mtp"]
     emb_next = embed_tokens(hp["tok"], tokens, cfg)[:, 1:]
     x = torch.cat([rms_norm(hidden[:, :-1], mp["norm"], cfg.norm_eps), emb_next], dim=-1)
-    x = _layer_out(mp["layer"], x @ mp["proj"], positions[..., :-1], cfg, False)
+    x = _layer_out(mp["layer"], x @ mp["proj"], cfg, positions[..., :-1], False)
     return softmax_cross_entropy(logits_from(hp["tok"], x, cfg), labels[:, 1:])
 
 
@@ -280,7 +264,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: Model
     positions = pos_t.reshape((1,) * len(lead)).expand(lead)
     layer = 0
     for stack, moe in _stacks(params, cfg):
-        for lp in _unstack(stack):
+        for lp in unstack_layers(stack):
             x = _layer_decode(lp, x, positions, cfg, {k: v[layer] for k, v in cache.items()},
                               pos_t, moe)
             layer += 1

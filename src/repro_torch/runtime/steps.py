@@ -200,8 +200,9 @@ def value_and_grad(params, batch, cfg: ModelConfig):
 
 
 def _pod_batch(batch, pods: int, p: int):
-    """Pod ``p``'s share of the batch (batch dim split in ``pods``; the
-    VLM's (3, B, S) ``positions`` carry it second)."""
+    """Pod ``p``'s share of the batch (batch dim split in ``pods``: dim 0 of
+    every leaf, the audio family's (B, S, D) ``frames`` too; the VLM's (3,
+    B, S) ``positions`` carry it second)."""
     def share(name, v):
         if name == "positions":
             return v.reshape((v.shape[0], pods, -1) + tuple(v.shape[2:]))[:, p]
@@ -329,11 +330,13 @@ def make_train_step(
 
 def make_prefill_step(cfg: ModelConfig, mesh):
     """Returns ``prefill_fn(params, batch) -> (last-position logits, cache)``,
-    run under ``torch.inference_mode()``."""
+    run under ``torch.inference_mode()``.  The audio family's cache has as
+    many self-attention slots as the prompt has frames."""
 
     def prefill_fn(params, batch):
+        smax = batch["frames"].shape[1] if cfg.family == "audio" else None
         with torch.inference_mode():
-            return model_api.prefill(params, batch, cfg)
+            return model_api.prefill(params, batch, cfg, smax)
 
     return prefill_fn
 
@@ -342,7 +345,7 @@ def make_decode_step(cfg: ModelConfig, mesh, donate: bool = True):
     """Returns ``decode_fn(params, cache, tokens, pos) -> (next_tok, logits,
     new_cache)``, run under ``torch.inference_mode()``: ``next_tok`` (B, 1)
     is the greedy token (the first index wins a tie).  ``donate=True``
-    writes the new K/V into ``cache`` itself and returns it (the
+    writes the new K/V (or SSM states) into ``cache`` itself and returns it (the
     counterpart of the reference's buffer donation); ``donate=False``
     leaves ``cache`` as it was."""
 

@@ -982,13 +982,24 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path, impl, fed_kw):
     assert worst <= 2 * 3e-3, worst
 
 
-# The transformer family's MoE, MLA (+MTP) and VLM smoke configs on the card
-# against the same model on the CPU, both fp32 (TF32 off): the loss within
-# 1e-5, every gradient leaf, prefill's logits and cache and 8 decode steps
-# (each fed the CPU's greedy token) rtol 1e-4 / atol 1e-5 -- the same
-# products in another summation order (an embedding row's gradient sums
-# O(1) terms that cancel to ~1e-3, where the two orders part by ~3e-6).
-_FAMILIES = ["qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b"]
+# The transformer family's MoE, MLA (+MTP) and VLM smoke configs and the
+# SSM, hybrid and audio families' on the card against the same model on the
+# CPU, both fp32 (TF32 off): the loss within 1e-5, every gradient leaf,
+# prefill's logits and cache and 8 decode steps (each fed the CPU's greedy
+# token) rtol 1e-4 / atol 1e-5 -- the same products in another summation
+# order (an embedding row's gradient sums O(1) terms that cancel to ~1e-3,
+# where the two orders part by ~3e-6).
+_FAMILIES = ["qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b", "mamba2-1.3b",
+             "zamba2-2.7b", "whisper-base"]
+_SSM_AUDIO = ("ssm", "hybrid", "audio")
+
+
+def _prompt(cfg, batch):
+    """The prefill input of a train batch: the frames (audio) or the
+    tokens (with the VLM's patches and positions)."""
+    if cfg.family == "audio":
+        return {"frames": batch["frames"]}
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def _family_case(arch, device):
@@ -1005,6 +1016,8 @@ def _family_case(arch, device):
         batch["patches"] = torch.randn((b, sv, cfg.d_model), generator=gen) * 0.02
         batch["positions"] = torch.stack([torch.arange(s), torch.arange(s) // 2,
                                           torch.arange(s) % 3])[:, None].expand(3, b, s)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, 20, cfg.d_model), generator=gen) * 0.02
     return cfg, params, {k: v.to(device) for k, v in batch.items()}
 
 
@@ -1016,12 +1029,11 @@ def _serve_run(arch, device, feed=None):
 
     cfg, params, batch = _family_case(arch, device)
     loss, grads = steps.value_and_grad(params, batch, cfg)
-    prompt = {k: v for k, v in batch.items() if k != "labels"}
-    logits, pc = steps.make_prefill_step(cfg, None)(params, prompt)
-    s = next(iter(pc.values())).shape[2]
-    cache = M.init_cache(cfg, 2, s + 8, device=device)
-    for k, v in pc.items():
-        cache[k][:, :, :s] = v
+    logits, pc = steps.make_prefill_step(cfg, None)(params, _prompt(cfg, batch))
+    # the next position: Whisper's prefill decoded BOS at 0
+    s = 1 if cfg.family == "audio" else batch["tokens"].shape[1] + (
+        batch["patches"].shape[1] if "patches" in batch else 0)
+    cache = M.grow_cache(pc, s + 8)
     decode = steps.make_decode_step(cfg, None)
     tok, outs, toks = torch.argmax(logits[:, -1], -1)[:, None], [], []
     for t in range(8):
@@ -1040,13 +1052,19 @@ def test_serve_family_on_the_card_matches_the_cpu(cuda, arch):
     card = _serve_run(arch, "cuda", feed=cpu[5])
     assert abs(float(card[0]) - float(cpu[0])) <= 1e-5
     for path, g in tree_util.leaves(card[1]):
-        torch.testing.assert_close(g.cpu(), tree_util.get(cpu[1], path), rtol=1e-4, atol=1e-5,
+        want = tree_util.get(cpu[1], path)
+        # the SSM, hybrid and audio families: atol 1e-5 x the leaf's largest
+        # entry where that exceeds 1 (Zamba2's smoke gradients reach ~40,
+        # where fp32 rounding alone is ~1e-6 of the leaf's scale)
+        atol = (1e-5 * max(1.0, float(want.abs().max()))
+                if arch in ("mamba2-1.3b", "zamba2-2.7b", "whisper-base") else 1e-5)
+        torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=atol,
                                    msg=lambda m, p=path: f"{p}: {m}")
     fwd = dict(rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(card[2].cpu(), cpu[2], **fwd)
     for idx in (3, 6):  # the prefill cache, the cache after 8 decode steps
-        for k, v in card[idx].items():
-            torch.testing.assert_close(v.cpu(), cpu[idx][k], **fwd)
+        for path, v in tree_util.leaves(card[idx]):
+            torch.testing.assert_close(v.cpu(), tree_util.get(cpu[idx], path), **fwd)
     for t, (lo_card, lo_cpu) in enumerate(zip(card[4], cpu[4])):
         torch.testing.assert_close(lo_card.cpu(), lo_cpu, **fwd, msg=lambda m, t=t: f"{t}: {m}")
 
@@ -1059,7 +1077,10 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
     launches) against the same step on the CPU (the plain versions): the
     aggregate the step applied (Adam's first moment, 0.1 x the clipped
     aggregate after a first step) to NMSE <= 1e-3, the loss, the residual
-    and the parameters within 2 lr."""
+    and the parameters within 2 lr.  The SSM, hybrid and audio families'
+    residual is held to atol 1e-5 beyond the two devices' gap in the
+    gradient blocks it comes from (Zamba2's smoke gradients reach ~40,
+    where fp32 rounding alone is ~5e-5)."""
     from repro_torch import tree as tree_util
     from repro_torch.configs.registry import smoke_config
     from repro_torch.core.compression import FedQCSConfig
@@ -1079,13 +1100,18 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
         gen = torch.Generator().manual_seed(2)
         batch["patches"] = torch.randn((8, 4, cfg.d_model), generator=gen) * 0.02
         batch["positions"] = torch.arange(20).expand(3, 8, 20)
-    out = {}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((8, 16, cfg.d_model),
+                                      generator=torch.Generator().manual_seed(2)) * 0.02
+    out, blocks = {}, {}
     for dev in ("cuda", "cpu"):
         for mod in (enc_mod, gamp_mod, qgamp_mod):
             mod.launches = 0
         state = steps.init_train_state(cfg, opt, fed, 0, n_pods=2, device=dev)
         fn = steps.make_train_step(cfg, opt, fed, make_single_device_mesh(), device=dev, a=a)
-        new, m = fn(state, {k: v.to(dev) for k, v in batch.items()})
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        blocks[dev] = steps.pod_blocks(state["params"], on_dev, cfg, 2, 256, dev)[1].cpu()
+        new, m = fn(state, on_dev)
         out[dev] = (new, float(m["loss"]))
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -1093,7 +1119,11 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
                 2, 15 if mode == "ae" else 0, 15 if mode == "ea" else 0)
     (card, l_card), (cpu, l_cpu) = out["cuda"], out["cpu"]
     assert abs(l_card - l_cpu) <= 1e-5
-    torch.testing.assert_close(card["residual"].cpu(), cpu["residual"], rtol=0, atol=1e-5)
+    if cfg.family in _SSM_AUDIO:
+        gap = torch.abs(blocks["cuda"] - blocks["cpu"])
+        assert bool((torch.abs(card["residual"].cpu() - cpu["residual"]) <= 1e-5 + gap).all())
+    else:
+        torch.testing.assert_close(card["residual"].cpu(), cpu["residual"], rtol=0, atol=1e-5)
     worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu["params"], path))))
                 for path, p in tree_util.leaves(card["params"]))
     assert worst <= 2 * 3e-3, worst

@@ -515,7 +515,19 @@ def _serve_dense(step: str):
     return logits, nxt.shape == (2, 1) and bool((full["k"][:, :, 6] != 0).any())
 
 
+def _prefill_family(arch: str):
+    """Prefill 6 tokens of ``arch``'s smoke model (the SSM family: its
+    per-layer conv window and SSD state)."""
+    cfg = registry.smoke_config(arch)
+    params = tmodel.init_params(cfg, seed=1, device="cpu")
+    logits, cache = steps.make_prefill_step(cfg, None)(params, {"tokens": torch.arange(12)
+                                                                .reshape(2, 6)})
+    return logits, (cache["conv"].shape == (2, 2, 3, 160)
+                    and cache["ssm"].shape == (2, 2, 8, 16, 16))
+
+
 @pytest.mark.parametrize("route", [
+    pytest.param(lambda: _prefill_family("mamba2-1.3b"), id="ssm-family"),
     pytest.param(lambda: (None, set(tree_util.get(tmodel.init_params(_MOE, device="cpu"),
                                                   ("layers", "ffn"))) == {"experts", "router"}),
                  id="moe-family"),
@@ -526,24 +538,22 @@ def _serve_dense(step: str):
     pytest.param(lambda: _serve_dense("decode"), id="decode-step"),
 ])
 def test_routes_now_in_the_slice_run(route):
-    """The routes that raised until the serve steps and the MoE family were
-    ported: each runs on the CPU and gives what it should (its logits
-    finite)."""
+    """The routes that raised until the serve steps and the MoE, SSM,
+    hybrid and audio families were ported: each runs on the CPU and gives
+    what it should (its logits finite)."""
     logits, ok = route()
     assert ok and (logits is None or bool(torch.isfinite(logits).all()))
 
 
 @pytest.mark.parametrize("route,item", [
-    pytest.param(lambda: tmodel.init_params(registry.smoke_config("mamba2-1.3b")), "item 11",
-                 id="ssm-family"),
     pytest.param(lambda: steps.batch_shardings(registry.smoke_config(ARCH), "train_4k",
                                                tmesh.make_single_device_mesh()), "item 10b",
                  id="batch-shardings"),
     pytest.param(lambda: tmesh.make_debug_mesh(2, 2, 2), "item 10b", id="in-pod-parallelism"),
     pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True), "item 10b",
                  id="production-mesh"),
-    pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--fed-cohort"]), "item 11",
-                 id="fed-cohort"),
+    pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--fed-cohort"]),
+                 "item 11, its cohort slice", id="fed-cohort"),
     pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--interleave", "2"]),
                  "item 11b", id="interleave"),
 ])

@@ -450,8 +450,9 @@ def test_mixed_dtype_tree_blocks_match_reference():
 
 
 def test_serve_example_on_the_cpu(capsys):
-    """``examples/serve_lm_torch.py`` for an MoE arch: prefill, splice to
-    smax, greedy decode; an arch whose family is not ported raises."""
+    """``examples/serve_lm_torch.py`` for an MoE arch (prefill, splice to
+    smax, greedy decode), the SSM (its O(1) state kept as it is) and the
+    audio family (a prompt of frames)."""
     spec = importlib.util.spec_from_file_location(
         "serve_lm_torch", os.path.join(ROOT, "examples", "serve_lm_torch.py"))
     example = importlib.util.module_from_spec(spec)
@@ -459,8 +460,9 @@ def test_serve_example_on_the_cpu(capsys):
     args = ["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--tokens", "5"]
     example.main(args + ["--arch", "qwen3-moe-235b-a22b"])
     assert "qwen3-moe-235b-a22b: decoded (2, 5) tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
-        example.main(args + ["--arch", "mamba2-1.3b"])
+    for arch in ("mamba2-1.3b", "whisper-base"):
+        example.main(args + ["--arch", arch])
+        assert f"{arch}: decoded (2, 5) tokens" in capsys.readouterr().out
 
 
 def test_launcher_pod_mode_on_the_moe_family(tmp_path, capsys):

@@ -129,7 +129,23 @@ Phases (any failure raises and the script exits non-zero):
     aggregate of a real step's blocks against the plain versions (AE and
     EA, NMSE <= 1e-3, residuals bit-identical) and [time] of the three
     kernels at its rows.
- 14. [serve] The serve path (``runtime/steps.py``: ``make_prefill_step``,
+ 14. [cohort] The launcher's cohort mode (``launch/train.py::
+    make_fed_cohort``: ``TokenClientData``, the cohort engine over the
+    model's nested bf16 tree, one client's gradient at a time, fedqcs-ae at
+    [train]'s FedQCS point, FedAdam) on the kernel route: (a) Qwen3-0.6B
+    as published, 8 clients of which 4 are sampled a round (2 x 64 tokens
+    each), 2 rounds (the encoder once over the 4 x 2,337,451 rows, then 15
+    gamp_step launches over 2,337,451 rows, checked a round): wall, device
+    busy and idle share (round 1 traced), peak, eval loss, wire bytes;
+    round 0's aggregate against the plain versions' decode of its payload
+    (NMSE <= 1e-3); [time] of both kernels at those shapes.  (b) The
+    reference's three cohort archs at their smoke configs, one round each
+    (and Qwen3-0.6B's with ``--stream 2``, ``--snr-db 10``, ``--server-opt
+    fedavgm``) on the card against the CPU: aggregate NMSE <= 1e-3,
+    parameters within 2 lr, residuals 1e-5.  (c)
+    ``examples/distributed_train_torch.py`` (12 smoke steps, pod 1 down at
+    steps 3-7) restarted after its step-10 checkpoint, bit for bit.
+ 15. [serve] The serve path (``runtime/steps.py``: ``make_prefill_step``,
     ``make_decode_step``) and the rest of the transformer family: MLA's
     absorbed decode against its decompressed train attention (one
     DeepSeek-V3 layer at full width, fp32, rtol 2e-3 / atol 2e-4);
@@ -157,7 +173,7 @@ Phases (any failure raises and the script exits non-zero):
     tokens/s, peak memory, the bounds, the dropped MoE pairs at the
     prefill's capacity, and the prefill and 8 decode steps under
     ``torch.profiler`` (device busy, idle share).
- 15. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 16. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
@@ -302,6 +318,23 @@ class GpuTimer:
                 host_ms *= 4.0  # one call still outlasted the sleep: sleep longer
             reps = max(1, reps // 4)
         raise RuntimeError("could not queue the timed calls behind the sleep kernel")
+
+    def direct(self, fn, reps: int = 1, warmup: int = 1) -> float:
+        """Mean device time of ``fn`` between two events, with no sleep in
+        front: for a call whose launches fill the CUDA launch queue (so it
+        cannot be queued behind the sleep) and whose kernels are long enough
+        that the device never waits for the host."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
 
 
 @contextlib.contextmanager
@@ -2636,9 +2669,12 @@ def train_kernel_slices(dev, fed, blocks, resid, a):
     return errs
 
 
-def train_encode_time(dev, fed, b0, r0, a, timer, label: str = "(c)"):
-    """[time] the encoder at the train step's shape on pod 0's whole grid of
-    a real step (nb rows), beside its plain version, and held to the
+def train_encode_time(dev, fed, b0, r0, a, timer, label: str = "[train] (c)",
+                      grid: str = "pod 0's whole grid", plain_parts: int = 1):
+    """[time] the encoder at the train step's shape on ``grid`` of a real
+    step (pod 0's nb rows; [cohort]: the cohort's C x nb), beside its plain
+    version (over ``plain_parts`` row slices in turn, then timed by
+    ``GpuTimer.direct``: its launches fill the launch queue), and held to the
     encoder's contract against it on those rows.  Returns (the record, the
     words and alphas it encodes).  Bounds count each input read once and
     each output written once; the product's FLOPs count the entries this
@@ -2653,13 +2689,16 @@ def train_encode_time(dev, fed, b0, r0, a, timer, label: str = "(c)"):
     cb = make_codebook(fed)
     a_t, tab = ops.encoder_a_t(a, cb), cb.thresholds_t(dev)
     rows = b0.shape[0]
+    def plain_fn(b, r):
+        return ref.bqcs_encode_fused_ref(b, r, a_t[:, :m], tab, s, q)
+
     words, alpha, new_res = bqcs_encode_fused(b0, r0, a_t, tab, s, m, q)
-    plain = ref.bqcs_encode_fused_ref(b0, r0, a_t[:, :m], tab, s, q)
+    plain = plain_in_parts(plain_fn, (b0, r0), plain_parts)
     torch.cuda.synchronize()
-    rel, n_diff, lanes, kept = encoder_agrees(f"[train] encoder at {rows} rows", b0, r0,
+    rel, n_diff, lanes, kept = encoder_agrees(f"{label} encoder at {rows} rows", b0, r0,
                                               (words, alpha, new_res), plain, a, tab, q, m)
     err = float(torch.max(torch.abs(alpha - plain[1])))
-    print(f"[train] {label} encoder on pod 0's whole grid ({rows:,} rows x N={n}) of a real step: "
+    print(f"{label} encoder on {grid} ({rows:,} rows x N={n}) of a real step: "
           f"resid bit-identical, alpha max rel err {rel:.3g}, {n_diff} differing code lanes of "
           f"{lanes:,} (each within 1e-5 of a threshold), {kept:,} kept entries")
     del new_res, plain
@@ -2669,8 +2708,9 @@ def train_encode_time(dev, fed, b0, r0, a, timer, label: str = "(c)"):
               + 4 * tab.numel())
     b_ms, b_by = bound_ms(nbytes, 2 * kept * m)
     rec = dict(ms=timer(lambda: bqcs_encode_fused(b0, r0, a_t, tab, s, m, q), reps=5),
-               plain_ms=timer(lambda: ref.bqcs_encode_fused_ref(b0, r0, a_t[:, :m], tab, s, q),
-                              reps=3),
+               plain_ms=(timer(lambda: plain_fn(b0, r0), reps=3) if plain_parts == 1 else
+                         timer.direct(lambda: [plain_fn(*sl) for sl in
+                                               row_parts((b0, r0), plain_parts)])),
                bound_ms=b_ms, bound_by=b_by, library_ms=None, rows=rows, err=err)
     return rec, words, alpha
 
@@ -2690,7 +2730,46 @@ def plain_in_parts(fn, args, parts: int):
     import torch
 
     outs = [fn(*sl) for sl in row_parts(args, parts)]
-    return tuple(torch.cat(o) for o in zip(*outs))
+    return outs[0] if len(outs) == 1 else tuple(torch.cat(o) for o in zip(*outs))
+
+
+def gamp_step_time(dev, fed, words, alpha, rhos, a, timer, label: str, plain_parts: int = 1):
+    """[time] gamp_step on the AE decode of the (C, nb, W) ``words`` and
+    (C, nb) ``alpha`` Bussgang-combined with weights ``rhos`` (nb rows, N =
+    TRAIN_N), 3 iterations into the decode, beside its plain version (over
+    ``plain_parts`` row slices in turn) and the cuBLAS GEMMs of its two
+    products, and held against the plain step there (:func:`step_agrees`).
+    Returns the record."""
+    import torch
+
+    from repro_torch.core import bussgang
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gamp_step import gamp_step
+
+    m, n, L = fed.m, TRAIN_N, 3
+    cb = make_codebook(fed)
+    rows = words.shape[1]
+    y = bussgang.aggregate_packed(words, alpha, rhos, cb, m)
+    nud = bussgang.effective_noise_var(alpha, rhos, cb)[:, None].contiguous()
+    gs = ops._init_state(bussgang.signal_energy(alpha, rhos, m, n), n, m, L, 0.9)
+    for _ in range(3):
+        gs = gamp_step(*gs, y, nud, a)
+    state = 4 * rows * (2 * n + m + 1 + 3 * L)
+    b_ms, b_by = bound_ms(2 * state + 4 * m * n + 4 * rows * m + 4 * rows, 4 * rows * n * m)
+    plain = plain_in_parts(ref.gamp_step_ref, (*gs, y, nud, a), plain_parts)  # the peak
+    err = step_agrees(f"{label} gamp_step at {rows:,} rows, 3 iterations into the AE decode",
+                      gamp_step(*gs, y, nud, a), plain, 2e-4, 1e-6)
+    del plain
+    torch.cuda.empty_cache()
+    ghat, _, shat, _ = gs
+    return dict(
+        ms=timer(lambda: gamp_step(*gs, y, nud, a), reps=5),
+        plain_ms=timer(lambda: [ref.gamp_step_ref(*sl) for sl in
+                                row_parts((*gs, y, nud, a), plain_parts)], reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: (torch.matmul(ghat, a.T), torch.matmul(shat, a)), reps=5),
+        library="GEMMs only", rows=rows, err=err)
 
 
 def train_step_times(dev, fed, words, alpha, a, timer, label: str = "(c)",
@@ -2709,41 +2788,16 @@ def train_step_times(dev, fed, words, alpha, a, timer, label: str = "(c)",
     from repro_torch.core.codebook import make_codebook
     from repro_torch.core.gamp import block_prior_energy, tau_tables
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.gamp_step import gamp_step
     from repro_torch.kernels.qgamp_step import qgamp_step
 
     m, q, n, L = fed.m, fed.bits, TRAIN_N, 3
-    cb = make_codebook(fed)
-    tab = cb.thresholds_t(dev)
+    tab = make_codebook(fed).thresholds_t(dev)
     rows = words.shape[0]
-    res = {}
-    # gamp_step: the AE observation of pod 0's codes alone (rho = 1)
-    from repro_torch.core import bussgang
-
-    one = torch.ones((1,), device=dev)
-    y = bussgang.aggregate_packed(words[None], alpha[None], one, cb, m)
-    nu = bussgang.effective_noise_var(alpha[None], one, cb)
-    energy = bussgang.signal_energy(alpha[None], one, m, n)
-    gs = ops._init_state(energy, n, m, L, 0.9)
-    nud = nu[:, None].contiguous()
-    for _ in range(3):
-        gs = gamp_step(*gs, y, nud, a)
     state = 4 * rows * (2 * n + m + 1 + 3 * L)
-    b_ms, b_by = bound_ms(2 * state + 4 * m * n + 4 * rows * m + 4 * rows, 4 * rows * n * m)
-    plain = plain_in_parts(ref.gamp_step_ref, (*gs, y, nud, a), plain_parts)  # the peak
-    err = step_agrees(f"[train] {label} gamp_step at {rows:,} rows, 3 iterations into the AE "
-                      "decode", gamp_step(*gs, y, nud, a), plain, 2e-4, 1e-6)
-    del plain
-    torch.cuda.empty_cache()
-    ghat, _, shat, _ = gs
-    res[f"gamp_step[N={n}]"] = dict(
-        ms=timer(lambda: gamp_step(*gs, y, nud, a), reps=5),
-        plain_ms=timer(lambda: [ref.gamp_step_ref(*sl) for sl in
-                                row_parts((*gs, y, nud, a), plain_parts)], reps=3),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer(lambda: (torch.matmul(ghat, a.T), torch.matmul(shat, a)), reps=5),
-        library="GEMMs only", rows=rows, err=err)
-    del gs, ghat, shat, y
+    # gamp_step: the AE observation of pod 0's codes alone (rho = 1)
+    res = {f"gamp_step[N={n}]": gamp_step_time(
+        dev, fed, words[None], alpha[None], torch.ones((1,), device=dev), a, timer,
+        f"[train] {label}", plain_parts)}
     torch.cuda.empty_cache()
     lo, hi = tau_tables(tab)
     safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))[:, None].contiguous()
@@ -3133,7 +3187,7 @@ def phase_train_ssm(dev):
     del blocks, resid
     torch.cuda.empty_cache()
     timer = GpuTimer()
-    rec, words, alpha = train_encode_time(dev, fed, b0, r0, codec_a, timer, "(e)")
+    rec, words, alpha = train_encode_time(dev, fed, b0, r0, codec_a, timer, "[train] (e)")
     times = {f"bqcs_encode_fused[N={TRAIN_N}]": rec}
     del b0, r0
     torch.cuda.empty_cache()
@@ -3144,6 +3198,307 @@ def phase_train_ssm(dev):
     del words, alpha
     torch.cuda.empty_cache()
     return launches, times
+
+
+# [cohort]: the launcher's cohort mode (launch/train.py::make_fed_cohort:
+# TokenClientData, the CohortEngine over the model's nested tree with each
+# client's gradient taken one at a time, fedqcs-ae at [train]'s FedQCS point,
+# FedAdam) on the kernel route.  (a) Qwen3-0.6B as published (28 layers,
+# bf16, remat "minimal"), 8 clients of which half are sampled a round (C = 4
+# clients of 2 x 64 tokens): each client's fp32 residual is 2.38 GB, so the
+# launcher's default of 64 clients would need ~150 GB.  (b) The reference's
+# three cohort archs at their smoke configs (4 clients of 2 x 16 tokens),
+# and three more rounds on Qwen3-0.6B's (COHORT_SMOKE_EXTRA).  (c)
+# examples/distributed_train_torch.py at its smoke config.
+COHORT_ARGV = ["--arch", "qwen3-0.6b", "--fed-cohort", "--clients", "8", "--sample-frac",
+               "0.5", "--client-batch", "2", "--seq", "64", "--steps", "2"]
+COHORT_SMOKE_ARCHS = ("qwen3-0.6b", "mamba2-1.3b", "qwen3-moe-235b-a22b")
+COHORT_SMOKE_ARGV = ["--smoke", "--fed-cohort", "--clients", "4", "--client-batch", "2",
+                     "--seq", "16", "--steps", "1"]
+COHORT_SMOKE_EXTRA = (["--stream", "2"], ["--snr-db", "10"], ["--server-opt", "fedavgm"])
+COHORT_ENCODE = f"bqcs_encode_fused[N={TRAIN_N}, cohort]"
+COHORT_GAMP = f"gamp_step[N={TRAIN_N}, cohort]"
+
+
+def cohort_engine(argv, dev, draw=None):
+    """The launcher's cohort engine (``make_fed_cohort``) for ``argv`` on
+    ``dev``, on the kernel route, its parameters ``draw(cfg)`` (default:
+    the launcher's, drawn on the CPU from seed 0): (engine, eval loss,
+    config)."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.launch import train as tlaunch
+
+    args = tlaunch.parse_args(argv + ["--device", str(dev)])
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    fed = dataclasses.replace(tlaunch.cohort_fed(args), use_kernels=True)
+    engine, eval_loss, _ = tlaunch.make_fed_cohort(args, cfg, fed=fed,
+                                                   params=None if draw is None else draw(cfg))
+    return engine, eval_loss, cfg
+
+
+@contextlib.contextmanager
+def phase_walls():
+    """Yields a dict that gets the wall ms of each cohort engine phase run
+    inside (the client pass -- the gradients and the encode --, the PS
+    pass, the apply), each phase ending in a device sync."""
+    import torch
+
+    from repro_torch.fed.engine import CohortEngine
+
+    walls = {}
+    saved = {name: getattr(CohortEngine, name) for name in ("_client_pass", "_ps", "_apply")}
+
+    def timed(name, fn):
+        def run(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            walls[name] = walls.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(CohortEngine, name, timed(name.strip("_"), fn))
+    try:
+        yield walls
+    finally:
+        for name, fn in saved.items():
+            setattr(CohortEngine, name, fn)
+
+
+def cohort_plain_decode(engine, rec) -> float:
+    """[cohort] (a): a round's decoded aggregate (``rec``, a
+    ``captured_rounds`` record) against the plain versions' decode of the
+    same payload, PLAIN_CHUNK_ROWS rows at a time (each row's solve is its
+    own): NMSE <= 1e-3.  Returns the NMSE."""
+    import torch
+
+    from repro_torch.core.reconstruction import aggregate_and_estimate
+
+    g_k, codec = rec["ghat"], engine.codec
+    g_p = torch.empty_like(g_k)
+    with plain_kernels():
+        for lo in range(0, engine.nb, PLAIN_CHUNK_ROWS):
+            sl = slice(lo, lo + PLAIN_CHUNK_ROWS)
+            g_p[sl] = aggregate_and_estimate(codec, codec.unpack(rec["words"][:, sl]),
+                                             rec["alpha"][:, sl], rec["rhos"], gamp=engine.gamp)
+    torch.cuda.synchronize()
+    e = nmse(g_k, g_p)
+    check(e <= 1e-3 and float(torch.sum(g_p ** 2)) > 0,
+          f"[cohort] (a) round 0's aggregate: NMSE {e:.3g} to the plain versions")
+    return e
+
+
+def cohort_full_width(dev, launches) -> tuple:
+    """[cohort] (a): COHORT_ARGV's rounds on Qwen3-0.6B at full width, the
+    launch counts set to 0 just before each round and read just after (1
+    encoder launch over C x nb rows and 15 gamp_step launches over nb rows
+    a round; added to ``launches``).  Round 0 untraced (its wall and each
+    phase's, :func:`phase_walls`), round 1 in a ``torch.profiler`` trace
+    (wall under the trace, device busy, idle share, the top device events);
+    each round's peak, eval loss and wire bytes.  Round 0's decoded
+    aggregate against the plain versions' (:func:`cohort_plain_decode`,
+    before round 1, so its record is out of round 1's peak).  Then [time] of the encoder on round 1's C x nb
+    rows (the residual rows after it) and of gamp_step on its AE decode.
+    Returns (max abs errors, [time] records)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    t0 = time.perf_counter()
+    engine, eval_loss, cfg = cohort_engine(COHORT_ARGV, dev,
+                                           draw=lambda cfg: card_params(cfg, dev, 0))
+    torch.cuda.synchronize()
+    fed, rounds_n = engine.fed_cfg, int(COHORT_ARGV[COHORT_ARGV.index("--steps") + 1])
+    n_params = sum(int(p.numel()) for _, p in tree_util.leaves(engine.params))
+    print(f"[cohort] (a) {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, remat "
+          f"{cfg.remat_policy}: {n_params:,} parameters drawn on the card; "
+          f"{engine.clients} clients x {engine.nb:,} block rows of N={engine.n} (M={fed.m}, "
+          f"S={fed.s}, Q={fed.bits}); {' '.join(COHORT_ARGV)}; per-client gradient pass "
+          f"{engine._per_client} (one client at a time); built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(engine._per_client and {p.dtype for _, p in tree_util.leaves(engine.params)}
+          == {torch.bfloat16}, "[cohort] (a) the engine must keep the bf16 tree and take "
+          "its clients one at a time")
+    want = dict(encode=1, gamp=TRAIN_ITERS, qgamp=0)
+
+    def one_round(_state, _batch):
+        return None, {"loss": engine.run_round()["nmse"]}
+
+    with captured_rounds() as rounds:
+        for t in range(rounds_n):
+            events = {}
+            if t == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                t1 = time.perf_counter()
+                with phase_walls() as walls:
+                    nmse_t = one_round(None, None)[1]["loss"]
+                wall, busy = 1e3 * (time.perf_counter() - t1), None
+                counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+                print("[cohort] (a) round 0's phases (each ending in a device sync): "
+                      + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items()))
+                rounds[0].pop("blocks")
+                e = cohort_plain_decode(engine, rounds[0])
+                print(f"[cohort] (a) round 0's decoded aggregate ({engine.nb:,} rows) against "
+                      f"the plain versions' decode of the same payload (chunks of "
+                      f"{PLAIN_CHUNK_ROWS:,} rows): NMSE {e:.3g} (<= 1e-3)")
+                for key in ("words", "alpha", "ghat"):  # out of round 1's peak
+                    rounds[0].pop(key)
+            else:
+                _, recs = traced_steps(one_round, None, [None])
+                nmse_t, wall, busy, counts, peak, events = recs[0]
+            got = {k: counts[k] for k in want}
+            check(got == want, f"[cohort] (a) round {t}: launches {got}, want {want}")
+            launches[COHORT_ENCODE] += counts["encode"]
+            launches[COHORT_GAMP] += counts["gamp"]
+            st = rounds[t]["stats"]
+            loss = eval_loss(engine.params)
+            cohort = int(rounds[t]["rhos"].numel())
+            part = float(torch.sum(rounds[t]["rhos"] > 0))
+            up = engine._wire_up_bytes(part)
+            check(bool(np.isfinite(loss)) and np.isfinite(nmse_t),
+                  f"[cohort] (a) round {t}: eval loss {loss}, nmse {nmse_t}")
+            idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
+            busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+            print(f"[cohort] (a) round {t}: wall {wall:.3f} ms"
+                  f"{' (under the trace)' if busy is not None else ' (no trace)'}, device busy "
+                  f"{busy_s}, idle share {idle}, max_memory_allocated {peak / 2**30:.3f} GiB; "
+                  f"launches encoder {counts['encode']} ({cohort} x {engine.nb:,} rows), "
+                  f"gamp_step {counts['gamp']} ({engine.nb:,} rows); cohort {cohort}, "
+                  f"participating {part:.0f}, nmse {nmse_t:.4f}, nu_quant "
+                  f"{float(st['nu_quant']):.4g}; eval loss {loss:.6f}; wire up {up:,.0f} bytes, "
+                  f"down {cohort * engine.nbar * 4.0:,.0f} bytes")
+            if events:
+                top = sorted(events.items(), key=lambda kv: -kv[1][1])[:8]
+                print(f"[cohort] (a) round {t} device time by event: "
+                      + "; ".join(f"{k[:48]} x{n} {ms:.3f} ms" for k, (n, ms) in top))
+    # [time] at the cohort's shapes: round 1's blocks and its members' residual rows
+    r1 = rounds[1]
+    ids = np.nonzero(engine.sched_state.last_round == 1)[0]
+    c = len(ids)
+    blocks = r1.pop("blocks").reshape(c * engine.nb, engine.n)
+    resid = engine.residuals[torch.as_tensor(ids, device=dev)].reshape(c * engine.nb, engine.n)
+    rhos, a = r1["rhos"], engine.codec.a
+    rounds.clear()
+    del engine, r1
+    gc.collect()  # the engine's gradient closures hold it in a reference cycle
+    torch.cuda.empty_cache()
+    timer = GpuTimer()
+    rec, words, alpha = train_encode_time(dev, fed, blocks, resid, a, timer, "[cohort] (a)",
+                                          f"the cohort's {c} x nb rows", plain_parts=8)
+    del blocks, resid
+    torch.cuda.empty_cache()
+    times = {COHORT_ENCODE: rec}
+    times[COHORT_GAMP] = gamp_step_time(
+        dev, fed, words.reshape(c, -1, words.shape[1]), alpha.reshape(c, -1), rhos, a, timer,
+        "[cohort] (a)", plain_parts=2)
+    del words, alpha
+    torch.cuda.empty_cache()
+    print_train_times(times)
+    return {"encode_cohort": rec["err"], "gamp_cohort": times[COHORT_GAMP]["err"]}, times
+
+
+def cohort_smoke_vs_cpu(dev, launches) -> None:
+    """[cohort] (b): one round of each of COHORT_SMOKE_ARCHS' smoke configs
+    (and of Qwen3-0.6B's with each of COHORT_SMOKE_EXTRA) on the card, its
+    launches counted into ``launches``, against the same round on the CPU
+    from the same parameters, A, batches and draws (each drawn on the CPU
+    from its seed): the decoded aggregate to NMSE <= 1e-3, the parameters
+    within 2 lr ([serve]'s smoke-config steps), the residuals to 1e-5 (the
+    SSM family: beyond the two devices' gap in the gradient blocks they
+    come from, as its [serve] train steps are held)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    runs = [(a, []) for a in COHORT_SMOKE_ARCHS] + [("qwen3-0.6b", x) for x in COHORT_SMOKE_EXTRA]
+    want = dict(encode=1, gamp=TRAIN_ITERS, qgamp=0)
+    for arch, extra in runs:
+        out = []
+        for d in (dev, torch.device("cpu")):
+            engine, _, cfg = cohort_engine(["--arch", arch] + COHORT_SMOKE_ARGV + extra, d)
+            with captured_rounds() as rounds:
+                zero_counts()
+                stats = engine.run_round()
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                counts = read_counts()
+            out.append((engine, stats, counts, rounds[0]["blocks"].cpu()))
+        (card, s_card, counts, b_card), (cpu, s_cpu, _, b_cpu) = out
+        label = f"[cohort] (b) {arch} smoke{' ' + ' '.join(extra) if extra else ''}"
+        got = {k: counts[k] for k in want}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        launches[COHORT_ENCODE] += counts["encode"]
+        launches[COHORT_GAMP] += counts["gamp"]
+        e = nmse(card.last_ghat.cpu(), cpu.last_ghat)
+        gap = max_param_gap(tree_util.tree_map(lambda v: v.cpu(), card.params), cpu.params)
+        dres = torch.abs(card.residuals.cpu() - cpu.residuals)
+        slack = torch.abs(b_card - b_cpu) if cfg.family in ("ssm", "hybrid") else 0.0
+        check(e <= 1e-3 and gap <= 2 * 3e-3 and bool((dres <= 1e-5 + slack).all())
+              and s_card["cohort"] == s_cpu["cohort"]
+              and s_card["participating"] == s_cpu["participating"],
+              f"{label}: aggregate NMSE {e:.3g}, parameters {gap:.3g}, residual "
+              f"{float(dres.max()):.3g}, stats {s_card} vs {s_cpu}")
+        print(f"{label}: {card.nb:,} rows a client; card vs CPU: aggregate NMSE {e:.3g} "
+              f"(<= 1e-3), parameters max gap {gap:.3g} (<= 2 lr), residual max gap "
+              f"{float(dres.max()):.3g}; nmse {s_card['nmse']:.5f} (CPU {s_cpu['nmse']:.5f}); "
+              f"launches {got}")
+
+
+def cohort_example(dev) -> None:
+    """[cohort] (c): ``examples/distributed_train_torch.py`` at its smoke
+    config on the card for 12 steps with pod 1 down at steps 3-7, then a
+    rerun that resumes after its step-10 checkpoint: the parameters,
+    moments, residuals and step bit-identical to the uninterrupted run's."""
+    import importlib.util
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    spec = importlib.util.spec_from_file_location(
+        "distributed_train_torch", ROOT / "examples" / "distributed_train_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--steps", "12", "--inject-failure", "3", "--device", str(dev),
+                "--ckpt-dir", tmp]
+        logs = []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                logs.append((example.main(argv), buf.getvalue()))
+        wall = time.perf_counter() - t0
+    (full, out), (again, out2) = logs
+    down = [int(ln.split()[1]) for ln in out.splitlines() if "[pod1 DOWN]" in ln]
+    same = all(torch.equal(leaf, tree_util.get(again[key], path))
+               for key in ("params", "opt", "residual", "step")
+               for path, leaf in tree_util.leaves(full[key]))
+    check(down == [3, 4, 5, 6, 7] and "[restore] resumed after step 10" in out2 and same,
+          f"[cohort] (c) the example: pod 1 down at {down}, restart bit-identical {same}")
+    last = [ln for ln in out.splitlines() if ln.startswith("step")][-1]
+    print(f"[cohort] (c) examples/distributed_train_torch.py on the card (12 smoke steps, pod 1 "
+          f"down at steps {down}; {last.strip()}): the rerun resumed after the step-10 "
+          f"checkpoint, its state bit-identical to the uninterrupted run's ({wall:.1f} s both)")
+
+
+def phase_cohort(dev):
+    """[cohort] The launcher's cohort mode: (a) Qwen3-0.6B at full width,
+    (b) the smoke configs on the card against the CPU, (c) the example's
+    exact restart.  Returns (launches by KERNELS name, max abs errors,
+    [time] records)."""
+    launches = {COHORT_ENCODE: 0, COHORT_GAMP: 0}
+    errs, times = cohort_full_width(dev, launches)
+    cohort_smoke_vs_cpu(dev, launches)
+    cohort_example(dev)
+    return launches, errs, times
 
 
 # [serve]: the serve steps (runtime/steps.py: make_prefill_step, then
@@ -4014,6 +4369,8 @@ KERNELS = {
                                          "encode255"),
     f"gamp_step[N={TRAIN_N}]": ("gamp_step.cu", "gamp_step.py:108", "gamp255"),
     f"qgamp_step[N={TRAIN_N}]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp255"),
+    COHORT_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_cohort"),
+    COHORT_GAMP: ("gamp_step.cu", "gamp_step.py:108", "gamp_cohort"),
 }
 
 
@@ -4087,10 +4444,12 @@ def main() -> int:
     phase_profile(round_ms, dev)
     train_launches, train_errs, train_times_ = phase_train(dev)
     ssm_launches, _ = phase_train_ssm(dev)
+    cohort_launches, cohort_errs, cohort_times = phase_cohort(dev)
     serve_launches = phase_serve(dev, smi)
-    k_in.update({k: {"max_abs_err": v} for k, v in train_errs.items()})
+    k_in.update({k: {"max_abs_err": v} for k, v in {**train_errs, **cohort_errs}.items()})
     times = phase_times(dev, k_in)
     times.update(train_times_)
+    times.update(cohort_times)
     for label, (_, _, ms, _) in round_ms.items():
         steady = sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else float("nan")
         print(f"[round] {label}: wall ms per round {[round(v, 3) for v in ms]}, "
@@ -4101,7 +4460,7 @@ def main() -> int:
                      + list(knob_launches.items()) + list(stream_launches.items())
                      + list(layout_launches.items()) + list(record_launches.items())
                      + list(train_launches.items()) + list(ssm_launches.items())
-                     + list(serve_launches.items())):
+                     + list(cohort_launches.items()) + list(serve_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

@@ -8,14 +8,13 @@
     awgn, rayleigh, mimo_mac);
   * :mod:`repro_torch.fed.server_opt` -- FedAvg / FedAvgM / FedAdam;
   * :mod:`repro_torch.fed.engine`     -- the vmapped (optionally chunked)
-    cohort round, with the per-client loop oracle;
+    cohort round, with the per-client loop oracle, over a flat parameter
+    dict or a registry model's nested tree, and the array and token
+    (``TokenClientData``) federations;
   * :mod:`repro_torch.fed.stream`     -- the streaming round mode:
     arrival-ordered sub-cohort batches through a bounded ingest buffer into
     a carry-save tree of partial Bussgang/EA sufficient statistics, with a
     deadline cutoff that degrades into the non-participation contract.
-
-The token federation of ``repro.fed`` (``TokenClientData``) is not ported
-yet.
 """
 
 from repro_torch.fed.channel import (
@@ -27,7 +26,7 @@ from repro_torch.fed.channel import (
     realize_uplink,
     register_channel_family,
 )
-from repro_torch.fed.engine import ArrayClientData, CohortConfig, CohortEngine
+from repro_torch.fed.engine import ArrayClientData, CohortConfig, CohortEngine, TokenClientData
 from repro_torch.fed.partition import PartitionConfig, partition_indices
 from repro_torch.fed.scheduler import SchedulerConfig, SchedulerState, select_cohort
 from repro_torch.fed.server_opt import ServerOptConfig
@@ -48,6 +47,7 @@ __all__ = [
     "ServerOptConfig",
     "StreamConfig",
     "StreamingPS",
+    "TokenClientData",
     "get_channel_family",
     "partition_indices",
     "realize_uplink",

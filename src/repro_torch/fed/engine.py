@@ -4,7 +4,10 @@ One round is two passes:
 
   * **client pass** -- every cohort member's gradient, batched through
     ``torch.func.vmap(torch.func.grad(loss))`` (``cohort.chunk`` clients at
-    a time when set, then concatenated), flattened to its ``(nb, N)`` block
+    a time when set, then concatenated) for a flat parameter dict, or one
+    client at a time for a nested tree (the model zoo's, whose layers run
+    under ``torch.utils.checkpoint``, which ``torch.func`` does not
+    transform), flattened to its ``(nb, N)`` block
     grid, then the method's encode over all ``C * nb`` block rows at once
     (one fused-encoder launch on the kernel route; every encoder stage is
     per block, so batching the rows is the reference's vmapped encode).
@@ -68,7 +71,13 @@ bit-identical to the one-pass encode), from one batched gradient pass
 ``grad_segments_fn(params, batch, layout)``, which yields ``(segment index,
 (C, rows, N) blocks)`` in any order.  The interleaved producer that yields
 segments as the backward pass makes them (``make_interleaved_segments``)
-needs the model zoo and raises ``NotImplementedError``.
+raises ``NotImplementedError`` (ROADMAP.md item 11b).
+
+The parameters are any tree of ``repro_torch.tree`` (a flat dict, or the
+model zoo's nested dicts with bf16 and fp32 leaves), kept with each leaf's
+dtype, as the reference keeps its tree.  :class:`TokenClientData` is the
+synthetic-language federation the launcher's cohort mode trains the
+registry models on.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch import entry_device, not_in_slice
+from repro_torch import tree as tree_util
 from repro_torch.core import baselines, bussgang
 from repro_torch.core.compression import (
     BQCSCodec,
@@ -95,6 +105,7 @@ from repro_torch.core.reconstruction import (
     estimate_and_aggregate_packed,
     gamp_config_from,
 )
+from repro_torch.data.synthetic import affine_rule_batch, batch_generator
 from repro_torch.fed.channel import (
     ChannelConfig,
     get_channel_family,
@@ -114,8 +125,8 @@ from repro_torch.fed.stream import (
 from repro_torch.obs import NULL_RECORDER
 from repro_torch.obs.trace import SUB_PHASES, SpanCollector, span
 
-__all__ = ["CohortConfig", "CohortEngine", "ArrayClientData", "seeded_draw",
-           "make_interleaved_segments", "METHODS", "EF_METHODS"]
+__all__ = ["CohortConfig", "CohortEngine", "ArrayClientData", "TokenClientData",
+           "seeded_draw", "make_interleaved_segments", "METHODS", "EF_METHODS"]
 
 EF_METHODS = ("fedqcs-ae", "fedqcs-ea", "qcs-qiht")
 METHODS = EF_METHODS + ("qcs-dither", "signsgd", "none")
@@ -233,12 +244,70 @@ class ArrayClientData:
         }
 
 
+class TokenClientData:
+    """Synthetic-language federation for the registry models: each client
+    holds its own stream of ``data/synthetic.py`` affine-rule sequences.
+    Heterogeneity: clients mix ``n_dialects`` rule variants (dialect ``d``
+    shifts the additive constant to ``17 + 5 d``) with per-client mixture
+    weights drawn from Dir(alpha); alpha = 0 gives every client the uniform
+    mixture.  The mixtures ``_p`` come from the reference's numpy stream,
+    so they are the reference's bit for bit; a client's batch is drawn from
+    ``batch_generator(seed, round, client id)`` (not threefry: ROADMAP.md
+    item 12), a pure function of those three."""
+
+    def __init__(
+        self,
+        vocab_size: int,
+        batch: int,
+        seq: int,
+        clients: int,
+        alpha: float = 0.0,  # 0 = homogeneous (no dialect skew)
+        n_dialects: int = 10,
+        noise: float = 0.2,
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.vocab_size, self.batch, self.seq = vocab_size, batch, seq
+        self.noise, self.seed = noise, seed
+        self.device = entry_device(device)
+        self.counts = np.ones(clients, np.int64)
+        rng = np.random.default_rng((seed, 0xD1A1))
+        if alpha > 0:
+            self._p = rng.dirichlet(np.full(n_dialects, alpha), size=clients)
+        else:
+            self._p = np.full((clients, n_dialects), 1.0 / n_dialects)
+
+    def _client_batch(self, round_idx: int, client: int) -> Dict[str, torch.Tensor]:
+        gen = batch_generator(self.seed, round_idx, client)
+        # one dialect a row, from the client's mixture (the reference's
+        # categorical over log(p + 1e-9))
+        p = torch.as_tensor(self._p[client] + 1e-9)
+        dialect = torch.multinomial(p, self.batch, replacement=True, generator=gen)
+        return affine_rule_batch(gen, self.batch, self.seq, self.vocab_size, self.noise,
+                                 c=17 + 5 * dialect[:, None])
+
+    def cohort_batch(self, round_idx: int, ids: np.ndarray) -> Dict[str, torch.Tensor]:
+        """``{"tokens", "labels"}``: (C, batch, seq) int64 on the device."""
+        rows = [self._client_batch(round_idx, int(i)) for i in ids]
+        return {k: torch.stack([r[k] for r in rows]).to(self.device) for k in ("tokens", "labels")}
+
+
+def _client(batch: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Client ``i``'s own batch out of the cohort's (C, ...) batch."""
+    return {k: v[i] for k, v in batch.items()}
+
+
 class CohortEngine:
     """Stateful driver: owns params, per-client residuals, server-opt and
     scheduler state; each :meth:`run_round` is one federated round.
 
-    ``params`` is a dict of tensors in the reference's names and layouts;
-    ``grad_fn(params, batch)`` returns one client's gradient dict.  ``a``
+    ``params`` is a tree of tensors in the reference's names and layouts
+    (a flat dict, or a model's nested dicts), kept with each leaf's dtype
+    on ``device``; ``grad_fn(params, batch)`` returns one client's gradient
+    tree of the same structure.  A flat dict's clients go through
+    ``torch.func.vmap`` of ``grad_fn`` together; a nested tree's one at a
+    time (``grad_fn`` then need not be a ``torch.func`` transform: the
+    launcher's is ``torch.autograd``'s).  ``a``
     injects the sensing matrix (see ``BQCSCodec``); ``draw`` replaces the
     draw seam (:func:`seeded_draw`, bound to ``cohort.seed``).  ``dither``
     is the ``qcs-dither`` codec (its signs and rows may be replaced before
@@ -254,9 +323,9 @@ class CohortEngine:
 
     def __init__(
         self,
-        params: Dict[str, torch.Tensor],
-        grad_fn: Callable[[Any, Any], Dict[str, torch.Tensor]],
-        data: ArrayClientData,
+        params: Any,
+        grad_fn: Callable[[Any, Any], Any],
+        data: Any,  # ArrayClientData / TokenClientData duck type
         fed_cfg: Optional[FedQCSConfig] = None,
         cohort: CohortConfig = CohortConfig(),
         sched: SchedulerConfig = SchedulerConfig(),
@@ -306,7 +375,12 @@ class CohortEngine:
         self.grad_fn = grad_fn
         self.data = data
         self.draw = draw or functools.partial(seeded_draw, cohort.seed)
-        self.params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
+        self.params = tree_util.tree_map(lambda v: v.to(self.device), params)
+        # taken once, from the tree: a nested tree (the model zoo's) runs its
+        # clients' gradients one at a time -- its layers run under
+        # torch.utils.checkpoint, whose saved-tensor hooks torch.func does not
+        # transform -- and a flat one (the MLP's) through one vmapped pass
+        self._per_client = any(isinstance(v, dict) for v in params.values())
         # the layout is built once and shared by every pass; it IS the spec
         n = self.fed_cfg.block_size
         if layout is not None:
@@ -367,11 +441,22 @@ class CohortEngine:
         if self._collect and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _client_grad(self, batch):
+        """One client's gradient tree of its own batch."""
+        return self.grad_fn(self.params, batch)
+
     def _grad_blocks(self, batch) -> torch.Tensor:
         """(C, ...) cohort batch -> (C, nb, N) gradient blocks, one vmapped
         pass, or ``cohort.chunk`` clients a pass when that bounds how many
-        per-client gradient dicts exist at once."""
+        per-client gradient dicts exist at once.  A nested tree's clients
+        go one at a time, each gradient blocked into its row of one (C, nb,
+        N) buffer and then dropped."""
         c = next(iter(batch.values())).shape[0]
+        if self._per_client:
+            out = torch.empty((c, self.nb, self.n), dtype=torch.float32, device=self.device)
+            for i in range(c):
+                out[i] = self.layout.to_blocks(self._client_grad(_client(batch, i)))
+            return out
         chunk = self.cohort.chunk
         if chunk <= 0 or chunk >= c:
             return self.layout.to_blocks_batched(self._vgrad(batch))
@@ -385,27 +470,41 @@ class CohortEngine:
         """qcs-dither's re-blocking of the flat vector: (rows, M) per client."""
         return -(-self.layout.nbar // self.cohort.dither_n), self.dither.m
 
-    def _grads_tree(self, batch) -> Dict[str, torch.Tensor]:
-        """(C, ...) cohort batch -> the batched gradient dict (leaves keep
-        their shapes under a leading client axis); the streamed pass slices
-        layout segments out of it.  ``cohort.grad_accum`` > 1 splits each
-        client's samples into that many microbatches and sums their
-        gradients in the reference's order (the first, then each of the
-        rest in turn) before dividing by the count."""
+    def _mean_grad(self, grad, batch, axis: int):
+        """``grad(batch)``, or with ``cohort.grad_accum`` > 1 the mean over
+        that many microbatches of the samples on ``axis`` (1 for the cohort's
+        batch, 0 for one client's), summed in the reference's order (the
+        first, then each of the rest in turn) before dividing by the
+        count."""
         acc = self.cohort.grad_accum
         if acc <= 1:
-            return self._vgrad(batch)
-        c, bsz = next(iter(batch.values())).shape[:2]
+            return grad(batch)
+        bsz = next(iter(batch.values())).shape[axis]
         if bsz % acc:
             raise ValueError(f"grad_accum={acc} must divide the per-client batch size {bsz}")
         mb = bsz // acc
-        micro = [{k: v.reshape((c, acc, mb) + tuple(v.shape[2:]))[:, i] for k, v in batch.items()}
-                 for i in range(acc)]
-        gsum = self._vgrad(micro[0])
+        micro = [{k: v.narrow(axis, i * mb, mb) for k, v in batch.items()} for i in range(acc)]
+        gsum = grad(micro[0])
         for b in micro[1:]:
-            g = self._vgrad(b)
-            gsum = {k: gsum[k] + g[k] for k in gsum}
-        return {k: v / acc for k, v in gsum.items()}
+            gsum = tree_util.tree_map(torch.add, gsum, grad(b))
+        return tree_util.tree_map(lambda g: g / acc, gsum)
+
+    def _grads_tree(self, batch):
+        """(C, ...) cohort batch -> the batched gradient tree (leaves keep
+        their shapes and dtypes under a leading client axis); the streamed
+        pass slices layout segments out of it.  A nested tree's clients go
+        one at a time, each written into its row of the batched tree."""
+        if not self._per_client:
+            return self._mean_grad(self._vgrad, batch, 1)
+        c = next(iter(batch.values())).shape[0]
+        out = None
+        for i in range(c):
+            g = self._mean_grad(self._client_grad, _client(batch, i), 0)
+            if out is None:
+                out = tree_util.tree_map(lambda x: x.new_empty((c,) + tuple(x.shape)), g)
+            for path, leaf in tree_util.leaves(g):
+                tree_util.get(out, path)[i] = leaf
+        return out
 
     def _grad_segments(self, batch):
         """The streamed pass's segment source: yields ``(segment index,
@@ -498,7 +597,9 @@ class CohortEngine:
         residuals): the whole grid, or one layout segment's rows with its
         top-S budget ``s`` (the codec's ``s`` when None).  fedqcs-ae and
         fedqcs-ea carry the packed words (AE unpacks them at the PS),
-        qcs-qiht the index view."""
+        qcs-qiht the index view.  ``residuals`` (rows of the round's own
+        gather of the residuals) is overwritten by the error-feedback
+        methods."""
         c, rows = blocks.shape[:2]
         method = self.cohort.method
         payload: Dict[str, torch.Tensor] = {}
@@ -514,7 +615,10 @@ class CohortEngine:
                 payload["words"] = words.reshape(c, rows, -1)
             payload["alpha"] = alpha.reshape(c, rows)
             live = (rhos > 0)[:, None, None]
-            new_res = torch.where(live, enc_res.reshape(c, rows, self.n), blocks + residuals)
+            # the cohort's residual rows come as a fresh gather, which the
+            # reference donates: the carry, then the new residual, overwrite it
+            carry = residuals.add_(blocks)
+            new_res = torch.where(live, enc_res.reshape(c, rows, self.n), carry, out=carry)
         elif method == "qcs-dither":
             nbar, dn = self.layout.nbar, self.cohort.dither_n
             rows, _ = self._dither_rows()
@@ -671,7 +775,8 @@ class CohortEngine:
                 ]
         # model broadcast: every cohort member pulls the nbar f32 params
         event["wire_down_bytes"] = float(out["cohort"]) * self.nbar * 4.0
-        pn2 = sum(torch.sum(torch.square(self.params[k])) for k in sorted(self.params))
+        # each leaf's sum of squares in fp32, added in the reference's leaf order
+        pn2 = sum(torch.sum(torch.square(p.float())) for _, p in tree_util.leaves(self.params))
         un, pn = torch.stack([torch.sqrt(torch.sum(torch.square(ghat))),
                               torch.sqrt(pn2)]).tolist()
         event["update_norm"], event["param_norm"] = un, pn
@@ -826,8 +931,7 @@ def make_interleaved_segments(model_cfg: Any, layout: GradientLayout, grad_accum
                               layer_chunks: int = 1):
     """The ``grad_segments_fn`` that interleaves the encode with backprop,
     yielding each segment's blocks as its layer's cotangents are made (the
-    reference's ``repro.models.segment_tap``).  It stages the model zoo's
-    families, so it waits for the zoo's port."""
+    reference's ``repro.models.segment_tap``): not ported yet."""
     raise not_in_slice("the interleaved segment producer (make_interleaved_segments)",
                        "item 11b")
 

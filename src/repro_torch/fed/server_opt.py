@@ -9,6 +9,10 @@ pseudo-gradient and applies one server update per round:
     params -= lr * m``, with ``m`` in fp32.
   * ``fedadam`` -- server Adam (``optim/adam.py``) with clipping, warmup and
     decay disabled: the update the paper's Sec. VI experiment ran.
+
+Parameters, aggregate and states are trees of ``repro_torch.tree`` (flat or
+nested dicts); the plain updates run in fp32 and cast back to each
+parameter's dtype, as the reference's do.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.optim import adam
 
 __all__ = ["ServerOptConfig", "init_server_state", "server_update"]
@@ -43,8 +48,8 @@ def init_server_state(cfg: ServerOptConfig, params) -> Dict[str, Any]:
     if cfg.kind == "fedadam":
         return adam.init_state(cfg._adam_cfg(), params)
     if cfg.kind == "fedavgm":
-        return {"m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                      for k, p in params.items()}}
+        return {"m": tree_util.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)}
     if cfg.kind == "fedavg":
         return {}
     raise ValueError(f"unknown server optimizer {cfg.kind!r}")
@@ -55,11 +60,12 @@ def server_update(cfg: ServerOptConfig, ghat, state, params, step) -> Tuple[Any,
     if cfg.kind == "fedadam":
         return adam.update(cfg._adam_cfg(), ghat, state, params, step)
     if cfg.kind == "fedavgm":
-        new_m = {k: cfg.momentum * m + ghat[k].float() for k, m in state["m"].items()}
-        new_p = {k: (p.float() - cfg.lr * new_m[k]).to(p.dtype) for k, p in params.items()}
+        new_m = tree_util.tree_map(lambda m, g: cfg.momentum * m + g.float(), state["m"], ghat)
+        new_p = tree_util.tree_map(lambda p, m: (p.float() - cfg.lr * m).to(p.dtype),
+                                   params, new_m)
         return new_p, {"m": new_m}
     if cfg.kind == "fedavg":
-        new_p = {k: (p.float() - cfg.lr * ghat[k].float()).to(p.dtype)
-                 for k, p in params.items()}
+        new_p = tree_util.tree_map(lambda p, g: (p.float() - cfg.lr * g.float()).to(p.dtype),
+                                   params, ghat)
         return new_p, state
     raise ValueError(f"unknown server optimizer {cfg.kind!r}")

@@ -37,10 +37,8 @@ float64 gradient, so no other order of sums can meet atol 1e-6 there.
 """
 
 import dataclasses
-import fcntl
 import importlib.util
 import os
-import pickle
 
 import numpy as np
 import pytest
@@ -72,6 +70,7 @@ from repro_torch.models import sharding as tshard  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.optim import adam as tadam  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
+from torch_shared import shared as _shared  # noqa: E402
 
 FAMILIES = ["mamba2-1.3b", "zamba2-2.7b", "whisper-base"]
 FAMILY_ARCHS = sorted(a for a in jreg.ARCHS
@@ -100,24 +99,6 @@ def _np(tree):
 def _paths(tree):
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
     return {tuple(getattr(k, "key", k) for k in p): v for p, v in flat}
-
-
-def _shared(tmp_path_factory, name, compute):
-    """``compute()``'s result, computed once for the whole run: the first
-    pytest worker to get here computes and pickles it, the others wait on
-    the lock and load it (the workers of one run share the parent of their
-    temporary directories)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    path = root / f"{name}.pkl"
-    with open(root / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.exists():
-            tmp = path.with_suffix(".tmp")
-            tmp.write_bytes(pickle.dumps(compute()))
-            tmp.rename(path)
-        return pickle.loads(path.read_bytes())
 
 
 def _ref_batch(cfg, b=B, s=S, seed=11):

@@ -1131,3 +1131,41 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
               for st in (card, cpu)]
     assert float(torch.sum(moment[1] ** 2)) > 0
     assert _nmse(*moment) <= 1e-3
+
+
+# -- slice 15: the cohort mode -------------------------------------------------
+
+
+def test_cohort_round_on_the_card_matches_the_cpu(cuda):
+    """One round of the launcher's cohort engine on Qwen3-0.6B's smoke config
+    (4 clients of 2 x 16 tokens, fedqcs-ae at N = 255 on the kernel route:
+    the encoder once over the cohort's rows, then 15 gamp_step launches)
+    against the same round on the CPU (the plain versions), from the same
+    parameters, A, batches and draws: the aggregate to NMSE <= 1e-3, the
+    residuals to 1e-5, the parameters within 2 lr."""
+    import dataclasses
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as gamp_mod
+    from repro_torch.launch import train as tlaunch
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        args = tlaunch.parse_args(["--arch", "qwen3-0.6b", "--smoke", "--fed-cohort", "--clients",
+                                   "4", "--seq", "16", "--device", dev])
+        fed = dataclasses.replace(tlaunch.cohort_fed(args), use_kernels=True)
+        engine = tlaunch.make_fed_cohort(args, smoke_config("qwen3-0.6b"), fed=fed)[0]
+        enc_mod.launches = gamp_mod.launches = 0
+        engine.run_round()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (enc_mod.launches, gamp_mod.launches) == (1, 15)
+        out.append(engine)
+    card, cpu = out
+    assert _nmse(card.last_ghat.cpu(), cpu.last_ghat) <= 1e-3
+    torch.testing.assert_close(card.residuals.cpu(), cpu.residuals, rtol=0, atol=1e-5)
+    worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu.params, path))))
+                for path, p in tree_util.leaves(card.params))
+    assert worst <= 2 * 3e-3, worst

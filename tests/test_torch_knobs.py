@@ -72,8 +72,8 @@ from torch_fed_parity import engines, nmse, port_engine, reference_round  # noqa
 
 jax.config.update("jax_platform_name", "cpu")
 
-# the token federation comes with ROADMAP item 11
-UNPORTED_FED = {"TokenClientData"}
+# every name of repro.fed is ported
+UNPORTED_FED = set()
 
 
 def T(x):

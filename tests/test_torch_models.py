@@ -552,8 +552,9 @@ def test_routes_now_in_the_slice_run(route):
     pytest.param(lambda: tmesh.make_debug_mesh(2, 2, 2), "item 10b", id="in-pod-parallelism"),
     pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True), "item 10b",
                  id="production-mesh"),
-    pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--fed-cohort"]),
-                 "item 11, its cohort slice", id="fed-cohort"),
+    pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--fed-cohort",
+                                       "--interleave", "2", "--device", "cpu"]),
+                 "item 11b", id="fed-cohort"),
     pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--interleave", "2"]),
                  "item 11b", id="interleave"),
 ])

@@ -30,10 +30,8 @@ Contracts (fp32):
 """
 
 import dataclasses
-import fcntl
 import importlib.util
 import os
-import pickle
 
 import numpy as np
 import pytest
@@ -66,6 +64,7 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import sharding as tshard  # noqa: E402
 from repro_torch.optim import adam as tadam  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
+from torch_shared import shared as _shared  # noqa: E402
 
 FAMILIES = ["qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b"]
 TRANSFORMER_ARCHS = sorted(a for a in jreg.ARCHS
@@ -126,24 +125,6 @@ def _splice(cache, smax):
         pad[2] = (0, smax - v.shape[2])
         return np.pad(v, pad)
     return {k: grow(v) for k, v in cache.items()}
-
-
-def _shared(tmp_path_factory, name, compute):
-    """``compute()``'s result, computed once for the whole run: the first
-    pytest worker to get here computes and pickles it, the others wait on
-    the lock and load it (the workers of one run share the parent of their
-    temporary directories)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    path = root / f"{name}.pkl"
-    with open(root / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.exists():
-            tmp = path.with_suffix(".tmp")
-            tmp.write_bytes(pickle.dumps(compute()))
-            tmp.rename(path)
-        return pickle.loads(path.read_bytes())
 
 
 @pytest.fixture(scope="module", params=FAMILIES)

@@ -141,10 +141,24 @@ Phases (any failure raises and the script exits non-zero):
     (NMSE <= 1e-3); [time] of both kernels at those shapes.  (b) The
     reference's three cohort archs at their smoke configs, one round each
     (and Qwen3-0.6B's with ``--stream 2``, ``--snr-db 10``, ``--server-opt
-    fedavgm``) on the card against the CPU: aggregate NMSE <= 1e-3,
-    parameters within 2 lr, residuals 1e-5.  (c)
-    ``examples/distributed_train_torch.py`` (12 smoke steps, pod 1 down at
-    steps 3-7) restarted after its step-10 checkpoint, bit for bit.
+    fedavgm``, and the interleaved producer: ``--interleave 2`` on
+    Qwen3-0.6B's and Mamba2-1.3B's, ``--interleave 1`` on Zamba2-2.7B's)
+    on the card against the CPU: aggregate NMSE <= 1e-3, parameters within
+    2 lr, residuals 1e-5.  (c) ``examples/distributed_train_torch.py`` (12
+    smoke steps, pod 1 down at steps 3-7) restarted after its step-10
+    checkpoint, bit for bit.  (d) (a)'s run with ``--interleave 4``: the
+    backward-interleaved producer (``models/segment_tap.py``) over the
+    per-tensor layout split at 4 layer chunks (46 segments, 2,337,477 rows
+    a client; one encoder launch a segment, 46 a round, then 15 gamp_step
+    launches, checked a round), (a)'s card-drawn parameters; round 0's
+    wall, each phase's, the client pass's peak above its start beside the
+    producer's ``peak_live_grad_bytes`` and (a)'s one-pass peak, the
+    round's peak; round 1 traced; round 0's wire bit-identical to the
+    one-pass encode of the producer's ``grads_fn`` tree, that tree against
+    the per-client ``steps.value_and_grad`` trees (bf16, each entry within
+    1e-2 of itself and 1e-2 of the leaf's largest), round 0's aggregate
+    against the plain versions (NMSE <= 1e-3); [time] of the encoder on
+    the largest segment's 4 x 610,128 rows.
  15. [serve] The serve path (``runtime/steps.py``: ``make_prefill_step``,
     ``make_decode_step``) and the rest of the transformer family: MLA's
     absorbed decode against its decompressed train attention (one
@@ -3218,6 +3232,13 @@ COHORT_SMOKE_ARGV = ["--smoke", "--fed-cohort", "--clients", "4", "--client-batc
 COHORT_SMOKE_EXTRA = (["--stream", "2"], ["--snr-db", "10"], ["--server-opt", "fedavgm"])
 COHORT_ENCODE = f"bqcs_encode_fused[N={TRAIN_N}, cohort]"
 COHORT_GAMP = f"gamp_step[N={TRAIN_N}, cohort]"
+# (b)'s interleaved smoke runs, (d)'s chunks and its encoder entry (one
+# launch a layout segment)
+COHORT_SMOKE_INTERLEAVE = (("qwen3-0.6b", ["--interleave", "2"]),
+                           ("mamba2-1.3b", ["--interleave", "2"]),
+                           ("zamba2-2.7b", ["--interleave", "1"]))
+COHORT_INTERLEAVE = 4
+COHORT_SEG_ENCODE = f"bqcs_encode_fused[N={TRAIN_N}, interleaved segments]"
 
 
 def cohort_engine(argv, dev, draw=None):
@@ -3266,8 +3287,39 @@ def phase_walls():
             setattr(CohortEngine, name, fn)
 
 
-def cohort_plain_decode(engine, rec) -> float:
-    """[cohort] (a): a round's decoded aggregate (``rec``, a
+@contextlib.contextmanager
+def client_pass_peak():
+    """Yields a dict that gets, for the cohort engine's client pass run
+    inside, the allocation at its start (the round's gather of residual
+    rows already made), its peak above that start, and the peak before it
+    (the round's peak is the larger of that and the peak after the pass:
+    the peak counter is reset at the pass's start)."""
+    import torch
+
+    from repro_torch.fed.engine import CohortEngine
+
+    rec = {}
+    saved = CohortEngine._client_pass
+
+    def run(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        rec["before"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec["start"] = torch.cuda.memory_allocated()
+        out = saved(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["above_start"] = torch.cuda.max_memory_allocated() - rec["start"]
+        return out
+
+    CohortEngine._client_pass = run
+    try:
+        yield rec
+    finally:
+        CohortEngine._client_pass = saved
+
+
+def cohort_plain_decode(engine, rec, label: str = "[cohort] (a)") -> float:
+    """[cohort] (a), (d): a round's decoded aggregate (``rec``, a
     ``captured_rounds`` record) against the plain versions' decode of the
     same payload, PLAIN_CHUNK_ROWS rows at a time (each row's solve is its
     own): NMSE <= 1e-3.  Returns the NMSE."""
@@ -3285,7 +3337,7 @@ def cohort_plain_decode(engine, rec) -> float:
     torch.cuda.synchronize()
     e = nmse(g_k, g_p)
     check(e <= 1e-3 and float(torch.sum(g_p ** 2)) > 0,
-          f"[cohort] (a) round 0's aggregate: NMSE {e:.3g} to the plain versions")
+          f"{label} round 0's aggregate: NMSE {e:.3g} to the plain versions")
     return e
 
 
@@ -3300,7 +3352,8 @@ def cohort_full_width(dev, launches) -> tuple:
     aggregate against the plain versions' (:func:`cohort_plain_decode`,
     before round 1, so its record is out of round 1's peak).  Then [time] of the encoder on round 1's C x nb
     rows (the residual rows after it) and of gamp_step on its AE decode.
-    Returns (max abs errors, [time] records)."""
+    Returns (max abs errors, [time] records, round 0's client pass peak
+    above its start in bytes)."""
     import gc
 
     import numpy as np
@@ -3336,12 +3389,15 @@ def cohort_full_width(dev, launches) -> tuple:
                 torch.cuda.reset_peak_memory_stats()
                 zero_counts()
                 t1 = time.perf_counter()
-                with phase_walls() as walls:
+                with phase_walls() as walls, client_pass_peak() as cpk:
                     nmse_t = one_round(None, None)[1]["loss"]
                 wall, busy = 1e3 * (time.perf_counter() - t1), None
-                counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+                counts = read_counts()
+                peak = max(cpk["before"], torch.cuda.max_memory_allocated())
                 print("[cohort] (a) round 0's phases (each ending in a device sync): "
-                      + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items()))
+                      + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
+                      + f"; the one-pass client pass's peak {cpk['above_start'] / 2**30:.3f} GiB "
+                      f"above its start ({cpk['start'] / 2**30:.3f} GiB)")
                 rounds[0].pop("blocks")
                 e = cohort_plain_decode(engine, rounds[0])
                 print(f"[cohort] (a) round 0's decoded aggregate ({engine.nb:,} rows) against "
@@ -3400,7 +3456,8 @@ def cohort_full_width(dev, launches) -> tuple:
     del words, alpha
     torch.cuda.empty_cache()
     print_train_times(times)
-    return {"encode_cohort": rec["err"], "gamp_cohort": times[COHORT_GAMP]["err"]}, times
+    return ({"encode_cohort": rec["err"], "gamp_cohort": times[COHORT_GAMP]["err"]}, times,
+            cpk["above_start"])
 
 
 def cohort_smoke_vs_cpu(dev, launches) -> None:
@@ -3416,24 +3473,32 @@ def cohort_smoke_vs_cpu(dev, launches) -> None:
 
     from repro_torch import tree as tree_util
 
-    runs = [(a, []) for a in COHORT_SMOKE_ARCHS] + [("qwen3-0.6b", x) for x in COHORT_SMOKE_EXTRA]
-    want = dict(encode=1, gamp=TRAIN_ITERS, qgamp=0)
+    runs = ([(a, []) for a in COHORT_SMOKE_ARCHS] + [("qwen3-0.6b", x) for x in COHORT_SMOKE_EXTRA]
+            + list(COHORT_SMOKE_INTERLEAVE))
     for arch, extra in runs:
         out = []
         for d in (dev, torch.device("cpu")):
             engine, _, cfg = cohort_engine(["--arch", arch] + COHORT_SMOKE_ARGV + extra, d)
+            segs = {}
+            if engine._grad_segments_fn is not None:  # keep the producer's blocks
+                engine._grad_segments_fn = recording(engine._grad_segments_fn, segs)
             with captured_rounds() as rounds:
                 zero_counts()
                 stats = engine.run_round()
                 if d.type == "cuda":
                     torch.cuda.synchronize()
                 counts = read_counts()
-            out.append((engine, stats, counts, rounds[0]["blocks"].cpu()))
+            blocks = (rounds[0]["blocks"].cpu() if rounds[0]["blocks"] is not None
+                      else torch.cat([segs[i] for i in range(len(segs))], dim=1))
+            out.append((engine, stats, counts, blocks))
         (card, s_card, counts, b_card), (cpu, s_cpu, _, b_cpu) = out
         label = f"[cohort] (b) {arch} smoke{' ' + ' '.join(extra) if extra else ''}"
+        interleaved = card._grad_segments_fn is not None
+        want = dict(encode=len(card.layout.segments) if interleaved else 1, gamp=TRAIN_ITERS,
+                    qgamp=0)
         got = {k: counts[k] for k in want}
         check(got == want, f"{label}: launches {got}, want {want}")
-        launches[COHORT_ENCODE] += counts["encode"]
+        launches[COHORT_SEG_ENCODE if interleaved else COHORT_ENCODE] += counts["encode"]
         launches[COHORT_GAMP] += counts["gamp"]
         e = nmse(card.last_ghat.cpu(), cpu.last_ghat)
         gap = max_param_gap(tree_util.tree_map(lambda v: v.cpu(), card.params), cpu.params)
@@ -3448,6 +3513,221 @@ def cohort_smoke_vs_cpu(dev, launches) -> None:
               f"(<= 1e-3), parameters max gap {gap:.3g} (<= 2 lr), residual max gap "
               f"{float(dres.max()):.3g}; nmse {s_card['nmse']:.5f} (CPU {s_cpu['nmse']:.5f}); "
               f"launches {got}")
+
+
+def recording(hook, store: dict):
+    """A ``grad_segments_fn`` that yields what ``hook`` yields and keeps a
+    CPU copy of each segment's blocks in ``store`` (by segment index)."""
+    def run(params, batch, layout):
+        for idx, blocks in hook(params, batch, layout):
+            store[idx] = blocks.cpu()
+            yield idx, blocks
+    return run
+
+
+def one_pass_hook(prod, params):
+    """The interleaved producer's one-pass oracle at ``params``: its
+    ``grads_fn`` tree, then each segment sliced out of it in layout
+    order."""
+    def run(_params, batch, layout):
+        tree = prod.grads_fn(params, batch)
+        for seg in layout.segments:
+            yield seg.index, layout.segment_blocks_batched(tree, seg.index)
+    return run
+
+
+def interleaved_wire_check(engine, rec, p0, batch, ids, label) -> str:
+    """[cohort] (d): round 0's wire (``rec``, its ``captured_rounds``
+    record, and the residual rows it left for ``ids``) against the
+    streamed encode of the one-pass oracle (:func:`one_pass_hook` at the
+    round's parameters ``p0``) from the same batch, weights and residual
+    rows (zeros before round 0): 0 lanes, alphas and residuals differ."""
+    import torch
+
+    prod = engine._grad_segments_fn
+    rhos = rec["rhos"]
+    res0 = torch.zeros((len(ids), engine.nb, engine.n), device=engine.device)
+    engine._grad_segments_fn = one_pass_hook(prod, p0)
+    try:
+        pay, _, res = engine._client_pass_streamed(batch, res0, rhos, rhos)
+    finally:
+        engine._grad_segments_fn = prod
+    del res0  # written over in place
+    torch.cuda.synchronize()
+    jids = torch.as_tensor(ids, device=engine.device)
+    lanes = int(torch.sum(pay["words"] != rec["words"]))
+    alphas = int(torch.sum(pay["alpha"] != rec["alpha"]))
+    resid = int(torch.sum(res != engine.residuals[jids]))
+    check(lanes == alphas == resid == 0,
+          f"{label} round 0's wire against the one-pass encode of grads_fn: {lanes} word "
+          f"lanes, {alphas} alphas, {resid} residual entries differ")
+    return (f"{lanes} of {pay['words'].numel():,} word lanes, {alphas} of "
+            f"{pay['alpha'].numel():,} alphas and {resid} of {res.numel():,} residual entries "
+            f"differ")
+
+
+def interleaved_grads_check(engine, p0, batch, cfg, label):
+    """[cohort] (d): the producer's ``grads_fn`` tree at round 0's
+    parameters and batch against each client's ``steps.value_and_grad``
+    (the default per-client path), bf16: each entry within 1e-2 of itself
+    plus 1e-2 of its leaf's largest entry (grad_atol's scaling, at bf16's
+    2^-8 rounding).  Returns (the tree, the worst deviation over the leaf's
+    largest entry, the leaves compared)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.runtime import steps
+
+    tree = engine._grad_segments_fn.grads_fn(p0, batch)
+    worst, n_leaves = 0.0, 0
+    for i in range(next(iter(batch.values())).shape[0]):
+        want = steps.value_and_grad(p0, {k: v[i] for k, v in batch.items()}, cfg)[1]
+        for path, w in tree_util.leaves(want):
+            g = tree_util.get(tree, path)[i]
+            check(g.dtype == w.dtype and g.shape == w.shape, f"{label} grads_fn {path}: "
+                  f"{g.dtype} {tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+            g, w = g.float(), w.float()
+            scale = float(torch.max(torch.abs(w)))
+            d = torch.abs(g - w)
+            check(bool((d <= 1e-2 * torch.abs(w) + 1e-2 * scale).all()),
+                  f"{label} grads_fn {path} client {i}: max deviation {float(d.max()):.3g} "
+                  f"(leaf max {scale:.3g})")
+            worst = max(worst, float(d.max()) / max(scale, 1e-30))
+            n_leaves += 1
+        del want
+    return tree, worst, n_leaves
+
+
+def cohort_interleaved(dev, launches, one_pass_peak: int) -> tuple:
+    """[cohort] (d): (a)'s run with ``--interleave COHORT_INTERLEAVE``: the
+    per-tensor layout split at the producer's layer chunks, each segment
+    encoded as the backward pass makes it (one encoder launch a segment,
+    then 15 gamp_step launches over nb rows a round; the counts set to 0
+    just before each round and read just after, added to ``launches``),
+    from (a)'s card-drawn parameters.  Round 0 untraced: its wall and each
+    phase's, the client pass's peak above its start (beside the
+    producer's ``peak_live_grad_bytes(C)`` and (a)'s ``one_pass_peak``),
+    the round's peak; then the checks on round 0 (the wire against the
+    one-pass oracle, ``grads_fn`` against the per-client gradients, the
+    aggregate against the plain versions) and [time] of the encoder on the
+    largest segment's C x rows (round 0's gradient of it and the residual
+    rows round 0 left).  Round 1 under ``torch.profiler``.  Returns (max
+    abs errors, [time] records)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    label = "[cohort] (d)"
+    argv = COHORT_ARGV + ["--interleave", str(COHORT_INTERLEAVE)]
+    t0 = time.perf_counter()
+    engine, eval_loss, cfg = cohort_engine(argv, dev, draw=lambda cfg: card_params(cfg, dev, 0))
+    torch.cuda.synchronize()
+    prod, layout, fed = engine._grad_segments_fn, engine.layout, engine.fed_cfg
+    c = int(round(float(COHORT_ARGV[COHORT_ARGV.index("--sample-frac") + 1]) * engine.clients))
+    big = max(layout.segments, key=lambda seg: seg.rows)
+    small = min(seg.rows for seg in layout.segments)
+    bound = prod.peak_live_grad_bytes(c)
+    print(f"{label} {cfg.name}: {' '.join(argv)}: {len(layout.segments)} segments over "
+          f"{engine.nb:,} rows a client (largest {big.name} at {big.rows:,} rows, smallest "
+          f"{small}), stages {prod.stage_names}; "
+          f"peak_live_grad_bytes({c}) {bound / 2**30:.3f} GiB; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(engine.cohort.encode_stream and prod.layout is layout
+          and len(layout.segments) == 46 and not bool(engine.residuals.any()),
+          f"{label} the engine must stream the encode over the producer's 46-segment layout "
+          "from zero residuals")
+    want = dict(encode=len(layout.segments), gamp=TRAIN_ITERS, qgamp=0)
+    p0 = tree_util.tree_map(torch.clone, engine.params)
+
+    def one_round(_state, _batch):
+        return None, {"loss": engine.run_round()["nmse"]}
+
+    errs, times = {}, {}
+    with captured_rounds() as rounds:
+        for t in range(2):
+            events = {}
+            if t == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                t1 = time.perf_counter()
+                with phase_walls() as walls, client_pass_peak() as cpk:
+                    nmse_t = one_round(None, None)[1]["loss"]
+                wall, busy = 1e3 * (time.perf_counter() - t1), None
+                counts = read_counts()
+                peak = max(cpk["before"], torch.cuda.max_memory_allocated())
+                print(f"{label} round 0's phases (each ending in a device sync): "
+                      + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items()))
+                print(f"{label} round 0's client pass: peak {cpk['above_start'] / 2**30:.3f} GiB "
+                      f"above its start ({cpk['start'] / 2**30:.3f} GiB: the engine's state and "
+                      f"the round's residual gather); peak_live_grad_bytes({c}) "
+                      f"{bound / 2**30:.3f} GiB; (a)'s one-pass client pass in this call "
+                      f"{one_pass_peak / 2**30:.3f} GiB above its start")
+                ids = np.nonzero(engine.sched_state.last_round == 0)[0]
+                batch = engine.data.cohort_batch(0, ids)
+                wire = interleaved_wire_check(engine, rounds[0], p0, batch, ids, label)
+                print(f"{label} round 0's wire against the one-pass encode of the producer's "
+                      f"grads_fn tree (same parameters, batch, weights and zero residual rows): "
+                      f"{wire}")
+                gc.collect()
+                torch.cuda.empty_cache()
+                tree, worst, n_leaves = interleaved_grads_check(engine, p0, batch, cfg, label)
+                print(f"{label} grads_fn against each client's steps.value_and_grad (bf16, "
+                      f"{n_leaves} leaves): worst deviation {worst:.3g} of the leaf's largest "
+                      f"entry (<= 1e-2 + 1e-2 relative)")
+                seg_blocks = layout.segment_blocks_batched(tree, big.index)
+                del tree, p0
+                gc.collect()
+                torch.cuda.empty_cache()
+                e = cohort_plain_decode(engine, rounds[0], label)
+                print(f"{label} round 0's decoded aggregate ({engine.nb:,} rows) against the "
+                      f"plain versions' decode of the same payload: NMSE {e:.3g} (<= 1e-3)")
+                for key in ("words", "alpha", "ghat"):  # out of round 1's peak
+                    rounds[0].pop(key)
+                # [time] the encoder on the largest segment: round 0's gradient of it and
+                # the residual rows round 0 left its clients
+                jids = torch.as_tensor(ids, device=dev)
+                resid = engine.residuals[:, big.row_slice][jids].reshape(-1, engine.n)
+                rec, words, alpha = train_encode_time(
+                    dev, fed, seg_blocks.reshape(-1, engine.n), resid, engine.codec.a,
+                    GpuTimer(), label, f"the largest segment's {c} x {big.rows:,} rows",
+                    plain_parts=2)
+                times[COHORT_SEG_ENCODE], errs["encode_segment"] = rec, rec["err"]
+                del seg_blocks, resid, words, alpha
+                gc.collect()
+                torch.cuda.empty_cache()
+            else:
+                _, recs = traced_steps(one_round, None, [None])
+                nmse_t, wall, busy, counts, peak, events = recs[0]
+            got = {k: counts[k] for k in want}
+            check(got == want, f"{label} round {t}: launches {got}, want {want}")
+            launches[COHORT_SEG_ENCODE] += counts["encode"]
+            launches[COHORT_GAMP] += counts["gamp"]
+            loss = eval_loss(engine.params)
+            part = float(torch.sum(rounds[t]["rhos"] > 0))
+            check(bool(np.isfinite(loss)) and np.isfinite(nmse_t),
+                  f"{label} round {t}: eval loss {loss}, nmse {nmse_t}")
+            idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
+            busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+            print(f"{label} round {t}: wall {wall:.3f} ms"
+                  f"{' (under the trace)' if busy is not None else ' (no trace)'}, device busy "
+                  f"{busy_s}, idle share {idle}, max_memory_allocated {peak / 2**30:.3f} GiB; "
+                  f"launches encoder {counts['encode']} (one a segment, {c} x {small} to {c} x "
+                  f"{big.rows:,} rows), gamp_step {counts['gamp']} ({engine.nb:,} rows); "
+                  f"participating {part:.0f}, nmse {nmse_t:.4f}; eval loss {loss:.6f}")
+            if events:
+                top = sorted(events.items(), key=lambda kv: -kv[1][1])[:8]
+                print(f"{label} round {t} device time by event: "
+                      + "; ".join(f"{k[:48]} x{n} {ms:.3f} ms" for k, (n, ms) in top))
+        rounds.clear()
+    del engine
+    gc.collect()  # the engine's gradient closures hold it in a reference cycle
+    torch.cuda.empty_cache()
+    print_train_times(times)
+    return errs, times
 
 
 def cohort_example(dev) -> None:
@@ -3491,13 +3771,23 @@ def cohort_example(dev) -> None:
 
 def phase_cohort(dev):
     """[cohort] The launcher's cohort mode: (a) Qwen3-0.6B at full width,
-    (b) the smoke configs on the card against the CPU, (c) the example's
-    exact restart.  Returns (launches by KERNELS name, max abs errors,
+    (d) the same with the interleaved producer, (b) the smoke configs on
+    the card against the CPU, (c) the example's exact restart.  Returns (launches by KERNELS name, max abs errors,
     [time] records)."""
-    launches = {COHORT_ENCODE: 0, COHORT_GAMP: 0}
-    errs, times = cohort_full_width(dev, launches)
+    launches = {COHORT_ENCODE: 0, COHORT_GAMP: 0, COHORT_SEG_ENCODE: 0}
+    took = []
+    t0 = time.perf_counter()
+    errs, times, one_pass_peak = cohort_full_width(dev, launches)
+    took.append(("(a)", time.perf_counter() - t0))
+    d_errs, d_times = cohort_interleaved(dev, launches, one_pass_peak)
+    took.append(("(d)", time.perf_counter() - t0 - sum(t for _, t in took)))
+    errs.update(d_errs)
+    times.update(d_times)
     cohort_smoke_vs_cpu(dev, launches)
+    took.append(("(b)", time.perf_counter() - t0 - sum(t for _, t in took)))
     cohort_example(dev)
+    took.append(("(c)", time.perf_counter() - t0 - sum(t for _, t in took)))
+    print("[cohort] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in took))
     return launches, errs, times
 
 
@@ -4371,6 +4661,7 @@ KERNELS = {
     f"qgamp_step[N={TRAIN_N}]": ("qgamp_step.cu", "qgamp_step.py:180", "qgamp255"),
     COHORT_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_cohort"),
     COHORT_GAMP: ("gamp_step.cu", "gamp_step.py:108", "gamp_cohort"),
+    COHORT_SEG_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_segment"),
 }
 
 

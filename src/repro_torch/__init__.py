@@ -37,7 +37,9 @@ with the pod-level FedQCS train step (``runtime/steps.py``,
 ``python -m repro_torch.launch.train``) and the serve steps (KV, MLA
 latent, SSM state and cross-attention caches, prefill, decode:
 ``make_prefill_step``, ``make_decode_step``,
-``examples/serve_lm_torch.py``).  The five
+``examples/serve_lm_torch.py``), and the launcher's cohort mode over the
+model zoo with its backward-interleaved client pass
+(``models/segment_tap.py``).  The five
 kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.

@@ -69,9 +69,9 @@ segment's ``(C, rows, N)`` blocks, never the whole grid; the wire is
 bit-identical to the one-pass encode), from one batched gradient pass
 (``cohort.grad_accum`` microbatches a client) or from a caller's
 ``grad_segments_fn(params, batch, layout)``, which yields ``(segment index,
-(C, rows, N) blocks)`` in any order.  The interleaved producer that yields
-segments as the backward pass makes them (``make_interleaved_segments``)
-raises ``NotImplementedError`` (ROADMAP.md item 11b).
+(C, rows, N) blocks)`` in any order: :func:`make_interleaved_segments`
+gives the producer that yields each segment as the backward pass makes it
+(``repro_torch.models.segment_tap``).
 
 The parameters are any tree of ``repro_torch.tree`` (a flat dict, or the
 model zoo's nested dicts with bf16 and fp32 leaves), kept with each leaf's
@@ -89,7 +89,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import entry_device, not_in_slice
+from repro_torch import entry_device
 from repro_torch import tree as tree_util
 from repro_torch.core import baselines, bussgang
 from repro_torch.core.compression import (
@@ -929,11 +929,23 @@ class CohortEngine:
 
 def make_interleaved_segments(model_cfg: Any, layout: GradientLayout, grad_accum: int = 1,
                               layer_chunks: int = 1):
-    """The ``grad_segments_fn`` that interleaves the encode with backprop,
-    yielding each segment's blocks as its layer's cotangents are made (the
-    reference's ``repro.models.segment_tap``): not ported yet."""
-    raise not_in_slice("the interleaved segment producer (make_interleaved_segments)",
-                       "item 11b")
+    """``grad_segments_fn`` that interleaves the encode with backprop: yields
+    each layout segment's ``(C, rows, N)`` blocks as the corresponding layer
+    cotangents are made -- backward order -- so the encode of layer L is
+    queued while L-1 backprops and the full gradient tree never exists.
+    Works for every staged registry family (transformer, moe, vlm, ssm,
+    hybrid); build ``layout`` with
+    :func:`repro_torch.models.segment_tap.interleaved_layout` (the same
+    ``layer_chunks``) and pass BOTH it and the returned producer to
+    :class:`CohortEngine` with ``encode_stream=True``.  ``grad_accum`` must
+    mirror ``CohortConfig.grad_accum``: the producer microbatches each stage
+    as the one-pass tree pass does.  The returned object also exposes
+    ``grads_fn`` and ``peak_live_grad_bytes`` (the bit-identity oracle and
+    the live-bytes bound)."""
+    from repro_torch.models.segment_tap import InterleavedSegments
+
+    return InterleavedSegments(model_cfg, layout, grad_accum=grad_accum,
+                               layer_chunks=layer_chunks)
 
 
 # ---------------------------------------------------------------------------

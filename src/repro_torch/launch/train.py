@@ -20,8 +20,16 @@ taken one at a time:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
         --fed-cohort --clients 8 --steps 2 --device cpu
 
-The interleaved producer (``--interleave``) and the production mesh raise,
-naming their ROADMAP.md items.
+``--interleave CHUNKS`` takes the cohort's gradients through the
+backward-interleaved producer (``repro_torch.models.segment_tap``): a
+per-tensor layout split at CHUNKS layer chunks, each segment encoded as the
+backward pass makes it (``--grad-accum M``: M microbatches a client):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
+        --fed-cohort --interleave 2 --clients 8 --steps 2 --device cpu
+
+Pod mode does not read ``--interleave`` and rejects it; the production mesh
+raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,19 +40,25 @@ from typing import Optional
 
 import torch
 
-from repro_torch import entry_device, not_in_slice
+from repro_torch import entry_device
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import ARCHS, get_config, smoke_config
 from repro_torch.core.compression import FedQCSConfig
 from repro_torch.data.synthetic import TokenDataset
 from repro_torch.fed.channel import ChannelConfig
-from repro_torch.fed.engine import CohortConfig, CohortEngine, TokenClientData
+from repro_torch.fed.engine import (
+    CohortConfig,
+    CohortEngine,
+    TokenClientData,
+    make_interleaved_segments,
+)
 from repro_torch.fed.scheduler import SchedulerConfig
 from repro_torch.fed.server_opt import ServerOptConfig
 from repro_torch.fed.stream import StreamConfig
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import model as model_api
+from repro_torch.models.segment_tap import interleaved_layout
 from repro_torch.obs import JsonlRecorder
 from repro_torch.optim.adam import OptConfig
 from repro_torch.runtime import steps
@@ -91,7 +105,8 @@ def parse_args(argv=None):
                     help="clients per pass in the vmapped cohort pass (a registry "
                          "model's clients go one at a time)")
     ap.add_argument("--interleave", type=int, default=0, metavar="CHUNKS",
-                    help="backward-interleaved client encode (ROADMAP.md item 11b)")
+                    help="cohort mode: backward-interleaved client encode over "
+                         "CHUNKS layer chunks")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="interleave mode: microbatches per client pass")
     ap.add_argument("--production-mesh", action="store_true",
@@ -110,7 +125,8 @@ def main(argv=None):
     if args.fed_cohort:
         return run_fed_cohort(args, cfg)
     if args.interleave:
-        raise not_in_slice("the interleaved segment producer (--interleave)", "item 11b")
+        raise ValueError("--interleave is the cohort mode's backward-interleaved encode: "
+                         "pass --fed-cohort (pod mode does not read it)")
     if cfg.family == "audio":  # the reference's pod mode fails on the same missing key
         raise ValueError(f"--arch {args.arch}: the audio family trains on frame embeddings "
                          "('frames'), which the launcher's token data does not have")
@@ -164,9 +180,6 @@ def make_fed_cohort(args, cfg, fed: Optional[FedQCSConfig] = None, params=None):
     its recorder (None without ``--record``): ``fed`` replaces
     :func:`cohort_fed`'s point (e.g. with the kernel route), ``params`` a
     parameter tree on ``--device`` replaces the one drawn from seed 0."""
-    if args.interleave:
-        raise not_in_slice("the interleaved segment producer (--fed-cohort --interleave)",
-                           "item 11b")
     missing = {"audio": "frame embeddings ('frames')", "vlm": "patch embeddings ('patches')"}
     if cfg.family in missing:  # the reference's first round fails on the same missing key
         raise ValueError(f"--arch {args.arch}: the {cfg.family} family trains on "
@@ -175,6 +188,13 @@ def make_fed_cohort(args, cfg, fed: Optional[FedQCSConfig] = None, params=None):
     fed = fed or cohort_fed(args)
     if params is None:
         params = model_api.init_params(cfg, 0, dev)
+    # --interleave: the per-tensor layout split at the producer's chunk
+    # bounds, and the backward-interleaved producer feeding the streamed encode
+    layout = grad_segments_fn = None
+    if args.interleave:
+        layout = interleaved_layout(cfg, fed.block_size, layer_chunks=args.interleave)
+        grad_segments_fn = make_interleaved_segments(cfg, layout, grad_accum=args.grad_accum,
+                                                     layer_chunks=args.interleave)
     data = TokenClientData(cfg.vocab_size, batch=args.client_batch, seq=args.seq,
                            clients=args.clients, alpha=args.alpha, device=dev)
     sched_kind = args.scheduler or ("uniform" if args.sample_frac < 1.0 else "full")
@@ -186,7 +206,8 @@ def make_fed_cohort(args, cfg, fed: Optional[FedQCSConfig] = None, params=None):
         lambda p, b: steps.value_and_grad(p, b, cfg)[1],
         data,
         fed_cfg=fed,
-        cohort=CohortConfig(method="fedqcs-ae", chunk=args.chunk, grad_accum=args.grad_accum),
+        cohort=CohortConfig(method="fedqcs-ae", chunk=args.chunk,
+                            encode_stream=bool(args.interleave), grad_accum=args.grad_accum),
         sched=SchedulerConfig(kind=sched_kind, sample_frac=args.sample_frac,
                               dropout_prob=args.dropout),
         chan=(ChannelConfig(kind="awgn", snr_db=args.snr_db)
@@ -195,6 +216,8 @@ def make_fed_cohort(args, cfg, fed: Optional[FedQCSConfig] = None, params=None):
         stream=(StreamConfig(batch_clients=args.stream, deadline=args.deadline)
                 if args.stream > 0 else None),
         obs=recorder,
+        layout=layout,
+        grad_segments_fn=grad_segments_fn,
         device=dev,
     )
     probe = TokenDataset(cfg.vocab_size, batch=16, seq=args.seq, seed=123).get_batch(0, device=dev)
@@ -215,6 +238,13 @@ def run_fed_cohort(args, cfg):
     frames or patches)."""
     engine, eval_loss, recorder = make_fed_cohort(args, cfg)
     fed = engine.fed_cfg
+    if args.interleave:
+        prod, layout = engine._grad_segments_fn, engine.layout
+        peak = prod.peak_live_grad_bytes(args.clients)
+        print(f"[fed-cohort] interleave: {len(layout.segments)} segments, "
+              f"stages {prod.stage_names}, "
+              f"peak live grad+enc {peak / 1e6:.1f} MB "
+              f"(whole tree {args.clients * layout.nbar * 4 / 1e6:.1f} MB)")
     n_params = sum(int(p.numel()) for _, p in tree_util.leaves(engine.params))
     print(f"[fed-cohort] arch={cfg.name} params={n_params:,} "
           f"clients={args.clients} alpha={args.alpha} "

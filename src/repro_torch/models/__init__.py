@@ -1,2 +1,4 @@
-"""The model zoo (port of ``repro.models``): the dense transformer family,
-its building blocks, the family dispatch and the sharding rules."""
+"""The model zoo (port of ``repro.models``): the transformer, SSM, hybrid
+and audio families, their building blocks, the family dispatch
+(``model``), the sharding rules and the backward-interleaved segment
+producer (``segment_tap``)."""

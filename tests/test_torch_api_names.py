@@ -1,7 +1,8 @@
 """Port parity: public names of ported modules that the reference has and
 the port lacked until now (``core/sensing.py::sensing_matrix_t``, the
 codebook family registry, ``core/gamp.py::GampState`` and the one-step and
-code-index GAMP entry points of ``kernels/ops.py``), on the CPU.
+code-index GAMP entry points of ``kernels/ops.py``, the names of
+``models/segment_tap.py``), on the CPU.
 
 The ``ops`` entry points are held against the reference's own (its Pallas
 kernels in interpret mode) on the same inputs: one step of each at the
@@ -10,6 +11,8 @@ tolerances of the reference's kernel-vs-plain tests
 (NMSE <= 1e-8 to the reference's, a dead block exactly zero, and bit for
 bit the packed-word solve).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -71,6 +74,23 @@ def test_codebook_family_registry_matches_reference():
         del jcb.CODEBOOK_FAMILIES["lm_alias"], tcb.CODEBOOK_FAMILIES["lm_alias"]
     with pytest.raises(ValueError, match="unknown codebook"):
         tcb.make_codebook(tcomp.FedQCSConfig(codebook="lm_alias"))
+
+
+def test_segment_tap_exports_the_reference_names():
+    """``models/segment_tap.py`` keeps the reference module's public names
+    and its private helpers' names."""
+    from repro.models import segment_tap as jtap
+    from repro_torch.models import segment_tap as ttap
+
+    assert ttap.__all__ == jtap.__all__
+    for name in ("_chunk_bounds", "_subtree_ranges", "_stack_chunk_stages", "_Contrib"):
+        assert hasattr(ttap, name) and hasattr(jtap, name), name
+    assert ttap._chunk_bounds(28, 4) == jtap._chunk_bounds(28, 4) == [(0, 7), (7, 14), (14, 21),
+                                                                      (21, 28)]
+    assert ttap._chunk_bounds(5, 3) == jtap._chunk_bounds(5, 3)
+    fields = lambda c: [f.name for f in dataclasses.fields(c)]  # noqa: E731
+    assert fields(ttap._Contrib) == fields(jtap._Contrib)
+    assert fields(ttap.Stage) == fields(jtap.Stage)
 
 
 def test_gamp_state_is_the_reference_carry_type():

@@ -367,15 +367,24 @@ def test_launcher_cohort_record(tmp_path, capsys):
 @pytest.mark.parametrize("argv,err,match", [
     pytest.param(["--arch", "whisper-base"], ValueError, "frames", id="audio"),
     pytest.param(["--arch", "qwen2-vl-7b"], ValueError, "patches", id="vlm"),
-    pytest.param(["--arch", "qwen3-0.6b", "--interleave", "2"], NotImplementedError,
-                 "item 11b", id="interleave"),
+    pytest.param(["--arch", "qwen3-0.6b", "--interleave", "2"], None, None, id="interleave"),
     pytest.param(["--arch", "qwen3-0.6b", "--grad-accum", "2"], ValueError, "encode_stream",
                  id="grad-accum-without-interleave"),
 ])
 def test_launcher_cohort_mode_rejects(argv, err, match):
     """The archs whose batches the token data cannot make (the reference's
-    first round fails on the missing key), the interleaved producer (item
-    11b) and the reference's gate on ``--grad-accum`` without it."""
+    first round fails on the missing key) and the reference's gate on
+    ``--grad-accum`` without ``--interleave``.  ``--interleave 2`` (no
+    ``err``) is taken: the launcher's engine streams the encode over the
+    producer's own layout, with the producer as its segment source."""
+    if err is None:
+        args = tlaunch.parse_args(argv + LAUNCH)
+        engine, _, _ = tlaunch.make_fed_cohort(args, registry.smoke_config(args.arch))
+        prod = engine._grad_segments_fn
+        assert engine.cohort.encode_stream and engine.cohort.grad_accum == 1
+        assert type(prod).__name__ == "InterleavedSegments" and prod.layout is engine.layout
+        assert engine.layout.kind == "per_tensor" and len(engine.layout.segments) == 24
+        return
     with pytest.raises(err, match=match):
         tlaunch.main(argv + LAUNCH)
 

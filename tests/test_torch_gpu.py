@@ -1169,3 +1169,77 @@ def test_cohort_round_on_the_card_matches_the_cpu(cuda):
     worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu.params, path))))
                 for path, p in tree_util.leaves(card.params))
     assert worst <= 2 * 3e-3, worst
+
+
+# -- slice 16: the backward-interleaved producer -------------------------------
+
+
+def _interleaved_engine(dev, extra=()):
+    """The launcher's ``--fed-cohort --interleave 2`` engine on Qwen3-0.6B's
+    smoke config (4 clients of 2 x 16 tokens) on ``dev``, kernel route."""
+    import dataclasses
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import train as tlaunch
+
+    args = tlaunch.parse_args(["--arch", "qwen3-0.6b", "--smoke", "--fed-cohort", "--clients",
+                               "4", "--seq", "16", "--interleave", "2", *extra, "--device", dev])
+    fed = dataclasses.replace(tlaunch.cohort_fed(args), use_kernels=True)
+    return tlaunch.make_fed_cohort(args, smoke_config("qwen3-0.6b"), fed=fed)[0]
+
+
+def test_interleaved_wire_on_the_card_matches_its_one_pass(cuda):
+    """On the card, the producer's segment stream encodes to the wire of the
+    one-pass encode of its own ``grads_fn`` tree, bit for bit (payload and
+    residuals): one encoder launch a segment."""
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+
+    engine = _interleaved_engine("cuda")
+    prod, layout = engine._grad_segments_fn, engine.layout
+    ids = np.arange(4)
+    batch = engine.data.cohort_batch(0, ids)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res0 = torch.randn((4, engine.nb, engine.n), generator=gen, device="cuda") * 1e-3
+    rhos = torch.ones(4, device="cuda")
+
+    def one_pass(params, b, lo):
+        tree = prod.grads_fn(params, b)
+        for seg in lo.segments:
+            yield seg.index, lo.segment_blocks_batched(tree, seg.index)
+
+    enc_mod.launches = 0
+    pay, _, res = engine._client_pass_streamed(batch, res0.clone(), rhos, rhos)
+    torch.cuda.synchronize()
+    assert enc_mod.launches == len(layout.segments)
+    engine._grad_segments_fn = one_pass
+    pay1, _, res1 = engine._client_pass_streamed(batch, res0.clone(), rhos, rhos)
+    for k in pay:
+        assert torch.equal(pay[k], pay1[k]), k
+    assert torch.equal(res, res1)
+
+
+def test_interleaved_round_on_the_card_matches_the_cpu(cuda):
+    """One interleaved cohort round (``--interleave 2``, and with
+    ``--grad-accum 2``) on the card against the same round on the CPU:
+    the aggregate to NMSE <= 1e-3, the residuals to 1e-5, the parameters
+    within 2 lr, as the one-pass cohort round is held."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import bqcs_encode_fused as enc_mod
+    from repro_torch.kernels import gamp_step as gamp_mod
+
+    for extra in ((), ("--grad-accum", "2")):
+        out = []
+        for dev in ("cuda", "cpu"):
+            engine = _interleaved_engine(dev, extra)
+            enc_mod.launches = gamp_mod.launches = 0
+            engine.run_round()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert (enc_mod.launches, gamp_mod.launches) == (len(engine.layout.segments), 15)
+            out.append(engine)
+        card, cpu = out
+        assert _nmse(card.last_ghat.cpu(), cpu.last_ghat) <= 1e-3, extra
+        torch.testing.assert_close(card.residuals.cpu(), cpu.residuals, rtol=0, atol=1e-5)
+        worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu.params, path))))
+                    for path, p in tree_util.leaves(card.params))
+        assert worst <= 2 * 3e-3, (extra, worst)

@@ -532,5 +532,16 @@ def test_grad_segments_hook():
 
 
 def test_make_interleaved_segments_raises():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        teng.make_interleaved_segments(None, TLayout.per_tensor({"w": torch.zeros(3)}, 8))
+    """The factory gives the interleaved producer over the model's own
+    layout (``tests/test_torch_interleave.py`` holds what it yields), and
+    raises for a layout that is not the model's parameter tree."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models.segment_tap import InterleavedSegments, interleaved_layout
+
+    cfg = smoke_config("qwen3-0.6b")
+    layout = interleaved_layout(cfg, 8, layer_chunks=2)
+    prod = teng.make_interleaved_segments(cfg, layout, layer_chunks=2)
+    assert isinstance(prod, InterleavedSegments) and prod.layout is layout
+    assert prod.stage_names == ["embed", "layers[0:1]", "layers[1:2]", "head"]
+    with pytest.raises(ValueError, match="does not describe"):
+        teng.make_interleaved_segments(cfg, TLayout.per_tensor({"w": torch.zeros(3)}, 8))

@@ -553,13 +553,23 @@ def test_routes_now_in_the_slice_run(route):
     pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True), "item 10b",
                  id="production-mesh"),
     pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--fed-cohort",
-                                       "--interleave", "2", "--device", "cpu"]),
-                 "item 11b", id="fed-cohort"),
+                                       "--interleave", "2", "--clients", "4", "--steps", "1",
+                                       "--seq", "16", "--device", "cpu"]).round == 1,
+                 None, id="fed-cohort"),
     pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--interleave", "2"]),
-                 "item 11b", id="interleave"),
+                 (ValueError, "--fed-cohort"), id="interleave"),
 ])
 def test_routes_outside_the_slice_raise(route, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The routes outside the slice raise ``NotImplementedError`` naming
+    their ROADMAP.md item.  Since the interleaved producer was ported, the
+    cohort mode's ``--interleave`` runs (``item`` None) and pod mode rejects
+    the flag with a ``ValueError`` naming ``--fed-cohort`` (the reference's
+    pod mode ignores it)."""
+    if item is None:
+        assert route()
+        return
+    err, match = item if isinstance(item, tuple) else (NotImplementedError, item)
+    with pytest.raises(err, match=match):
         route()
 
 

@@ -20,26 +20,27 @@ import argparse
 
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch.configs.registry import ARCHS, smoke_config
-from repro_torch.data.synthetic import batch_generator
 from repro_torch.launch.mesh import make_single_device_mesh
 from repro_torch.models import model as M
 from repro_torch.runtime import steps
 
 
-def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 1) -> dict:
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 1, device="cpu") -> dict:
     """Uniform prompt tokens (a VLM: a patch prefix of prompt_len // 4
     positions, then text, positions 0.. on all three M-RoPE streams; the
-    audio family: normal(0, 0.02) frame embeddings)."""
-    gen = batch_generator(seed)
+    audio family: normal(0, 0.02) frame embeddings), drawn on ``device``
+    from ``PRNGKey(seed)`` as the reference's example draws its prompt."""
+    key = prng.PRNGKey(seed, device=device)
     if cfg.family == "audio":
-        return {"frames": torch.randn((batch, prompt_len, cfg.d_model), generator=gen) * 0.02}
+        return {"frames": prng.normal(key, (batch, prompt_len, cfg.d_model)) * 0.02}
     sv = prompt_len // 4 if cfg.family == "vlm" else 0
-    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len - sv), generator=gen)}
+    out = {"tokens": prng.randint(key, (batch, prompt_len - sv), 0, cfg.vocab_size)}
     if sv:
-        out["patches"] = torch.randn((batch, sv, cfg.d_model), generator=gen) * 0.02
-        out["positions"] = torch.arange(prompt_len).expand(3, batch, prompt_len).contiguous()
+        out["patches"] = prng.normal(key, (batch, sv, cfg.d_model)) * 0.02
+        out["positions"] = torch.arange(prompt_len, device=device).expand(
+            3, batch, prompt_len).contiguous()
     return out
 
 
@@ -59,7 +60,7 @@ def main(argv=None):
         raise SystemExit(f"{args.arch} has no decode step")
     params = M.init_params(cfg, seed=0, device=dev)
     smax = args.prompt_len + args.tokens
-    batch = {k: v.to(dev) for k, v in prompt_batch(cfg, args.batch, args.prompt_len).items()}
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, device=dev)
 
     prefill_fn = steps.make_prefill_step(cfg, mesh)
     decode_fn = steps.make_decode_step(cfg, mesh, donate=True)

@@ -44,6 +44,12 @@ kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``kernels/build.py``).  Routes outside the slices raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
+Every random draw -- the sensing matrix, QCS-Dither's signs, rows and
+dither, the initial parameters, the synthetic and cohort batches and the
+channel draws -- comes from ``prng``, the port's bit-for-bit counterpart
+of the reference's ``jax.random`` (threefry2x32), along the reference's own
+key tree: a seed gives the reference's draws.
+
 Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels.  There is no fallback from one to
 the other.
@@ -77,3 +83,6 @@ def entry_device(device) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+from repro_torch import prng  # noqa: E402  (imports torch and numpy only)

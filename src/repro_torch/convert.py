@@ -1,10 +1,11 @@
 """Carries the reference's state across to the port.
 
-The two packages draw their random protocol state differently (the
-reference with ``jax.random``, the port from seeded ``torch.Generator``s),
-so to compute the same thing they must start from the same arrays.
-:func:`from_reference` takes the reference's parameters and sensing matrix
-as numpy arrays (``np.asarray`` of the JAX arrays) and returns the port's:
+The port draws its random state as the reference does (threefry keys,
+``repro_torch.prng``), so a seed gives both packages the same parameters
+and sensing matrix.  These helpers carry over state that no seed names: a
+reference run's arrays at any point.  :func:`from_reference` takes the
+reference's parameters and sensing matrix as numpy arrays (``np.asarray``
+of the JAX arrays) and returns the port's:
 a parameter dict with the same names and layouts, and the ``a=`` tensor
 that ``BQCSCodec``, ``CohortEngine`` and ``run_federated`` accept.
 :func:`state_from_reference` does the same for an optimizer or server

@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import sparsify
 from repro_torch.core.codebook import as_codebook
 
@@ -85,7 +86,9 @@ class DitherCodec:
     y, linear reconstruction g_hat = D H^T S^T y_dq * N / M.
 
     ``rademacher`` (n,) and ``rows`` (m,) inject the signs and rows; unset,
-    they are drawn on the CPU from ``seed``.  The dither u ~ Unif(-delta/2,
+    they are drawn on the CPU from ``seed`` as the reference draws them:
+    ``split(PRNGKey(seed))`` into ``bernoulli(krad, 0.5)`` signs and
+    ``choice(krow, n, (m,), replace=False)`` rows.  The dither u ~ Unif(-delta/2,
     delta/2) is shared with the PS: :meth:`compress` takes its unit draw
     (Unif[-0.5, 0.5), the shape of the projection) from the caller.
     """
@@ -99,12 +102,11 @@ class DitherCodec:
     device: Optional[torch.device] = None
 
     def __post_init__(self):
-        gen = torch.Generator(device="cpu").manual_seed(int(self.seed))
+        krad, krow = prng.split(prng.PRNGKey(self.seed)).unbind(-2)
         if self.rademacher is None:
-            heads = torch.rand((self.n,), generator=gen) < 0.5
-            self.rademacher = torch.where(heads, 1.0, -1.0)
+            self.rademacher = torch.where(prng.bernoulli(krad, 0.5, (self.n,)), 1.0, -1.0)
         if self.rows is None:
-            self.rows = torch.randperm(self.n, generator=gen)[: self.m]
+            self.rows = prng.choice(krow, self.n, (self.m,), replace=False)
         dev = self.device if self.device is not None else self.rademacher.device
         self.rademacher = self.rademacher.to(dev, torch.float32)
         self.rows = self.rows.to(dev, torch.int64)

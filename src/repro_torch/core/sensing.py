@@ -1,11 +1,12 @@
 """Sensing matrices for the dimension-reduction stage (paper Sec. III-A).
 
 The paper draws A in R^{M x N} iid N(0, 1/M) and shares it across all
-devices, blocks and steps.  The reference draws it with ``jax.random``; the
-port draws it from a CPU ``torch.Generator`` seeded with the protocol seed
-and then moves it to the device, so the CPU and the card hold the same A.
-The two draws differ from each other: to hold the port against the
-reference, pass the reference's matrix in (``convert.from_reference``).
+devices, blocks and steps: it is protocol state, shared through a seed.
+The port draws it as the reference does, ``normal(PRNGKey(seed), (m, n)) /
+sqrt(m)`` with the threefry of ``repro_torch.prng``, so a seed gives the
+reference's A bit for bit (a PS of either package decodes the other's
+wire).  It is drawn on the CPU and then moved, so the CPU and the card
+hold the same A.
 """
 
 from __future__ import annotations
@@ -13,14 +14,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import prng
+
 __all__ = ["sensing_matrix", "sensing_matrix_t", "scale_factor", "project_blocks"]
 
 
 def sensing_matrix(seed: int, m: int, n: int, device="cuda") -> torch.Tensor:
-    """A in R^{m x n}, entries iid N(0, 1/m), drawn on the CPU from ``seed``."""
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
-    a = torch.randn((m, n), generator=gen, dtype=torch.float32)
-    a = a / torch.sqrt(torch.tensor(float(m), dtype=torch.float32))
+    """A in R^{m x n}, entries iid N(0, 1/m): ``normal(PRNGKey(seed), (m,
+    n))`` over the f32 sqrt(m), drawn on the CPU and moved to ``device``."""
+    a = prng.normal(prng.PRNGKey(seed), (m, n)) / float(np.sqrt(np.float32(m)))
     return a.to(device)
 
 

@@ -48,16 +48,16 @@ synchronise and times nothing, so unrecorded rounds are unchanged.
 
 Every random tensor of a round -- the uplink's fading gains, fading matrix,
 CSI error and receive noise, and each client's dither -- comes through ONE
-seam, ``draw(round, purpose, shape, client=None)``, which returns a CPU
-float32 tensor.  The default, :func:`seeded_draw`, seeds a CPU
-``torch.Generator`` from ``(cohort.seed, round, purpose[, client])``, so a
-round on the card and the same round on the CPU see the same draws.  The
-reference draws these from ``jax.random``; its tests inject the
-reference's draws through ``CohortEngine(draw=...)``.  A streamed round
-draws each client's receive noise on its own (``client=`` its id), so the
-draw does not depend on how arrivals batch up, and a multiple-access
-uplink's per-batch noise under ``"batch_noise"`` with ``client=`` the batch's
-admission index.
+seam, ``draw(round, purpose, shape, client=None)``, which returns a float32
+tensor.  The default, :func:`seeded_draw`, draws on the engine's device
+from the reference engine's own key path (``repro_torch.prng``, threefry),
+so a round's draws are the reference's bit for bit, on the card as on the
+CPU; tests may still inject draws through ``CohortEngine(draw=...)``.  A
+round's per-client draws (qcs-dither's dither, a streamed round's receive
+noise) take ``client=`` the cohort's ids: one draw a client from its own
+key, all in one call, so a client's draw depends neither on the cohort nor
+on how arrivals batch up; a multiple-access uplink's per-batch noise comes
+under ``"batch_noise"`` with ``client=`` the batch's admission index.
 
 The block layout (``core/layout.py``) is built once, in the constructor:
 monolithic by default, ``cohort.layout="per_tensor"`` for independently
@@ -89,7 +89,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch import tree as tree_util
 from repro_torch.core import baselines, bussgang
 from repro_torch.core.compression import (
@@ -105,7 +105,7 @@ from repro_torch.core.reconstruction import (
     estimate_and_aggregate_packed,
     gamp_config_from,
 )
-from repro_torch.data.synthetic import affine_rule_batch, batch_generator
+from repro_torch.data.synthetic import affine_rule_batch
 from repro_torch.fed.channel import (
     ChannelConfig,
     get_channel_family,
@@ -183,32 +183,41 @@ def _check_cohort(c: CohortConfig) -> None:
         )
 
 
-# purpose -> (stream tag, distribution) of the round's random tensors
+# the round's random tensors, by purpose
 _DRAWS = {
-    "gain": (1, "exponential"),  # rayleigh power gains |h_k|^2 ~ Exp(1), (C,)
-    "h": (2, "normal"),  # mimo_mac fading matrix, (n_rx, C)
-    "h_err": (3, "normal"),  # mimo_mac CSI estimate error, (n_rx, C)
-    "noise": (4, "normal"),  # receive noise, the reception's shape
-    "dither": (5, "uniform"),  # one client's qcs-dither draw on [-0.5, 0.5)
-    "batch_noise": (6, "normal"),  # a streamed mimo_mac batch's receive noise (n_rx, nb, M)
+    "gain": "rayleigh power gains |h_k|^2 ~ Exp(1), (C,): exponential(k_chan)",
+    "h": "mimo_mac fading matrix, (n_rx, C): normal(split(k_chan)[0])",
+    "h_err": "mimo_mac CSI estimate error, (n_rx, C): normal(split(k_chan)[1])",
+    "noise": "receive noise, the reception's shape: normal(k_noise[, client])",
+    "dither": "one client's qcs-dither draw: uniform(fold_in(kr, client), -0.5, 0.5)",
+    "batch_noise": "a streamed mimo_mac batch's receive noise (n_rx, nb, M): "
+                   "normal(fold_in(k_noise, admission index))",
 }
 
 
 def seeded_draw(seed: int, t: int, purpose: str, shape: Tuple[int, ...],
-                client: Optional[int] = None) -> torch.Tensor:
-    """The default draw seam: a CPU float32 tensor from a ``torch.Generator``
-    seeded by ``(seed, round t, purpose[, global client id])``, so every
-    purpose and client has its own stream and no draw depends on the
-    cohort's other members or on the device."""
-    tag, dist = _DRAWS[purpose]
-    key = [int(seed), int(t), tag] + ([] if client is None else [int(client)])
-    hi, lo = np.random.SeedSequence(key).generate_state(2, np.uint32)
-    gen = torch.Generator(device="cpu").manual_seed((int(hi) << 32) | int(lo))
-    if dist == "normal":
-        return torch.randn(shape, generator=gen)
-    if dist == "uniform":
-        return torch.rand(shape, generator=gen) - 0.5
-    return torch.empty(shape).exponential_(1.0, generator=gen)
+                client=None, device="cpu") -> torch.Tensor:
+    """The default draw seam: a float32 tensor on ``device`` along the
+    reference engine's key path -- the round key ``kr = fold_in(PRNGKey(seed),
+    t)``, split into ``k_chan`` and ``k_noise`` -- so every purpose and client
+    has its own draw and none depends on the cohort's other members or on
+    the device (:data:`_DRAWS`).  ``client`` is a global client id (a
+    streamed mimo_mac batch's admission index for ``"batch_noise"``), or a
+    1-D sequence of ids: then one draw of ``shape`` a client, stacked
+    ``(len(client), *shape)`` in one call, as the reference vmaps over its
+    client keys."""
+    if purpose not in _DRAWS:
+        raise ValueError(f"unknown draw purpose {purpose!r} (choose from {sorted(_DRAWS)})")
+    kr = prng.fold_in(prng.PRNGKey(seed, device=device), int(t))
+    k_chan, k_noise = prng.split(kr).unbind(-2)
+    if purpose == "gain":
+        return prng.exponential(k_chan, shape)
+    if purpose in ("h", "h_err"):
+        return prng.normal(prng.split(k_chan)[0 if purpose == "h" else 1], shape)
+    ids = None if client is None else torch.as_tensor(client, dtype=torch.int64, device=device)
+    if purpose == "dither":
+        return prng.uniform(prng.fold_in(kr, ids), shape, -0.5, 0.5)
+    return prng.normal(k_noise if ids is None else prng.fold_in(k_noise, ids), shape)
 
 
 class ArrayClientData:
@@ -251,9 +260,10 @@ class TokenClientData:
     shifts the additive constant to ``17 + 5 d``) with per-client mixture
     weights drawn from Dir(alpha); alpha = 0 gives every client the uniform
     mixture.  The mixtures ``_p`` come from the reference's numpy stream,
-    so they are the reference's bit for bit; a client's batch is drawn from
-    ``batch_generator(seed, round, client id)`` (not threefry: ROADMAP.md
-    item 12), a pure function of those three."""
+    so they are the reference's bit for bit; a client's batch is drawn on
+    the device along the reference's key path,
+    ``split(fold_in(fold_in(PRNGKey(seed), round), client id), 4)``, so it
+    is the reference's batch too, and a pure function of those three."""
 
     def __init__(
         self,
@@ -277,19 +287,20 @@ class TokenClientData:
         else:
             self._p = np.full((clients, n_dialects), 1.0 / n_dialects)
 
-    def _client_batch(self, round_idx: int, client: int) -> Dict[str, torch.Tensor]:
-        gen = batch_generator(self.seed, round_idx, client)
-        # one dialect a row, from the client's mixture (the reference's
-        # categorical over log(p + 1e-9))
-        p = torch.as_tensor(self._p[client] + 1e-9)
-        dialect = torch.multinomial(p, self.batch, replacement=True, generator=gen)
-        return affine_rule_batch(gen, self.batch, self.seq, self.vocab_size, self.noise,
-                                 c=17 + 5 * dialect[:, None])
-
     def cohort_batch(self, round_idx: int, ids: np.ndarray) -> Dict[str, torch.Tensor]:
-        """``{"tokens", "labels"}``: (C, batch, seq) int64 on the device."""
-        rows = [self._client_batch(round_idx, int(i)) for i in ids]
-        return {k: torch.stack([r[k] for r in rows]).to(self.device) for k in ("tokens", "labels")}
+        """``{"tokens", "labels"}``: (C, batch, seq) int64 on the device, the
+        cohort's clients drawn together from their (C, 2) keys (the
+        reference's vmap over them)."""
+        base = prng.fold_in(prng.PRNGKey(self.seed, device=self.device), round_idx)
+        keys = prng.fold_in(base, torch.as_tensor(ids, dtype=torch.int64, device=self.device))
+        k1, k2, k3, k4 = prng.split(keys, 4).unbind(-2)
+        # one dialect a row, from each client's mixture: the reference's
+        # categorical over its f32 log(p + 1e-9)
+        p = torch.as_tensor(self._p[ids], dtype=torch.float32, device=self.device)
+        dialect = prng.categorical(k4, prng.log(p + float(np.float32(1e-9))),
+                                   shape=(self.batch, 1))
+        return affine_rule_batch(k1, k2, k3, self.batch, self.seq, self.vocab_size, self.noise,
+                                 c=17 + 5 * dialect)
 
 
 def _client(batch: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -374,7 +385,7 @@ class CohortEngine:
         self.fed_cfg = fed_cfg or FedQCSConfig()
         self.grad_fn = grad_fn
         self.data = data
-        self.draw = draw or functools.partial(seeded_draw, cohort.seed)
+        self.draw = draw or functools.partial(seeded_draw, cohort.seed, device=self.device)
         self.params = tree_util.tree_map(lambda v: v.to(self.device), params)
         # taken once, from the tree: a nested tree (the model zoo's) runs its
         # clients' gradients one at a time -- its layers run under
@@ -786,8 +797,8 @@ class CohortEngine:
         self.obs.record("round", event)
 
     def _uplink(self, t, n_cohort):
-        """The round's channel realization (on the host, then moved) and its
-        outage mask as numpy."""
+        """The round's channel realization (drawn where the draw seam draws,
+        then moved to the device) and its outage mask as numpy."""
         real = realize_uplink(self.chan, lambda p, shape: self.draw(t, p, shape),
                               n_cohort, self.nb)
         mask = real.mask.cpu().numpy()
@@ -814,7 +825,7 @@ class CohortEngine:
         prev_sched = self.sched_state
         ids, rho0, new_sched = select_cohort(self.sched, prev_sched, t, self.data.counts)
         stale = self._staleness(prev_sched, ids, t) if self._collect else ()
-        # the uplink is realized on the host, before the cohort passes
+        # the uplink is realized before the cohort passes
         with span("uplink", self._spans):
             real, mask = self._uplink(t, len(ids))
             self._sync()
@@ -831,8 +842,8 @@ class CohortEngine:
             unit_dither = None
             if self.dither is not None:
                 shape = self._dither_rows()
-                unit_dither = torch.cat(
-                    [self.draw(t, "dither", shape, client=int(i)) for i in ids]).to(self.device)
+                unit_dither = self.draw(t, "dither", shape, client=ids).reshape(
+                    -1, shape[-1]).to(self.device)
             batch = self.data.cohort_batch(t, ids)
             payload, blocks, new_res = self._client_pass(batch, self.residuals[jids], rhos,
                                                          unit_dither)
@@ -898,8 +909,8 @@ class CohortEngine:
             elif not fam.exact_codes:
                 # per-client receive noise: independent of the batching
                 nu_chan = fam.effective_noise(real)
-                noise = torch.stack([self.draw(t, "noise", (self.nb, self.fed_cfg.m),
-                                               client=int(i)) for i in ids]).to(self.device)
+                noise = self.draw(t, "noise", (self.nb, self.fed_cfg.m),
+                                  client=ids).to(self.device)
             ghat, sinfo = stream_decode(
                 self.codec, payload["words"], payload["alpha"], w_raw, batches,
                 nu_chan=nu_chan, noise=noise, chan_real=chan_real, chan_draw=chan_draw,

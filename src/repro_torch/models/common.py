@@ -2,13 +2,17 @@
 ``repro.models.common``).
 
 Parameters are nested dicts of tensors; every block has an ``init_*``
-that draws from a seeded ``torch.Generator`` and an ``apply``
-function.  Compute runs in the config dtype (bf16 by default) with fp32
-norm, softmax-max and probability-sum accumulation, in the reference's
-order of operations.  Attention has the training path and the cached
-decode path (a KV cache written at ``cache_pos``); rotary embeddings are
-standard or Qwen2-VL's M-RoPE.  Cross-attention (K/V from an encoder) and
-the ungated GELU MLP serve the audio family.
+that draws from a threefry key (``repro_torch.prng``) along the
+reference's key tree, and an ``apply`` function.  A ``(L, 2)`` batch of
+layer keys draws a stacked block's L layers in one call, each layer on its
+own counters (the reference's ``vmap`` over its layer keys); a key on the
+``meta`` device gives the shapes and dtypes alone.  Compute runs in the
+config dtype (bf16 by default) with fp32 norm, softmax-max and
+probability-sum accumulation, in the reference's order of operations.
+Attention has the training path and the cached decode path (a KV cache
+written at ``cache_pos``); rotary embeddings are standard or Qwen2-VL's
+M-RoPE.  Cross-attention (K/V from an encoder) and the ungated GELU MLP
+serve the audio family.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.sharding import cs
@@ -31,16 +36,24 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def dense_init(gen: Optional[torch.Generator], shape, dtype,
-               fan_in: Optional[int] = None) -> torch.Tensor:
-    """Normal draws (fp32, on the generator's device) times 0.02 or
-    1/sqrt(fan_in).  No generator: an unallocated ``meta`` tensor (the
-    shapes alone)."""
-    if gen is None:
-        return torch.empty(shape, dtype=dtype, device="meta")
+def init_key(seed, device) -> torch.Tensor:
+    """An init's root key on ``device``: ``PRNGKey(seed)`` for an int seed,
+    or the key given."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device)
+    return prng.PRNGKey(seed, device=device)
+
+
+def dense_init(key: torch.Tensor, shape, dtype, fan_in: Optional[int] = None) -> torch.Tensor:
+    """fp32 normal draws from ``key`` (``(*L, 2)``: ``(*L, *shape)``, on the
+    key's device) times 0.02 or 1/sqrt(fan_in), cast to ``dtype``."""
     scale = _INIT_STD if fan_in is None else float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
-    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-            * scale).to(dtype)
+    return (prng.normal(key, shape) * scale).to(dtype)
+
+
+def full(key: torch.Tensor, shape, value: float, dtype) -> torch.Tensor:
+    """A constant leaf stacked like ``key``'s draws: ``(*L, *shape)``."""
+    return torch.full((*key.shape[:-1], *shape), value, dtype=dtype, device=key.device)
 
 
 # ---------------------------------------------------------------------------
@@ -137,22 +150,24 @@ def valid_slots(smax: int, pos, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, layers: int) -> dict:
-    """Stacked (``layers``, ...) attention weights, keys in sorted order."""
+def init_attention(key: torch.Tensor, cfg: ModelConfig) -> dict:
+    """Attention weights (stacked like ``key``), keys in sorted order:
+    ``split(key, 4)`` into wq, wk, wv, wo."""
     d, dh, dt = cfg.d_model, cfg.head_dim, dtype_of(cfg)
     hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    ks = prng.split(key, 4).unbind(-2)
     p = {}
     if cfg.qkv_bias:
-        p["bk"] = torch.zeros((layers, hkv), dtype=dt)
-        p["bq"] = torch.zeros((layers, hq), dtype=dt)
-        p["bv"] = torch.zeros((layers, hkv), dtype=dt)
+        p["bk"] = full(key, (hkv,), 0.0, dt)
+        p["bq"] = full(key, (hq,), 0.0, dt)
+        p["bv"] = full(key, (hkv,), 0.0, dt)
     if cfg.qk_norm:
-        p["k_norm"] = torch.ones((layers, dh), dtype=dt)
-        p["q_norm"] = torch.ones((layers, dh), dtype=dt)
-    p["wk"] = dense_init(gen, (layers, d, hkv), dt, d)
-    p["wo"] = dense_init(gen, (layers, hq, d), dt, hq)
-    p["wq"] = dense_init(gen, (layers, d, hq), dt, d)
-    p["wv"] = dense_init(gen, (layers, d, hkv), dt, d)
+        p["k_norm"] = full(key, (dh,), 1.0, dt)
+        p["q_norm"] = full(key, (dh,), 1.0, dt)
+    p["wk"] = dense_init(ks[1], (d, hkv), dt, d)
+    p["wo"] = dense_init(ks[3], (hq, d), dt, hq)
+    p["wq"] = dense_init(ks[0], (d, hq), dt, d)
+    p["wv"] = dense_init(ks[2], (d, hkv), dt, d)
     return p
 
 
@@ -243,11 +258,13 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, d: int, f: int, dtype, layers: int,
-             gated: bool = True) -> dict:
-    p = {"wg": dense_init(gen, (layers, d, f), dtype, d)} if gated else {}
-    p["wi"] = dense_init(gen, (layers, d, f), dtype, d)
-    p["wo"] = dense_init(gen, (layers, f, d), dtype, f)
+def init_mlp(key: torch.Tensor, d: int, f: int, dtype, gated: bool = True) -> dict:
+    """MLP weights (stacked like ``key``): ``split(key, 3)`` into wi, wo and
+    the gate wg."""
+    ks = prng.split(key, 3).unbind(-2)
+    p = {"wg": dense_init(ks[2], (d, f), dtype, d)} if gated else {}
+    p["wi"] = dense_init(ks[0], (d, f), dtype, d)
+    p["wo"] = dense_init(ks[1], (f, d), dtype, f)
     return p
 
 
@@ -268,11 +285,13 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_embed(key: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The embedding from ``key``; an untied head from ``fold_in(key, 1)``."""
     dt = dtype_of(cfg)
-    p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt)}
+    p = {"embed": dense_init(key, (cfg.vocab_size, cfg.d_model), dt)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, cfg.d_model)
+        p["lm_head"] = dense_init(prng.fold_in(key, 1), (cfg.d_model, cfg.vocab_size), dt,
+                                  cfg.d_model)
     return p
 
 
@@ -318,10 +337,6 @@ def head_loss(p: dict, x: torch.Tensor, ctx: dict, cfg: ModelConfig) -> torch.Te
 # ---------------------------------------------------------------------------
 # layer stacks (the port's loop over the reference's scanned L axis)
 # ---------------------------------------------------------------------------
-
-
-def to_device(tree, device):
-    return tree_util.tree_map(lambda v: v.to(device), tree)
 
 
 def unstack_layers(stack: dict) -> list:

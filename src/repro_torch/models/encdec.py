@@ -19,7 +19,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
@@ -27,14 +27,15 @@ from repro_torch.models.common import (
     apply_mlp,
     dtype_of,
     embed_tokens,
+    full,
     init_attention,
     init_embed,
+    init_key,
     init_mlp,
     logits_from,
     rms_norm,
     run_layers,
     softmax_cross_entropy,
-    to_device,
     unstack_layers,
 )
 
@@ -51,39 +52,42 @@ def _sinusoid(s: int, d: int, dtype, device="cpu") -> torch.Tensor:
     return _angles(torch.arange(s, dtype=torch.float32, device=device)[:, None], d).to(dtype)
 
 
-def _init_enc_layer(gen, cfg: ModelConfig, layers: int) -> dict:
+def _init_enc_layer(key: torch.Tensor, cfg: ModelConfig) -> dict:
     dt, d = dtype_of(cfg), cfg.d_model
+    k1, k2 = prng.split(key).unbind(-2)
     return {
-        "attn": init_attention(gen, cfg, layers),
-        "ln1": torch.ones((layers, d), dtype=dt),
-        "ln2": torch.ones((layers, d), dtype=dt),
-        "mlp": init_mlp(gen, d, cfg.d_ff, dt, layers, gated=False),
+        "attn": init_attention(k1, cfg),
+        "ln1": full(key, (d,), 1.0, dt),
+        "ln2": full(key, (d,), 1.0, dt),
+        "mlp": init_mlp(k2, d, cfg.d_ff, dt, gated=False),
     }
 
 
-def _init_dec_layer(gen, cfg: ModelConfig, layers: int) -> dict:
+def _init_dec_layer(key: torch.Tensor, cfg: ModelConfig) -> dict:
     dt, d = dtype_of(cfg), cfg.d_model
+    k1, k2, k3 = prng.split(key, 3).unbind(-2)
     return {
-        "cross_attn": init_attention(gen, cfg, layers),
-        "ln1": torch.ones((layers, d), dtype=dt),
-        "ln2": torch.ones((layers, d), dtype=dt),
-        "ln_x": torch.ones((layers, d), dtype=dt),
-        "mlp": init_mlp(gen, d, cfg.d_ff, dt, layers, gated=False),
-        "self_attn": init_attention(gen, cfg, layers),
+        "cross_attn": init_attention(k2, cfg),
+        "ln1": full(key, (d,), 1.0, dt),
+        "ln2": full(key, (d,), 1.0, dt),
+        "ln_x": full(key, (d,), 1.0, dt),
+        "mlp": init_mlp(k3, d, cfg.d_ff, dt, gated=False),
+        "self_attn": init_attention(k1, cfg),
     }
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """The reference's tree, drawn on the CPU from a generator seeded with
-    ``seed`` and moved to ``device`` (``"meta"``: shapes and dtypes only)."""
-    device = entry_device(device)
-    gen = None if device.type == "meta" else torch.Generator().manual_seed(int(seed))
-    dt, d = dtype_of(cfg), cfg.d_model
-    enc = _init_enc_layer(gen, cfg, cfg.n_encoder_layers)
-    dec = _init_dec_layer(gen, cfg, cfg.n_layers)
-    params = {"dec_layers": dec, "enc_layers": enc, "enc_norm": torch.ones((d,), dtype=dt),
-              "final_norm": torch.ones((d,), dtype=dt), "tok": init_embed(gen, cfg)}
-    return to_device(params, device)
+def init_params(cfg: ModelConfig, seed=0, device="cuda") -> Dict[str, Any]:
+    """The reference's tree, drawn on ``device`` from ``PRNGKey(seed)`` (or
+    the key ``seed``): ``split(key, 3)`` into the encoder and decoder layer
+    keys and the embedding's (``"meta"``: shapes and dtypes only)."""
+    key = init_key(seed, entry_device(device))
+    ks = prng.split(key, 3).unbind(-2)
+    d = cfg.d_model
+    return {"dec_layers": _init_dec_layer(prng.split(ks[1], cfg.n_layers), cfg),
+            "enc_layers": _init_enc_layer(prng.split(ks[0], cfg.n_encoder_layers), cfg),
+            "enc_norm": full(key, (d,), 1.0, dtype_of(cfg)),
+            "final_norm": full(key, (d,), 1.0, dtype_of(cfg)),
+            "tok": init_embed(ks[2], cfg)}
 
 
 def _enc_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -17,7 +17,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
@@ -26,15 +26,16 @@ from repro_torch.models.common import (
     apply_mlp,
     dtype_of,
     embed_tokens,
+    full,
     head_loss,
     head_loss_params,
     init_attention,
     init_embed,
+    init_key,
     init_mlp,
     logits_from,
     rms_norm,
     run_layers,
-    to_device,
     unstack_layers,
 )
 from repro_torch.models.ssm_lm import decode_layers, mamba_block, stack_caches
@@ -47,20 +48,19 @@ def _n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.attn_every
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """The reference's tree, drawn on the CPU from a generator seeded with
-    ``seed`` and moved to ``device`` (``"meta"``: shapes and dtypes only)."""
-    device = entry_device(device)
-    gen = None if device.type == "meta" else torch.Generator().manual_seed(int(seed))
+def init_params(cfg: ModelConfig, seed=0, device="cuda") -> Dict[str, Any]:
+    """The reference's tree, drawn on ``device`` from ``PRNGKey(seed)`` (or
+    the key ``seed``): ``split(key, 5)`` into the Mamba layer keys, the
+    embedding's and the shared block's attention and MLP (``"meta"``: shapes
+    and dtypes only)."""
+    key = init_key(seed, entry_device(device))
+    ks = prng.split(key, 5).unbind(-2)
     dt, d = dtype_of(cfg), cfg.d_model
-    tok = init_embed(gen, cfg)
-    mamba = ssm_mod.init_mamba(gen, cfg, cfg.n_layers)
-    one = lambda tree: tree_util.tree_map(lambda v: v[0], tree)
-    shared = {"attn": one(init_attention(gen, cfg, 1)), "ln1": torch.ones((d,), dtype=dt),
-              "ln2": torch.ones((d,), dtype=dt), "mlp": one(init_mlp(gen, d, cfg.d_ff, dt, 1))}
-    params = {"final_norm": torch.ones((d,), dtype=dt), "mamba_layers": mamba,
-              "shared": shared, "tok": tok}
-    return to_device(params, device)
+    shared = {"attn": init_attention(ks[2], cfg), "ln1": full(key, (d,), 1.0, dt),
+              "ln2": full(key, (d,), 1.0, dt), "mlp": init_mlp(ks[3], d, cfg.d_ff, dt)}
+    return {"final_norm": full(key, (d,), 1.0, dt),
+            "mamba_layers": ssm_mod.init_mamba(prng.split(ks[0], cfg.n_layers), cfg),
+            "shared": shared, "tok": init_embed(ks[1], cfg)}
 
 
 def _groups(stack: dict, cfg: ModelConfig) -> list:

@@ -13,11 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
     apply_rope,
     dense_init,
     dtype_of,
+    full,
     rms_norm,
     update_slot,
     valid_slots,
@@ -27,21 +29,23 @@ from repro_torch.models.sharding import cs
 _MASKED = -1e30
 
 
-def init_mla(gen, cfg: ModelConfig, layers: int) -> dict:
-    """Stacked (``layers``, ...) MLA weights, keys in sorted order."""
+def init_mla(key: torch.Tensor, cfg: ModelConfig) -> dict:
+    """MLA weights (stacked like ``key``), keys in sorted order:
+    ``split(key, 8)`` into w_dq, w_uq, w_dkv, w_kr, w_uk, w_uv, wo."""
     d, h, dt = cfg.d_model, cfg.n_heads, dtype_of(cfg)
     qk_nope, qk_rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    ks = prng.split(key, 8).unbind(-2)
     return {
-        "kv_norm_lr": torch.ones((layers, rkv), dtype=dt),
-        "q_norm_lr": torch.ones((layers, rq), dtype=dt),
-        "w_dkv": dense_init(gen, (layers, d, rkv), dt, d),
-        "w_dq": dense_init(gen, (layers, d, rq), dt, d),
-        "w_kr": dense_init(gen, (layers, d, qk_rope), dt, d),
-        "w_uk": dense_init(gen, (layers, rkv, h * qk_nope), dt, rkv),
-        "w_uq": dense_init(gen, (layers, rq, h * (qk_nope + qk_rope)), dt, rq),
-        "w_uv": dense_init(gen, (layers, rkv, h * dv), dt, rkv),
-        "wo": dense_init(gen, (layers, h * dv, d), dt, h * dv),
+        "kv_norm_lr": full(key, (rkv,), 1.0, dt),
+        "q_norm_lr": full(key, (rq,), 1.0, dt),
+        "w_dkv": dense_init(ks[2], (d, rkv), dt, d),
+        "w_dq": dense_init(ks[0], (d, rq), dt, d),
+        "w_kr": dense_init(ks[3], (d, qk_rope), dt, d),
+        "w_uk": dense_init(ks[4], (rkv, h * qk_nope), dt, rkv),
+        "w_uq": dense_init(ks[1], (rq, h * (qk_nope + qk_rope)), dt, rq),
+        "w_uv": dense_init(ks[5], (rkv, h * dv), dt, rkv),
+        "wo": dense_init(ks[6], (h * dv, d), dt, h * dv),
     }
 
 

@@ -19,12 +19,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data.synthetic import batch_generator
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-from repro_torch.models.common import dtype_of
+from repro_torch.models.common import dtype_of, init_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +64,10 @@ def _module(cfg: ModelConfig):
     }[cfg.family]
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """The family's parameter tree on ``device`` (``"meta"``: shapes and
-    dtypes only)."""
+def init_params(cfg: ModelConfig, seed=0, device="cuda"):
+    """The family's parameter tree, drawn on ``device`` from
+    ``PRNGKey(seed)`` (``seed`` may also be a key) as the reference draws it
+    (``"meta"``: shapes and dtypes only)."""
     return _module(cfg).init_params(cfg, seed, device)
 
 
@@ -155,24 +155,22 @@ def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, Any]:
     return specs
 
 
-def make_batch(cfg: ModelConfig, shape: str, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """Random inputs matching :func:`input_specs`, drawn from a seeded CPU
-    generator and moved to ``device``: uniform token ids (and ``pos``),
-    M-RoPE positions 0..S-1 on every stream (the reference's fill), and
-    normal(0, 0.02) floats (patches, frames, a decode cache).  ``device="meta"``
-    draws nothing."""
-    dev = entry_device(device)
-    gen = batch_generator(seed)
+def make_batch(cfg: ModelConfig, shape: str, seed=0, device="cuda") -> Dict[str, Any]:
+    """Random inputs matching :func:`input_specs`, drawn on ``device`` from
+    ``PRNGKey(seed)`` (or the key ``seed``) as the reference fills them --
+    the same key for every leaf: ``randint(key, shape, 0, max(2, V)) % V``
+    token ids (and ``pos``), M-RoPE positions 0..S-1 on every stream, and
+    ``normal(key, shape)`` cast to the spec's dtype times 0.02 (patches,
+    frames, a decode cache).  ``device="meta"`` draws nothing."""
+    key = init_key(seed, entry_device(device))
 
     def fill(spec: TensorSpec) -> torch.Tensor:
         if spec.dtype == torch.int64:
             if len(spec.shape) == 3 and spec.shape[0] == 3:
-                return torch.arange(spec.shape[-1]).expand(spec.shape).contiguous()
-            return torch.randint(0, max(2, cfg.vocab_size), spec.shape, generator=gen)
-        return (torch.randn(spec.shape, generator=gen) * 0.02).to(spec.dtype)
+                return torch.arange(spec.shape[-1], device=key.device).expand(
+                    spec.shape).contiguous()
+            return prng.randint(key, spec.shape, 0, max(2, cfg.vocab_size)) % cfg.vocab_size
+        x = prng.normal(key, spec.shape).to(spec.dtype)
+        return x * torch.tensor(0.02, dtype=spec.dtype, device=key.device)
 
-    specs = input_specs(cfg, shape)
-    if dev.type == "meta":
-        return tree_util.tree_map(lambda spec: torch.empty(spec.shape, dtype=spec.dtype,
-                                                           device=dev), specs)
-    return tree_util.tree_map(lambda spec: fill(spec).to(dev), specs)
+    return tree_util.tree_map(fill, input_specs(cfg, shape))

@@ -32,26 +32,29 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch import prng
 from repro_torch.models.common import apply_mlp, dense_init, dtype_of, init_mlp
 from repro_torch.models.sharding import cs
 
 
-def init_moe(gen, cfg: ModelConfig, layers: int) -> dict:
-    """Stacked (``layers``, ...) MoE weights, keys in sorted order: the
+def init_moe(key: torch.Tensor, cfg: ModelConfig) -> dict:
+    """MoE weights (stacked like ``key``), keys in sorted order: the
     ``experts``' (E, D, F) / (E, F, D) stacks, the fp32 ``router`` (D, E)
-    and the optional ``shared`` expert."""
+    and the optional ``shared`` expert; ``split(key, 5)`` into router, wi,
+    wg, wo and shared."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     dt = dtype_of(cfg)
+    ks = prng.split(key, 5).unbind(-2)
     p = {
         "experts": {
-            "wg": dense_init(gen, (layers, e, d, f), dt, d),
-            "wi": dense_init(gen, (layers, e, d, f), dt, d),
-            "wo": dense_init(gen, (layers, e, f, d), dt, f),
+            "wg": dense_init(ks[2], (e, d, f), dt, d),
+            "wi": dense_init(ks[1], (e, d, f), dt, d),
+            "wo": dense_init(ks[3], (e, f, d), dt, f),
         },
-        "router": dense_init(gen, (layers, d, e), torch.float32, d),
+        "router": dense_init(ks[0], (d, e), torch.float32, d),
     }
     if cfg.n_shared_experts:
-        p["shared"] = init_mlp(gen, d, cfg.n_shared_experts * (cfg.shared_d_ff or f), dt, layers)
+        p["shared"] = init_mlp(ks[4], d, cfg.n_shared_experts * (cfg.shared_d_ff or f), dt)
     return p
 
 

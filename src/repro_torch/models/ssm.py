@@ -16,13 +16,12 @@ Decode carries ``conv`` (B, K-1, C_conv), the last pre-conv inputs, and
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, dtype_of, rms_norm
+from repro_torch.models.common import dense_init, dtype_of, full, rms_norm
 from repro_torch.models.sharding import cs
 
 
@@ -30,22 +29,23 @@ def _conv_channels(cfg: ModelConfig) -> int:
     return cfg.d_inner + 2 * cfg.ssm_state  # x | B | C
 
 
-def init_mamba(gen: Optional[torch.Generator], cfg: ModelConfig, layers: int) -> dict:
-    """Stacked (``layers``, ...) Mamba-2 weights, keys in sorted order:
+def init_mamba(key: torch.Tensor, cfg: ModelConfig) -> dict:
+    """Mamba-2 weights (stacked like ``key``), keys in sorted order:
     ``a_log`` 0 (A = -1), ``d_skip`` 1 and ``dt_bias`` 0 in fp32, the rest in
-    the config dtype."""
+    the config dtype; ``split(key, 4)`` into in_proj, conv_w, out_proj."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     dt, f32 = dtype_of(cfg), torch.float32
     proj_out = 2 * di + 2 * n + h  # z | x | B | C | dt
+    ks = prng.split(key, 4).unbind(-2)
     return {
-        "a_log": torch.zeros((layers, h), dtype=f32),
-        "conv_b": torch.zeros((layers, _conv_channels(cfg)), dtype=dt),
-        "conv_w": dense_init(gen, (layers, cfg.ssm_conv_kernel, _conv_channels(cfg)), dt),
-        "d_skip": torch.ones((layers, h), dtype=f32),
-        "dt_bias": torch.zeros((layers, h), dtype=f32),
-        "gate_norm": torch.ones((layers, di), dtype=dt),
-        "in_proj": dense_init(gen, (layers, d, proj_out), dt, d),
-        "out_proj": dense_init(gen, (layers, di, d), dt, di),
+        "a_log": full(key, (h,), 0.0, f32),
+        "conv_b": full(key, (_conv_channels(cfg),), 0.0, dt),
+        "conv_w": dense_init(ks[1], (cfg.ssm_conv_kernel, _conv_channels(cfg)), dt),
+        "d_skip": full(key, (h,), 1.0, f32),
+        "dt_bias": full(key, (h,), 0.0, f32),
+        "gate_norm": full(key, (di,), 1.0, dt),
+        "in_proj": dense_init(ks[0], (d, proj_out), dt, d),
+        "out_proj": dense_init(ks[2], (di, d), dt, di),
     }
 
 

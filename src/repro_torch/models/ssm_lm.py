@@ -13,33 +13,34 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     dtype_of,
     embed_tokens,
+    full,
     head_loss,
     head_loss_params,
     init_embed,
+    init_key,
     logits_from,
     rms_norm,
     run_layers,
-    to_device,
     unstack_layers,
 )
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """The reference's tree, drawn on the CPU from a generator seeded with
-    ``seed`` and moved to ``device`` (``"meta"``: shapes and dtypes only)."""
-    device = entry_device(device)
-    gen = None if device.type == "meta" else torch.Generator().manual_seed(int(seed))
-    tok = init_embed(gen, cfg)
-    params = {"final_norm": torch.ones((cfg.d_model,), dtype=dtype_of(cfg)),
-              "layers": ssm_mod.init_mamba(gen, cfg, cfg.n_layers), "tok": tok}
-    return to_device(params, device)
+def init_params(cfg: ModelConfig, seed=0, device="cuda") -> Dict[str, Any]:
+    """The reference's tree, drawn on ``device`` from ``PRNGKey(seed)`` (or
+    the key ``seed``): ``split(key, 2)`` into the layer keys and the
+    embedding's (``"meta"``: shapes and dtypes only)."""
+    key = init_key(seed, entry_device(device))
+    ks = prng.split(key, 2).unbind(-2)
+    return {"final_norm": full(key, (cfg.d_model,), 1.0, dtype_of(cfg)),
+            "layers": ssm_mod.init_mamba(prng.split(ks[0], cfg.n_layers), cfg),
+            "tok": init_embed(ks[1], cfg)}
 
 
 def mamba_block(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

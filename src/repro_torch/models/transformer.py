@@ -23,7 +23,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
@@ -32,14 +32,15 @@ from repro_torch.models.common import (
     dense_init,
     dtype_of,
     embed_tokens,
+    full,
     init_attention,
     init_embed,
+    init_key,
     init_mlp,
     logits_from,
     rms_norm,
     run_layers,
     softmax_cross_entropy,
-    to_device,
     unstack_layers,
 )
 from repro_torch.models.mla import apply_mla_decode, init_mla, mla_train
@@ -51,39 +52,44 @@ from repro_torch.models.moe import apply_moe, init_moe
 # ---------------------------------------------------------------------------
 
 
-def _init_layers(gen, cfg: ModelConfig, layers: int, moe: bool) -> dict:
+def _init_layers(key: torch.Tensor, cfg: ModelConfig, moe: bool) -> dict:
+    """One layer's tree per key of ``key`` (``(L, 2)``: each leaf stacked on
+    L): ``split(key)`` into the attention and the FFN."""
     dt, d = dtype_of(cfg), cfg.d_model
+    k1, k2 = prng.split(key).unbind(-2)
     return {
-        "attn": init_mla(gen, cfg, layers) if cfg.use_mla else init_attention(gen, cfg, layers),
-        "ffn": init_moe(gen, cfg, layers) if moe else init_mlp(gen, d, cfg.d_ff, dt, layers),
-        "ln1": torch.ones((layers, d), dtype=dt),
-        "ln2": torch.ones((layers, d), dtype=dt),
+        "attn": init_mla(k1, cfg) if cfg.use_mla else init_attention(k1, cfg),
+        "ffn": init_moe(k2, cfg) if moe else init_mlp(k2, d, cfg.d_ff, dt),
+        "ln1": full(key, (d,), 1.0, dt),
+        "ln2": full(key, (d,), 1.0, dt),
     }
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed=0, device="cuda") -> Dict[str, Any]:
     """The reference's tree -- ``final_norm``, ``layers`` (each leaf stacked
     on L), ``layers_dense`` and ``mtp`` where the config has them, and
-    ``tok`` -- drawn on the CPU from a generator seeded with ``seed`` and
-    moved to ``device``.  Keys are inserted in sorted order at every level
-    (the reference's leaf order).  ``device="meta"`` gives the shapes and
-    dtypes and allocates nothing."""
-    device = entry_device(device)
-    gen = None if device.type == "meta" else torch.Generator().manual_seed(int(seed))
+    ``tok`` -- drawn on ``device`` from ``PRNGKey(seed)`` (or the key
+    ``seed``) along the reference's key tree: ``split(key, 4)`` into the
+    embedding, the dense and the main stacks' layer keys and MTP's.  Keys
+    are inserted in sorted order at every level (the reference's leaf
+    order).  ``device="meta"`` gives the shapes and dtypes and allocates
+    nothing."""
+    key = init_key(seed, entry_device(device))
+    ks = prng.split(key, 4).unbind(-2)
     dt, d = dtype_of(cfg), cfg.d_model
     n_dense = cfg.first_dense_layers if cfg.is_moe else 0  # ``layers_dense``
-    tok = init_embed(gen, cfg)
-    dense = _init_layers(gen, cfg, n_dense, moe=False) if n_dense else None
-    layers = _init_layers(gen, cfg, cfg.n_layers - n_dense, moe=cfg.is_moe)
-    params = {"final_norm": torch.ones((d,), dtype=dt), "layers": layers}
-    if dense is not None:
-        params["layers_dense"] = dense
+    params = {"final_norm": full(key, (d,), 1.0, dt),
+              "layers": _init_layers(prng.split(ks[2], cfg.n_layers - n_dense), cfg,
+                                     moe=cfg.is_moe)}
+    if n_dense:
+        params["layers_dense"] = _init_layers(prng.split(ks[1], n_dense), cfg, moe=False)
     if cfg.mtp:
-        layer = tree_util.tree_map(lambda v: v[0], _init_layers(gen, cfg, 1, moe=False))
-        params["mtp"] = {"layer": layer, "norm": torch.ones((d,), dtype=dt),
-                         "proj": dense_init(gen, (2 * d, d), dt, 2 * d)}
-    params["tok"] = tok
-    return to_device(params, device)
+        km1, km2 = prng.split(ks[3]).unbind(-2)
+        params["mtp"] = {"layer": _init_layers(km2, cfg, moe=False),
+                         "norm": full(key, (d,), 1.0, dt),
+                         "proj": dense_init(km1, (2 * d, d), dt, 2 * d)}
+    params["tok"] = init_embed(ks[0], cfg)
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch import entry_device
+from repro_torch import entry_device, prng
 from repro_torch.core.compression import FedQCSConfig
 from repro_torch.core.layout import GradientLayout
 from repro_torch.data import mnist
@@ -39,17 +39,21 @@ Params = Dict[str, torch.Tensor]
 class MLP(nn.Module):
     """784-20-10 ReLU MLP, weights stored (in, out) as in the reference."""
 
-    def __init__(self, generator: Optional[torch.Generator] = None, device="cpu"):
+    def __init__(self, key: Optional[torch.Tensor] = None, device="cpu"):
+        """``key`` (a ``repro_torch.prng`` key) draws the weights as the
+        reference's ``init_mlp(key)``: ``split(key)`` into w1's and w2's,
+        each normal times 1/sqrt(fan_in); without one they are left empty."""
         super().__init__()
         kw = dict(dtype=torch.float32, device=device)
         self.w1 = nn.Parameter(torch.empty((N_IN, N_HID), **kw))
         self.b1 = nn.Parameter(torch.zeros((N_HID,), **kw))
         self.w2 = nn.Parameter(torch.empty((N_HID, N_OUT), **kw))
         self.b2 = nn.Parameter(torch.zeros((N_OUT,), **kw))
-        if generator is not None:
+        if key is not None:
+            k1, k2 = prng.split(key).unbind(-2)
             with torch.no_grad():
-                self.w1.copy_(torch.randn((N_IN, N_HID), generator=generator) / np.sqrt(N_IN))
-                self.w2.copy_(torch.randn((N_HID, N_OUT), generator=generator) / np.sqrt(N_HID))
+                self.w1.copy_(prng.normal(k1, (N_IN, N_HID)) * float(1.0 / np.sqrt(N_IN)))
+                self.w2.copy_(prng.normal(k2, (N_HID, N_OUT)) * float(1.0 / np.sqrt(N_HID)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(x @ self.w1 + self.b1) @ self.w2 + self.b2
@@ -59,9 +63,9 @@ _SKELETON = MLP(device="meta")  # parameter-free shell for functional_call
 
 
 def init_mlp(seed: int, device="cuda") -> Params:
-    """Initial parameters, drawn on the CPU from ``seed`` then moved, so the
-    CPU and the card start from the same weights."""
-    model = MLP(torch.Generator(device="cpu").manual_seed(int(seed)))
+    """The reference's ``init_mlp(PRNGKey(seed))``, drawn on the CPU then
+    moved, so the CPU and the card start from the same weights."""
+    model = MLP(prng.PRNGKey(seed))
     return {k: v.detach().to(device) for k, v in model.named_parameters()}
 
 

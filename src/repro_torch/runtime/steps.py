@@ -135,7 +135,9 @@ def init_train_state(
     512); ``impl="auto_sharded"`` (needs ``mesh``) blocks per device shard,
     ``(n_pods, nb_local * data * model, N)``; ``impl="shard_map"`` holds
     this pod's ``(1, nb, N)`` slice.  ``abstract=True`` builds ``meta``
-    tensors (shapes only).  ``params``: a parameter tree on ``device`` to
+    tensors (shapes only).  ``seed`` is an int (``PRNGKey(seed)``: the
+    default 0 is the reference's default key) or a key of
+    ``repro_torch.prng``.  ``params``: a parameter tree on ``device`` to
     hold instead of drawing one from ``seed`` (held, not copied)."""
     dev = torch.device("meta") if abstract else entry_device(device)
     if params is None:

@@ -57,6 +57,7 @@ from repro.models import sharding as jshard  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro.optim import adam as jadam  # noqa: E402
 from repro.runtime import steps as jsteps  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import from_reference, state_from_reference  # noqa: E402
@@ -353,9 +354,10 @@ def test_causal_conv_and_gelu_mlp_match_reference():
     want = np.asarray(jcommon.apply_mlp(p, x))
     got = tcommon.apply_mlp(from_reference(p)[0], torch.tensor(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
-    tp = tcommon.init_mlp(torch.Generator().manual_seed(0), 8, 16, torch.float32, 2,
-                          gated=False)
+    tp = tcommon.init_mlp(prng.split(prng.PRNGKey(0), 2), 8, 16, torch.float32, gated=False)
     assert sorted(tp) == ["wi", "wo"] and tp["wi"].shape == (2, 8, 16)
+    one = tcommon.init_mlp(prng.PRNGKey(4), 8, 16, torch.float32, gated=False)
+    assert all(np.array_equal(one[k].numpy(), p[k]) for k in p)
 
 
 @pytest.mark.parametrize("qk_norm", [False, True])
@@ -618,6 +620,41 @@ def test_train_step_matches_reference(arch, tmp_path_factory):
     want = _paths(ref["new"]["params"])
     for path, v in tree_util.leaves(new["params"]):
         assert float(np.max(np.abs(v.numpy() - want[path]))) <= 2 * OPT_KW["lr"], path
+
+
+SEED_ARCHS = ("qwen3-0.6b", "qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b",
+              "mamba2-1.3b", "zamba2-2.7b", "whisper-base")
+
+
+def _words(x) -> np.ndarray:
+    """A leaf's raw bit patterns (bf16 or f32) as int64."""
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x.view(torch.int32)
+        return x.numpy().astype(np.int64)
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype.itemsize == 2 else np.int32).astype(np.int64)
+
+
+@pytest.mark.parametrize("arch", SEED_ARCHS)
+def test_init_params_from_a_seed_is_the_references(arch):
+    """``init_params(cfg, 3)`` with the port's defaults alone equals the
+    reference's ``init_params(cfg, PRNGKey(3))`` leaf for leaf, bit for bit,
+    at the smoke config of every family (MoE, MLA with MTP, M-RoPE, SSM,
+    hybrid, audio): the same key tree, each stacked leaf's layers drawn
+    from their own keys.  The reference is called as it is, eagerly: under
+    ``jax.jit`` XLA folds ``sqrt(2) * scale`` into one constant, which moves
+    the last bit of some draws."""
+    want = _paths(jmodel.init_params(jreg.smoke_config(arch), jax.random.PRNGKey(3)))
+    got = {path: v for path, v in tree_util.leaves(
+        tmodel.init_params(registry.smoke_config(arch), 3, device="cpu"))}
+    assert list(got) == sorted(want)
+    for path, w in want.items():
+        g = got[path]
+        assert tuple(g.shape) == w.shape, path
+        bad = int(np.sum(_words(g) != _words(w)))
+        assert bad == 0, f"{path}: {bad} of {w.size} differ"
+    keyed = tmodel.init_params(registry.smoke_config(arch), prng.PRNGKey(3), device="cpu")
+    assert all(torch.equal(keyed_v, got[p]) for p, keyed_v in tree_util.leaves(keyed))
 
 
 def test_card_params_rule_matches_init_params():

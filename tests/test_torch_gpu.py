@@ -29,6 +29,10 @@ Tolerances, each with its reason:
     tolerances above against the float64 step (two fp32 evaluations part
     on a few of 5.6M outputs); one smoke-config step per impl on the card
     against the CPU: loss 1e-5, residual 1e-5, parameters within 2 lr.
+  * the threefry draws (``repro_torch.prng``): bits, integers, keys and
+    permutations bit-identical to the CPU's; the normal, exponential and
+    Gumbel transforms on all 2**23 inputs and ``init_params``' leaves
+    bit-identical too (a bound of 0 ulp).
 """
 
 import functools
@@ -1243,3 +1247,59 @@ def test_interleaved_round_on_the_card_matches_the_cpu(cuda):
         worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu.params, path))))
                     for path, p in tree_util.leaves(card.params))
         assert worst <= 2 * 3e-3, (extra, worst)
+
+
+def _bit_patterns(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw words (f32 / bf16 patterns, ints as they are), int64."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    elif x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    return x.to(torch.int64)
+
+
+def test_prng_integer_draws_on_the_card_are_the_cpus(cuda):
+    """The threefry draws are integer arithmetic: the card's bits, integers,
+    keys and permutations equal the CPU's bit for bit (2**22 elements, a
+    draws)."""
+    from repro_torch import prng
+
+    n = 1 << 22
+    key_c, key_g = prng.PRNGKey(5), prng.PRNGKey(5, device=cuda)
+    assert torch.equal(prng.random_bits(key_g, (n,)).cpu(), prng.random_bits(key_c, (n,)))
+    assert torch.equal(prng.randint(key_g, (n,), 0, 151936).cpu(),
+                       prng.randint(key_c, (n,), 0, 151936))
+    assert torch.equal(prng.permutation(key_g, 1591).cpu(), prng.permutation(key_c, 1591))
+    keys = prng.split(key_c, 1000)
+    assert torch.equal(prng.split(keys.to(cuda), 3).cpu(), prng.split(keys, 3))
+    assert torch.equal(prng.fold_in(keys.to(cuda), 9).cpu(), prng.fold_in(keys, 9))
+
+
+@pytest.mark.parametrize("name", ["normal", "exponential", "gumbel"])
+def test_prng_float_transforms_on_the_card_are_the_cpus(cuda, name):
+    """The float transforms (XLA's log / log1p / erf_inv forms, their FMAs
+    rounded once) on all 2**23 inputs: the card equals the CPU in every bit
+    (the stated bound: 0 differing inputs, 0 ulp)."""
+    from repro_torch import prng
+
+    words = torch.arange(1 << 23, dtype=torch.int64) << 9
+    card = prng.from_bits(name)(words.to(cuda)).cpu()
+    cpu = prng.from_bits(name)(words)
+    assert int((card.view(torch.int32) != cpu.view(torch.int32)).sum()) == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b", "mamba2-1.3b",
+                                  "whisper-base"])
+def test_init_params_on_the_card_is_the_cpus(cuda, arch):
+    """``init_params`` drawn on the card equals its CPU draw leaf for leaf,
+    bit for bit (the transforms' bound above), at the smoke config."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import model as model_api
+
+    cfg = smoke_config(arch)
+    card = model_api.init_params(cfg, 0, cuda)
+    cpu = model_api.init_params(cfg, 0, "cpu")
+    for path, v in tree_util.leaves(card):
+        assert v.device.type == "cuda", path
+        assert torch.equal(_bit_patterns(v.cpu()), _bit_patterns(tree_util.get(cpu, path))), path

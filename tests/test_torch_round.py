@@ -48,6 +48,7 @@ from repro_torch.fed.scheduler import SchedulerConfig as TSched  # noqa: E402
 from repro_torch.fed.scheduler import SchedulerState as TState  # noqa: E402
 from repro_torch.fed.scheduler import select_cohort as t_select  # noqa: E402
 from repro_torch.paper import mlp as tmlp  # noqa: E402
+from torch_shared import shared as _shared  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -157,6 +158,14 @@ def _full_width_round(method, data, cohort_kw):
         server=tmlp.ServerOptConfig(kind="fedadam", lr=0.003, b1=0.9, b2=0.999, eps=1e-8),
         device="cpu", a=a_t,
     )
+    return _hold_round(method, eng, float(stats_j["nmse"]), ghat_j, new_j, codes_j, res_j)
+
+
+def _hold_round(method, eng, nmse_j, ghat_j, new_j, codes_j, res_j):
+    """Runs the port engine's next round and holds it to the module's
+    contracts against the reference round's nmse stat, decoded gradient,
+    new parameters, wire codes and residuals; returns the count of
+    differing wire lanes."""
     seen = {}
     client_pass = eng._client_pass
 
@@ -170,11 +179,11 @@ def _full_width_round(method, data, cohort_kw):
     codes_t = eng.codec.unpack(seen["words"]).numpy()
     n_diff = int(np.sum(codes_t != codes_j))
     print(f"{method}: {n_diff} of {codes_j.size} wire lanes differ; "
-          f"nmse port {stats_t['nmse']:.6f} reference {float(stats_j['nmse']):.6f}")
+          f"nmse port {stats_t['nmse']:.6f} reference {nmse_j:.6f}")
     ghat_t = eng.last_ghat.numpy()
     nmse = np.sum((ghat_t - ghat_j) ** 2) / np.sum(ghat_j**2)
     assert nmse <= 1e-3, nmse
-    assert abs(stats_t["nmse"] - float(stats_j["nmse"])) <= 1e-3
+    assert abs(stats_t["nmse"] - nmse_j) <= 1e-3
     assert stats_t["cohort"] == K and stats_t["participating"] == K
     np.testing.assert_allclose(eng.residuals.numpy(), res_j, rtol=1e-4, atol=1e-6)
     gj = {k: v.numpy() for k, v in eng.layout.tree_from_blocks(torch.tensor(ghat_j)).items()}
@@ -234,3 +243,62 @@ def test_round_routes_outside_the_slice_raise(route, item):
         return
     with pytest.raises(NotImplementedError, match=item):
         route()
+
+
+def _reference_run_federated(method):
+    """The reference's own ``run_federated(method, steps=1, seed=0)`` on the
+    kernel route, its engine's first round captured (the engine class is
+    swapped for one that records its state): initial parameters, A, the
+    nmse stat, the decoded blocks, the new parameters, the wire codes and
+    the residuals, as numpy."""
+    seen = {}
+    base = jmlp.CohortEngine
+
+    class Recording(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["engine"] = self
+            seen["params"] = {k: np.asarray(v) for k, v in self.params.items()}
+            ps = self._ps_jit
+
+            def capture(payloads, *rest):
+                seen["payloads"] = payloads
+                out = ps(payloads, *rest)
+                seen["ghat"] = out[0]
+                return out
+
+            self._ps_jit = capture
+
+    jmlp.CohortEngine = Recording
+    try:
+        res = jmlp.run_federated(method, steps=1, seed=0, fed_cfg=JCfg(**SEED_FED))
+    finally:
+        jmlp.CohortEngine = base
+    eng, pay = seen["engine"], seen["payloads"]
+    codes = pay["codes"] if "codes" in pay else j_unpack(pay["words"], 3, 530)
+    return dict(params=seen["params"], a=np.asarray(eng.codec.a), nmse=float(res.nmses[0]),
+                ghat=np.asarray(seen["ghat"]),
+                new={k: np.asarray(v) for k, v in eng.params.items()},
+                codes=np.asarray(codes), residuals=np.asarray(eng.residuals))
+
+
+# run_federated's default experiment on the kernel route (block_size is set there)
+SEED_FED = dict(reduction_ratio=3, bits=3, s_ratio=0.1, gamp_iters=25, use_kernels=True,
+                gamp_variance_mode="scalar")
+
+
+@pytest.mark.parametrize("method", ["fedqcs-ae", "fedqcs-ea"])
+def test_round_from_a_seed_matches_reference(method, tmp_path_factory):
+    """The paper's round from ``seed=0`` with each package's defaults alone
+    -- no parameters or A carried across, no draw injected: the port's
+    ``mlp_engine`` (what its ``run_federated`` drives) against the
+    reference's own ``run_federated(seed=0)``, its initial parameters and A
+    bit for bit, its round under the module's contracts."""
+    ref = _shared(tmp_path_factory, f"round_from_seed_{method}",
+                  lambda: _reference_run_federated(method))
+    eng, _ = tmlp.mlp_engine(method, fed_cfg=TCfg(**SEED_FED), seed=0, device="cpu")
+    for k, v in ref["params"].items():
+        assert np.array_equal(eng.params[k].numpy().view(np.int32), v.view(np.int32)), k
+    assert np.array_equal(eng.codec.a.numpy().view(np.int32), ref["a"].view(np.int32))
+    _hold_round(method, eng, ref["nmse"], ref["ghat"], ref["new"], ref["codes"],
+                ref["residuals"])

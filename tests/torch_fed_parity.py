@@ -43,22 +43,30 @@ DITHER_N = 64
 
 
 def reference_draw(seed: int):
-    """The port's draw seam, returning the reference engine's draws."""
+    """The port's draw seam, returning the reference engine's draws; a 1-D
+    ``client`` of ids draws each client's on its own key, stacked (the
+    reference's vmap over its client keys)."""
+
+    def per_client(key, client, fn):
+        if np.ndim(client):
+            keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.asarray(client))
+            return jax.vmap(fn)(keys)
+        return fn(jax.random.fold_in(key, client))
 
     def draw(t, purpose, shape, client=None):
         kr = jax.random.fold_in(jax.random.PRNGKey(seed), t)
         k_chan, k_noise = jax.random.split(kr)
+        normal = lambda k: jax.random.normal(k, shape, jnp.float32)  # noqa: E731
         if purpose == "gain":
             x = jax.random.exponential(k_chan, shape, jnp.float32)
         elif purpose in ("h", "h_err"):
             k_h, k_e = jax.random.split(k_chan)
-            x = jax.random.normal(k_h if purpose == "h" else k_e, shape, jnp.float32)
+            x = normal(k_h if purpose == "h" else k_e)
         elif purpose in ("noise", "batch_noise"):
-            key = k_noise if client is None else jax.random.fold_in(k_noise, client)
-            x = jax.random.normal(key, shape, jnp.float32)
+            x = normal(k_noise) if client is None else per_client(k_noise, client, normal)
         else:  # dither
-            key = jax.random.fold_in(kr, client)
-            x = jax.random.uniform(key, shape, minval=-0.5, maxval=0.5)
+            x = per_client(kr, client,
+                           lambda k: jax.random.uniform(k, shape, minval=-0.5, maxval=0.5))
         return torch.tensor(np.asarray(x, np.float32))
 
     return draw

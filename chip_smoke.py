@@ -143,8 +143,8 @@ Phases (any failure raises and the script exits non-zero):
     the baseline; (c) the decoded aggregate of a real step's blocks on the
     kernel route against the plain versions (AE and EA, NMSE <= 1e-3);
     (d) a checkpoint saved, restored and replayed 2 steps bit for bit.
-    (e) The same step on Mamba2-1.3B at every published width, 24 of 48
-    layers (2 pods x 2,836,992 rows): (a)'s steps, then the decoded
+    (e) The same step on Mamba2-1.3B at every published width, 12 of 48
+    layers: (a)'s steps, then the decoded
     aggregate of a real step's blocks against the plain versions (AE and
     EA, NMSE <= 1e-3, residuals bit-identical) and [time] of the three
     kernels at its rows.
@@ -206,7 +206,22 @@ Phases (any failure raises and the script exits non-zero):
     tokens/s, peak memory, the bounds, the dropped MoE pairs at the
     prefill's capacity, and the prefill and 8 decode steps under
     ``torch.profiler`` (device busy, idle share).
- 16. [time] Times with CUDA events (warm-up, then many back-to-back launches
+ 16. [inpod] The dense family's train step on the reference's (2, 2, 2)
+    mesh (``launch/mesh.py``, ``models/sharding.py``, ``runtime/steps.py``'s
+    in-pod program): eight gloo ranks, one process a device, all on the
+    one card (``launch/spawn.py``; their collectives on host copies).
+    Qwen3-0.6B at full width and the [train] point: one ``auto_sharded``
+    AE step at INPOD_SHARDED_LAYERS layers against the same 8-rank program
+    with the plain versions (aggregate NMSE <= 1e-3), one ``auto`` AE and
+    one ``auto`` EA step at INPOD_LAYERS layers: the world's gradient rows
+    against one process's (within INPOD_BF16_FLOORS x one process's own
+    bf16-to-fp32 NMSE) and the world's exchange and decode of one
+    process's rows against one process's aggregate (NMSE <= 1e-3).  Each
+    step: the loss against one process's (1e-3 relative), each rank's
+    launches (1 encoder, 15 step kernel), rank 0's wall, each rank's peak
+    and the card's memory in use.  [time] of the three kernels alone at a
+    rank's 584,448 rows of the full-depth mesh.
+ 17. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
     work; the default route's encode (no kernel) beside the fused
@@ -3370,10 +3385,11 @@ def phase_train(dev):
 # state 128, conv 4, chunks of 256, vocab 50,280, tied, bf16, remat
 # "minimal") at every published width, its depth cut to TRAIN_SSM_LAYERS of
 # 48: Qwen3-0.6B's EA step peaked at 42.5 GiB for 596M scalars (~71 bytes a
-# scalar), so 48 layers (1.34B) would need ~89 GiB and 24 (0.72B) ~51 GiB.
+# scalar), so 48 layers (1.34B) would need ~89 GiB; 24 (0.72B, ~51 GiB) until
+# [inpod] came, then 12 (0.41B) so that the script keeps to its time limit.
 # 2 pods, the launcher's batch 16 x seq 64 (the SSD pads it to one chunk of
 # 256) and FedQCS point, weights drawn on the card (card_params, seed 0).
-TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, PLAIN_CHUNK_ROWS = "mamba2-1.3b", 24, 1 << 18
+TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, PLAIN_CHUNK_ROWS = "mamba2-1.3b", 12, 1 << 18
 
 
 def phase_train_ssm(dev):
@@ -4885,6 +4901,324 @@ def phase_serve(dev, smi) -> dict:
 
 
 # JSON name -> (source, the Pallas site it replaces, phase_kernels key)
+# [inpod]: the dense family's FedQCS train step on the reference's (2, 2, 2)
+# mesh (launch/mesh.py, models/sharding.py, runtime/steps.py's in-pod
+# program): one process per device, eight gloo ranks sharing the one card
+# (launch/spawn.py; NCCL refuses two ranks on one card, so the collectives
+# run on host copies).  Qwen3-0.6B at full width, [train]'s batch, FedQCS
+# point and optimizer; depth cut to INPOD_LAYERS (auto) and
+# INPOD_SHARDED_LAYERS (auto_sharded, whose rank rows hold the MLP's wi/wg
+# whole: the reference's rules replicate them): eight ranks at 28 layers
+# pass the card's 80 GB (auto_sharded ran out of memory at 14 layers, with
+# 6.1 GiB a rank allocated).  Eight ranks time-slicing one card say that
+# the program runs on the device, not how fast it would run on eight.
+INPOD_MESH, INPOD_LAYERS, INPOD_SHARDED_LAYERS = (2, 2, 2), 14, 8
+INPOD_LOSS_TOL = 1e-3  # relative: bf16 products and sums in another order
+# the world's bf16 gradient rows against one process's, in units of one
+# process's own bf16 rows' NMSE to its fp32 rows (two independent bf16
+# errors: 2 expected)
+INPOD_BF16_FLOORS = 4.0
+INPOD_ENCODE = f"bqcs_encode_fused[N={TRAIN_N}, a rank's rows]"
+INPOD_GAMP = f"gamp_step[N={TRAIN_N}, a rank's rows]"
+INPOD_QGAMP = f"qgamp_step[N={TRAIN_N}, a rank's rows]"
+
+
+def inpod_rank(rank, world, dev, spec):
+    """One rank of [inpod]'s world: ``spec`` names the runs ((label, impl,
+    mode, layers)) and the one-process aggregates' files.  Returns, per run:
+    loss, rank 0's step wall (after a barrier, ending in a device sync),
+    launches, peak device memory, and the sums behind the NMSEs."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import collectives, steps
+
+    mesh = make_debug_mesh(*INPOD_MESH)
+    c = mesh.coords()
+    full = get_config(TRAIN_ARCH)
+    batch = TokenDataset(full.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         seed=0).get_batch(0, device=dev)
+    captured = {}
+    pod_allreduce = steps.fedqcs_pod_allreduce
+
+    def capture(*args, **kw):
+        ghat, res = pod_allreduce(*args, **kw)
+        captured["ghat"], captured["blocks"] = ghat, args[0]
+        return ghat, res
+
+    def one_rank_at_a_time(fn):  # for the plain versions' temporaries
+        def run(*args, **kw):
+            out = None
+            for r in range(world):
+                if r == rank:
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            return out
+        return run
+
+    def device_used():  # every process's memory on the card
+        free, total = torch.cuda.mem_get_info(dev)
+        return total - free
+
+    reconstruct = collectives._reconstruct
+    steps.fedqcs_pod_allreduce = capture
+    dist.barrier()
+    out = {"coords": c, "card_used_after_init": device_used()}
+    for label, impl, mode, layers in spec["runs"]:
+        cfg = dc.replace(full, n_layers=layers)
+        fed = train_fed(recon_mode=mode)
+        state = steps.init_train_state(cfg, train_opt(), fed, 0, mesh=mesh, impl=impl,
+                                       device=dev)
+        fn = steps.make_train_step(cfg, train_opt(), fed, mesh, impl=impl, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        new, m = fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        rec = {"loss": loss, "wall_ms": wall, "launches": read_counts(),
+               "peak": torch.cuda.max_memory_allocated(dev),
+               "reserved": torch.cuda.max_memory_reserved(dev), "card_used": device_used(),
+               "rows": int(state["residual"].shape[1])}
+        ghat, blocks = captured.pop("ghat"), captured.pop("blocks")
+        rec["ghat_sum"] = float(ghat.double().sum())
+        del new
+        if label in spec["reference"]:  # the one-process step's rows
+            files = spec["reference"][label]
+            lo, n_rows = (c["data"] * INPOD_MESH[2] + c["model"]) * ghat.shape[0], ghat.shape[0]
+
+            def rows(path, *lead):
+                arr = np.load(path, mmap_mode="r")[lead + (slice(lo, lo + n_rows),)]
+                return torch.from_numpy(np.array(arr)).to(dev)
+
+            def sums(got, want):
+                return float(torch.sum((got - want) ** 2)), float(torch.sum(want * want))
+
+            ref_blocks, ref_ghat = rows(files["blocks"], c["pod"]), rows(files["ghat"])
+            rec["blocks"] = sums(blocks, ref_blocks)  # the pod's gradient on these rows
+            rec["step"] = sums(ghat, ref_ghat)  # this step's aggregate
+            # the step's exchange and decode of the one-process step's rows
+            wire = "gather_codes" if mode == "ea" else "psum_dequant"
+            codec = steps.BQCSCodec(dc.replace(fed, wire_mode=wire), device=dev)
+            same, _ = pod_allreduce(ref_blocks, torch.zeros_like(ref_blocks), codec,
+                                    group=mesh.group("pod"),
+                                    participating=state["participating"][c["pod"]])
+            rec["err"], rec["energy"] = sums(same, ref_ghat)
+            del ref_blocks, ref_ghat, same, codec
+        if label in spec["plain"]:  # the same program with the plain versions
+            from repro_torch.kernels import ops
+
+            collectives._reconstruct = one_rank_at_a_time(reconstruct)
+            try:
+                with plain_kernels():
+                    ops._encode = one_rank_at_a_time(ops._encode)
+                    new, _ = fn(state, batch)
+            finally:
+                collectives._reconstruct = reconstruct
+            plain = captured.pop("ghat")
+            rec["err"] = float(torch.sum((ghat - plain) ** 2))
+            rec["energy"] = float(torch.sum(plain * plain))
+            del new, plain
+        out[label] = rec
+        del state, fn, ghat, blocks
+        torch.cuda.empty_cache()
+    steps.fedqcs_pod_allreduce = pod_allreduce
+    return out
+
+
+def phase_inpod(dev):
+    """[inpod] (see INPOD_*): first, alone on the card, [time] of the
+    encoder and both step kernels at a rank's rows of the full-depth mesh
+    (rank (0, 0, 0)'s: the first quarter of pod 0's grid of a real step);
+    then the one-process references: the ``impl="auto"`` two-pod step's
+    losses and decoded aggregates (AE, EA) at INPOD_LAYERS layers from seed
+    0's parameters and batch 0, written to ``build/inpod/`` for the ranks,
+    and the loss at INPOD_SHARDED_LAYERS layers.  Then the eight ranks: one
+    ``auto_sharded`` AE step (against the same program with the plain
+    versions, their encode and decode one rank at a time), one ``auto`` AE
+    and one ``auto`` EA step (against the one-process aggregate: the same
+    global blocking).  Each step: rank 0's wall, each rank's launches (1
+    encoder, 15 step kernel) and peak memory, the card's memory in use, the
+    loss against the one-process loss.  Returns (launches by KERNELS name,
+    max abs errors, [time] records)."""
+    import dataclasses as dc
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.launch.spawn import run_world
+    from repro_torch.models import model as model_api
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.collectives import fedqcs_vmapped_allreduce
+
+    t_phase = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    pods, data, model = INPOD_MESH
+    batch = TokenDataset(full.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         seed=0).get_batch(0, device=dev)
+
+    def pod_grid(layers, fp32=False):
+        """The one-process step's loss and pod grids at ``layers`` layers
+        (``fp32``: seed 0's bf16 weights cast up, computed in fp32)."""
+        cfg = dc.replace(full, n_layers=layers)
+        params = model_api.init_params(cfg, seed=0, device=dev)
+        if fp32:
+            cfg = dc.replace(cfg, dtype="float32")
+            params = tree_util.tree_map(lambda p: p.float(), params)
+        losses, blocks, _ = steps.pod_blocks(params, batch, cfg, pods, TRAIN_N, dev)
+        return float(torch.stack(losses).mean()), blocks
+
+    # [time] at a rank's rows of the full-depth mesh, alone on the card
+    blocks = pod_grid(full.n_layers)[1]
+    rows = blocks.shape[1] // (data * model)
+    b0 = blocks[0, :rows].clone()
+    del blocks
+    torch.cuda.empty_cache()
+    fed = train_fed(recon_mode="ea")
+    codec_a = steps.BQCSCodec(fed, device=dev).a
+    timer = GpuTimer()
+    r0 = torch.zeros_like(b0)
+    times, errs = {}, {}
+    rec, words, alpha = train_encode_time(dev, fed, b0, r0, codec_a, timer, "[inpod]",
+                                          grid="rank (0, 0, 0)'s rows")
+    times[INPOD_ENCODE] = rec
+    del b0, r0
+    torch.cuda.empty_cache()
+    step_times = train_step_times(dev, fed, words, alpha, codec_a, timer, "a rank's rows")
+    times[INPOD_GAMP] = step_times[f"gamp_step[N={TRAIN_N}]"]
+    times[INPOD_QGAMP] = step_times[f"qgamp_step[N={TRAIN_N}]"]
+    for key, name in (("encode_rank", INPOD_ENCODE), ("gamp_rank", INPOD_GAMP),
+                      ("qgamp_rank", INPOD_QGAMP)):
+        errs[key] = times[name]["err"]
+    print_train_times({k: times[k] for k in (INPOD_ENCODE, INPOD_GAMP, INPOD_QGAMP)})
+    del words, alpha, step_times
+    # the one-process references at the world's depths
+    out_dir = ROOT / "build" / "inpod"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    blocks32 = pod_grid(INPOD_LAYERS, fp32=True)[1]
+    loss, blocks = pod_grid(INPOD_LAYERS)
+    floor = nmse(blocks, blocks32)  # one process's own bf16 rows against fp32 ones
+    del blocks32
+    torch.cuda.empty_cache()
+    want_loss = {"auto AE": loss, "auto EA": loss}
+    files = {}
+    part = torch.ones((pods,), device=dev)
+    np.save(out_dir / "blocks.npy", blocks.cpu().numpy())
+    for label, mode in (("auto AE", "ae"), ("auto EA", "ea")):
+        codec = steps.BQCSCodec(train_fed(recon_mode=mode), device=dev)
+        ghat = fedqcs_vmapped_allreduce(blocks, torch.zeros_like(blocks), codec, part)[0]
+        files[label] = {"blocks": str(out_dir / "blocks.npy"),
+                        "ghat": str(out_dir / f"ghat_{mode}.npy")}
+        np.save(files[label]["ghat"], ghat.cpu().numpy())
+        del ghat
+        torch.cuda.empty_cache()
+    del blocks
+    cut = dc.replace(full, n_layers=INPOD_SHARDED_LAYERS)
+    params = model_api.init_params(cut, seed=0, device=dev)
+    with torch.no_grad():
+        want_loss["auto_sharded AE"] = float(torch.stack([
+            model_api.train_loss(params, steps._pod_batch(batch, pods, p), cut)
+            for p in range(pods)]).mean())
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    held = torch.cuda.memory_reserved(dev) / 2**30
+    print(f"[inpod] before the world: this process holds {held:.3f} GiB reserved; the card "
+          f"has {(total - free) / 2**30:.3f} of {total / 2**30:.3f} GiB in use")
+    t_ref = time.perf_counter() - t_phase
+    # the eight ranks
+    runs = (("auto_sharded AE", "auto_sharded", "ae", INPOD_SHARDED_LAYERS),
+            ("auto AE", "auto", "ae", INPOD_LAYERS), ("auto EA", "auto", "ea", INPOD_LAYERS))
+    world = pods * data * model
+    t0 = time.perf_counter()
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # the ranks' allocators
+    try:
+        ranks = run_world(inpod_rank, world, args=({"runs": runs, "reference": files,
+                                                    "plain": ("auto_sharded AE",)},),
+                          device="cuda")
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    t_world = time.perf_counter() - t0
+    print(f"[inpod] the card in use after the ranks' start: "
+          f"{ranks[0]['card_used_after_init'] / 2**30:.3f} GiB (eight contexts and this "
+          f"process)")
+    for f in {f for pair in files.values() for f in pair.values()}:
+        Path(f).unlink()
+    launches = {INPOD_ENCODE: 0, INPOD_GAMP: 0, INPOD_QGAMP: 0}
+    for label, impl, mode, layers in runs:
+        recs = [r[label] for r in ranks]
+        step_kernel = "qgamp" if mode == "ea" else "gamp"
+        want = dict(encode=1, gamp=0, qgamp=0, topk=0, staged=0)
+        want[step_kernel] = TRAIN_ITERS
+        for r, rec in enumerate(recs):
+            check(rec["launches"] == want,
+                  f"[inpod] {label} rank {r}: launches {rec['launches']}, want {want}")
+        launches[INPOD_ENCODE] += sum(rec["launches"]["encode"] for rec in recs)
+        launches[INPOD_QGAMP if mode == "ea" else INPOD_GAMP] += sum(
+            rec["launches"][step_kernel] for rec in recs)
+        losses = {rec["loss"] for rec in recs}
+        check(len(losses) == 1, f"[inpod] {label}: the ranks' losses differ: {sorted(losses)}")
+        loss = recs[0]["loss"]
+        gap = abs(loss - want_loss[label])
+        check(bool(np.isfinite(loss)) and gap <= INPOD_LOSS_TOL * abs(want_loss[label]),
+              f"[inpod] {label}: loss {loss} vs one process {want_loss[label]}")
+        half = world // pods
+        check(all(recs[r]["ghat_sum"] == recs[r + half]["ghat_sum"] for r in range(half)),
+              f"[inpod] {label}: the two pods' decoded rows differ")
+
+        def nmse_of(key):
+            err = sum(rec[key][0] if key else rec["err"] for rec in recs)
+            energy = sum(rec[key][1] if key else rec["energy"] for rec in recs)
+            return err / max(energy, 1e-30)
+
+        e = nmse_of(None)
+        sharded = label.startswith("auto_sharded")
+        eb, es = (None, None) if sharded else (nmse_of("blocks"), nmse_of("step"))
+        against = ("the same 8-rank program with the plain versions" if sharded else
+                   f"one process's aggregate, from one process's rows (the world's own "
+                   f"gradient rows: NMSE {eb:.3g} to one process's, <= {INPOD_BF16_FLOORS:g} x "
+                   f"{floor:.3g}, one process's bf16 rows to its fp32 rows; the world's "
+                   f"aggregate {es:.3g} to one process's: top-S picks that part at bf16's "
+                   f"rounding)")
+        peaks = [rec["peak"] / 2**30 for rec in recs]
+        print(f"[inpod] {label} ({layers} layers, {recs[0]['rows']:,} block rows a rank): loss "
+              f"{loss:.6f} (one process {want_loss[label]:.6f}, gap {gap:.3g} <= "
+              f"{INPOD_LOSS_TOL:g} relative); aggregate NMSE {e:.3g} against {against} "
+              f"(<= 1e-3); rank 0's step wall {recs[0]['wall_ms']:.1f} ms (8 ranks on one "
+              f"card); launches a rank {want}; max_memory_allocated a rank GiB "
+              f"{[round(v, 3) for v in peaks]}, sum {sum(peaks):.3f}; max reserved sum "
+              f"{sum(rec['reserved'] for rec in recs) / 2**30:.3f} GiB; the card in use after "
+              f"the step {max(rec['card_used'] for rec in recs) / 2**30:.3f} GiB")
+        check(e <= 1e-3, f"[inpod] {label}: aggregate NMSE {e:.3g} against {against}")
+        check(sharded or eb <= INPOD_BF16_FLOORS * floor,
+              f"[inpod] {label}: the pod's gradient rows NMSE {eb} against one process, "
+              f"past {INPOD_BF16_FLOORS} x {floor}")
+    print(f"[inpod] seconds: one-process references and [time] {t_ref:.1f}, the world "
+          f"(spawn, init, steps) {t_world:.1f}")
+    return launches, errs, times
+
+
 KERNELS = {
     "bqcs_encode_fused": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode"),
     "bqcs_encode_fused[dither]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
@@ -4917,6 +5251,9 @@ KERNELS = {
     COHORT_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_cohort"),
     COHORT_GAMP: ("gamp_step.cu", "gamp_step.py:108", "gamp_cohort"),
     COHORT_SEG_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_segment"),
+    INPOD_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_rank"),
+    INPOD_GAMP: ("gamp_step.cu", "gamp_step.py:108", "gamp_rank"),
+    INPOD_QGAMP: ("qgamp_step.cu", "qgamp_step.py:180", "qgamp_rank"),
 }
 
 
@@ -4944,6 +5281,8 @@ def main() -> int:
     parser.add_argument("--against", type=Path, help="another checkout of the repository: hold "
                         "the kernels both trees share bit for bit and time them in turns, after "
                         "the [kernels] phase, and stop")
+    parser.add_argument("--inpod", action="store_true", help="run the build and the [inpod] "
+                        "phase alone, and stop")
     args = parser.parse_args()
     try:
         import torch
@@ -4962,6 +5301,10 @@ def main() -> int:
     dev = entry_device("cuda")
     t0 = time.perf_counter()
     name, smi = phase_device()
+    if args.inpod:
+        phase_inpod(dev)
+        print(f"[done] the [inpod] phase passed in {time.perf_counter() - t0:.1f} s")
+        return 0
     k_in = phase_kernels(dev)
     if args.levels:
         phase_levels(dev, k_in, [int(v) for v in args.levels.split(",")])
@@ -4972,31 +5315,44 @@ def main() -> int:
         print(f"[done] the comparison with {args.against} passed in "
               f"{time.perf_counter() - t0:.1f} s")
         return 0
-    staged = phase_staged(dev)
-    per_run, round_ms = phase_main_path(dev)
-    phase_prng(dev, smi)
-    routes_launches, routes_ms = phase_routes(dev)
+    took = {}
+
+    def timed(label, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        took[label] = time.perf_counter() - t1
+        return out
+
+    staged = timed("staged", phase_staged, dev)
+    per_run, round_ms = timed("main", phase_main_path, dev)
+    timed("prng", phase_prng, dev, smi)
+    routes_launches, routes_ms = timed("routes", phase_routes, dev)
     round_ms.update(routes_ms)
-    qiht_encode, baseline_ms = phase_baselines(dev)
+    qiht_encode, baseline_ms = timed("baselines", phase_baselines, dev)
     round_ms.update(baseline_ms)
-    channel_launches, channel_ms = phase_channels(dev)
+    channel_launches, channel_ms = timed("channels", phase_channels, dev)
     round_ms.update(channel_ms)
-    knob_launches, knob_ms = phase_knobs(dev)
+    knob_launches, knob_ms = timed("knobs", phase_knobs, dev)
     round_ms.update(knob_ms)
-    stream_launches, stream_ms = phase_stream(dev)
+    stream_launches, stream_ms = timed("stream", phase_stream, dev)
     round_ms.update(stream_ms)
-    layout_launches, layout_ms = phase_layout(dev)
+    layout_launches, layout_ms = timed("layout", phase_layout, dev)
     round_ms.update(layout_ms)
-    record_launches = phase_record(dev)
-    phase_profile(round_ms, dev)
-    train_launches, train_errs, train_times_ = phase_train(dev)
-    ssm_launches, _ = phase_train_ssm(dev)
-    cohort_launches, cohort_errs, cohort_times = phase_cohort(dev)
-    serve_launches = phase_serve(dev, smi)
-    k_in.update({k: {"max_abs_err": v} for k, v in {**train_errs, **cohort_errs}.items()})
-    times = phase_times(dev, k_in)
+    record_launches = timed("record", phase_record, dev)
+    timed("profile", phase_profile, round_ms, dev)
+    train_launches, train_errs, train_times_ = timed("train", phase_train, dev)
+    ssm_launches, _ = timed("train (e)", phase_train_ssm, dev)
+    cohort_launches, cohort_errs, cohort_times = timed("cohort", phase_cohort, dev)
+    serve_launches = timed("serve", phase_serve, dev, smi)
+    torch.cuda.empty_cache()
+    inpod_launches, inpod_errs, inpod_times = timed("inpod", phase_inpod, dev)
+    k_in.update({k: {"max_abs_err": v}
+                 for k, v in {**train_errs, **cohort_errs, **inpod_errs}.items()})
+    times = timed("time", phase_times, dev, k_in)
     times.update(train_times_)
     times.update(cohort_times)
+    times.update(inpod_times)
+    print("[done] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in took.items()))
     for label, (_, _, ms, _) in round_ms.items():
         steady = sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else float("nan")
         print(f"[round] {label}: wall ms per round {[round(v, 3) for v in ms]}, "
@@ -5007,7 +5363,8 @@ def main() -> int:
                      + list(knob_launches.items()) + list(stream_launches.items())
                      + list(layout_launches.items()) + list(record_launches.items())
                      + list(train_launches.items()) + list(ssm_launches.items())
-                     + list(cohort_launches.items()) + list(serve_launches.items())):
+                     + list(cohort_launches.items()) + list(serve_launches.items())
+                     + list(inpod_launches.items())):
         launches[kname] += n
     kernels = []
     for kname, (source, replaces, key) in KERNELS.items():

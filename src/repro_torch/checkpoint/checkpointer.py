@@ -13,6 +13,12 @@ bfloat16 tensors (numpy has no such dtype) are stored as their uint16 bit
 patterns and restored bit for bit; a bfloat16 entry the reference wrote
 restores the same way.  A checkpoint the reference wrote restores into
 the port: the names are the same.
+
+On an in-pod mesh a checkpoint is the whole state all the same: every rank
+calls :meth:`Checkpointer.save` with its shard and the whole state's specs,
+the shards are gathered and rank 0 writes; :meth:`Checkpointer.restore`
+with specs and a mesh gives each rank its shard of each entry.  A state
+saved on one mesh restores onto any other (restart, elastic resharding).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.models.sharding import gather_leaf, local_shard
 from repro_torch.optim.adam import QLeaf
 
 _NP_OF = {torch.float32: np.float32, torch.int32: np.int32, torch.int64: np.int64,
@@ -75,7 +82,17 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: Any):
+    def save(self, step: int, tree: Any, specs: Any = None, mesh=None):
+        """Writes ``tree`` as checkpoint ``step``.  On an in-pod ``mesh``
+        every rank calls it with its shard of the state and ``specs`` (the
+        whole state's, ``runtime.steps.state_specs``): the shards are
+        gathered, rank 0 writes and the others return."""
+        if mesh is not None and mesh.inpod:
+            tree = tree_util.unflatten(
+                (path, gather_leaf(leaf, tree_util.get(specs, path), mesh))
+                for path, leaf in tree_util.leaves_in_order(tree))
+            if mesh.rank != 0:
+                return
         flat = _flatten(tree)  # the copy to the host happens here, synchronously
         self.wait()  # double-buffer: the previous write finishes first
         if self.async_save:
@@ -136,10 +153,14 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template: Any, step: Optional[int] = None, device=None):
+    def restore(self, template: Any, step: Optional[int] = None, device=None,
+                specs: Any = None, mesh=None):
         """Loads into the structure, dtypes and shapes of ``template`` (which
         may hold ``meta`` tensors) and places every tensor on ``device``
-        (default: each template leaf's own device).  Returns (tree, step)."""
+        (default: each template leaf's own device).  With ``specs`` and a
+        ``mesh`` that has this process's rank, ``template`` is the whole
+        state and each entry is cut to the rank's shard.  Returns (tree,
+        step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -155,5 +176,8 @@ class Checkpointer:
                                                           dev))))
                 else:
                     dev = device if device is not None else leaf.device
-                    out.append((path, _tensor(data[name], leaf, dev)))
+                    t = _tensor(data[name], leaf, "cpu")
+                    if specs is not None and getattr(mesh, "rank", None) is not None:
+                        t = local_shard(t, tree_util.get(specs, path), mesh.shape, mesh.coords())
+                    out.append((path, t.to(dev)))
         return tree_util.unflatten(out), step

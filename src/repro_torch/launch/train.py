@@ -4,9 +4,13 @@
         --steps 50 --fedqcs --pods 2 --device cpu
 
 Pod mode wires together the config registry, the synthetic token data, the
-FedQCS train step (``impl="auto"``: the ``--pods`` pods simulated on one
-device), checkpointing with resume from the latest checkpoint, and periodic
-loss logs.  The FedQCS point is the reference's: N = 255, ``--R``, ``--Q``,
+FedQCS train step (``impl="auto"``), checkpointing with resume from the
+latest checkpoint, and periodic loss logs.  The dense family runs on the
+reference's ``(pods, 2, 2)`` mesh: ``pods * 4`` processes, one per device
+(``launch/spawn.py``: gloo; ``--device cpu`` or, on a card, every rank on
+``cuda:(rank % device_count)``), rank 0 printing.  The other families keep
+a ``(pods, 1, 1)`` mesh in one process (the ``--pods`` pods simulated on
+one device).  The FedQCS point is the reference's: N = 255, ``--R``, ``--Q``,
 ``--s-ratio``, 15 scalar-variance GAMP iterations.  ``--device`` defaults to
 ``cuda``.
 
@@ -57,6 +61,7 @@ from repro_torch.fed.scheduler import SchedulerConfig
 from repro_torch.fed.server_opt import ServerOptConfig
 from repro_torch.fed.stream import StreamConfig
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.launch.spawn import run_world
 from repro_torch.models import model as model_api
 from repro_torch.models.segment_tap import interleaved_layout
 from repro_torch.obs import JsonlRecorder
@@ -130,8 +135,26 @@ def main(argv=None):
     if cfg.family == "audio":  # the reference's pod mode fails on the same missing key
         raise ValueError(f"--arch {args.arch}: the audio family trains on frame embeddings "
                          "('frames'), which the launcher's token data does not have")
-    mesh = (make_production_mesh(multi_pod=args.pods > 1) if args.production_mesh
-            else make_debug_mesh(args.pods, 1, 1))
+    if args.production_mesh:
+        make_production_mesh(multi_pod=args.pods > 1)  # raises: not in the slice
+    if cfg.family == "dense":
+        # the reference's (pods, 2, 2) mesh: one process per device
+        run_world(_pod_rank, args.pods * 2 * 2, args=(args,), device=args.device)
+        return
+    print(f"[train] the {cfg.family} family runs on a (pods, 1, 1) mesh in one process "
+          f"(its in-pod layout: ROADMAP.md {steps.ITEM_FAMILIES})")
+    _train(args, cfg, make_debug_mesh(args.pods, 1, 1), entry_device(args.device))
+
+
+def _pod_rank(rank: int, world: int, device, args) -> None:
+    """One rank of pod mode's world: the dense family's in-pod step."""
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    _train(args, cfg, make_debug_mesh(args.pods, 2, 2), device)
+
+
+def _train(args, cfg, mesh, device) -> None:
+    """Pod mode's loop on ``mesh`` (an in-pod mesh: this rank's part; rank
+    0 prints)."""
     fed = (
         FedQCSConfig(block_size=255, reduction_ratio=args.R, bits=args.Q,
                      s_ratio=args.s_ratio, gamp_iters=15, gamp_variance_mode="scalar")
@@ -142,31 +165,35 @@ def main(argv=None):
                     decay_steps=max(args.steps, 100),
                     state_dtype="int8" if args.int8_opt_state else "float32")
     ds = TokenDataset(cfg.vocab_size, batch=args.batch, seq=args.seq, seed=0)
+    say = print if mesh.rank in (None, 0) else (lambda *a, **k: None)
 
-    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=args.pods, device=args.device)
-    n_params = sum(int(p.numel()) for _, p in tree_util.leaves(state["params"]))
-    print(f"[train] arch={cfg.name} params={n_params:,} mesh={mesh.shape} "
-          f"fedqcs={'on' if fed else 'off'}"
-          + (f" ({fed.bits_per_entry:.2f} bits/entry)" if fed else ""))
+    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=args.pods, mesh=mesh,
+                                   device=device)
+    whole, specs = (steps.state_specs(cfg, opt, fed, mesh) if mesh.inpod
+                    else (state, None))
+    n_params = sum(int(p.numel()) for _, p in tree_util.leaves(whole["params"]))
+    say(f"[train] arch={cfg.name} params={n_params:,} mesh={mesh.shape} "
+        f"fedqcs={'on' if fed else 'off'}"
+        + (f" ({fed.bits_per_entry:.2f} bits/entry)" if fed else ""), flush=True)
 
     ckpt = Checkpointer(args.ckpt_dir or f"runs/ckpt_{cfg.name}", keep=2)
     start = 0
     if ckpt.latest_step() is not None:
-        state, start = ckpt.restore(state)
-        print(f"[train] resumed from step {start}")
-    step_fn = steps.make_train_step(cfg, opt, fed, mesh, device=args.device)
+        state, start = ckpt.restore(whole, specs=specs, mesh=mesh, device=device)
+        say(f"[train] resumed from step {start}", flush=True)
+    step_fn = steps.make_train_step(cfg, opt, fed, mesh, device=device)
 
     t0 = time.time()
     for t in range(start, args.steps):
-        state, metrics = step_fn(state, ds.get_batch(t, device=args.device))
+        state, metrics = step_fn(state, ds.get_batch(t, device=device))
         if t % args.log_every == 0 or t == args.steps - 1:
-            print(f"step {t:5d}  loss {float(metrics['loss']):.4f}  "
-                  f"({(time.time() - t0):.0f}s)")
+            say(f"step {t:5d}  loss {float(metrics['loss']):.4f}  "
+                f"({(time.time() - t0):.0f}s)", flush=True)
         if args.ckpt_every and t and t % args.ckpt_every == 0:
-            ckpt.save(t, state)
-    ckpt.save(args.steps - 1, state)
+            ckpt.save(t, state, specs=specs, mesh=mesh)
+    ckpt.save(args.steps - 1, state, specs=specs, mesh=mesh)
     ckpt.wait()
-    print("[train] done")
+    say("[train] done", flush=True)
 
 
 def cohort_fed(args) -> FedQCSConfig:

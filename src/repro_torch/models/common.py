@@ -13,6 +13,15 @@ Attention has the training path and the cached decode path (a KV cache
 written at ``cache_pos``); rotary embeddings are standard or Qwen2-VL's
 M-RoPE.  Cross-attention (K/V from an encoder) and the ungated GELU MLP
 serve the audio family.
+
+On an in-pod mesh (``models/sharding.py``'s :func:`use_inpod`) the dense
+family's training path runs on the rank's shards, as the reference's rules
+lay them out: attention's wq/wk/wv split by head over ``model`` (a rank
+takes its query heads' KV groups) and ``wo`` by row, the MLP's wi/wg by
+column and wo by row, the embedding and the head by vocabulary row; every
+weight's d_model dimension gathered over ``data`` as it is used.  The
+cross-entropy is vocab-parallel and the loss the mean over the pod's
+tokens.
 """
 
 from __future__ import annotations
@@ -27,7 +36,15 @@ import torch.utils.checkpoint
 from repro_torch import prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import cs
+from repro_torch.models.sharding import (
+    all_reduce,
+    batch_sum,
+    cs,
+    current_inpod,
+    fsdp,
+    model_columns,
+    tp_enter,
+)
 
 _INIT_STD = 0.02
 
@@ -198,9 +215,10 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_off
     return out.reshape(b, sq, h, dh)
 
 
-def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """(B, S, H * dh) -> (B, S, H, dh) (H: the heads this rank holds)."""
     b, s, _ = x.shape
-    return x.reshape(b, s, n, dh)
+    return x.reshape(b, s, -1, dh)
 
 
 def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
@@ -216,20 +234,25 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     in place (:func:`update_slot`), attention runs over the slots
     ``<= cache_pos``, and ``kv`` is that cache.  Cross-attention:
     ``cross_kv`` is the encoder's (k, v) (B, Se, KVH, dh), taken as they
-    are (no norm, no rotary, no cache write); ``kv`` holds them."""
+    are (no norm, no rotary, no cache write); ``kv`` holds them.
+
+    In-pod: ``p`` holds the rank's heads (query heads ``m * H / model`` on
+    and their KV groups); ``out`` is summed over ``model``."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = x @ p["wq"]
+    d = cfg.d_model
+    x = tp_enter(x)
+    q = x @ fsdp(p["wq"], 0, d)
     if "bq" in p:
         q = q + p["bq"]
-    q = _split_heads(q, cfg.n_heads, dh)
+    q = _split_heads(q, dh)
     if cross_kv is None:
-        k = x @ p["wk"]
-        v = x @ p["wv"]
+        k = x @ fsdp(p["wk"], 0, d)
+        v = x @ fsdp(p["wv"], 0, d)
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
-        k = _split_heads(k, cfg.n_kv_heads, dh)
-        v = _split_heads(v, cfg.n_kv_heads, dh)
+        k = _split_heads(k, dh)
+        v = _split_heads(v, dh)
     else:
         k, v = cross_kv
     if "q_norm" in p:
@@ -249,8 +272,8 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     else:
         kv = {"k": k, "v": v}
         out = _sdpa(q, k, v, causal=causal)
-    out = out.reshape(b, s, cfg.n_heads * dh)
-    return cs(out @ p["wo"], "batch", "seq", "dmodel"), kv
+    out = out.reshape(b, s, -1)
+    return cs(out @ fsdp(p["wo"], 1, d), "batch", "seq", "dmodel", reduce="model"), kv
 
 
 # ---------------------------------------------------------------------------
@@ -270,14 +293,19 @@ def init_mlp(key: torch.Tensor, d: int, f: int, dtype, gated: bool = True) -> di
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU when ``p`` has ``wg``, else GELU in its tanh form (the
-    reference's ``jax.nn.gelu`` default)."""
-    h = x @ p["wi"]
+    reference's ``jax.nn.gelu`` default).  In-pod: the ff columns of the
+    rank's rows of wo (wi and wg are replicated by the reference's rules:
+    the rank takes those columns), the output summed over ``model``."""
+    d = x.shape[-1]
+    x = tp_enter(x)
+    wo = fsdp(p["wo"], 1, d)
+    h = x @ model_columns(fsdp(p["wi"], 0, d), wo.shape[0])
     if "wg" in p:
-        h = F.silu(x @ p["wg"]) * h
+        h = F.silu(x @ model_columns(fsdp(p["wg"], 0, d), wo.shape[0])) * h
     else:
         h = F.gelu(h, approximate="tanh")
     h = cs(h, "batch", "seq", "ff")
-    return cs(h @ p["wo"], "batch", "seq", "dmodel")
+    return cs(h @ wo, "batch", "seq", "dmodel", reduce="model")
 
 
 # ---------------------------------------------------------------------------
@@ -296,19 +324,34 @@ def init_embed(key: torch.Tensor, cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The tokens' rows.  In-pod: the rank's vocabulary rows look up the
+    tokens they hold, and the rows are summed over ``model``."""
     # F.embedding: its backward on the card sums each token's rows in a
     # fixed order (a replayed step is bit-identical)
-    return cs(F.embedding(tokens, p["embed"]), "batch", "seq", "dmodel")
+    table = fsdp(p["embed"], 1, cfg.d_model)
+    ip = current_inpod()
+    if ip is None:
+        return cs(F.embedding(tokens, table), "batch", "seq", "dmodel")
+    local = tokens - ip.vocab_start(table.shape[0])
+    inside = (local >= 0) & (local < table.shape[0])
+    x = F.embedding(torch.where(inside, local, 0), table)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return cs(x, "batch", "seq", "dmodel", reduce="model")
 
 
 def logits_from(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    out = x @ p["embed"].T if cfg.tie_embeddings else x @ p["lm_head"]
+    """The logits (in-pod: of the rank's vocabulary rows)."""
+    x = tp_enter(x)
+    d = cfg.d_model
+    out = x @ fsdp(p["embed"], 1, d).T if cfg.tie_embeddings else x @ fsdp(p["lm_head"], 0, d)
     return cs(out, "batch", "seq", "vocab")
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean token cross-entropy.  The exp() intermediate stays in the
     logits dtype; the row max and the probability sum run fp32."""
+    if current_inpod() is not None:
+        return _vocab_parallel_cross_entropy(logits, labels, mask)
     m = torch.amax(logits.float(), dim=-1)
     p = torch.exp(logits - m[..., None].to(logits.dtype))
     lse = torch.log(torch.sum(p, dim=-1, dtype=torch.float32)) + m
@@ -318,6 +361,32 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None)
         nll = nll * mask
         return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _vocab_parallel_cross_entropy(logits, labels, mask) -> torch.Tensor:
+    """The in-pod cross-entropy over the rank's vocabulary rows: the row
+    max, the probability sum and the target's logit reduced over
+    ``model``; the loss the mean over the pod's tokens (the sum and the
+    count reduced over ``data``)."""
+    ip = current_inpod()
+    group = ip.group("model")
+    m = all_reduce(torch.amax(logits.float(), dim=-1), group, op="max")
+    p = torch.exp(logits - m[..., None].to(logits.dtype))
+    lse = torch.log(cs(torch.sum(p, dim=-1, dtype=torch.float32), reduce="model")) + m
+    local = labels - ip.vocab_start(logits.shape[-1])
+    inside = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0].float()
+    gold = cs(torch.where(inside, gold, torch.zeros_like(gold)), reduce="model")
+    nll = lse - gold
+    if mask is not None:
+        count = torch.sum(mask)
+        total = torch.sum(nll * mask)
+    else:
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+        total = torch.sum(nll)
+    if ip.sizes["data"] > 1:
+        count = all_reduce(count, ip.group("data"))
+    return batch_sum(total) / torch.clamp(count, min=1.0)
 
 
 def head_loss_params(params: dict, cfg: ModelConfig) -> dict:

@@ -1,17 +1,32 @@
-"""Logical-axis sharding rules for the model zoo (port of
-``repro.models.sharding``).
+"""Logical-axis sharding rules for the model zoo and the in-pod program
+(port of ``repro.models.sharding``).
 
 The reference maps logical activation axes (``batch``, ``heads``, ...) to
 mesh axes and constrains activations with :func:`cs`; parameters get
-partition specs from name-based rules (:func:`param_specs`).  The port's
-mesh has one card per pod (``launch/mesh.py``: ``data * model`` is 1), so
-every constraint is the identity and :func:`cs` returns its input.  The
-rules stay, with the reference's tables, for the per-shard FedQCS geometry
-(``runtime/steps.py::shard_block_geometry``) and the state's specs
-(``train_state_shardings``); they place nothing until a pod spans several
-cards (ROADMAP.md item 10b).  The checkpointer reads no spec: it restores
-onto one ``device``.  A spec is a tuple with one entry a dimension:
-``None``, a mesh axis name, or a tuple of axis names.
+partition specs from name-based rules (:func:`param_specs`).  Its layout is
+"2D FSDP x TP": batch over ``data``; heads, ff and vocab over ``model``;
+the d_model dimension of every weight matrix over ``data``.
+
+The port runs that layout as one process per device of an in-pod mesh
+(``launch/mesh.py``).  Each rank holds its shard of every leaf
+(:func:`local_shard`, by the leaf's sanitized spec; :func:`gather_leaf`
+puts a leaf back together), and the model's layers call the collectives
+the reference's constraints resolve into, as autograd functions:
+
+  * :func:`fsdp`: a weight shard gathered over ``data`` along its d_model
+    dimension; its backward reduce-scatters (sums) the gradient;
+  * :func:`model_columns`: a rank's columns of a weight the rules
+    replicate (the dense MLP's wi and wg: no rule names ``ffn/wi``);
+  * :func:`tp_enter`: the identity, with an all-reduce over ``model`` in
+    the backward (Megatron's copy at a tensor-parallel region's entry);
+  * :func:`cs` with ``reduce=``: an all-reduce in the forward and the
+    identity in the backward (Megatron's reduce at the region's exit: the
+    row-parallel products' partial sums).
+
+These act only while :func:`use_inpod` holds this rank's :class:`InPod`;
+without one (every single-process path) they are the identity.  A spec is
+a tuple with one entry a dimension: ``None``, a mesh axis name, or a tuple
+of axis names (major first).
 """
 
 from __future__ import annotations
@@ -20,6 +35,8 @@ import contextlib
 import re
 import threading
 from typing import Any, Optional, Tuple
+
+import torch
 
 from repro_torch import tree as tree_util
 
@@ -92,11 +109,18 @@ def current_rules() -> Optional[ShardingRules]:
     return getattr(_state, "rules", None)
 
 
-def cs(x, *logical: Optional[str]):
-    """The reference's sharding constraint by logical axis names.  Every
-    axis a constraint could name has size 1 on the port's mesh, so it is the
-    identity."""
-    return x
+def cs(x, *logical: Optional[str], reduce: Optional[str] = None):
+    """The reference's sharding constraint by logical axis names.  A rank
+    holds its activations in the layout the constraint names already, so
+    the constraint is the identity -- except where ``x`` holds partial sums
+    over the mesh axis ``reduce`` (a row-parallel product), which the
+    reference's replicated layout turns into an all-reduce: under
+    :func:`use_inpod`, ``x`` is summed over that axis (the backward passes
+    the gradient through)."""
+    ip = _inpod
+    if reduce is None or ip is None or ip.sizes[reduce] == 1:
+        return x
+    return _Reduce.apply(x, ip.group(reduce))
 
 
 # ---------------------------------------------------------------------------
@@ -159,3 +183,201 @@ def param_specs(params, axis_sizes: Optional[dict] = None):
         (path, _spec_for(tree_util.slash(path).lower(), tuple(leaf.shape), axis_sizes))
         for path, leaf in tree_util.leaves_in_order(params)
     )
+
+
+# ---------------------------------------------------------------------------
+# Collectives of the in-pod program (over torch.distributed groups).
+# ---------------------------------------------------------------------------
+
+
+def _on_host(x: torch.Tensor, group) -> bool:
+    """gloo's collectives run on host memory: a CUDA tensor's goes through a
+    host copy, the same way on every call."""
+    import torch.distributed as dist
+
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``x`` summed (or its maximum, ``op="max"``) over the
+    group's ranks.  Half-precision floats reduce in fp32 and round once."""
+    import torch.distributed as dist
+
+    buf = x.detach().to("cpu" if _on_host(x, group) else x.device, copy=True)
+    half = buf.dtype in (torch.bfloat16, torch.float16)
+    if half:
+        buf = buf.float()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=group)
+    return buf.to(device=x.device, dtype=x.dtype)
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(...) on each rank -> (world, ...) in the group's rank order.  The
+    bytes travel as they are (any dtype)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    send = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    if _on_host(x, group):
+        send = send.cpu()
+    parts = [torch.empty_like(send) for _ in range(world)]
+    dist.all_gather(parts, send, group=group)
+    out = torch.stack(parts).to(x.device)
+    return out.view(x.dtype).reshape((world,) + tuple(x.shape))
+
+
+class _Gather(torch.autograd.Function):
+    """The shards of the group's ranks concatenated along ``dim``; the
+    backward sums the gradient over the ranks and keeps this rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim = group, dim
+        ctx.rank, ctx.world = dist.get_rank(group), dist.get_world_size(group)
+        return torch.cat(all_gather(x, group).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce(g, ctx.group)
+        return total.chunk(ctx.world, dim=ctx.dim)[ctx.rank].contiguous(), None, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity; the backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the group; the backward passes the gradient through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+# ---------------------------------------------------------------------------
+# The rank's place on an in-pod mesh.
+# ---------------------------------------------------------------------------
+
+
+class InPod:
+    """One rank of an in-pod mesh: its coordinates, the axis sizes and the
+    process groups its layers' collectives run over."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = dict(mesh.shape)
+        self.coords = mesh.coords()
+
+    def group(self, axes):
+        return self.mesh.group(axes)
+
+    def vocab_start(self, local: int) -> int:
+        """The first vocabulary row of this rank's ``local`` rows."""
+        return self.coords["model"] * local
+
+
+_inpod: Optional[InPod] = None  # process-wide: a remat recompute runs on autograd's thread
+
+
+@contextlib.contextmanager
+def use_inpod(ip: Optional[InPod]):
+    """Installs ``ip`` as the rank's in-pod context (``None``: none)."""
+    global _inpod
+    prev, _inpod = _inpod, ip
+    try:
+        yield
+    finally:
+        _inpod = prev
+
+
+def current_inpod() -> Optional[InPod]:
+    return _inpod
+
+
+def fsdp(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """A weight with its d_model dimension ``dim`` (``full`` wide) whole: a
+    shard of it is gathered over ``data`` (the reference's ZeRO-3 weight
+    sharding); a weight that holds it whole, or no in-pod context, passes
+    as it is."""
+    ip = _inpod
+    if ip is None or w.shape[dim] == full:
+        return w
+    return _Gather.apply(w, ip.group("data"), dim)
+
+
+def model_columns(w: torch.Tensor, width: int) -> torch.Tensor:
+    """The rank's ``width`` trailing columns of a weight replicated over
+    ``model`` (the columns its share of a row-parallel product reads); a
+    weight already split over ``model`` passes as it is.  The gradient of
+    a replicated weight is then partial over ``model``: the step sums it."""
+    ip = _inpod
+    if ip is None or w.shape[-1] == width:
+        return w
+    return w.narrow(-1, ip.coords["model"] * width, width)
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """An activation entering a tensor-parallel region: the identity, whose
+    backward sums the gradient over ``model``."""
+    ip = _inpod
+    if ip is None or ip.sizes["model"] == 1:
+        return x
+    return _Copy.apply(x, ip.group("model"))
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """A partial sum over this rank's tokens summed over the pod's (over
+    ``data``; the backward passes the gradient through)."""
+    ip = _inpod
+    if ip is None or ip.sizes["data"] == 1:
+        return x
+    return _Reduce.apply(x, ip.group("data"))
+
+
+# ---------------------------------------------------------------------------
+# Placement: a leaf's shard by its spec, and back.
+# ---------------------------------------------------------------------------
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (major first)."""
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
+def local_shard(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """This rank's shard of ``x`` (a contiguous copy): each dimension split
+    into the product of its spec axes' sizes, the chunk at the rank's
+    coordinates (the first axis of a tuple major)."""
+    for dim, entry in enumerate(spec):
+        count, index = 1, 0
+        for a in spec_axes(entry):
+            count, index = count * sizes.get(a, 1), index * sizes.get(a, 1) + coords.get(a, 0)
+        if count > 1:
+            x = x.chunk(count, dim=dim)[index]
+    return x.contiguous()
+
+
+def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`local_shard` (a collective:
+    every rank of the mesh calls it, leaf for leaf)."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(spec_axes(entry)):  # the minor axis first
+            if mesh.shape.get(a, 1) > 1:
+                x = torch.cat(all_gather(x, mesh.group(a)).unbind(0), dim=dim)
+    return x

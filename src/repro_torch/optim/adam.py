@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,17 +130,24 @@ def init_state(cfg: OptConfig, params: Params) -> Dict[str, dict]:
     return {s: tree_util.tree_map(zeros, params) for s in names}
 
 
-def update(cfg: OptConfig, grads: Params, state, params: Params, step) -> Tuple[Params, dict]:
+def update(cfg: OptConfig, grads: Params, state, params: Params, step,
+           norm_sq: Optional[Callable[[Params], torch.Tensor]] = None) -> Tuple[Params, dict]:
     """One step over a flat or nested parameter dict; the new parameters and
-    state keep the parameters' structure and key order."""
+    state keep the parameters' structure and key order.  ``norm_sq(grads)``
+    gives the squared global norm the clip reads (default: the tree's own;
+    an in-pod rank's sums its shards over the pod, a replicated leaf
+    once)."""
     _check(cfg)
     lr = schedule(cfg, step)
     paths = [p for p, _ in tree_util.leaves_in_order(params)]
     g_of = {p: tree_util.get(grads, p) for p in paths}
     if cfg.grad_clip > 0:
-        # the squared norms summed in the gradient tree's own order
-        gn = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                            for _, g in tree_util.leaves_in_order(grads)))
+        if norm_sq is None:
+            # the squared norms summed in the gradient tree's own order
+            gn = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                                for _, g in tree_util.leaves_in_order(grads)))
+        else:
+            gn = torch.sqrt(norm_sq(grads))
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
         g_of = {p: g * clip for p, g in g_of.items()}
     m_of = {p: tree_util.get(state["m"], p) for p in paths}

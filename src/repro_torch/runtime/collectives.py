@@ -1,15 +1,17 @@
 """Compressed cross-pod gradient reduction: the paper's technique as a
 collective (port of ``repro.runtime.collectives``).
 
-:func:`fedqcs_pod_allreduce` runs in one process per pod, over the pod
-axis's ``torch.distributed`` process group.  Two wire modes:
+:func:`fedqcs_pod_allreduce` runs in one process per pod (on an in-pod
+mesh: per device, over the ranks that share its in-pod position), over
+the pod axis's ``torch.distributed`` process group
+(``models/sharding.py``'s ``all_gather`` and ``all_reduce``).  Two wire
+modes:
 
-  * ``gather_codes`` (paper-faithful): ``all_gather_into_tensor`` of the
-    bit-packed uint32 words the fused encoder emits (sent as their int32
-    view: the collectives carry no uint32), the f32 alphas and the
-    participation flags; every pod then Bussgang-aggregates (AE) or runs
-    the per-worker Q-EM-GAMP (EA) redundantly.  Cross-pod bytes a step:
-    pods * nb * (W * 4 + 4).
+  * ``gather_codes`` (paper-faithful): an all-gather of the bit-packed
+    uint32 words the fused encoder emits (as bytes), the f32 alphas and
+    the participation flags; every pod then Bussgang-aggregates (AE) or
+    runs the per-worker Q-EM-GAMP (EA) redundantly.  Cross-pod bytes a
+    step: pods * nb * (W * 4 + 4).
   * ``psum_dequant``: each pod dequantizes and Bussgang-weights its own
     codes and one ``all_reduce`` sums the observation (and the noise and
     energy terms).  EA needs the per-worker codes, so it rejects this wire.
@@ -35,6 +37,7 @@ from repro_torch.core.gamp import GampConfig, em_gamp
 from repro_torch.core.layout import GradientLayout
 from repro_torch.core.recon_engine import ReconSpec
 from repro_torch.core.reconstruction import estimate_and_aggregate_packed
+from repro_torch.models.sharding import all_gather, all_reduce
 
 __all__ = [
     "fedqcs_pod_allreduce",
@@ -45,28 +48,12 @@ __all__ = [
 ]
 
 
-def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
-    """(...) on each rank -> (world, ...) in rank order.  uint32 travels as
-    its int32 view (the same bits)."""
-    import torch.distributed as dist
-
-    world = dist.get_world_size(group)
-    send = x.contiguous().reshape(-1)  # flat: a 0-d tensor gathers as (1,) each
-    as_u32 = send.dtype == torch.uint32
-    if as_u32:
-        send = send.view(torch.int32)
-    out = torch.empty((world * send.numel(),), dtype=send.dtype, device=send.device)
-    dist.all_gather_into_tensor(out, send, group=group)
-    out = out.reshape((world,) + tuple(x.shape))
-    return out.view(torch.uint32) if as_u32 else out
-
-
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    import torch.distributed as dist
-
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+SHARDED_EA_ERROR = (
+    "recon_mode='ea' is not supported by the per-shard (auto_sharded) "
+    "path: it Bussgang-aggregates over the auto pod axis and never "
+    "materializes per-worker codes; use impl='auto' or 'shard_map' "
+    "with wire_mode='gather_codes' (see DESIGN.md)"
+)
 
 
 def fedqcs_pod_allreduce(
@@ -121,15 +108,15 @@ def fedqcs_pod_allreduce(
             deq = codec.dequantize(codes)
         new_residual = torch.where(part > 0, new_residual, blocks + residual)
         w = bussgang.bussgang_weight(rho_self, alpha, codec.codebook)  # (nb,)
-        y = all_reduce_sum(w[:, None] * deq, group)
+        y = all_reduce(w[:, None] * deq, group)
         safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
         ratio = rho_self / safe
         nu_local = codec.codebook.kappa * torch.where(
             alpha > 0, ratio * ratio, torch.zeros_like(alpha))
-        nu = all_reduce_sum(nu_local, group)
+        nu = all_reduce(nu_local, group)
         en_local = torch.where(alpha > 0, rho_self * rho_self * m / (safe * safe),
                                torch.zeros_like(alpha)) / n
-        energy = all_reduce_sum(en_local, group)
+        energy = all_reduce(en_local, group)
 
     return _reconstruct(y, nu, energy, codec), new_residual
 
@@ -186,12 +173,7 @@ def make_sharded_allreduce(codec: BQCSCodec, mesh, local_shapes: Sequence[Tuple[
     (pods, ...)) -> (new_residual, *aggregate leaves)``.  AE only."""
     cfg = codec.cfg
     if cfg.recon_mode == "ea":
-        raise ValueError(
-            "recon_mode='ea' is not supported by the per-shard (auto_sharded) "
-            "path: it Bussgang-aggregates over the auto pod axis and never "
-            "materializes per-worker codes; use impl='auto' or 'shard_map' "
-            "with wire_mode='gather_codes' (see DESIGN.md)"
-        )
+        raise ValueError(SHARDED_EA_ERROR)
     n = cfg.block_size
     # one key a leaf, in the leaves' order (zero-padded: the layout sorts keys)
     layout = GradientLayout.from_shapes(

@@ -21,6 +21,25 @@ fedqcs_pod_allreduce` (the packed words gathered, or the dequantized sums
     pod's ``(1, nb, N)`` residual; every pod applies the same aggregate, so
     the parameters stay identical across pods without a broadcast.
 
+On an in-pod mesh (``data * model > 1``: one process per device,
+``launch/mesh.py``) the dense family's step is the reference's "2D FSDP x
+TP" program on each rank (``models/sharding.py``): the rank's shards of the
+parameters, moments and residual, its share of the batch (over (pod,
+data)), the pod's loss and gradient shards, then the pod exchange over the
+ranks that share its in-pod position:
+
+  * ``impl="auto_sharded"``: the rank blocks its own shards and the
+    Bussgang aggregate is summed over the pods; each rank decodes its
+    ``nb_local`` rows.  AE only.
+  * ``impl="auto"`` and ``"shard_map"``: the pod's monolithic blocking
+    (rows padded to 512), its rows split over the pod's ``data * model``
+    ranks (``"blocks": ("data", "model")``), each rank's rows built leaf by
+    leaf from the pod's shards and its decoded rows returned to the shards
+    leaf by leaf (no rank holds the pod's whole gradient).  They differ in
+    the wire only: ``auto`` sums the dequantized observations (AE) or
+    gathers the packed words (EA); ``shard_map`` takes the config's wire.
+  * the baseline: the pod's gradient averaged over the pods.
+
 The steps run on the device the state lives on; the FedQCS codec is made
 on ``device``.  The serve steps :func:`make_prefill_step` and
 :func:`make_decode_step` run the model's ``prefill`` and ``decode_step``
@@ -29,6 +48,7 @@ under ``torch.inference_mode()``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -44,10 +64,18 @@ from repro_torch.core.compression import (
 )
 from repro_torch.core.layout import GradientLayout
 from repro_torch.models import model as model_api
-from repro_torch.models.sharding import param_specs
+from repro_torch.models.sharding import (
+    InPod,
+    all_reduce,
+    gather_leaf,
+    local_shard,
+    param_specs,
+    spec_axes,
+    use_inpod,
+)
 from repro_torch.optim import adam
 from repro_torch.runtime.collectives import (
-    all_reduce_sum,
+    SHARDED_EA_ERROR,
     fedqcs_pod_allreduce,
     fedqcs_vmapped_allreduce,
     make_sharded_allreduce,
@@ -138,8 +166,23 @@ def init_train_state(
     tensors (shapes only).  ``seed`` is an int (``PRNGKey(seed)``: the
     default 0 is the reference's default key) or a key of
     ``repro_torch.prng``.  ``params``: a parameter tree on ``device`` to
-    hold instead of drawing one from ``seed`` (held, not copied)."""
+    hold instead of drawing one from ``seed`` (held, not copied).
+
+    On an in-pod mesh (made inside its world) the state is this rank's
+    shard of the whole state, placed by :func:`train_state_shardings`:
+    its shards of the parameters (drawn whole, or ``params`` whole, then
+    cut) and moments, its ``(1, rows / (data * model), N)`` residual rows
+    and every pod's flags; ``n_pods`` is the mesh's."""
+    if mesh is not None and mesh.inpod:
+        return _init_inpod_state(cfg, opt_cfg, fed_cfg, seed, abstract, mesh, impl, device,
+                                 params)
     dev = torch.device("meta") if abstract else entry_device(device)
+    return _whole_state(cfg, opt_cfg, fed_cfg, seed, n_pods, dev, mesh, impl, params)
+
+
+def _whole_state(cfg, opt_cfg, fed_cfg, seed, n_pods, dev, mesh, impl, params):
+    """The whole state on ``dev`` (``mesh``: its axis sizes set
+    ``auto_sharded``'s geometry)."""
     if params is None:
         params = model_api.init_params(cfg, seed, dev)
     else:
@@ -242,7 +285,11 @@ def make_train_step(
     holds the FedQCS codec (its sensing matrix ``a`` is drawn from the
     config seed, or injected).  The reference's ``donate`` has no
     counterpart: a step's old tensors are freed once the caller drops the
-    old state."""
+    old state.  On an in-pod mesh: the rank's step (the module docstring);
+    its state is :func:`init_train_state`'s on that mesh and its batch the
+    whole batch, of which it takes its share."""
+    if mesh is not None and mesh.inpod:
+        return _make_inpod_step(cfg, opt_cfg, fed_cfg, mesh, impl, device, a)
     if fed_cfg is None:
         def base_step(state, batch):
             loss, grads = value_and_grad(state["params"], batch, cfg)
@@ -319,10 +366,271 @@ def make_train_step(
             participating=state["participating"][rank])
         del blocks
         grads = blocks_to_tree(ghat, layout)
-        loss_mean = all_reduce_sum(loss, group) / pods
+        loss_mean = all_reduce(loss, group) / pods
         return finish(state, grads, new_residual[None], loss_mean)
 
     return pod_step
+
+
+# ---------------------------------------------------------------------------
+# the in-pod program: one process per device of a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+# leaves a rank uses only in part when the rules replicate them over
+# ``model``: the qk-norm scales (one vector for all heads, applied to the
+# rank's heads) and the MLP's wi/wg (the rank's ff columns)
+_TP_REPLICATED = ("q_norm", "k_norm", "wi", "wg")
+ITEM_FAMILIES = "item 10d"  # the other families on the in-pod mesh
+
+
+def _check_inpod(cfg: ModelConfig, opt_cfg: Optional[adam.OptConfig], mesh) -> list:
+    """Raises for what the in-pod program does not run; returns the
+    parameters' (path, spec, meta leaf) items."""
+    if cfg.family != "dense":
+        raise not_in_slice(
+            f"the {cfg.family} family on an in-pod mesh (expert parallelism, MLA, M-RoPE, "
+            "the SSM, hybrid and audio layers)", ITEM_FAMILIES)
+    if opt_cfg is not None and opt_cfg.state_dtype == "int8":
+        raise not_in_slice("int8 Adam states on an in-pod mesh (their 256-entry scale blocks "
+                           "run over the whole flattened leaf)", "item 10e")
+    model = mesh.shape["model"]
+    if cfg.n_heads % model or cfg.n_kv_heads % model:
+        raise not_in_slice(f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads over a "
+                           f"{model}-way model axis", ITEM_FAMILIES)
+    items = _param_spec_items(abstract_params(cfg), mesh)
+    rules = param_specs(abstract_params(cfg), axis_sizes=dict(mesh.shape))
+    for path, spec, _ in items:
+        if spec != tuple(tree_util.get(rules, path)):
+            raise not_in_slice(f"params{tree_util.keystr(path)}: a dimension the mesh "
+                               f"{mesh.shape} does not divide", ITEM_FAMILIES)
+    return items
+
+
+def state_specs(cfg: ModelConfig, opt_cfg: adam.OptConfig, fed_cfg: Optional[FedQCSConfig],
+                mesh, impl: str = "auto"):
+    """The specs of the whole train state on ``mesh`` (its
+    :func:`train_state_shardings`): what each rank's in-pod state is a
+    shard of."""
+    whole = _whole_state(cfg, opt_cfg, fed_cfg, 0, mesh.shape["pod"], torch.device("meta"),
+                         mesh, "auto" if impl == "shard_map" else impl, None)
+    return whole, train_state_shardings(whole, mesh, fed_cfg is not None)
+
+
+def _coords(mesh) -> dict:
+    return mesh.coords() if getattr(mesh, "rank", None) is not None else {}
+
+
+def shard_state(state, specs, mesh):
+    """This rank's shard of a whole state (each leaf by its spec)."""
+    coords = _coords(mesh)
+    return tree_util.unflatten(
+        (path, local_shard(leaf, tree_util.get(specs, path), mesh.shape, coords))
+        for path, leaf in tree_util.leaves_in_order(state))
+
+
+def gather_state(state, specs, mesh):
+    """The whole state on every rank from each rank's shard (a collective:
+    every rank calls it)."""
+    return tree_util.unflatten((path, gather_leaf(leaf, tree_util.get(specs, path), mesh))
+                               for path, leaf in tree_util.leaves_in_order(state))
+
+
+def _init_inpod_state(cfg, opt_cfg, fed_cfg, seed, abstract, mesh, impl, device, params):
+    _check_inpod(cfg, opt_cfg, mesh)
+    dev = torch.device("meta") if abstract else entry_device(device)
+    whole, specs = state_specs(cfg, opt_cfg, fed_cfg, mesh, impl)
+    if params is None:
+        params = model_api.init_params(cfg, seed, dev)
+    coords = _coords(mesh)
+    params = tree_util.unflatten(
+        (path, local_shard(leaf, tree_util.get(specs["params"], path), mesh.shape, coords))
+        for path, leaf in tree_util.leaves_in_order(params))
+    state = {"params": params, "opt": adam.init_state(opt_cfg, params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if fed_cfg is not None:
+        _, rows, n = whole["residual"].shape
+        dm = mesh.shape["data"] * mesh.shape["model"]
+        state["residual"] = torch.zeros((1, rows // dm, n), dtype=torch.float32, device=dev)
+        state["participating"] = torch.ones((mesh.shape["pod"],), dtype=torch.float32,
+                                            device=dev)
+    return state
+
+
+def local_batch(batch, mesh):
+    """This rank's share of a whole batch: the batch dimension (dim 0; the
+    VLM's ``positions``' dim 1) split over (pod, data), chunk ``pod * data +
+    d`` -- each pod's half as ``impl="auto"`` splits it, then the pod's
+    share over ``data``."""
+    c = mesh.coords()
+    count = mesh.shape["pod"] * mesh.shape["data"]
+    index = c["pod"] * mesh.shape["data"] + c["data"]
+
+    def share(name, v):
+        dim = 1 if name == "positions" else 0
+        if v.shape[dim] % count:
+            raise ValueError(f"batch[{name!r}] has {v.shape[dim]} rows along dim {dim}: "
+                             f"not a multiple of pod x data = {count}")
+        return v.chunk(count, dim=dim)[index]
+
+    return {k: share(k, v) for k, v in batch.items()}
+
+
+class _PodRows:
+    """The pod's monolithic blocking (the reference's ``flatten_to_blocks``,
+    rows padded to 512) split over its ``data * model`` ranks: rank ``r = d
+    * model + m`` of the pod holds rows ``[r * rows_local, (r + 1) *
+    rows_local)``.  Leaf by leaf, a leaf's gradient shards are gathered
+    over the pod and the rank keeps the part in its rows; back, each rank
+    puts its rows' part of a leaf in a zero leaf, a sum over the pod makes
+    the whole leaf and the rank keeps its shard.  One whole leaf lives at
+    a time."""
+
+    def __init__(self, items, n: int, mesh):
+        self.items, self.n, self.mesh = [], n, mesh
+        offset = 0
+        for path, spec, leaf in items:
+            self.items.append((path, spec, tuple(leaf.shape), leaf.dtype, offset))
+            offset += leaf.numel()
+        rows = -(-offset // n)
+        rows = -(-rows // _ROW_MULTIPLE) * _ROW_MULTIPLE
+        dm = mesh.shape["data"] * mesh.shape["model"]
+        self.rows_local = rows // dm
+        c = mesh.coords()
+        self.lo = (c["data"] * mesh.shape["model"] + c["model"]) * self.rows_local * n
+        self.hi = self.lo + self.rows_local * n
+        self.coords = c
+        self.group = mesh.group(("data", "model"))
+
+    def _span(self, offset: int, size: int):
+        return max(offset, self.lo), min(offset + size, self.hi)
+
+    def to_rows(self, grads, device) -> torch.Tensor:
+        out = torch.zeros(self.rows_local * self.n, dtype=torch.float32, device=device)
+        for path, spec, shape, _, offset in self.items:
+            whole = gather_leaf(tree_util.get(grads, path), spec, self.mesh).reshape(-1)
+            a, b = self._span(offset, whole.numel())
+            if a < b:
+                out[a - self.lo:b - self.lo] = whole[a - offset:b - offset]
+            del whole
+        return out.view(self.rows_local, self.n)
+
+    def to_tree(self, rows: torch.Tensor):
+        flat = rows.reshape(-1)
+        out = []
+        for path, spec, shape, dtype, offset in self.items:
+            size = int(torch.Size(shape).numel())
+            part = torch.zeros(size, dtype=torch.float32, device=rows.device)
+            a, b = self._span(offset, size)
+            if a < b:
+                part[a - offset:b - offset] = flat[a - self.lo:b - self.lo]
+            whole = all_reduce(part, self.group).view(shape)
+            out.append((path, local_shard(whole, spec, self.mesh.shape, self.coords).to(dtype)))
+            del part, whole
+        return tree_util.unflatten(out)
+
+
+def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None):
+    """An in-pod rank's (pod loss, gradient shards): the loss is the mean
+    over the pod's tokens (the same on the pod's ranks) and each leaf's
+    gradient is the rank's shard of the pod's gradient.  ``batch`` is the
+    whole batch; ``params`` the rank's shards."""
+    items = items if items is not None else _check_inpod(cfg, None, mesh)
+    with use_inpod(InPod(mesh)):
+        loss, grads = value_and_grad(params, local_batch(batch, mesh), cfg)
+    out = []
+    for path, spec, _ in items:
+        g = tree_util.get(grads, path)
+        if mesh.shape["data"] > 1 and not any("data" in spec_axes(e) for e in spec):
+            g = all_reduce(g, mesh.group("data"))  # the rank's tokens' part
+        if (mesh.shape["model"] > 1 and path[-1] in _TP_REPLICATED
+                and not any("model" in spec_axes(e) for e in spec)):
+            g = all_reduce(g, mesh.group("model"))  # the rank's heads' or columns' part
+        out.append((path, g))
+    return loss, tree_util.unflatten(out)
+
+
+def _make_inpod_step(cfg, opt_cfg, fed_cfg, mesh, impl, device, a):
+    """The per-rank step of an in-pod mesh (see the module docstring)."""
+    items = _check_inpod(cfg, opt_cfg, mesh)
+    if impl not in ("auto", "auto_sharded", "shard_map"):
+        raise ValueError(f"unknown impl {impl!r} (auto | auto_sharded | shard_map)")
+    c = mesh.coords()
+    pods = mesh.shape["pod"]
+    pod_group = mesh.group("pod")
+    inner = mesh.group(("data", "model"))
+    # a leaf counts once in the global norm: on the rank at index 0 of
+    # each in-pod axis it is replicated over
+    owned = {path: all(c[ax] == 0 for ax in ("data", "model")
+                       if not any(ax in spec_axes(e) for e in spec))
+             for path, spec, _ in items}
+
+    def grads_of(state, batch):
+        return pod_value_and_grad(state["params"], batch, cfg, mesh, items)
+
+    def norm_sq(grads):
+        leaves = tree_util.leaves_in_order(grads)
+        local = torch.zeros((), dtype=torch.float32, device=leaves[0][1].device)
+        for path, g in leaves:
+            if owned[path]:
+                local = local + torch.sum(g.float() * g.float())
+        return all_reduce(local, inner)
+
+    def finish(state, grads, loss, extra):
+        new_params, new_opt = adam.update(opt_cfg, grads, state["opt"], state["params"],
+                                          int(state["step"]), norm_sq=norm_sq)
+        loss = all_reduce(loss, pod_group) / pods
+        return {"params": new_params, "opt": new_opt, "step": state["step"] + 1,
+                **extra}, {"loss": loss}
+
+    if fed_cfg is None:
+        def base_step(state, batch):
+            loss, grads = grads_of(state, batch)
+            if pods > 1:
+                grads = tree_util.tree_map(
+                    lambda g: (all_reduce(g.float(), pod_group) / pods).to(g.dtype), grads)
+            return finish(state, grads, loss, {})
+
+        return base_step
+
+    if impl == "auto_sharded":
+        if fed_cfg.recon_mode == "ea":
+            raise ValueError(SHARDED_EA_ERROR)
+        _, nbar_local, local_shapes, _ = shard_block_geometry(cfg, fed_cfg, mesh)
+        layout = GradientLayout.from_shapes(
+            tuple(f"{i:06d}" for i in range(len(local_shapes))),
+            [(tuple(s), torch.float32) for s in local_shapes], fed_cfg.block_size)
+        paths = [path for path, _, _ in items]
+        wire = "psum_dequant"
+
+        def to_blocks(grads, device):
+            return layout.to_blocks(dict(zip(layout.treedef,
+                                             (tree_util.get(grads, p) for p in paths))))
+
+        def to_tree(ghat):
+            tree = layout.tree_from_blocks(ghat)
+            return tree_util.unflatten(zip(paths, (tree[k] for k in layout.treedef)))
+    else:
+        rows = _PodRows(items, fed_cfg.block_size, mesh)
+        to_blocks, to_tree = rows.to_rows, rows.to_tree
+        if impl == "auto":  # the reference's auto: dequantized sums (AE), words (EA)
+            wire = "gather_codes" if fed_cfg.recon_mode == "ea" else "psum_dequant"
+        else:
+            wire = fed_cfg.wire_mode
+    codec = BQCSCodec(dataclasses.replace(fed_cfg, wire_mode=wire), a=a, device=device)
+
+    def fed_step(state, batch):
+        loss, grads = grads_of(state, batch)
+        blocks = to_blocks(grads, state["residual"].device)
+        del grads
+        ghat, new_residual = fedqcs_pod_allreduce(
+            blocks, state["residual"][0], codec, group=pod_group,
+            participating=state["participating"][c["pod"]])
+        del blocks
+        return finish(state, to_tree(ghat), loss,
+                      {"residual": new_residual[None],
+                       "participating": state["participating"]})
+
+    return fed_step
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +638,17 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 
 
+def _serve_mesh(mesh) -> None:
+    if mesh is not None and mesh.inpod:
+        raise not_in_slice("the serve steps on an in-pod mesh (split-KV decode over 'model', "
+                           "tensor-parallel prefill, the cache placed)", "item 10c")
+
+
 def make_prefill_step(cfg: ModelConfig, mesh):
     """Returns ``prefill_fn(params, batch) -> (last-position logits, cache)``,
     run under ``torch.inference_mode()``.  The audio family's cache has as
     many self-attention slots as the prompt has frames."""
+    _serve_mesh(mesh)
 
     def prefill_fn(params, batch):
         smax = batch["frames"].shape[1] if cfg.family == "audio" else None
@@ -350,6 +665,7 @@ def make_decode_step(cfg: ModelConfig, mesh, donate: bool = True):
     writes the new K/V (or SSM states) into ``cache`` itself and returns it (the
     counterpart of the reference's buffer donation); ``donate=False``
     leaves ``cache`` as it was."""
+    _serve_mesh(mesh)
 
     def decode_fn(params, cache, tokens, pos):
         with torch.inference_mode():
@@ -361,8 +677,55 @@ def make_decode_step(cfg: ModelConfig, mesh, donate: bool = True):
     return decode_fn
 
 
+# ---------------------------------------------------------------------------
+# input shardings (the reference's specs, as spec tuples)
+# ---------------------------------------------------------------------------
+
+
+def _bd(mesh):
+    return ("pod", "data") if "pod" in mesh.shape else ("data",)
+
+
+def _even(dim: int, mesh, axes) -> bool:
+    size = _axis_size(axes, mesh)
+    return dim % size == 0 and dim >= size
+
+
 def batch_shardings(cfg: ModelConfig, shape: str, mesh):
-    """The input specs' placement on a mesh: with one card a pod there is
-    nothing to place.  Data and model axes inside a pod: ROADMAP.md item
-    10b."""
-    raise not_in_slice("input shardings on a multi-card pod (batch_shardings)", "item 10b")
+    """The specs of :func:`~repro_torch.models.model.input_specs`'s inputs on
+    ``mesh``: the batch dimension over (pod, data) where it divides (the
+    VLM's ``positions`` carry it second), a decode cache by
+    :func:`_cache_spec`, a scalar replicated.  :func:`local_batch` takes a
+    rank's share of a train batch."""
+    specs = model_api.input_specs(cfg, shape)
+    bd = _bd(mesh)
+
+    def spec_for(path, leaf):
+        name = tree_util.slash(path).lower()
+        shp = tuple(leaf.shape)
+        if not shp:
+            return ()
+        if "positions" in name:
+            return (None, bd if _even(shp[1], mesh, bd) else None) + (None,) * (len(shp) - 2)
+        if name.startswith("cache"):
+            return _cache_spec(name, shp, mesh)
+        return (bd if _even(shp[0], mesh, bd) else None,) + (None,) * (len(shp) - 1)
+
+    return tree_util.unflatten((path, spec_for(path, leaf))
+                               for path, leaf in tree_util.leaves_in_order(specs))
+
+
+def _cache_spec(name: str, shp, mesh) -> tuple:
+    """The reference's KV/state cache layout: batch over ``data``, the
+    sequence (split-KV decode) or the SSM heads / conv channels over
+    ``model``.  Specs only: no serve step places a cache on an in-pod mesh
+    yet (item 10c)."""
+    data = lambda d: "data" if _even(d, mesh, ("data",)) else None
+    model = lambda d: "model" if _even(d, mesh, ("model",)) else None
+    if any(k in name for k in ("ckv", "kr")):  # (L, B, S, r)
+        return (None, data(shp[1]), model(shp[2]), None)
+    if "conv" in name:  # (L, B, K, C)
+        return (None, data(shp[1]), None, model(shp[3]))
+    if "ssm" in name or len(shp) == 5:  # (L, B, H, P, N); (L, B, S, KVH, dh)
+        return (None, data(shp[1]), model(shp[2]), None, None)
+    return (None,) * len(shp)

@@ -28,7 +28,9 @@ Tolerances, each with its reason:
   * the train step's shapes (N = 255, 65,536 rows): the step kernels at the
     tolerances above against the float64 step (two fp32 evaluations part
     on a few of 5.6M outputs); one smoke-config step per impl on the card
-    against the CPU: loss 1e-5, residual 1e-5, parameters within 2 lr.
+    against the CPU: loss 1e-5, residual 1e-5, parameters within 2 lr (on
+    one device, and as the (2, 2, 2) mesh's eight ranks on the card against
+    the same world on the CPU).
   * the threefry draws (``repro_torch.prng``): bits, integers, keys and
     permutations bit-identical to the CPU's; the normal, exponential and
     Gumbel transforms on all 2**23 inputs and ``init_params``' leaves
@@ -983,6 +985,33 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path, impl, fed_kw):
         torch.testing.assert_close(card["residual"].cpu(), cpu["residual"], rtol=0, atol=1e-5)
     worst = max(float(torch.max(torch.abs(p.cpu() - tree_util.get(cpu["params"], path))))
                 for path, p in tree_util.leaves(card["params"]))
+    assert worst <= 2 * 3e-3, worst
+
+
+@pytest.mark.parametrize("impl,fed_kw", [
+    ("auto", {}), ("auto", {"recon_mode": "ea"}), ("auto_sharded", {}), ("baseline", None),
+])
+def test_inpod_step_on_the_card_matches_the_cpu(cuda, impl, fed_kw):
+    """The reference's (2, 2, 2) mesh as eight gloo ranks, every one on the
+    card (their collectives through host copies), against the same world on
+    the CPU: one smoke-model step from seed 0; each rank launches the
+    encoder once (none for the baseline)."""
+    import torch_inpod_worker
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.spawn import run_world
+
+    fed = None if fed_kw is None else {**_STEP_FED, **fed_kw}
+    j_impl = "auto" if impl == "baseline" else impl
+    card, cpu = (run_world(torch_inpod_worker.one_step, 8, args=(j_impl, fed), device=dev,
+                           timeout_s=300) for dev in ("cuda", "cpu"))
+    assert all(r["launches"] == (0 if fed is None else 1) for r in card)
+    for got, want in zip(card, cpu):
+        assert abs(got["loss"] - want["loss"]) <= 1e-5
+        if fed is not None:
+            torch.testing.assert_close(got["residual"], want["residual"], rtol=0, atol=1e-5)
+    worst = max(float(torch.max(torch.abs(p - tree_util.get(cpu[0]["params"], path))))
+                for path, p in tree_util.leaves(card[0]["params"]))
     assert worst <= 2 * 3e-3, worst
 
 

@@ -241,8 +241,8 @@ def test_param_specs_match_reference():
     for path, spec in tree_util.leaves(got):
         assert spec == tuple(want[path]), path
     # the train state's specs on a (2, 2, 2) mesh, against the reference's
-    # shardings' specs (the port's mesh object holds any axis sizes; its
-    # make_debug_mesh refuses data * model > 1)
+    # shardings' specs (a mesh object made outside its world holds the axis
+    # sizes alone)
     jmesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"))
     jstate = jax.eval_shape(lambda k: jsteps.init_train_state(
         cfg, jadam.OptConfig(**OPT_KW), jcomp.FedQCSConfig(**FED_KW), k, n_pods=2),
@@ -481,15 +481,18 @@ def test_checkpoint_keeps_bfloat16_and_int8_states(tmp_path, monkeypatch):
         ckpt.wait()
 
 
-def test_launcher_runs_three_steps_on_the_cpu(tmp_path, capsys):
+def test_launcher_runs_three_steps_on_the_cpu(tmp_path, capfd):
+    """The dense family's pod mode: the reference's (2, 2, 2) mesh, eight
+    spawned ranks (rank 0 prints: its lines reach the file descriptor)."""
     args = ["--arch", ARCH, "--smoke", "--fedqcs", "--pods", "2", "--device", "cpu",
             "--steps", "3", "--log-every", "1", "--ckpt-dir", str(tmp_path)]
     tlaunch.main(args)
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert "[train] done" in out and out.count("loss") == 3
+    assert "mesh={'pod': 2, 'data': 2, 'model': 2}" in out
     assert Checkpointer(str(tmp_path)).latest_step() == 2
     tlaunch.main(args)  # resumes from the last checkpoint
-    assert "resumed from step 2" in capsys.readouterr().out
+    assert "resumed from step 2" in capfd.readouterr().out
 
 
 # ---------------------------------------------------------------------------
@@ -547,10 +550,10 @@ def test_routes_now_in_the_slice_run(route):
 
 @pytest.mark.parametrize("route,item", [
     pytest.param(lambda: steps.batch_shardings(registry.smoke_config(ARCH), "train_4k",
-                                               tmesh.make_single_device_mesh()), "item 10b",
+                                               tmesh.make_single_device_mesh()), None,
                  id="batch-shardings"),
-    pytest.param(lambda: tmesh.make_debug_mesh(2, 2, 2), "item 10b", id="in-pod-parallelism"),
-    pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True), "item 10b",
+    pytest.param(lambda: tmesh.make_debug_mesh(2, 2, 2).inpod, None, id="in-pod-parallelism"),
+    pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True), "item 10g",
                  id="production-mesh"),
     pytest.param(lambda: tlaunch.main(["--arch", ARCH, "--smoke", "--fed-cohort",
                                        "--interleave", "2", "--clients", "4", "--steps", "1",
@@ -564,7 +567,10 @@ def test_routes_outside_the_slice_raise(route, item):
     their ROADMAP.md item.  Since the interleaved producer was ported, the
     cohort mode's ``--interleave`` runs (``item`` None) and pod mode rejects
     the flag with a ``ValueError`` naming ``--fed-cohort`` (the reference's
-    pod mode ignores it)."""
+    pod mode ignores it).  Since the in-pod mesh was ported,
+    ``batch_shardings`` gives the input specs and ``make_debug_mesh(2, 2,
+    2)`` an in-pod mesh (``item`` None; ``tests/test_torch_inpod.py`` holds
+    both against the reference)."""
     if item is None:
         assert route()
         return

@@ -1,0 +1,135 @@
+"""Rank body of tests/test_torch_inpod.py's eight-process ``gloo`` world.
+
+Each rank of the port's ``make_debug_mesh(2, 2, 2)`` runs every scenario
+of the in-pod program on the CPU, from whole states the test process wrote
+(the reference's, converted), and returns what it computed: its loss, its
+residual shard and (rank 0) the gathered parameters.  It imports torch and
+``repro_torch`` only, so a spawned rank starts without JAX.
+
+Scenarios (``inp`` is the test process's input dict):
+  * ``grads``: the pod's loss and gradient at the initial parameters
+    (gathered over the pod);
+  * ``auto``, ``ea``, ``partial``, ``baseline``, ``sharded0`` and
+    ``sharded1``: one ``make_train_step`` step each from the reference's
+    state before it (``partial``: pod 1 dead; ``sharded1``: the second
+    ``auto_sharded`` step);
+  * ``remat``: ``sharded0`` with the layers recomputed in the backward;
+  * ``shard_map``: ``impl="shard_map"`` (the packed words gathered) from
+    the ``auto`` state;
+  * ``ckpt``: the reference's state after its first ``auto`` step saved
+    from the shards (rank 0 writes), a step from the initial state saved
+    and continued one more step, then restored from its checkpoint and
+    replayed.
+"""
+
+import dataclasses
+
+
+def run(rank, world, device, inp, ckpt_dir):
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.sharding import gather_leaf
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    cfg = smoke_config("qwen3-0.6b")
+    fed = FedQCSConfig(**inp["fed_kw"])
+    opt = OptConfig(**inp["opt_kw"])
+    mesh = make_debug_mesh(2, 2, 2)
+    a = inp["a"]
+    out = {"coords": mesh.coords()}
+
+    def run_step(name, state, batch, impl="auto", fed_cfg=fed, model_cfg=cfg):
+        whole, specs = steps.state_specs(model_cfg, opt, fed_cfg, mesh, impl)
+        fn = steps.make_train_step(model_cfg, opt, fed_cfg, mesh, impl=impl, device=device,
+                                   a=a)
+        new, m = fn(steps.shard_state(state, specs, mesh), batch)
+        gathered = steps.gather_state(new, specs, mesh)
+        out[name] = {"loss": float(m["loss"]), "residual": new.get("residual"),
+                     "state": gathered if rank == 0 else None}
+        return new, specs
+
+    # the pod's gradient at the initial parameters
+    _, specs = steps.state_specs(cfg, opt, fed, mesh)
+    params = steps.shard_state(inp["init"]["params"], specs["params"], mesh)
+    loss, grads = steps.pod_value_and_grad(params, inp["batches"][0], cfg, mesh)
+    out["grads"] = {"loss": float(loss), "grads": tree_util.unflatten(
+        (path, gather_leaf(g, tree_util.get(specs["params"], path), mesh))
+        for path, g in tree_util.leaves(grads))}
+
+    run_step("auto", inp["init"], inp["batches"][0])
+    run_step("ea", inp["init"], inp["batches"][0],
+             fed_cfg=dataclasses.replace(fed, recon_mode="ea", use_kernels=True))
+    run_step("partial", dict(inp["init"], participating=torch.tensor([1.0, 0.0])),
+             inp["batches"][0])
+    base = {k: v for k, v in inp["init"].items() if k not in ("residual", "participating")}
+    run_step("baseline", base, inp["batches"][0], fed_cfg=None)
+    run_step("sharded0", inp["sharded_init"], inp["batches"][0], impl="auto_sharded")
+    run_step("sharded1", inp["sharded_after"], inp["batches"][1], impl="auto_sharded")
+    run_step("remat", inp["sharded_init"], inp["batches"][0], impl="auto_sharded",
+             model_cfg=dataclasses.replace(cfg, remat_policy="full"))
+    run_step("shard_map", inp["init"], inp["batches"][0], impl="shard_map")
+
+    # checkpoints: the reference's state saved from the shards; a restart
+    ckpt = Checkpointer(ckpt_dir, keep=4, async_save=False)
+    ckpt.save(1, steps.shard_state(inp["auto_after"], specs, mesh), specs=specs, mesh=mesh)
+    fn = steps.make_train_step(cfg, opt, fed, mesh, device=device, a=a)
+    state, _ = fn(steps.shard_state(inp["init"], specs, mesh), inp["batches"][0])
+    ckpt.save(2, state, specs=specs, mesh=mesh)
+    cont, _ = fn(state, inp["batches"][1])
+    torch.distributed.barrier()
+    whole = steps.state_specs(cfg, opt, fed, mesh)[0]
+    restored, step = ckpt.restore(whole, step=2, specs=specs, mesh=mesh, device=device)
+    replay, _ = fn(restored, inp["batches"][1])
+    out["ckpt"] = {"step": step, "same": all(
+        torch.equal(x, tree_util.get(replay, path)) for path, x in tree_util.leaves(cont))}
+    return out
+
+
+def fail_on_rank_3(rank, world, device):
+    """Rank 3 raises; the others wait in a barrier until the world stops."""
+    import torch.distributed as dist
+
+    if rank == 3:
+        raise ValueError("rank 3 fails")
+    dist.barrier()
+
+
+def one_step(rank, world, device, impl, fed_kw):
+    """One step of the smoke model on the (2, 2, 2) mesh from seed 0's
+    state (``fed_kw`` None: the baseline): the loss, this rank's residual
+    and the encoder launches on the host, rank 0's gathered parameters."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.kernels import bqcs_encode_fused
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    cfg = smoke_config("qwen3-0.6b")
+    opt = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100)
+    fed = None if fed_kw is None else FedQCSConfig(**fed_kw)
+    mesh = make_debug_mesh(2, 2, 2)
+    state = steps.init_train_state(cfg, opt, fed, 0, mesh=mesh, impl=impl, device=device)
+    fn = steps.make_train_step(cfg, opt, fed, mesh, impl=impl, device=device)
+    bqcs_encode_fused.launches = 0
+    new, m = fn(state, TokenDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(
+        0, device=device))
+    params = steps.gather_state(new["params"], steps.state_specs(cfg, opt, fed, mesh, impl)[1]
+                                ["params"], mesh)
+    to_host = lambda t: None if t is None else t.cpu()
+    return {"loss": float(m["loss"]), "residual": to_host(new.get("residual")),
+            "launches": bqcs_encode_fused.launches,
+            "params": _host_tree(params) if rank == 0 else None}
+
+
+def _host_tree(tree):
+    from repro_torch import tree as tree_util
+
+    return tree_util.unflatten((p, v.cpu()) for p, v in tree_util.leaves_in_order(tree))

@@ -143,7 +143,7 @@ Phases (any failure raises and the script exits non-zero):
     the baseline; (c) the decoded aggregate of a real step's blocks on the
     kernel route against the plain versions (AE and EA, NMSE <= 1e-3);
     (d) a checkpoint saved, restored and replayed 2 steps bit for bit.
-    (e) The same step on Mamba2-1.3B at every published width, 12 of 48
+    (e) The same step on Mamba2-1.3B at every published width, 2 of 48
     layers: (a)'s steps, then the decoded
     aggregate of a real step's blocks against the plain versions (AE and
     EA, NMSE <= 1e-3, residuals bit-identical) and [time] of the three
@@ -206,21 +206,27 @@ Phases (any failure raises and the script exits non-zero):
     tokens/s, peak memory, the bounds, the dropped MoE pairs at the
     prefill's capacity, and the prefill and 8 decode steps under
     ``torch.profiler`` (device busy, idle share).
- 16. [inpod] The dense family's train step on the reference's (2, 2, 2)
-    mesh (``launch/mesh.py``, ``models/sharding.py``, ``runtime/steps.py``'s
+ 16. [inpod] The train step on the reference's (2, 2, 2) mesh
+    (``launch/mesh.py``, ``models/sharding.py``, ``runtime/steps.py``'s
     in-pod program): eight gloo ranks, one process a device, all on the
     one card (``launch/spawn.py``; their collectives on host copies).
-    Qwen3-0.6B at full width and the [train] point: one ``auto_sharded``
-    AE step at INPOD_SHARDED_LAYERS layers against the same 8-rank program
-    with the plain versions (aggregate NMSE <= 1e-3), one ``auto`` AE and
-    one ``auto`` EA step at INPOD_LAYERS layers: the world's gradient rows
+    Every model at full width and the [train] point.  Qwen3-0.6B: one
+    ``auto_sharded`` AE step at INPOD_SHARDED_LAYERS layers against the
+    same 8-rank program with the plain versions (aggregate NMSE <= 1e-3),
+    one ``auto`` AE and one ``auto`` EA step at INPOD_LAYERS layers.
+    Mamba2-1.3B (12 of 48 layers) and Zamba2-2.7B (6 of 54: one group and
+    its shared block): one ``auto`` AE step each; Mamba2-1.3B: one
+    ``auto`` EA step with int8 Adam states, every rank's QLeafs after one
+    more Adam update on its shards the shards of the update on the whole
+    leaves, bit for bit.  The ``auto`` steps: the world's gradient rows
     against one process's (within INPOD_BF16_FLOORS x one process's own
     bf16-to-fp32 NMSE) and the world's exchange and decode of one
     process's rows against one process's aggregate (NMSE <= 1e-3).  Each
     step: the loss against one process's (1e-3 relative), each rank's
     launches (1 encoder, 15 step kernel), rank 0's wall, each rank's peak
     and the card's memory in use.  [time] of the three kernels alone at a
-    rank's 584,448 rows of the full-depth mesh.
+    rank's rows: Qwen3-0.6B's full-depth mesh (584,448), and each family
+    model's at its depth (Zamba2-2.7B runs AE only: no ``qgamp_step``).
  17. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
@@ -3386,10 +3392,12 @@ def phase_train(dev):
 # "minimal") at every published width, its depth cut to TRAIN_SSM_LAYERS of
 # 48: Qwen3-0.6B's EA step peaked at 42.5 GiB for 596M scalars (~71 bytes a
 # scalar), so 48 layers (1.34B) would need ~89 GiB; 24 (0.72B, ~51 GiB) until
-# [inpod] came, then 12 (0.41B) so that the script keeps to its time limit.
+# [inpod] came, then 12 (0.41B), then 2 (0.15B) when [inpod] took the SSM and
+# hybrid families (Mamba2-1.3B at 12 layers there), so that the script keeps
+# to its time limit.
 # 2 pods, the launcher's batch 16 x seq 64 (the SSD pads it to one chunk of
 # 256) and FedQCS point, weights drawn on the card (card_params, seed 0).
-TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, PLAIN_CHUNK_ROWS = "mamba2-1.3b", 12, 1 << 18
+TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, PLAIN_CHUNK_ROWS = "mamba2-1.3b", 2, 1 << 18
 
 
 def phase_train_ssm(dev):
@@ -4002,13 +4010,31 @@ def cohort_interleaved(dev, launches, one_pass_peak: int) -> tuple:
     return errs, times
 
 
+@contextlib.contextmanager
+def fd_stdout(path):
+    """Standard output at the file-descriptor level into ``path`` (what
+    spawned processes print too)."""
+    import os
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+
+
 def cohort_example(dev) -> None:
     """[cohort] (c): ``examples/distributed_train_torch.py`` at its smoke
-    config on the card for 12 steps with pod 1 down at steps 3-7, then a
-    rerun that resumes after its step-10 checkpoint: the parameters,
-    moments, residuals and step bit-identical to the uninterrupted run's."""
+    config on the card (the reference's (2, 2, 2) world: eight ranks on the
+    one card) for 12 steps with pod 1 down at steps 3-7, then a rerun that
+    resumes after its step-10 checkpoint: the parameters, moments,
+    residuals and step bit-identical to the uninterrupted run's."""
     import importlib.util
-    import io
     import tempfile
 
     import torch
@@ -4018,15 +4044,18 @@ def cohort_example(dev) -> None:
     spec = importlib.util.spec_from_file_location(
         "distributed_train_torch", ROOT / "examples" / "distributed_train_torch.py")
     example = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = example  # its ranks' function is pickled by this name
     spec.loader.exec_module(example)
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--steps", "12", "--inject-failure", "3", "--device", str(dev),
                 "--ckpt-dir", tmp]
         logs = []
         t0 = time.perf_counter()
-        for _ in range(2):
-            with contextlib.redirect_stdout(io.StringIO()) as buf:
-                logs.append((example.main(argv), buf.getvalue()))
+        for i in range(2):
+            log = Path(tmp) / f"log{i}.txt"
+            with fd_stdout(log):
+                state = example.main(argv)
+            logs.append((state, log.read_text()))
         wall = time.perf_counter() - t0
     (full, out), (again, out2) = logs
     down = [int(ln.split()[1]) for ln in out.splitlines() if "[pod1 DOWN]" in ln]
@@ -4036,7 +4065,8 @@ def cohort_example(dev) -> None:
     check(down == [3, 4, 5, 6, 7] and "[restore] resumed after step 10" in out2 and same,
           f"[cohort] (c) the example: pod 1 down at {down}, restart bit-identical {same}")
     last = [ln for ln in out.splitlines() if ln.startswith("step")][-1]
-    print(f"[cohort] (c) examples/distributed_train_torch.py on the card (12 smoke steps, pod 1 "
+    print(f"[cohort] (c) examples/distributed_train_torch.py on the card ((2, 2, 2): eight "
+          f"ranks; 12 smoke steps, pod 1 "
           f"down at steps {down}; {last.strip()}): the rerun resumed after the step-10 "
           f"checkpoint, its state bit-identical to the uninterrupted run's ({wall:.1f} s both)")
 
@@ -4900,19 +4930,25 @@ def phase_serve(dev, smi) -> dict:
     return launches
 
 
-# JSON name -> (source, the Pallas site it replaces, phase_kernels key)
-# [inpod]: the dense family's FedQCS train step on the reference's (2, 2, 2)
-# mesh (launch/mesh.py, models/sharding.py, runtime/steps.py's in-pod
-# program): one process per device, eight gloo ranks sharing the one card
+# [inpod]: the FedQCS train step on the reference's (2, 2, 2) mesh
+# (launch/mesh.py, models/sharding.py, runtime/steps.py's in-pod program):
+# one process per device, eight gloo ranks sharing the one card
 # (launch/spawn.py; NCCL refuses two ranks on one card, so the collectives
-# run on host copies).  Qwen3-0.6B at full width, [train]'s batch, FedQCS
-# point and optimizer; depth cut to INPOD_LAYERS (auto) and
-# INPOD_SHARDED_LAYERS (auto_sharded, whose rank rows hold the MLP's wi/wg
-# whole: the reference's rules replicate them): eight ranks at 28 layers
-# pass the card's 80 GB (auto_sharded ran out of memory at 14 layers, with
-# 6.1 GiB a rank allocated).  Eight ranks time-slicing one card say that
-# the program runs on the device, not how fast it would run on eight.
-INPOD_MESH, INPOD_LAYERS, INPOD_SHARDED_LAYERS = (2, 2, 2), 14, 8
+# run on host copies).  [train]'s batch, FedQCS point and optimizer, every
+# model at full width:
+#   * Qwen3-0.6B, depth cut to INPOD_LAYERS (auto) and INPOD_SHARDED_LAYERS
+#     (auto_sharded, whose rank rows hold the MLP's wi/wg whole: the
+#     reference's rules replicate them): eight ranks at 28 layers pass the
+#     card's 80 GB (auto_sharded ran out of memory at 14 layers, with 6.1
+#     GiB a rank allocated); 14 and 8 until the SSM and hybrid families
+#     came, then 4 and 2 (the script's time limit);
+#   * Mamba2-1.3B at 12 of 48 layers, and Zamba2-2.7B at 6 of
+#     54 (one group and its shared block), one auto AE step each, and one
+#     auto EA step of Mamba2-1.3B with int8 Adam states (INPOD_FAMILY_RUNS):
+#     the depths keep the whole script inside its time limit.
+# Eight ranks time-slicing one card say that the program runs on the
+# device, not how fast it would run on eight.
+INPOD_MESH, INPOD_LAYERS, INPOD_SHARDED_LAYERS = (2, 2, 2), 4, 2
 INPOD_LOSS_TOL = 1e-3  # relative: bf16 products and sums in another order
 # the world's bf16 gradient rows against one process's, in units of one
 # process's own bf16 rows' NMSE to its fp32 rows (two independent bf16
@@ -4921,13 +4957,66 @@ INPOD_BF16_FLOORS = 4.0
 INPOD_ENCODE = f"bqcs_encode_fused[N={TRAIN_N}, a rank's rows]"
 INPOD_GAMP = f"gamp_step[N={TRAIN_N}, a rank's rows]"
 INPOD_QGAMP = f"qgamp_step[N={TRAIN_N}, a rank's rows]"
+# (label, arch, layers): the SSM and hybrid families' models
+INPOD_FAMILY_RUNS = (("Mamba2-1.3B", "mamba2-1.3b", 12), ("Zamba2-2.7B", "zamba2-2.7b", 6))
+INPOD_INT8 = "Mamba2-1.3B"  # the model of the int8 step (EA: qgamp_step at its rows)
+
+
+def inpod_kernel(kind: str, model: str = "") -> str:
+    """The JSON name of ``kind`` (encode, gamp, qgamp) at a rank's rows of
+    ``model`` ("": Qwen3-0.6B's rows, the names without a model)."""
+    if not model:
+        return {"encode": INPOD_ENCODE, "gamp": INPOD_GAMP, "qgamp": INPOD_QGAMP}[kind]
+    base = {"encode": "bqcs_encode_fused", "gamp": "gamp_step", "qgamp": "qgamp_step"}[kind]
+    return f"{base}[N={TRAIN_N}, a {model} rank's rows]"
+
+
+def inpod_int8_check(state, cfg, opt, fed, mesh, rank, dev):
+    """Adam on this rank's shards of ``state`` (its int8 moments after a
+    step) against Adam on the whole leaves, leaf by leaf on rank 0, the
+    same gradient (the parameters, a stand-in) and clip: every rank's
+    QLeafs and parameters gathered must be the whole update's, bit for bit
+    (a gathered leaf is its ranks' shards side by side).  Returns (leaves
+    checked, the paths that differ) on rank 0."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.models.sharding import gather_leaf
+    from repro_torch.optim import adam
+    from repro_torch.runtime import steps
+
+    _, specs = steps.state_specs(cfg, opt, fed, mesh)
+    one = torch.ones((), device=dev)
+    step = int(state["step"])
+    got_p, got_o = adam.update(opt, state["params"], state["opt"], state["params"], step,
+                               norm_sq=lambda _: one, shards=steps.opt_shards(cfg, mesh))
+    checked, differ = 0, []
+    for path, _ in tree_util.leaves(state["params"]):
+        pspec, ospec = tree_util.get(specs["params"], path), tree_util.get(specs["opt"]["m"], path)
+        whole = lambda tree, spec: gather_leaf(tree_util.get(tree, path), spec, mesh)  # noqa
+        p, m, v = (whole(state["params"], pspec), whole(state["opt"]["m"], ospec),
+                   whole(state["opt"]["v"], ospec))
+        mine = (whole(got_p, pspec), whole(got_o["m"], ospec), whole(got_o["v"], ospec))
+        if rank == 0:
+            wp, wo = adam.update(opt, {"x": p}, {"m": {"x": m}, "v": {"x": v}}, {"x": p}, step,
+                                 norm_sq=lambda _: one)
+            want = (wp["x"], wo["m"]["x"], wo["v"]["x"])
+            checked += 1
+            if not (torch.equal(want[0], mine[0]) and all(
+                    torch.equal(a, b) for w, g in zip(want[1:], mine[1:]) for a, b in zip(w, g))):
+                differ.append(path)
+            del wp, wo, want
+        del p, m, v, mine
+        torch.cuda.empty_cache()
+    return checked, differ
 
 
 def inpod_rank(rank, world, dev, spec):
-    """One rank of [inpod]'s world: ``spec`` names the runs ((label, impl,
-    mode, layers)) and the one-process aggregates' files.  Returns, per run:
-    loss, rank 0's step wall (after a barrier, ending in a device sync),
-    launches, peak device memory, and the sums behind the NMSEs."""
+    """One rank of [inpod]'s world: ``spec`` names the runs ((label, arch,
+    layers, impl, mode, state dtype)) and the one-process aggregates' files.
+    Returns, per run: loss, rank 0's step wall (after a barrier, ending in a
+    device sync), launches, peak device memory, and the sums behind the
+    NMSEs; the int8 run, its shards' check."""
     import dataclasses as dc
 
     import numpy as np
@@ -4941,9 +5030,6 @@ def inpod_rank(rank, world, dev, spec):
 
     mesh = make_debug_mesh(*INPOD_MESH)
     c = mesh.coords()
-    full = get_config(TRAIN_ARCH)
-    batch = TokenDataset(full.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                         seed=0).get_batch(0, device=dev)
     captured = {}
     pod_allreduce = steps.fedqcs_pod_allreduce
 
@@ -4972,12 +5058,14 @@ def inpod_rank(rank, world, dev, spec):
     steps.fedqcs_pod_allreduce = capture
     dist.barrier()
     out = {"coords": c, "card_used_after_init": device_used()}
-    for label, impl, mode, layers in spec["runs"]:
-        cfg = dc.replace(full, n_layers=layers)
+    for label, arch, layers, impl, mode, state_dtype in spec["runs"]:
+        cfg = dc.replace(get_config(arch), n_layers=layers)
+        batch = TokenDataset(cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             seed=0).get_batch(0, device=dev)
         fed = train_fed(recon_mode=mode)
-        state = steps.init_train_state(cfg, train_opt(), fed, 0, mesh=mesh, impl=impl,
-                                       device=dev)
-        fn = steps.make_train_step(cfg, train_opt(), fed, mesh, impl=impl, device=dev)
+        opt = dc.replace(train_opt(), state_dtype=state_dtype)
+        state = steps.init_train_state(cfg, opt, fed, 0, mesh=mesh, impl=impl, device=dev)
+        fn = steps.make_train_step(cfg, opt, fed, mesh, impl=impl, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts()
@@ -4993,6 +5081,12 @@ def inpod_rank(rank, world, dev, spec):
                "rows": int(state["residual"].shape[1])}
         ghat, blocks = captured.pop("ghat"), captured.pop("blocks")
         rec["ghat_sum"] = float(ghat.double().sum())
+        if state_dtype == "int8":
+            del state
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            rec["int8"] = inpod_int8_check(new, cfg, opt, fed, mesh, rank, dev)
+            rec["int8_s"] = time.perf_counter() - t1
         del new
         if label in spec["reference"]:  # the one-process step's rows
             files = spec["reference"][label]
@@ -5013,7 +5107,7 @@ def inpod_rank(rank, world, dev, spec):
             codec = steps.BQCSCodec(dc.replace(fed, wire_mode=wire), device=dev)
             same, _ = pod_allreduce(ref_blocks, torch.zeros_like(ref_blocks), codec,
                                     group=mesh.group("pod"),
-                                    participating=state["participating"][c["pod"]])
+                                    participating=torch.ones((), device=dev))
             rec["err"], rec["energy"] = sums(same, ref_ghat)
             del ref_blocks, ref_ghat, same, codec
         if label in spec["plain"]:  # the same program with the plain versions
@@ -5031,7 +5125,8 @@ def inpod_rank(rank, world, dev, spec):
             rec["energy"] = float(torch.sum(plain * plain))
             del new, plain
         out[label] = rec
-        del state, fn, ghat, blocks
+        state = None
+        del fn, ghat, blocks, batch
         torch.cuda.empty_cache()
     steps.fedqcs_pod_allreduce = pod_allreduce
     return out
@@ -5039,19 +5134,24 @@ def inpod_rank(rank, world, dev, spec):
 
 def phase_inpod(dev):
     """[inpod] (see INPOD_*): first, alone on the card, [time] of the
-    encoder and both step kernels at a rank's rows of the full-depth mesh
-    (rank (0, 0, 0)'s: the first quarter of pod 0's grid of a real step);
-    then the one-process references: the ``impl="auto"`` two-pod step's
-    losses and decoded aggregates (AE, EA) at INPOD_LAYERS layers from seed
-    0's parameters and batch 0, written to ``build/inpod/`` for the ranks,
-    and the loss at INPOD_SHARDED_LAYERS layers.  Then the eight ranks: one
-    ``auto_sharded`` AE step (against the same program with the plain
-    versions, their encode and decode one rank at a time), one ``auto`` AE
-    and one ``auto`` EA step (against the one-process aggregate: the same
-    global blocking).  Each step: rank 0's wall, each rank's launches (1
-    encoder, 15 step kernel) and peak memory, the card's memory in use, the
-    loss against the one-process loss.  Returns (launches by KERNELS name,
-    max abs errors, [time] records)."""
+    encoder and both step kernels at a rank's rows of Qwen3-0.6B's
+    full-depth mesh (rank (0, 0, 0)'s: the first quarter of pod 0's grid of
+    a real step); then the one-process references: the ``impl="auto"``
+    two-pod step's losses and decoded aggregates (AE, EA) at INPOD_LAYERS
+    layers from seed 0's parameters and batch 0, written to
+    ``build/inpod/`` for the ranks, and the loss at INPOD_SHARDED_LAYERS
+    layers; the same for INPOD_FAMILY_RUNS' models at their depths (AE;
+    EA too for INPOD_INT8), with [time] of the kernels at their rank
+    (0, 0, 0)'s rows.  Then the eight ranks: one ``auto_sharded`` AE step
+    (against the same program with the plain versions, their encode and
+    decode one rank at a time), one ``auto`` AE and one ``auto`` EA step
+    (against the one-process aggregate: the same global blocking), one
+    ``auto`` AE step of each family model, and one ``auto`` EA step of
+    INPOD_INT8 with int8 Adam states (its QLeafs held to the whole leaves'
+    quantization, bit for bit).  Each step: rank 0's wall, each rank's
+    launches (1 encoder, 15 step kernel) and peak memory, the card's
+    memory in use, the loss against the one-process loss.  Returns
+    (launches by KERNELS name, max abs errors, [time] records)."""
     import dataclasses as dc
     import gc
     import os
@@ -5070,13 +5170,12 @@ def phase_inpod(dev):
     t_phase = time.perf_counter()
     full = get_config(TRAIN_ARCH)
     pods, data, model = INPOD_MESH
-    batch = TokenDataset(full.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                         seed=0).get_batch(0, device=dev)
 
-    def pod_grid(layers, fp32=False):
-        """The one-process step's loss and pod grids at ``layers`` layers
-        (``fp32``: seed 0's bf16 weights cast up, computed in fp32)."""
-        cfg = dc.replace(full, n_layers=layers)
+    def pod_grid(cfg, fp32=False):
+        """The one-process step's loss and pod grids of ``cfg`` (``fp32``:
+        seed 0's bf16 weights cast up, computed in fp32)."""
+        batch = TokenDataset(cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             seed=0).get_batch(0, device=dev)
         params = model_api.init_params(cfg, seed=0, device=dev)
         if fp32:
             cfg = dc.replace(cfg, dtype="float32")
@@ -5084,53 +5183,91 @@ def phase_inpod(dev):
         losses, blocks, _ = steps.pod_blocks(params, batch, cfg, pods, TRAIN_N, dev)
         return float(torch.stack(losses).mean()), blocks
 
+    timer = GpuTimer()
+    times, errs = {}, {}
+
+    def time_rank_rows(blocks, model_name, kinds):
+        """[time] of ``kinds`` at rank (0, 0, 0)'s rows of ``blocks``."""
+        rows = blocks.shape[1] // (data * model)
+        b0 = blocks[0, :rows].clone()
+        fed = train_fed(recon_mode="ea")
+        codec_a = steps.BQCSCodec(fed, device=dev).a
+        r0 = torch.zeros_like(b0)
+        grid = f"{model_name or 'Qwen3-0.6B'} rank (0, 0, 0)'s rows"
+        rec, words, alpha = train_encode_time(dev, fed, b0, r0, codec_a, timer, "[inpod]",
+                                              grid=grid)
+        got = {inpod_kernel("encode", model_name): rec}
+        del b0, r0
+        torch.cuda.empty_cache()
+        if "qgamp" in kinds:
+            st = train_step_times(dev, fed, words, alpha, codec_a, timer, f"a {grid}")
+            got[inpod_kernel("gamp", model_name)] = st[f"gamp_step[N={TRAIN_N}]"]
+            got[inpod_kernel("qgamp", model_name)] = st[f"qgamp_step[N={TRAIN_N}]"]
+        else:
+            got[inpod_kernel("gamp", model_name)] = gamp_step_time(
+                dev, fed, words[None], alpha[None], torch.ones((1,), device=dev), codec_a,
+                timer, f"[inpod] {grid}")
+        times.update(got)
+        for name, r in got.items():
+            errs[KERNELS[name][2]] = r["err"]
+        print_train_times(got)
+        torch.cuda.empty_cache()
+
     # [time] at a rank's rows of the full-depth mesh, alone on the card
-    blocks = pod_grid(full.n_layers)[1]
-    rows = blocks.shape[1] // (data * model)
-    b0 = blocks[0, :rows].clone()
+    blocks = pod_grid(full)[1]
+    time_rank_rows(blocks, "", ("encode", "gamp", "qgamp"))
     del blocks
     torch.cuda.empty_cache()
-    fed = train_fed(recon_mode="ea")
-    codec_a = steps.BQCSCodec(fed, device=dev).a
-    timer = GpuTimer()
-    r0 = torch.zeros_like(b0)
-    times, errs = {}, {}
-    rec, words, alpha = train_encode_time(dev, fed, b0, r0, codec_a, timer, "[inpod]",
-                                          grid="rank (0, 0, 0)'s rows")
-    times[INPOD_ENCODE] = rec
-    del b0, r0
-    torch.cuda.empty_cache()
-    step_times = train_step_times(dev, fed, words, alpha, codec_a, timer, "a rank's rows")
-    times[INPOD_GAMP] = step_times[f"gamp_step[N={TRAIN_N}]"]
-    times[INPOD_QGAMP] = step_times[f"qgamp_step[N={TRAIN_N}]"]
-    for key, name in (("encode_rank", INPOD_ENCODE), ("gamp_rank", INPOD_GAMP),
-                      ("qgamp_rank", INPOD_QGAMP)):
-        errs[key] = times[name]["err"]
-    print_train_times({k: times[k] for k in (INPOD_ENCODE, INPOD_GAMP, INPOD_QGAMP)})
-    del words, alpha, step_times
     # the one-process references at the world's depths
     out_dir = ROOT / "build" / "inpod"
     out_dir.mkdir(parents=True, exist_ok=True)
-    blocks32 = pod_grid(INPOD_LAYERS, fp32=True)[1]
-    loss, blocks = pod_grid(INPOD_LAYERS)
-    floor = nmse(blocks, blocks32)  # one process's own bf16 rows against fp32 ones
-    del blocks32
-    torch.cuda.empty_cache()
-    want_loss = {"auto AE": loss, "auto EA": loss}
-    files = {}
     part = torch.ones((pods,), device=dev)
-    np.save(out_dir / "blocks.npy", blocks.cpu().numpy())
-    for label, mode in (("auto AE", "ae"), ("auto EA", "ea")):
-        codec = steps.BQCSCodec(train_fed(recon_mode=mode), device=dev)
-        ghat = fedqcs_vmapped_allreduce(blocks, torch.zeros_like(blocks), codec, part)[0]
-        files[label] = {"blocks": str(out_dir / "blocks.npy"),
-                        "ghat": str(out_dir / f"ghat_{mode}.npy")}
-        np.save(files[label]["ghat"], ghat.cpu().numpy())
-        del ghat
+    want_loss, floors, files = {}, {}, {}
+
+    def references(tag, cfg, labels):
+        """``labels``' one-process loss, bf16 floor and aggregate files, from
+        ``cfg``'s pod grids; returns the bf16 grids."""
+        blocks32 = pod_grid(cfg, fp32=True)[1]
+        loss, blocks = pod_grid(cfg)
+        floor = nmse(blocks, blocks32)  # one process's own bf16 rows against fp32 ones
+        del blocks32
         torch.cuda.empty_cache()
-    del blocks
+        np.save(out_dir / f"blocks_{tag}.npy", blocks.cpu().numpy())
+        for label, mode in labels:
+            codec = steps.BQCSCodec(train_fed(recon_mode=mode), device=dev)
+            ghat = fedqcs_vmapped_allreduce(blocks, torch.zeros_like(blocks), codec, part)[0]
+            files[label] = {"blocks": str(out_dir / f"blocks_{tag}.npy"),
+                            "ghat": str(out_dir / f"ghat_{tag}_{mode}.npy")}
+            np.save(files[label]["ghat"], ghat.cpu().numpy())
+            want_loss[label], floors[label] = loss, floor
+            del ghat
+            torch.cuda.empty_cache()
+        return blocks
+
+    references("qwen", dc.replace(full, n_layers=INPOD_LAYERS),
+               (("auto AE", "ae"), ("auto EA", "ea")))
+    torch.cuda.empty_cache()
+    runs = [("auto_sharded AE", TRAIN_ARCH, INPOD_SHARDED_LAYERS, "auto_sharded", "ae",
+             "float32"),
+            ("auto AE", TRAIN_ARCH, INPOD_LAYERS, "auto", "ae", "float32"),
+            ("auto EA", TRAIN_ARCH, INPOD_LAYERS, "auto", "ea", "float32")]
+    models = {"auto_sharded AE": "", "auto AE": "", "auto EA": ""}
+    for name, arch, layers in INPOD_FAMILY_RUNS:
+        labels = [(f"{name} auto AE", "ae")]
+        runs.append((f"{name} auto AE", arch, layers, "auto", "ae", "float32"))
+        if name == INPOD_INT8:
+            labels.append((f"{name} auto EA int8", "ea"))
+            runs.append((f"{name} auto EA int8", arch, layers, "auto", "ea", "int8"))
+        blocks = references(name, dc.replace(get_config(arch), n_layers=layers), labels)
+        time_rank_rows(blocks, name, ("encode", "gamp", "qgamp") if name == INPOD_INT8
+                       else ("encode", "gamp"))
+        models.update((label, name) for label, _ in labels)
+        del blocks
+        torch.cuda.empty_cache()
     cut = dc.replace(full, n_layers=INPOD_SHARDED_LAYERS)
     params = model_api.init_params(cut, seed=0, device=dev)
+    batch = TokenDataset(full.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         seed=0).get_batch(0, device=dev)
     with torch.no_grad():
         want_loss["auto_sharded AE"] = float(torch.stack([
             model_api.train_loss(params, steps._pod_batch(batch, pods, p), cut)
@@ -5144,8 +5281,6 @@ def phase_inpod(dev):
           f"has {(total - free) / 2**30:.3f} of {total / 2**30:.3f} GiB in use")
     t_ref = time.perf_counter() - t_phase
     # the eight ranks
-    runs = (("auto_sharded AE", "auto_sharded", "ae", INPOD_SHARDED_LAYERS),
-            ("auto AE", "auto", "ae", INPOD_LAYERS), ("auto EA", "auto", "ea", INPOD_LAYERS))
     world = pods * data * model
     t0 = time.perf_counter()
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
@@ -5165,8 +5300,8 @@ def phase_inpod(dev):
           f"process)")
     for f in {f for pair in files.values() for f in pair.values()}:
         Path(f).unlink()
-    launches = {INPOD_ENCODE: 0, INPOD_GAMP: 0, INPOD_QGAMP: 0}
-    for label, impl, mode, layers in runs:
+    launches = {name: 0 for name in times}
+    for label, arch, layers, impl, mode, state_dtype in runs:
         recs = [r[label] for r in ranks]
         step_kernel = "qgamp" if mode == "ea" else "gamp"
         want = dict(encode=1, gamp=0, qgamp=0, topk=0, staged=0)
@@ -5174,8 +5309,9 @@ def phase_inpod(dev):
         for r, rec in enumerate(recs):
             check(rec["launches"] == want,
                   f"[inpod] {label} rank {r}: launches {rec['launches']}, want {want}")
-        launches[INPOD_ENCODE] += sum(rec["launches"]["encode"] for rec in recs)
-        launches[INPOD_QGAMP if mode == "ea" else INPOD_GAMP] += sum(
+        launches[inpod_kernel("encode", models[label])] += sum(
+            rec["launches"]["encode"] for rec in recs)
+        launches[inpod_kernel(step_kernel, models[label])] += sum(
             rec["launches"][step_kernel] for rec in recs)
         losses = {rec["loss"] for rec in recs}
         check(len(losses) == 1, f"[inpod] {label}: the ranks' losses differ: {sorted(losses)}")
@@ -5193,7 +5329,8 @@ def phase_inpod(dev):
             return err / max(energy, 1e-30)
 
         e = nmse_of(None)
-        sharded = label.startswith("auto_sharded")
+        sharded = impl == "auto_sharded"
+        floor = floors.get(label)
         eb, es = (None, None) if sharded else (nmse_of("blocks"), nmse_of("step"))
         against = ("the same 8-rank program with the plain versions" if sharded else
                    f"one process's aggregate, from one process's rows (the world's own "
@@ -5202,7 +5339,8 @@ def phase_inpod(dev):
                    f"aggregate {es:.3g} to one process's: top-S picks that part at bf16's "
                    f"rounding)")
         peaks = [rec["peak"] / 2**30 for rec in recs]
-        print(f"[inpod] {label} ({layers} layers, {recs[0]['rows']:,} block rows a rank): loss "
+        print(f"[inpod] {label} ({arch}, {layers} layers, {state_dtype} moments, "
+              f"{recs[0]['rows']:,} block rows a rank): loss "
               f"{loss:.6f} (one process {want_loss[label]:.6f}, gap {gap:.3g} <= "
               f"{INPOD_LOSS_TOL:g} relative); aggregate NMSE {e:.3g} against {against} "
               f"(<= 1e-3); rank 0's step wall {recs[0]['wall_ms']:.1f} ms (8 ranks on one "
@@ -5214,11 +5352,23 @@ def phase_inpod(dev):
         check(sharded or eb <= INPOD_BF16_FLOORS * floor,
               f"[inpod] {label}: the pod's gradient rows NMSE {eb} against one process, "
               f"past {INPOD_BF16_FLOORS} x {floor}")
+        if state_dtype == "int8":
+            checked, differ = recs[0]["int8"]
+            n_leaves = len(tree_util.leaves(model_api.init_params(
+                dc.replace(get_config(arch), n_layers=layers), device="meta")))
+            check(checked == n_leaves and not differ,
+                  f"[inpod] {label}: {len(differ)} of {checked} leaves' QLeafs or parameters "
+                  f"differ from the whole leaves' Adam update: {differ}")
+            print(f"[inpod] {label}: every rank's int8 QLeafs (codes and the whole leaf's "
+                  f"256-entry block scales) and parameters after one more Adam update on its "
+                  f"shards are the shards of the update on the gathered whole leaves, bit for "
+                  f"bit ({checked} leaves; {recs[0]['int8_s']:.1f} s)")
     print(f"[inpod] seconds: one-process references and [time] {t_ref:.1f}, the world "
           f"(spawn, init, steps) {t_world:.1f}")
     return launches, errs, times
 
 
+# JSON name -> (source, the Pallas site it replaces, phase_kernels key)
 KERNELS = {
     "bqcs_encode_fused": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode"),
     "bqcs_encode_fused[dither]": ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
@@ -5254,6 +5404,16 @@ KERNELS = {
     INPOD_ENCODE: ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194", "encode_rank"),
     INPOD_GAMP: ("gamp_step.cu", "gamp_step.py:108", "gamp_rank"),
     INPOD_QGAMP: ("qgamp_step.cu", "qgamp_step.py:180", "qgamp_rank"),
+    inpod_kernel("encode", "Mamba2-1.3B"): ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                            "encode_rank_mamba2"),
+    inpod_kernel("gamp", "Mamba2-1.3B"): ("gamp_step.cu", "gamp_step.py:108",
+                                          "gamp_rank_mamba2"),
+    inpod_kernel("qgamp", "Mamba2-1.3B"): ("qgamp_step.cu", "qgamp_step.py:180",
+                                           "qgamp_rank_mamba2"),
+    inpod_kernel("encode", "Zamba2-2.7B"): ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                            "encode_rank_zamba2"),
+    inpod_kernel("gamp", "Zamba2-2.7B"): ("gamp_step.cu", "gamp_step.py:108",
+                                          "gamp_rank_zamba2"),
 }
 
 

@@ -2,39 +2,49 @@
 PyTorch port (the counterpart of ``examples/distributed_train.py``).
 
     PYTHONPATH=src python examples/distributed_train_torch.py --steps 40 --device cpu
-    PYTHONPATH=src python examples/distributed_train_torch.py --arch qwen2-7b --steps 40
+    PYTHONPATH=src python examples/distributed_train_torch.py --arch mamba2-1.3b --steps 40
     PYTHONPATH=src python examples/distributed_train_torch.py --inject-failure 20
 
-Runs the reduced config of the chosen architecture on a (pod=2, data=1,
-model=1) mesh, one device a pod (the reference's pods are 2 x 2: ROADMAP.md
-item 10b), both pods simulated on ``--device`` (default ``cuda``) by the
-``impl="auto"`` train step, with: FedQCS compressed cross-pod reduction at
-the reference's point, a checkpoint every 10 steps, optional pod-failure
-injection (pod 1 leaves ``state["participating"]`` for 5 steps; the step
-goes on with the surviving pod's gradient, the dead pod's residual keeping
-its full carry), and exact restart: a rerun resumes from the latest
-checkpoint and its parameters match the uninterrupted run's bit for bit.
-The checkpoint of step t holds the state after step t, so a restart runs on
-from step t + 1 (the reference's example runs step t again).  A step is
-logged every 5 steps, at the last one and whenever a pod is down.
+Runs the reduced config of the chosen architecture on the reference's
+(pod=2, data=2, model=2) mesh: eight processes, one a device
+(``repro_torch.launch.spawn.run_world``: gloo; ``--device cpu``, or every
+rank on the card, default ``cuda``), rank 0 printing.  The MoE, MLA and
+VLM archs, which the in-pod program does not run yet (ROADMAP.md item
+10d), run on a (pod=2, data=1, model=1) mesh in one process instead.
+With: FedQCS compressed cross-pod reduction at the reference's point, a
+checkpoint every 10 steps (gathered from the ranks' shards), optional
+pod-failure injection (pod 1 leaves ``state["participating"]`` for 5
+steps; the step goes on with the surviving pod's gradient, the dead pod's
+residual keeping its full carry), and exact restart: a rerun resumes from
+the latest checkpoint and its parameters match the uninterrupted run's bit
+for bit.  The checkpoint of step t holds the state after step t, so a
+restart runs on from step t + 1 (the reference's example runs step t
+again).  A step is logged every 5 steps, at the last one and whenever a pod
+is down.  :func:`main` returns the final train state, whole, on the CPU.
 """
 
 import argparse
+import os
+import sys
 
 import torch
 
 from repro_torch import entry_device
+from repro_torch import tree as tree_util
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import smoke_config
 from repro_torch.core.compression import FedQCSConfig
 from repro_torch.data.synthetic import TokenDataset
 from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.spawn import run_world
 from repro_torch.optim.adam import OptConfig
 from repro_torch.runtime import steps
 
+MESH = (2, 2, 2)
+
 
 def main(argv=None):
-    """Runs the example; returns the final train state."""
+    """Runs the example; returns the final train state (whole, on the CPU)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--steps", type=int, default=40)
@@ -46,7 +56,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = entry_device(args.device)
-    mesh = make_debug_mesh(2, 1, 1)
+    if smoke_config(args.arch).family not in steps.INPOD_FAMILIES:
+        print(f"[mesh] {args.arch}: (2, 1, 1) in one process (its in-pod layout: "
+              f"ROADMAP.md {steps.ITEM_FAMILIES})")
+        return _train(args, make_debug_mesh(2, 1, 1), dev)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:  # the ranks import this file by its module name
+        sys.path.insert(0, here)
+    return run_world(_rank, MESH[0] * MESH[1] * MESH[2], args=(args,), device=args.device)[0]
+
+
+def _rank(rank, world, dev, args):
+    """One rank of the (2, 2, 2) world: rank 0 returns the final state."""
+    return _train(args, make_debug_mesh(*MESH), dev)
+
+
+def _train(args, mesh, dev):
+    """The example's loop on ``mesh`` (an in-pod mesh: this rank's part)."""
+    say = print if mesh.rank in (None, 0) else (lambda *a, **k: None)
     cfg = smoke_config(args.arch)
     fed = None if args.no_fedqcs else FedQCSConfig(
         block_size=255, reduction_ratio=3, bits=3, s_ratio=0.05,
@@ -56,20 +83,21 @@ def main(argv=None):
     ds = TokenDataset(cfg.vocab_size, batch=16, seq=64, seed=0)
     ckpt = Checkpointer(args.ckpt_dir, keep=2)
 
-    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=2, device=dev)
+    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=2, mesh=mesh, device=dev)
+    whole, specs = steps.state_specs(cfg, opt, fed, mesh) if mesh.inpod else (state, None)
     start = 0
     if ckpt.latest_step() is not None:
-        state, done = ckpt.restore(state)
+        state, done = ckpt.restore(whole, specs=specs, mesh=mesh, device=dev)
         start = done + 1
-        print(f"[restore] resumed after step {done}")
+        say(f"[restore] resumed after step {done}", flush=True)
     step_fn = steps.make_train_step(cfg, opt, fed, mesh, device=dev)
 
     if fed is not None:
-        nb = state["residual"].shape[1]
+        nb = whole["residual"].shape[1]
         bits = nb * (fed.m * fed.bits + 32)
-        print(f"[wire] compressed payload/pod/step: {bits / 8 / 1024:.0f} KiB "
-              f"({fed.bits_per_entry:.2f} bits/entry; fp32 all-reduce would be "
-              f"{nb * fed.block_size * 32 / 8 / 1024:.0f} KiB)")
+        say(f"[wire] compressed payload/pod/step: {bits / 8 / 1024:.0f} KiB "
+            f"({fed.bits_per_entry:.2f} bits/entry; fp32 all-reduce would be "
+            f"{nb * fed.block_size * 32 / 8 / 1024:.0f} KiB)", flush=True)
 
     for t in range(start, args.steps):
         down = fed is not None and args.inject_failure >= 0 and (
@@ -79,12 +107,17 @@ def main(argv=None):
         state, metrics = step_fn(state, ds.get_batch(t, device=dev))
         if t % 5 == 0 or t == args.steps - 1 or down:
             note = " [pod1 DOWN]" if down else ""
-            print(f"step {t:4d}  loss {float(metrics['loss']):.4f}{note}")
+            say(f"step {t:4d}  loss {float(metrics['loss']):.4f}{note}", flush=True)
         if t and t % 10 == 0:
-            ckpt.save(t, state)
+            ckpt.save(t, state, specs=specs, mesh=mesh)
     ckpt.wait()
-    print("done; checkpoints in", args.ckpt_dir)
-    return state
+    say("done; checkpoints in", args.ckpt_dir, flush=True)
+    if mesh.inpod:
+        state = steps.gather_state(state, specs, mesh)
+        if mesh.rank != 0:
+            return None
+    return tree_util.tree_map(
+        lambda v: type(v)(*(x.cpu() for x in v)) if isinstance(v, tuple) else v.cpu(), state)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ the port: the names are the same.
 On an in-pod mesh a checkpoint is the whole state all the same: every rank
 calls :meth:`Checkpointer.save` with its shard and the whole state's specs,
 the shards are gathered and rank 0 writes; :meth:`Checkpointer.restore`
-with specs and a mesh gives each rank its shard of each entry.  A state
+with specs and a mesh gives each rank its shard of each entry (an int8
+moment: its shard of ``<path>.q`` and the whole ``<path>.scale``).  A state
 saved on one mesh restores onto any other (restart, elastic resharding).
 """
 
@@ -171,13 +172,13 @@ class Checkpointer:
                 name = tree_util.slash(path)
                 if isinstance(leaf, QLeaf):
                     dev = device if device is not None else leaf.q.device
-                    out.append((path, QLeaf(q=_tensor(data[name + ".q"], leaf.q, dev),
-                                            scale=_tensor(data[name + ".scale"], leaf.scale,
-                                                          dev))))
+                    t = QLeaf(q=_tensor(data[name + ".q"], leaf.q, "cpu"),
+                              scale=_tensor(data[name + ".scale"], leaf.scale, "cpu"))
                 else:
                     dev = device if device is not None else leaf.device
                     t = _tensor(data[name], leaf, "cpu")
-                    if specs is not None and getattr(mesh, "rank", None) is not None:
-                        t = local_shard(t, tree_util.get(specs, path), mesh.shape, mesh.coords())
-                    out.append((path, t.to(dev)))
+                if specs is not None and getattr(mesh, "rank", None) is not None:
+                    t = local_shard(t, tree_util.get(specs, path), mesh.shape, mesh.coords())
+                out.append((path, QLeaf(*(v.to(dev) for v in t)) if isinstance(t, QLeaf)
+                            else t.to(dev)))
         return tree_util.unflatten(out), step

@@ -5,14 +5,18 @@
 
 Pod mode wires together the config registry, the synthetic token data, the
 FedQCS train step (``impl="auto"``), checkpointing with resume from the
-latest checkpoint, and periodic loss logs.  The dense family runs on the
-reference's ``(pods, 2, 2)`` mesh: ``pods * 4`` processes, one per device
-(``launch/spawn.py``: gloo; ``--device cpu`` or, on a card, every rank on
-``cuda:(rank % device_count)``), rank 0 printing.  The other families keep
-a ``(pods, 1, 1)`` mesh in one process (the ``--pods`` pods simulated on
-one device).  The FedQCS point is the reference's: N = 255, ``--R``, ``--Q``,
-``--s-ratio``, 15 scalar-variance GAMP iterations.  ``--device`` defaults to
-``cuda``.
+latest checkpoint, and periodic loss logs.  The dense, SSM and hybrid
+families run on the reference's ``(pods, 2, 2)`` mesh: ``pods * 4``
+processes, one per device (``launch/spawn.py``: gloo; ``--device cpu`` or,
+on a card, every rank on ``cuda:(rank % device_count)``), rank 0 printing;
+``--int8-opt-state`` keeps int8 moments on each rank's shards.  The MoE,
+MLA and VLM families keep a ``(pods, 1, 1)`` mesh in one process (the
+``--pods`` pods simulated on one device).  The FedQCS point is the
+reference's: N = 255, ``--R``, ``--Q``, ``--s-ratio``, 15 scalar-variance
+GAMP iterations.  ``--device`` defaults to ``cuda``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --smoke \
+        --fedqcs --pods 2 --int8-opt-state --steps 3 --device cpu
 
 Cohort mode (``--fed-cohort``) replaces the pod collective with the
 ``repro_torch.fed`` engine: the registry model is trained by a simulated
@@ -115,7 +119,7 @@ def parse_args(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="interleave mode: microbatches per client pass")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 2x16x16 mesh (ROADMAP.md item 10b)")
+                    help="the 2x16x16 mesh (ROADMAP.md item 10g)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--int8-opt-state", action="store_true")
@@ -137,7 +141,7 @@ def main(argv=None):
                          "('frames'), which the launcher's token data does not have")
     if args.production_mesh:
         make_production_mesh(multi_pod=args.pods > 1)  # raises: not in the slice
-    if cfg.family == "dense":
+    if cfg.family in steps.INPOD_FAMILIES:
         # the reference's (pods, 2, 2) mesh: one process per device
         run_world(_pod_rank, args.pods * 2 * 2, args=(args,), device=args.device)
         return
@@ -147,7 +151,7 @@ def main(argv=None):
 
 
 def _pod_rank(rank: int, world: int, device, args) -> None:
-    """One rank of pod mode's world: the dense family's in-pod step."""
+    """One rank of pod mode's world: the in-pod step (dense, SSM, hybrid)."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     _train(args, cfg, make_debug_mesh(args.pods, 2, 2), device)
 

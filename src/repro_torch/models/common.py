@@ -14,14 +14,15 @@ written at ``cache_pos``); rotary embeddings are standard or Qwen2-VL's
 M-RoPE.  Cross-attention (K/V from an encoder) and the ungated GELU MLP
 serve the audio family.
 
-On an in-pod mesh (``models/sharding.py``'s :func:`use_inpod`) the dense
-family's training path runs on the rank's shards, as the reference's rules
-lay them out: attention's wq/wk/wv split by head over ``model`` (a rank
-takes its query heads' KV groups) and ``wo`` by row, the MLP's wi/wg by
-column and wo by row, the embedding and the head by vocabulary row; every
-weight's d_model dimension gathered over ``data`` as it is used.  The
+On an in-pod mesh (``models/sharding.py``'s :func:`use_inpod`) the
+training path runs on the rank's shards, as the reference's rules lay them
+out: attention's wq/wk/wv split by head over ``model`` (a rank takes its
+query heads' KV groups) and ``wo`` by row, the MLP's wi/wg by column and
+wo by row, the embedding and the head by vocabulary row; every weight's
+d_model dimension gathered over ``data`` as it is used.  The
 cross-entropy is vocab-parallel and the loss the mean over the pod's
-tokens.
+tokens.  These blocks serve every family the in-pod program runs (dense,
+and the hybrid's shared block).
 """
 
 from __future__ import annotations
@@ -237,7 +238,8 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     are (no norm, no rotary, no cache write); ``kv`` holds them.
 
     In-pod: ``p`` holds the rank's heads (query heads ``m * H / model`` on
-    and their KV groups); ``out`` is summed over ``model``."""
+    and their KV groups; the qk-norm scales whole); ``out`` is summed over
+    ``model``."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     d = cfg.d_model
@@ -255,10 +257,10 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
         v = _split_heads(v, dh)
     else:
         k, v = cross_kv
-    if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if "q_norm" in p:  # one scale for every head: the rank applies it to its own
+        q = rms_norm(q, tp_enter(p["q_norm"]), cfg.norm_eps)
         if cross_kv is None:
-            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+            k = rms_norm(k, tp_enter(p["k_norm"]), cfg.norm_eps)
     if positions is not None and cross_kv is None:
         q = rotate(q, positions, cfg)
         k = rotate(k, positions, cfg)

@@ -15,13 +15,26 @@ the reference's constraints resolve into, as autograd functions:
 
   * :func:`fsdp`: a weight shard gathered over ``data`` along its d_model
     dimension; its backward reduce-scatters (sums) the gradient;
+  * :func:`model_whole`: a tensor split over ``model`` gathered whole
+    (Mamba's column-parallel ``in_proj`` projections and its ``conv_w``,
+    whose ``model`` halves do not fall on head boundaries: a rank then
+    takes its heads' columns);
   * :func:`model_columns`: a rank's columns of a weight the rules
     replicate (the dense MLP's wi and wg: no rule names ``ffn/wi``);
   * :func:`tp_enter`: the identity, with an all-reduce over ``model`` in
-    the backward (Megatron's copy at a tensor-parallel region's entry);
+    the backward (Megatron's copy at a tensor-parallel region's entry), for
+    an activation or a replicated weight the rank uses on its heads only;
   * :func:`cs` with ``reduce=``: an all-reduce in the forward and the
     identity in the backward (Megatron's reduce at the region's exit: the
-    row-parallel products' partial sums).
+    row-parallel products' partial sums);
+  * :func:`model_sum`: an all-reduce over ``model`` in both directions (a
+    statistic over every head that feeds each rank's own heads: the gated
+    RMSNorm's sum of squares).
+
+A rank's gradient of a leaf is whole over ``model`` once the backward is
+done: every partial sum over ``model`` passes one of these functions on
+its way to the leaf.  Only the sum over the rank's tokens is left (over
+``data``, for a leaf that ``data`` does not split: the step's).
 
 These act only while :func:`use_inpod` holds this rank's :class:`InPod`;
 without one (every single-process path) they are the identity.  A spec is
@@ -270,6 +283,20 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _ReduceBoth(torch.autograd.Function):
+    """The sum over the group; the backward sums the gradient over it too
+    (each rank's consumers of the sum are its own)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 # ---------------------------------------------------------------------------
 # The rank's place on an in-pod mesh.
 # ---------------------------------------------------------------------------
@@ -321,24 +348,57 @@ def fsdp(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
     return _Gather.apply(w, ip.group("data"), dim)
 
 
+def model_whole(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """A weight or an activation with its dimension ``dim`` (``full`` wide)
+    whole over ``model``: a shard of it is gathered; the backward sums the
+    gradient over ``model`` (each rank's is partial: its heads' columns)
+    and keeps the rank's part.  A tensor that holds it whole passes as it
+    is."""
+    ip = _inpod
+    if ip is None or w.shape[dim] == full:
+        return w
+    return _Gather.apply(w, ip.group("model"), dim % w.dim())
+
+
 def model_columns(w: torch.Tensor, width: int) -> torch.Tensor:
     """The rank's ``width`` trailing columns of a weight replicated over
     ``model`` (the columns its share of a row-parallel product reads); a
-    weight already split over ``model`` passes as it is.  The gradient of
-    a replicated weight is then partial over ``model``: the step sums it."""
+    weight already split over ``model`` passes as it is.  The backward
+    sums the replicated weight's gradient over ``model``."""
     ip = _inpod
     if ip is None or w.shape[-1] == width:
         return w
-    return w.narrow(-1, ip.coords["model"] * width, width)
+    return tp_enter(w).narrow(-1, ip.coords["model"] * width, width)
 
 
 def tp_enter(x: torch.Tensor) -> torch.Tensor:
-    """An activation entering a tensor-parallel region: the identity, whose
-    backward sums the gradient over ``model``."""
+    """An activation, or a weight the rules replicate, entering a
+    tensor-parallel region (used on the rank's heads or columns only): the
+    identity, whose backward sums the gradient over ``model``."""
     ip = _inpod
     if ip is None or ip.sizes["model"] == 1:
         return x
     return _Copy.apply(x, ip.group("model"))
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """A partial sum over the rank's heads summed over ``model``, where each
+    rank goes on with its own heads: the backward sums the gradient over
+    ``model`` too."""
+    ip = _inpod
+    if ip is None or ip.sizes["model"] == 1:
+        return x
+    return _ReduceBoth.apply(x, ip.group("model"))
+
+
+def model_heads(count: int) -> Tuple[int, int]:
+    """(first, number) of the ``count`` heads this rank holds: a contiguous
+    ``count / model`` of them (all of them outside an in-pod context)."""
+    ip = _inpod
+    if ip is None:
+        return 0, count
+    per = count // ip.sizes["model"]
+    return ip.coords["model"] * per, per
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -363,7 +423,10 @@ def spec_axes(entry) -> Tuple[str, ...]:
 def local_shard(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.Tensor:
     """This rank's shard of ``x`` (a contiguous copy): each dimension split
     into the product of its spec axes' sizes, the chunk at the rank's
-    coordinates (the first axis of a tuple major)."""
+    coordinates (the first axis of a tuple major).  An optimizer ``QLeaf``
+    (a named tuple, its spec one too) is cut field by field."""
+    if isinstance(x, tuple):
+        return type(x)(*(local_shard(v, s, sizes, coords) for v, s in zip(x, spec)))
     for dim, entry in enumerate(spec):
         count, index = 1, 0
         for a in spec_axes(entry):
@@ -375,7 +438,10 @@ def local_shard(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch
 
 def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The whole leaf from every rank's :func:`local_shard` (a collective:
-    every rank of the mesh calls it, leaf for leaf)."""
+    every rank of the mesh calls it, leaf for leaf; a ``QLeaf`` field by
+    field)."""
+    if isinstance(x, tuple):
+        return type(x)(*(gather_leaf(v, s, mesh) for v, s in zip(x, spec)))
     for dim, entry in enumerate(spec):
         for a in reversed(spec_axes(entry)):  # the minor axis first
             if mesh.shape.get(a, 1) > 1:

@@ -12,6 +12,18 @@ large intermediate.
 
 Decode carries ``conv`` (B, K-1, C_conv), the last pre-conv inputs, and
 ``ssm`` (B, H, P, N) fp32, and does the exact one-step recurrence.
+
+On an in-pod mesh (``models/sharding.py``) the train path runs the rank's
+heads, a contiguous ``H / model`` of them.  ``in_proj`` (``(data,
+model)``) is column-parallel: the rank projects onto the columns it holds
+and the projections are gathered over ``model`` (a half over ``model``
+does not fall on head boundaries, and the one B/C group is every head's),
+then the rank takes its heads' z, x and dt columns and B/C.  ``conv_w``
+(``(None, model)``, small) is gathered whole and cut the same way; the
+per-head vectors and ``gate_norm`` (replicated) are cut to its heads; the
+gated RMSNorm's sum of squares is summed over ``model``; and
+``out_proj``'s rows (``(model, data)``) are the rank's heads' already, so
+its product is row-parallel, summed over ``model``.
 """
 
 from __future__ import annotations
@@ -22,7 +34,15 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, dtype_of, full, rms_norm
-from repro_torch.models.sharding import cs
+from repro_torch.models.sharding import (
+    cs,
+    current_inpod,
+    fsdp,
+    model_heads,
+    model_sum,
+    model_whole,
+    tp_enter,
+)
 
 
 def _conv_channels(cfg: ModelConfig) -> int:
@@ -116,32 +136,79 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.
     return out + bias
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    di, n = cfg.d_inner, cfg.ssm_state
+def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig, di=None):
+    """z | x|B|C | dt of a projection (``di``: the x and z width it holds)."""
+    di, n = cfg.d_inner if di is None else di, cfg.ssm_state
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * n]
     dt = zxbcdt[..., di + di + 2 * n:]
     return z, xbc, dt
 
 
+def _rank_share(p: dict, cfg: ModelConfig, d: int) -> dict:
+    """The block's weights as the rank uses them: whole outside an in-pod
+    context; in-pod, the channels and entries of its heads, and ``cols``:
+    its heads' columns of the whole projection (see the module
+    docstring)."""
+    di, n, h, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    h0, hl = model_heads(h)
+    w = {"in_proj": fsdp(p["in_proj"], 0, d), "cols": None,
+         "conv_w": model_whole(p["conv_w"], 1, _conv_channels(cfg)),
+         "out_proj": fsdp(p["out_proj"], 1, d)}
+    w.update((k, tp_enter(p[k])) for k in ("conv_b", "a_log", "dt_bias", "d_skip", "gate_norm"))
+    if hl == h:
+        return w
+    dev = p["a_log"].device
+    mine = torch.arange(h0 * ph, (h0 + hl) * ph, device=dev)  # the rank's z or x columns
+    bc = torch.arange(di, di + 2 * n, device=dev)  # B and C among the conv channels
+    channels = torch.cat([mine, bc])
+    w["cols"] = torch.cat([mine, di + channels,
+                           2 * di + 2 * n + torch.arange(h0, h0 + hl, device=dev)])
+    w["conv_w"] = w["conv_w"].index_select(1, channels)
+    w["conv_b"] = w["conv_b"].index_select(0, channels)
+    w["gate_norm"] = w["gate_norm"].narrow(0, h0 * ph, hl * ph)
+    for k in ("a_log", "dt_bias", "d_skip"):
+        w[k] = w[k].narrow(0, h0, hl)
+    return w
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over the whole ``d_inner`` (in-pod: the
+    rank's heads' sum of squares summed over ``model``)."""
+    v = y * F.silu(z)
+    if current_inpod() is None:
+        return rms_norm(v, scale, cfg.norm_eps)
+    vf = v.float()
+    var = model_sum(torch.sum(vf * vf, dim=-1, keepdim=True)) / cfg.d_inner
+    return (vf * torch.rsqrt(var + cfg.norm_eps) * scale.float()).to(v.dtype)
+
+
 def _mamba_seq(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """The full-sequence block: (out (B, T, D), the pre-conv x|B|C, the final
     SSD state)."""
-    b, t, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    zxbcdt = x @ p["in_proj"]
-    z, xbc_pre, dt = _split_proj(zxbcdt, cfg)
-    xbc = F.silu(_causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
+    b, t, d = x.shape
+    n = cfg.ssm_state
+    w = _rank_share(p, cfg, d)
+    h = w["a_log"].shape[0]  # the heads this rank runs
+    di = h * cfg.ssm_head_dim
+    # the projection onto the columns the rank holds, gathered whole over
+    # ``model`` (column-parallel), then its heads' columns
+    zxbcdt = model_whole(tp_enter(x) @ w["in_proj"], -1, 2 * cfg.d_inner + 2 * n + cfg.ssm_heads)
+    if w["cols"] is not None:
+        zxbcdt = zxbcdt.index_select(-1, w["cols"])
+    z, xbc_pre, dt = _split_proj(zxbcdt, cfg, di)
+    xbc = F.silu(_causal_conv(xbc_pre, w["conv_w"], w["conv_b"]))
     xs, bm, cm = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, T, H)
-    a = -torch.exp(p["a_log"])  # (H,)
+    dt = F.softplus(dt.float() + w["dt_bias"])  # (B, T, H)
+    a = -torch.exp(w["a_log"])  # (H,)
     xh = cs(xs.reshape(b, t, h, cfg.ssm_head_dim), "batch", "seq", "heads", None)
     y, final = _ssd_chunked((xh * dt[..., None]).float(), dt * a, bm.float(), cm.float(),
                             cfg.ssm_chunk)
-    y = y + xh.float() * p["d_skip"][None, None, :, None]
+    y = y + xh.float() * w["d_skip"][None, None, :, None]
     y = y.reshape(b, t, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return cs(y @ p["out_proj"], "batch", "seq", "dmodel"), xbc_pre, final
+    y = _gated_norm(y, z, w["gate_norm"], cfg)
+    return cs(y @ w["out_proj"], "batch", "seq", "dmodel", reduce="model"), xbc_pre, final
 
 
 def apply_mamba_train(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

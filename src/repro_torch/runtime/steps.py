@@ -22,11 +22,13 @@ fedqcs_pod_allreduce` (the packed words gathered, or the dequantized sums
     the parameters stay identical across pods without a broadcast.
 
 On an in-pod mesh (``data * model > 1``: one process per device,
-``launch/mesh.py``) the dense family's step is the reference's "2D FSDP x
-TP" program on each rank (``models/sharding.py``): the rank's shards of the
-parameters, moments and residual, its share of the batch (over (pod,
-data)), the pod's loss and gradient shards, then the pod exchange over the
-ranks that share its in-pod position:
+``launch/mesh.py``) the dense, SSM and hybrid families' step is the
+reference's "2D FSDP x TP" program on each rank (``models/sharding.py``):
+the rank's shards of the parameters, moments (fp32, or int8 ``QLeaf``s
+whose 256-entry blocks run over the whole leaf: ``optim/adam.py``'s
+:class:`~repro_torch.optim.adam.Shard`) and residual, its share of the
+batch (over (pod, data)), the pod's loss and gradient shards, then the pod
+exchange over the ranks that share its in-pod position:
 
   * ``impl="auto_sharded"``: the rank blocks its own shards and the
     Bussgang aggregate is summed over the pods; each rank decodes its
@@ -376,27 +378,31 @@ def make_train_step(
 # the in-pod program: one process per device of a (pod, data, model) mesh
 # ---------------------------------------------------------------------------
 
-# leaves a rank uses only in part when the rules replicate them over
-# ``model``: the qk-norm scales (one vector for all heads, applied to the
-# rank's heads) and the MLP's wi/wg (the rank's ff columns)
-_TP_REPLICATED = ("q_norm", "k_norm", "wi", "wg")
 ITEM_FAMILIES = "item 10d"  # the other families on the in-pod mesh
+INPOD_FAMILIES = ("dense", "ssm", "hybrid")
+_OTHER_LAYERS = {  # what each other family's in-pod layout needs
+    "moe": "expert parallelism over the experts/* rules; MLA's w_dkv/w_uk rules",
+    "vlm": "M-RoPE and the patch prefix",
+    "audio": "the encoder-decoder and its sanitized specs",
+}
 
 
 def _check_inpod(cfg: ModelConfig, opt_cfg: Optional[adam.OptConfig], mesh) -> list:
     """Raises for what the in-pod program does not run; returns the
     parameters' (path, spec, meta leaf) items."""
-    if cfg.family != "dense":
-        raise not_in_slice(
-            f"the {cfg.family} family on an in-pod mesh (expert parallelism, MLA, M-RoPE, "
-            "the SSM, hybrid and audio layers)", ITEM_FAMILIES)
-    if opt_cfg is not None and opt_cfg.state_dtype == "int8":
-        raise not_in_slice("int8 Adam states on an in-pod mesh (their 256-entry scale blocks "
-                           "run over the whole flattened leaf)", "item 10e")
+    if cfg.family not in INPOD_FAMILIES:
+        what = _OTHER_LAYERS.get(cfg.family, "its layers")
+        raise not_in_slice(f"the {cfg.family} family on an in-pod mesh ({what}; the in-pod "
+                           f"program runs the {', '.join(INPOD_FAMILIES)} families)",
+                           ITEM_FAMILIES)
     model = mesh.shape["model"]
-    if cfg.n_heads % model or cfg.n_kv_heads % model:
-        raise not_in_slice(f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads over a "
-                           f"{model}-way model axis", ITEM_FAMILIES)
+    heads = [("query", cfg.n_heads), ("KV", cfg.n_kv_heads)]
+    if cfg.family in ("ssm", "hybrid"):
+        heads.append(("SSM", cfg.ssm_heads))
+    for kind, count in heads:
+        if count % model:
+            raise not_in_slice(f"{count} {kind} heads over a {model}-way model axis",
+                               ITEM_FAMILIES)
     items = _param_spec_items(abstract_params(cfg), mesh)
     rules = param_specs(abstract_params(cfg), axis_sizes=dict(mesh.shape))
     for path, spec, _ in items:
@@ -420,8 +426,34 @@ def _coords(mesh) -> dict:
     return mesh.coords() if getattr(mesh, "rank", None) is not None else {}
 
 
+def opt_shards(cfg: ModelConfig, mesh) -> dict:
+    """Where each parameter's shard lies in its whole leaf on an in-pod
+    mesh (path -> :class:`~repro_torch.optim.adam.Shard`): what a rank's
+    int8 moments take their whole-leaf block scales over (a mesh made
+    outside its world: rank 0's place, no groups)."""
+    items = _param_spec_items(abstract_params(cfg), mesh)
+    c = {a: 0 for a in mesh.shape} | _coords(mesh)
+    world = getattr(mesh, "rank", None) is not None
+    keys = {frozenset(("data",)): "data", frozenset(("model",)): "model",
+            frozenset(("data", "model")): ("data", "model")}
+    out = {}
+    for path, spec, leaf in items:
+        start, axes = [], set()
+        for dim, entry in enumerate(spec):
+            count, index = 1, 0
+            for a in spec_axes(entry):
+                count, index = count * mesh.shape[a], index * mesh.shape[a] + c[a]
+                if mesh.shape[a] > 1:
+                    axes.add(a)
+            start.append(index * (leaf.shape[dim] // count))
+        group = mesh.group(keys[frozenset(axes)]) if axes and world else None
+        out[path] = adam.Shard(tuple(leaf.shape), tuple(start), group)
+    return out
+
+
 def shard_state(state, specs, mesh):
-    """This rank's shard of a whole state (each leaf by its spec)."""
+    """This rank's shard of a whole state (each leaf by its spec; a
+    ``QLeaf``'s codes by its parameter's, its block scales whole)."""
     coords = _coords(mesh)
     return tree_util.unflatten(
         (path, local_shard(leaf, tree_util.get(specs, path), mesh.shape, coords))
@@ -445,7 +477,8 @@ def _init_inpod_state(cfg, opt_cfg, fed_cfg, seed, abstract, mesh, impl, device,
     params = tree_util.unflatten(
         (path, local_shard(leaf, tree_util.get(specs["params"], path), mesh.shape, coords))
         for path, leaf in tree_util.leaves_in_order(params))
-    state = {"params": params, "opt": adam.init_state(opt_cfg, params),
+    state = {"params": params,
+             "opt": adam.init_state(opt_cfg, params, shards=opt_shards(cfg, mesh)),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if fed_cfg is not None:
         _, rows, n = whole["residual"].shape
@@ -533,7 +566,10 @@ def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None):
     """An in-pod rank's (pod loss, gradient shards): the loss is the mean
     over the pod's tokens (the same on the pod's ranks) and each leaf's
     gradient is the rank's shard of the pod's gradient.  ``batch`` is the
-    whole batch; ``params`` the rank's shards."""
+    whole batch; ``params`` the rank's shards.  The layers' collectives
+    leave every gradient whole over ``model`` (``models/sharding.py``); a
+    leaf ``data`` does not split holds the rank's tokens' part, summed over
+    ``data`` here (once, however many times the leaf was used)."""
     items = items if items is not None else _check_inpod(cfg, None, mesh)
     with use_inpod(InPod(mesh)):
         loss, grads = value_and_grad(params, local_batch(batch, mesh), cfg)
@@ -542,9 +578,6 @@ def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None):
         g = tree_util.get(grads, path)
         if mesh.shape["data"] > 1 and not any("data" in spec_axes(e) for e in spec):
             g = all_reduce(g, mesh.group("data"))  # the rank's tokens' part
-        if (mesh.shape["model"] > 1 and path[-1] in _TP_REPLICATED
-                and not any("model" in spec_axes(e) for e in spec)):
-            g = all_reduce(g, mesh.group("model"))  # the rank's heads' or columns' part
         out.append((path, g))
     return loss, tree_util.unflatten(out)
 
@@ -575,9 +608,11 @@ def _make_inpod_step(cfg, opt_cfg, fed_cfg, mesh, impl, device, a):
                 local = local + torch.sum(g.float() * g.float())
         return all_reduce(local, inner)
 
+    shards = opt_shards(cfg, mesh)
+
     def finish(state, grads, loss, extra):
         new_params, new_opt = adam.update(opt_cfg, grads, state["opt"], state["params"],
-                                          int(state["step"]), norm_sq=norm_sq)
+                                          int(state["step"]), norm_sq=norm_sq, shards=shards)
         loss = all_reduce(loss, pod_group) / pods
         return {"params": new_params, "opt": new_opt, "step": state["step"] + 1,
                 **extra}, {"loss": loss}

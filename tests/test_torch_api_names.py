@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import one_torch_thread  # noqa: E402,F401  (autouse)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -34,6 +34,7 @@ Contracts:
 import dataclasses
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -62,7 +63,7 @@ from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.obs import reader as treader  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
 from torch_fed_parity import nmse, reference_draw, reference_round  # noqa: E402
-from torch_shared import shared  # noqa: E402
+from torch_shared import shared, one_torch_thread  # noqa: E402,F401
 
 ARCHS = ["qwen3-0.6b", "mamba2-1.3b", "qwen3-moe-235b-a22b"]
 CLIENTS, BATCH, SEQ, LR = 4, 2, 16, 3e-3
@@ -71,15 +72,6 @@ FED = dict(block_size=255, reduction_ratio=3, bits=3, s_ratio=0.05, gamp_iters=1
 GHAT_NMSE = 1e-4  # the GAMP pin
 PARAM_ATOL = 2 * LR  # test_train_step_matches_reference's parameter tolerance
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread under several pytest workers (many small ops)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -390,22 +382,27 @@ def test_launcher_cohort_mode_rejects(argv, err, match):
 
 
 def _example():
+    """The example as a module registered under its name (its ranks are
+    spawned with a function of it, pickled by that name)."""
     spec = importlib.util.spec_from_file_location(
         "distributed_train_torch", os.path.join(ROOT, "examples", "distributed_train_torch.py"))
     example = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = example
     spec.loader.exec_module(example)
     return example
 
 
-def test_distributed_example_restarts_exactly(tmp_path, capsys):
-    """12 smoke steps with pod 1 down at steps 3-7 (``--inject-failure 3``),
-    then a rerun that resumes after the step-10 checkpoint: its parameters,
-    moments and residuals bit-identical to the uninterrupted run's."""
+def test_distributed_example_restarts_exactly(tmp_path, capfd):
+    """12 smoke steps on the reference's (2, 2, 2) world with pod 1 down at
+    steps 3-7 (``--inject-failure 3``), then a rerun that resumes after the
+    step-10 checkpoint: its parameters, moments and residuals bit-identical
+    to the uninterrupted run's (rank 0 prints: its lines reach the file
+    descriptor)."""
     example = _example()
     argv = ["--steps", "12", "--inject-failure", "3", "--device", "cpu",
             "--ckpt-dir", str(tmp_path)]
     full = example.main(argv)
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     down = sorted(int(ln.split()[1]) for ln in out.splitlines()
                   if ln.startswith("step") and "[pod1 DOWN]" in ln)
     assert down == [3, 4, 5, 6, 7]
@@ -413,7 +410,7 @@ def test_distributed_example_restarts_exactly(tmp_path, capsys):
     assert all(np.isfinite(float(ln.split()[3])) for ln in out.splitlines()
                if ln.startswith("step"))
     again = example.main(argv)
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert "[restore] resumed after step 10" in out
     assert [ln.split()[1] for ln in out.splitlines() if ln.startswith("step")] == ["11"]
     for key in ("params", "opt", "residual", "step"):

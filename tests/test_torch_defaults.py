@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import one_torch_thread  # noqa: E402,F401  (autouse)
+
 import jax  # noqa: E402
 
 from repro.configs import registry as jregistry  # noqa: E402
@@ -39,15 +41,6 @@ jax.config.update("jax_platform_name", "cpu")
 
 ARCHS = ("qwen3-0.6b", "qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b",
          "mamba2-1.3b", "zamba2-2.7b", "whisper-base")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread under several pytest workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(x) -> np.ndarray:

@@ -35,6 +35,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import one_torch_thread  # noqa: E402,F401  (autouse)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh as JMesh  # noqa: E402
@@ -64,18 +66,6 @@ N, NB, PODS = 256, 6, 2
 OPT = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100)
 ROUTES = [pytest.param(False, id="plain"), pytest.param(True, id="kernel")]
 WIRES = [("gather_codes", "ae"), ("gather_codes", "ea"), ("psum_dequant", "ae")]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread (its fixtures too): these steps are
-    many small ops, and under several pytest workers OpenMP's spinning
-    threads oversubscribe the cores (a step took minutes, not
-    milliseconds)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def nmse(x, ref) -> float:

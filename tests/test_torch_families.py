@@ -71,7 +71,7 @@ from repro_torch.models import sharding as tshard  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.optim import adam as tadam  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
-from torch_shared import shared as _shared  # noqa: E402
+from torch_shared import shared as _shared, one_torch_thread  # noqa: E402,F401
 
 FAMILIES = ["mamba2-1.3b", "zamba2-2.7b", "whisper-base"]
 FAMILY_ARCHS = sorted(a for a in jreg.ARCHS
@@ -82,15 +82,6 @@ FWD = dict(rtol=1e-4, atol=1e-5)
 FED_KW = dict(block_size=256, reduction_ratio=2, bits=4, s_ratio=0.08, gamp_iters=15,
               gamp_variance_mode="scalar")
 OPT_KW = dict(lr=3e-3, warmup_steps=2, decay_steps=100)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread under several pytest workers (many small ops)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -552,14 +543,17 @@ def test_serve_example_runs_the_hybrid(capsys):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_launcher_pod_mode_on_the_family(arch, tmp_path, capsys):
+def test_launcher_pod_mode_on_the_family(arch, tmp_path, capfd):
     """``python -m repro_torch.launch.train --arch ARCH --smoke --fedqcs``,
     2 pods, 2 steps, on the CPU (the reference's launcher takes these two
-    archs; Whisper's batches need frames its token data lacks)."""
+    archs; Whisper's batches need frames its token data lacks): the
+    reference's (2, 2, 2) world, int8 moments on its shards (rank 0 prints:
+    its lines reach the file descriptor)."""
     tlaunch.main(["--arch", arch, "--smoke", "--fedqcs", "--pods", "2", "--device", "cpu",
                   "--steps", "2", "--log-every", "1", "--batch", "4", "--seq", "16",
-                  "--ckpt-dir", str(tmp_path)])
-    out = capsys.readouterr().out
+                  "--int8-opt-state", "--ckpt-dir", str(tmp_path)])
+    out = capfd.readouterr().out
+    assert "mesh={'pod': 2, 'data': 2, 'model': 2}" in out
     assert "[train] done" in out and out.count("loss") == 2
     losses = [float(line.split("loss")[1].split()[0]) for line in out.splitlines()
               if line.startswith("step")]

@@ -1015,6 +1015,40 @@ def test_inpod_step_on_the_card_matches_the_cpu(cuda, impl, fed_kw):
     assert worst <= 2 * 3e-3, worst
 
 
+@pytest.mark.parametrize("arch,state_dtype", [
+    ("mamba2-1.3b", "float32"), ("zamba2-2.7b", "float32"), ("qwen3-0.6b", "int8"),
+])
+def test_inpod_family_step_on_the_card_matches_the_cpu(cuda, arch, state_dtype):
+    """The SSM and hybrid smoke models, and the dense one with int8 Adam
+    states, on the (2, 2, 2) world of eight ranks on the card against the
+    same world on the CPU: one ``auto`` step from seed 0; each rank
+    launches the encoder once; the loss within 1e-5, the kept sets equal
+    and each unkept residual entry within 1e-5 of the CPU's beyond the gap
+    between the two worlds' gradient rows there
+    (``tests/test_torch_families.py``'s contract: the hybrid's gradient
+    reaches ~40, where two orders of fp32 sums part by more than 1e-5),
+    the parameters within 2 lr."""
+    import torch_inpod_worker
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.spawn import run_world
+
+    card, cpu = (run_world(torch_inpod_worker.one_step, 8,
+                           args=("auto", _STEP_FED, arch, state_dtype), device=dev,
+                           timeout_s=300) for dev in ("cuda", "cpu"))
+    assert all(r["launches"] == 1 for r in card)
+    for got, want in zip(card, cpu):
+        assert abs(got["loss"] - want["loss"]) <= 1e-5
+        res, ref = got["residual"][0], want["residual"][0]
+        assert torch.equal(res == 0, ref == 0)
+        gap = torch.abs(got["blocks"] - want["blocks"])
+        unkept = ref != 0
+        assert bool(torch.all(torch.abs(res - ref)[unkept] <= 1e-5 + gap[unkept]))
+    worst = max(float(torch.max(torch.abs(p - tree_util.get(cpu[0]["params"], path))))
+                for path, p in tree_util.leaves(card[0]["params"]))
+    assert worst <= 2 * 3e-3, worst
+
+
 # The transformer family's MoE, MLA (+MTP) and VLM smoke configs and the
 # SSM, hybrid and audio families' on the card against the same model on the
 # CPU, both fp32 (TF32 off): the loss within 1e-5, every gradient leaf,

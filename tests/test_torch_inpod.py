@@ -6,7 +6,12 @@ reference's 2 x 2 x 2 runs, on the CPU.
 The model is the reference's system-test model, ``smoke_config
 ("qwen3-0.6b")`` (2 layers, d_model 64, 4 heads and 2 KV heads, vocab 256,
 fp32), with ``tests/test_system.py``'s FedQCS point (N = 256, R = 2, Q =
-4, S = 20, 15 scalar-variance GAMP iterations), optimizer and data.  The
+4, S = 20, 15 scalar-variance GAMP iterations), optimizer and data; the
+SSM and hybrid families' smoke models (``smoke_config("mamba2-1.3b")``: 2
+layers of 8 SSM heads; ``smoke_config("zamba2-2.7b")``: 4 layers in two
+groups, so the shared attention block runs twice) at the same point; and
+the dense model with int8 Adam states (the reference's
+``test_int8_optimizer_states``).  The
 reference runs its jitted steps on its 8 host devices once a pytest run
 (shared by the xdist workers); the port's eight ``gloo`` ranks run once
 too (``tests/torch_inpod_worker.py``, spawned by
@@ -18,7 +23,15 @@ port's is held against the port's ``impl="auto"``.
 Contracts (``tests/test_torch_models.py``'s): loss within 1e-5; each
 rank's residual equal to its shard of the reference's within atol 1e-5;
 the gathered parameters within 2 lr; the pod's gradient rtol 1e-4 / atol
-1e-6; a restart bit-identical.
+1e-6 (Zamba2's leaves that the reference's own fp32 gradient misses by
+more: against its float64 gradient, as ``tests/test_torch_families.py``
+holds them); a restart bit-identical.  int8: each rank's ``QLeaf``s and
+parameters bit-identical to their shards of Adam's update on the whole
+leaves; the world's codes within one step of the reference's and its
+scales rtol 1e-5 (a moment that near a rounding boundary of its code
+may round the other way: the two packages' aggregates differ in the last
+bits); a restart bit-identical, and its restore onto one device the
+reference's state entry for entry.
 """
 
 import dataclasses
@@ -50,7 +63,8 @@ from repro_torch.launch.spawn import run_world  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.optim.adam import OptConfig  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
-from torch_shared import shared  # noqa: E402
+from test_torch_families import _assert_grads_close, _grads64  # noqa: E402
+from torch_shared import shared, one_torch_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 simulated devices")
 
@@ -60,6 +74,8 @@ FED_KW = dict(block_size=256, reduction_ratio=2, bits=4, s_ratio=0.08, gamp_iter
 OPT_KW = dict(lr=3e-3, warmup_steps=2, decay_steps=100)
 LR = OPT_KW["lr"]
 MESH = {"pod": 2, "data": 2, "model": 2}
+FAMILIES = ("mamba2-1.3b", "zamba2-2.7b")
+STEPS = ("auto", "ea", "partial", "baseline", "sharded0")
 
 
 def _np(tree):
@@ -67,8 +83,9 @@ def _np(tree):
 
 
 def _paths(tree):
+    """path -> leaf (a QLeaf's fields as ``q`` and ``scale`` after its path)."""
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
-    return {tuple(getattr(k, "key", k) for k in p): v for p, v in flat}
+    return {tuple(getattr(k, "key", getattr(k, "name", k)) for k in p): v for p, v in flat}
 
 
 def _port_state(ref_state):
@@ -87,12 +104,7 @@ def _reference():
     batches = [ds.get_batch(i) for i in range(2)]
     mesh = j_debug_mesh(2, 2, 2)
     init = jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2)
-
-    def step(state, batch, fed_cfg=fed, impl="auto", on=mesh):
-        fn = jsteps.make_train_step(cfg, opt, fed_cfg, on, donate=False, impl=impl)
-        new, m = fn(state, batch)
-        return _np(new), float(m["loss"])
-
+    step = _stepper(cfg, opt, mesh, fed)
     out = {"init": _np(init), "batches": [_np(b) for b in batches],
            "devices": np.vectorize(lambda d: d.id)(mesh.devices).tolist(),
            "a": np.asarray(jcomp.BQCSCodec(fed).a)}
@@ -115,15 +127,82 @@ def _reference():
     return out
 
 
-def _port(ref):
+def _reference_int8():
+    """The reference's 2 x 2 x 2 step of the dense model with int8 Adam
+    states (its ``test_int8_optimizer_states``): the state before and after."""
+    cfg, fed = jreg.smoke_config(ARCH), jcomp.FedQCSConfig(**FED_KW)
+    opt8 = jadam.OptConfig(**OPT_KW, state_dtype="int8")
+    init8 = jsteps.init_train_state(cfg, opt8, fed, jax.random.PRNGKey(0), n_pods=2)
+    fn8 = jsteps.make_train_step(cfg, opt8, fed, j_debug_mesh(2, 2, 2), donate=False)
+    new8, m8 = fn8(init8, JDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(0))
+    return {"init": _np(init8), "step": (_np(new8), float(m8["loss"]))}
+
+
+def _stepper(cfg, opt, mesh, fed):
+    """``step(state, batch, fed_cfg=fed, impl="auto", on=mesh)`` -> (the
+    reference's new state, loss); each (config, impl, mesh) is jitted once."""
+    fns = {}
+
+    def step(state, batch, fed_cfg=fed, impl="auto", on=mesh):
+        key = (fed_cfg, impl, id(on))
+        if key not in fns:
+            fns[key] = jsteps.make_train_step(cfg, opt, fed_cfg, on, donate=False, impl=impl)
+        new, m = fns[key](state, batch)
+        return _np(new), float(m["loss"])
+
+    return step
+
+
+def _family_inits(arch):
+    """The reference's initial states of the SSM or hybrid smoke model:
+    ``impl="auto"``'s and ``"auto_sharded"``'s."""
+    cfg, fed = jreg.smoke_config(arch), jcomp.FedQCSConfig(**FED_KW)
+    opt = jadam.OptConfig(**OPT_KW)
+    return (jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2),
+            jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2,
+                                    mesh=j_debug_mesh(2, 2, 2), impl="auto_sharded"))
+
+
+def _reference_family(arch):
+    """The SSM or hybrid smoke model's 2 x 2 x 2 steps and pod gradients."""
+    cfg, fed = jreg.smoke_config(arch), jcomp.FedQCSConfig(**FED_KW)
+    opt = jadam.OptConfig(**OPT_KW)
+    batch = JDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(0)
+    init, sharded = _family_inits(arch)
+    run = _stepper(cfg, opt, j_debug_mesh(2, 2, 2), fed)
+    step = lambda state, fed_cfg=fed, impl="auto": run(state, batch, fed_cfg, impl)  # noqa
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jmodel.train_loss(p, b, cfg)))
+    pods = [{k: v[8 * p:8 * p + 8] for k, v in batch.items()} for p in range(2)]
+    return {
+        "init": _np(init),
+        "auto": step(init),
+        "ea": step(init, dataclasses.replace(fed, recon_mode="ea", use_kernels=True)),
+        "partial": step(dict(init, participating=jax.numpy.asarray([1.0, 0.0]))),
+        "baseline": step({k: v for k, v in init.items()
+                          if k not in ("residual", "participating")}, None),
+        "sharded0": step(sharded, impl="auto_sharded"),
+        "pods": [_np(b) for b in pods],
+        "grads": [_np(grad_fn(init["params"], b)) for b in pods],
+    }
+
+
+def _port(ref, ref8):
     """The port's eight ranks over every scenario, then the elastic restore
-    of their checkpoint onto one device and a step there."""
+    of their checkpoint onto one device and a step there, and the restore
+    of their int8 checkpoint.  The families' scenarios start from the
+    reference's initial states (their steps are held against
+    :func:`_reference_family`'s, computed apart)."""
     t = lambda b: {k: torch.tensor(np.asarray(v, np.int64)) for k, v in b.items()}
     inp = {"fed_kw": FED_KW, "opt_kw": OPT_KW, "a": torch.tensor(ref["a"]),
            "init": _port_state(ref["init"]), "batches": [t(b) for b in ref["batches"]],
            "sharded_init": _port_state(ref["sharded_init"]),
            "sharded_after": _port_state(ref["sharded0"][0]),
-           "auto_after": _port_state(ref["auto"][0])}
+           "auto_after": _port_state(ref["auto"][0]),
+           "families": {arch: dict(zip(("init", "sharded_init"),
+                                       (_port_state(_np(s)) for s in _family_inits(arch))))
+                        for arch in FAMILIES},
+           "int8_init": _port_state(ref8["init"]),
+           "int8_after": _port_state(ref8["step"][0])}
     with tempfile.TemporaryDirectory() as ckpt_dir:
         ranks = run_world(torch_inpod_worker.run, 8, args=(inp, ckpt_dir), device="cpu",
                           timeout_s=300)
@@ -132,16 +211,42 @@ def _port(ref):
         single = tmesh.make_single_device_mesh()
         template = steps.init_train_state(cfg, opt, fed, n_pods=2, abstract=True)
         restored, step = Checkpointer(ckpt_dir).restore(template, step=1, device="cpu")
+        opt8 = dataclasses.replace(opt, state_dtype="int8")
+        template8 = steps.init_train_state(cfg, opt8, fed, n_pods=2, abstract=True)
+        int8 = Checkpointer(f"{ckpt_dir}/int8").restore(template8, step=1, device="cpu")
     fn = steps.make_train_step(cfg, opt, fed, single, device="cpu", a=inp["a"])
     new, m = fn(restored, inp["batches"][1])
     return {"ranks": ranks, "restored": restored, "restored_step": step,
-            "elastic": (new, float(m["loss"]))}
+            "elastic": (new, float(m["loss"])), "int8_restored": int8}
+
+
+# Each reference run is shared on its own, so that the xdist workers that
+# reach this module compute them side by side; the world waits for the
+# dense and int8 ones (it replays their states).
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    ref = shared(tmp_path_factory, "inpod_reference", _reference)
-    return ref, shared(tmp_path_factory, "inpod_port", lambda: _port(ref))
+def reference(tmp_path_factory):
+    return shared(tmp_path_factory, "inpod_reference", _reference)
+
+
+@pytest.fixture(scope="module")
+def reference_int8(tmp_path_factory):
+    return shared(tmp_path_factory, "inpod_reference_int8", _reference_int8)
+
+
+def _family_reference(tmp_path_factory, arch):
+    return shared(tmp_path_factory, f"inpod_reference_{arch}", lambda: _reference_family(arch))
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory, reference, reference_int8):
+    return shared(tmp_path_factory, "inpod_port", lambda: _port(reference, reference_int8))
+
+
+@pytest.fixture(scope="module")
+def runs(reference, port):
+    return reference, port
 
 
 def _check(got_state, got_loss, want_state, want_loss):
@@ -183,6 +288,49 @@ def test_pod_gradient_matches_reference(runs):
                                        atol=1e-6, err_msg=str(path))
 
 
+def _check_world_step(name, want_state, want_loss, recs, coords, beyond_gap=False):
+    """The ranks' records of one step (``recs[r]``) against the reference's:
+    one loss on every rank, rank 0's gathered state, each rank's residual
+    against its shard of the reference's ``P("pod", ("data", "model"),
+    None)`` residual within atol 1e-5.  ``beyond_gap``
+    (``tests/test_torch_families.py``'s contract for the SSM and hybrid
+    families): the kept sets agree (the residuals' zeros), and each unkept
+    entry is within atol 1e-5 of the reference's beyond the two packages'
+    gap in that gradient entry (the rows the rank sent against the
+    reference's residual, which is the reference's gradient there)."""
+    assert all(rec["loss"] == recs[0]["loss"] for rec in recs)
+    _check(recs[0]["state"], recs[0]["loss"], want_state, want_loss)
+    if name == "baseline":
+        assert "residual" not in want_state and recs[0]["residual"] is None
+        return
+    want = np.asarray(want_state["residual"])
+    for c, rec in zip(coords, recs):
+        got = rec["residual"].numpy()
+        rows = got.shape[1]
+        r = c["data"] * MESH["model"] + c["model"]
+        mine = want[c["pod"], r * rows:(r + 1) * rows]
+        if not beyond_gap:
+            np.testing.assert_allclose(got[0], mine, rtol=0, atol=1e-5)
+            continue
+        assert np.array_equal(got[0] == 0, mine == 0)
+        gap = np.abs(rec["blocks"].numpy() - mine)
+        assert np.all(np.abs(got[0] - mine)[mine != 0] <= 1e-5 + gap[mine != 0])
+    if name == "partial":  # the dead pod keeps its full carry: its gradient blocks
+        assert float(np.abs(want[1]).max()) > 0
+
+
+def _check_shard_map(recs):
+    """``impl="shard_map"`` against ``impl="auto"``: records of the ranks."""
+    for rec in recs:
+        got, want = rec["shard_map"], rec["auto"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-5
+        np.testing.assert_allclose(got["residual"].numpy(), want["residual"].numpy(),
+                                   rtol=0, atol=1e-5)
+    got, want = recs[0]["shard_map"]["state"], recs[0]["auto"]["state"]
+    for path, p in tree_util.leaves(got["params"]):
+        assert float((p - tree_util.get(want["params"], path)).abs().max()) <= 2 * LR, path
+
+
 @pytest.mark.parametrize("name", ["auto", "ea", "partial", "baseline", "sharded0", "sharded1"])
 def test_step_matches_reference(name, runs):
     """One step of ``impl="auto"`` AE and EA (kernel route: the plain
@@ -191,36 +339,131 @@ def test_step_matches_reference(name, runs):
     residual against its shard of the reference's ``P("pod", ("data",
     "model"), None)`` residual, the gathered parameters."""
     ref, port = runs
-    want_state, want_loss = ref[name]
     ranks = port["ranks"]
-    assert all(out[name]["loss"] == ranks[0][name]["loss"] for out in ranks)
-    _check(ranks[0][name]["state"], ranks[0][name]["loss"], want_state, want_loss)
-    if name == "baseline":
-        assert "residual" not in want_state and ranks[0][name]["residual"] is None
-        return
-    want = np.asarray(want_state["residual"])
-    for out in ranks:
-        c, got = out["coords"], out[name]["residual"].numpy()
-        rows = got.shape[1]
-        r = c["data"] * MESH["model"] + c["model"]
-        np.testing.assert_allclose(got[0], want[c["pod"], r * rows:(r + 1) * rows],
-                                   rtol=0, atol=1e-5)
-    if name == "partial":  # the dead pod keeps its full carry: its gradient blocks
-        assert float(np.abs(want[1]).max()) > 0
+    _check_world_step(name, *ref[name], [out[name] for out in ranks],
+                      [out["coords"] for out in ranks])
 
 
 def test_shard_map_matches_auto(runs):
     """``impl="shard_map"`` (the packed words gathered over the pod peers)
     against ``impl="auto"`` (their dequantized sums) from one state."""
-    _, port = runs
+    _check_shard_map(runs[1]["ranks"])
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(params=FAMILIES)
+def family(request, tmp_path_factory):
+    """(arch, the reference's runs of its smoke model, the world's ranks'
+    records of it); the reference first, so that workers compute the
+    families' runs side by side."""
+    arch = request.param
+    ref = _family_reference(tmp_path_factory, arch)
+    ranks = request.getfixturevalue("port")["ranks"]
+    return arch, ref, [out["families"][arch] for out in ranks], [out["coords"] for out in ranks]
+
+
+def test_family_pod_gradient_matches_reference(family, tmp_path_factory):
+    """Each pod's loss and gradient, gathered from its four ranks: the
+    Mamba blocks run on each rank's SSM heads (the projections onto its
+    in_proj columns gathered over ``model``, conv_w gathered whole, the
+    shared B/C group's gradient summed over the heads' ranks, the gated
+    norm over every head), Zamba2's shared block once a group."""
+    arch, ref, recs, _ = family
+    cfg = jreg.smoke_config(arch)
+    for pod, rank in ((0, 0), (1, 4)):
+        want_loss, want_grads = ref["grads"][pod]
+        got = recs[rank]["grads"]
+        assert abs(got["loss"] - float(want_loss)) <= 1e-5
+        exact = lambda: shared(  # noqa: E731
+            tmp_path_factory, f"inpod_grads64_{arch}_{pod}",
+            lambda: _grads64(cfg, ref["init"]["params"], ref["pods"][pod]))
+        _assert_grads_close(got["grads"], want_grads, exact)
+
+
+@pytest.mark.parametrize("name", STEPS)
+def test_family_step_matches_reference(family, name):
+    """The SSM and hybrid smoke models' ``auto`` AE and EA, dead-pod,
+    baseline and ``auto_sharded`` steps on the world, to the dense
+    family's contracts, the residual to ``tests/test_torch_families.py``'s
+    (Zamba2's gradient sits on fp32's floor: its leaves differ from the
+    reference's by more than 1e-5 where they are large)."""
+    _, ref, recs, coords = family
+    _check_world_step(name, *ref[name], [rec[name] for rec in recs], coords, beyond_gap=True)
+
+
+def test_family_shard_map_matches_auto(family):
+    _check_shard_map(family[2])
+
+
+# ---------------------------------------------------------------------------
+# int8 Adam states on the shards
+# ---------------------------------------------------------------------------
+
+
+def _qleaves(tree):
+    return [(path, q) for path, q in tree_util.leaves(tree)]
+
+
+def test_int8_step_matches_reference(reference_int8, port):
+    """One ``auto`` step of the dense model with int8 moments: the loss,
+    residuals and parameters as an fp32 step's; the gathered moments'
+    codes within one step of the reference's, their scales rtol 1e-5."""
+    ranks = port["ranks"]
+    want_state, want_loss = reference_int8["step"]
+    _check_world_step("auto", want_state, want_loss, [out["int8"]["step"] for out in ranks],
+                      [out["coords"] for out in ranks])
+    got = ranks[0]["int8"]["step"]["state"]["opt"]
+    want = _paths(want_state["opt"])
+    moved = 0
+    for path, q in _qleaves(got):
+        wq, ws = np.asarray(want[path + ("q",)]), np.asarray(want[path + ("scale",)])
+        assert q.q.dtype == torch.int8 and q.q.shape == wq.shape, path
+        assert q.scale.shape == ws.shape, path
+        np.testing.assert_allclose(q.scale.numpy(), ws, rtol=1e-5, atol=0, err_msg=str(path))
+        assert int(np.abs(q.q.numpy().astype(np.int32) - wq).max()) <= 1, path
+        moved += int(np.count_nonzero(wq))
+    assert moved > 0
+
+
+def test_int8_qleafs_are_the_whole_leafs_shards(port):
+    """Adam on each rank's shards (block maxima over the whole leaf's
+    256-entry blocks, all-reduced over the leaf's ranks) against Adam on
+    the whole leaves, from the reference's int8 state after a step: every
+    rank's QLeafs and parameters are their shards of the whole's, bit for
+    bit, and every QLeaf holds the whole leaf's ceil(size / 256) scales."""
+    cfg = registry.smoke_config(ARCH)
+    whole = {-(-int(leaf.numel()) // 256) for _, leaf in tree_util.leaves(
+        tmodel.init_params(cfg, device="meta"))}
     for out in port["ranks"]:
-        got, want = out["shard_map"], out["auto"]
-        assert abs(got["loss"] - want["loss"]) <= 1e-5
-        np.testing.assert_allclose(got["residual"].numpy(), want["residual"].numpy(),
-                                   rtol=0, atol=1e-5)
-    got, want = port["ranks"][0]["shard_map"]["state"], port["ranks"][0]["auto"]["state"]
-    for path, p in tree_util.leaves(got["params"]):
-        assert float((p - tree_util.get(want["params"], path)).abs().max()) <= 2 * LR, path
+        assert out["int8"]["update"]["leaves"] > 0
+        assert out["int8"]["update"]["differ"] == [], out["coords"]
+        assert set(out["int8"]["scale_lengths"]) == whole
+
+
+def test_int8_checkpoint_restart_is_exact(port):
+    """An int8 state saved from the shards after a step (each moment's
+    codes gathered, its one scale vector), restored into the world's
+    shards and replayed: bit-identical to the run that went on."""
+    assert all(out["int8"]["ckpt"] == {"step": 2, "same": True} for out in port["ranks"])
+
+
+def test_int8_checkpoint_restores_onto_one_device(reference_int8, port):
+    """The world's int8 checkpoint of the reference's state after its step
+    restores onto one device entry for entry (``<path>.q``, ``.scale``)."""
+    restored, step = port["int8_restored"]
+    assert step == 1
+    want = _paths(reference_int8["step"][0])
+    for path, leaf in tree_util.leaves(restored):
+        if isinstance(leaf, tuple):
+            for field in ("q", "scale"):
+                got = getattr(leaf, field).numpy()
+                assert np.array_equal(got, np.asarray(want[path + (field,)])), path
+        else:
+            assert np.array_equal(leaf.numpy(), np.asarray(want[path])), path
 
 
 def test_remat_recomputes_the_collectives_alike(runs):
@@ -307,16 +550,21 @@ def test_local_batch_is_the_references_split():
 _CFG, _OPT, _FED = registry.smoke_config(ARCH), OptConfig(**OPT_KW), FedQCSConfig(**FED_KW)
 
 
+def _inpod_state(arch, opt=_OPT):
+    """Rank 0's in-pod state of ``arch``'s smoke model (a mesh made outside
+    its world holds rank 0's place)."""
+    return steps.init_train_state(registry.smoke_config(arch), opt, _FED, mesh=tmesh.Mesh(MESH),
+                                  device="cpu")
+
+
 @pytest.mark.parametrize("route,item", [
-    pytest.param(lambda: steps.init_train_state(registry.smoke_config("qwen3-moe-235b-a22b"),
-                                                _OPT, _FED, mesh=tmesh.Mesh(MESH)),
-                 "item 10d", id="moe-family"),
-    pytest.param(lambda: steps.make_train_step(registry.smoke_config("mamba2-1.3b"), _OPT,
-                                               _FED, tmesh.Mesh(MESH)), "item 10d",
-                 id="ssm-family"),
-    pytest.param(lambda: steps.init_train_state(
-        _CFG, dataclasses.replace(_OPT, state_dtype="int8"), _FED, mesh=tmesh.Mesh(MESH)),
-        "item 10e", id="int8-adam"),
+    pytest.param(lambda: _inpod_state("qwen3-moe-235b-a22b"), "item 10d", id="moe-family"),
+    pytest.param(lambda: _inpod_state("mamba2-1.3b"), None, id="ssm-family"),
+    pytest.param(lambda: _inpod_state("zamba2-2.7b"), None, id="hybrid-family"),
+    pytest.param(lambda: _inpod_state("qwen2-vl-7b"), "item 10d", id="vlm-family"),
+    pytest.param(lambda: _inpod_state("whisper-base"), "item 10d", id="audio-family"),
+    pytest.param(lambda: _inpod_state(ARCH, dataclasses.replace(_OPT, state_dtype="int8")),
+                 None, id="int8-adam"),
     pytest.param(lambda: steps.make_decode_step(_CFG, tmesh.Mesh(MESH)), "item 10c",
                  id="decode-step"),
     pytest.param(lambda: steps.make_prefill_step(_CFG, tmesh.Mesh(MESH)), "item 10c",
@@ -329,10 +577,48 @@ _CFG, _OPT, _FED = registry.smoke_config(ARCH), OptConfig(**OPT_KW), FedQCSConfi
 def test_routes_outside_the_slice_raise(route, item):
     """Each route the in-pod slice does not run raises
     ``NotImplementedError`` naming its ROADMAP.md item; an in-pod mesh made
-    outside its world has no groups and says how to start one."""
+    outside its world has no groups and says how to start one.  The routes
+    this slice ported (``item`` None: the SSM and hybrid families, int8
+    Adam states) run: rank 0's state holds its shards (a quarter of the
+    Mamba ``in_proj``) and an int8 moment the whole leaf's block scales."""
+    if item is None:
+        state = route()
+        for path, m in tree_util.leaves(state["opt"]["m"]):
+            p = tree_util.get(state["params"], path)
+            if isinstance(m, tuple):
+                assert m.q.shape == p.shape and m.q.dtype == torch.int8
+                assert m.scale.numel() >= -(-p.numel() // 256)
+            else:
+                assert m.shape == p.shape
+        if "layers" in state["params"] and "in_proj" in state["params"]["layers"]:
+            cfg = registry.smoke_config("mamba2-1.3b")
+            whole = tmodel.init_params(cfg, device="meta")["layers"]["in_proj"]
+            assert state["params"]["layers"]["in_proj"].numel() * 4 == whole.numel()
+        return
     err, match = item if isinstance(item, tuple) else (NotImplementedError, item)
     with pytest.raises(err, match=match):
         route()
+
+
+@pytest.mark.parametrize("arch,world", [("qwen3-0.6b", 8), ("mamba2-1.3b", 8),
+                                        ("zamba2-2.7b", 8), ("qwen3-moe-235b-a22b", None)])
+def test_launcher_pod_mode_picks_the_mesh(arch, world, monkeypatch, capsys):
+    """Pod mode spawns the reference's (pods, 2, 2) world for the dense, SSM
+    and hybrid families and keeps (pods, 1, 1) in one process for the
+    others, naming their item."""
+    from repro_torch.launch import train as tlaunch
+
+    seen = {}
+    monkeypatch.setattr(tlaunch, "run_world", lambda fn, n, **kw: seen.update(world=n))
+    monkeypatch.setattr(tlaunch, "_train", lambda args, cfg, mesh, dev: seen.update(
+        mesh=dict(mesh.shape)))
+    tlaunch.main(["--arch", arch, "--smoke", "--fedqcs", "--pods", "2", "--device", "cpu",
+                  "--int8-opt-state"])
+    if world:
+        assert seen == {"world": world}
+    else:
+        assert seen == {"mesh": {"pod": 2, "data": 1, "model": 1}}
+        assert "item 10d" in capsys.readouterr().out
 
 
 def test_spawned_rank_that_raises_makes_the_parent_raise():

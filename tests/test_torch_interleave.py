@@ -58,7 +58,7 @@ from repro_torch.models import segment_tap as ttap  # noqa: E402
 from repro_torch.obs import InMemoryRecorder  # noqa: E402
 from repro_torch.obs.trace import SUB_PHASES  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
-from torch_shared import shared  # noqa: E402
+from torch_shared import shared, one_torch_thread  # noqa: E402,F401
 
 C, B, S, SV = 2, 2, 16, 4  # clients, samples a client, tokens, VLM patches
 N = 64  # the reference's interleave tests' block size
@@ -67,15 +67,6 @@ STAGED_ARCHS = ["qwen3-0.6b", "deepseek-v3-671b", "mamba2-1.3b", "zamba2-2.7b", 
 WIRE_ARCHS = ["qwen3-0.6b", "mamba2-1.3b", "zamba2-2.7b"]
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_families.py's gradient pin
 TREE_TOL = dict(rtol=2e-4, atol=5e-5)  # the reference's staged-vs-monolithic pin
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread under several pytest workers (many small ops)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _chunks(arch, layer_chunks=2):

@@ -31,6 +31,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import one_torch_thread  # noqa: E402,F401  (autouse)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -65,18 +67,6 @@ FED_KW = dict(block_size=256, reduction_ratio=2, bits=4, s_ratio=0.08, gamp_iter
 OPT_KW = dict(lr=3e-3, warmup_steps=2, decay_steps=100)
 LR = OPT_KW["lr"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread (its fixtures too): these steps are
-    many small ops, and under several pytest workers OpenMP's spinning
-    threads oversubscribe the cores (a step took minutes, not
-    milliseconds)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import one_torch_thread  # noqa: E402,F401  (autouse)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax import lax  # noqa: E402
@@ -53,16 +55,6 @@ def _same(got, want):
 
 def _jkey(seed=42):
     return jax.random.PRNGKey(seed)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread under several pytest workers (the exhaustive
-    transforms are wide elementwise passes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_threefry_partitionable_flag_is_on():

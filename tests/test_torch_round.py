@@ -48,7 +48,7 @@ from repro_torch.fed.scheduler import SchedulerConfig as TSched  # noqa: E402
 from repro_torch.fed.scheduler import SchedulerState as TState  # noqa: E402
 from repro_torch.fed.scheduler import select_cohort as t_select  # noqa: E402
 from repro_torch.paper import mlp as tmlp  # noqa: E402
-from torch_shared import shared as _shared  # noqa: E402
+from torch_shared import shared as _shared, one_torch_thread  # noqa: E402,F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -64,7 +64,7 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import sharding as tshard  # noqa: E402
 from repro_torch.optim import adam as tadam  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
-from torch_shared import shared as _shared  # noqa: E402
+from torch_shared import shared as _shared, one_torch_thread  # noqa: E402,F401
 
 FAMILIES = ["qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b"]
 TRANSFORMER_ARCHS = sorted(a for a in jreg.ARCHS
@@ -75,15 +75,6 @@ FWD = dict(rtol=1e-4, atol=1e-5)
 FED_KW = dict(block_size=256, reduction_ratio=2, bits=4, s_ratio=0.08, gamp_iters=15,
               gamp_variance_mode="scalar")
 OPT_KW = dict(lr=3e-3, warmup_steps=2, decay_steps=100)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread under several pytest workers (many small ops)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_shared import one_torch_thread  # noqa: E402,F401  (autouse)
+
 import jax  # noqa: E402
 
 from repro.kernels.block_topk import block_topk_pallas  # noqa: E402

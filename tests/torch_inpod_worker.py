@@ -19,10 +19,21 @@ Scenarios (``inp`` is the test process's input dict):
   * ``ckpt``: the reference's state after its first ``auto`` step saved
     from the shards (rank 0 writes), a step from the initial state saved
     and continued one more step, then restored from its checkpoint and
-    replayed.
+    replayed;
+  * ``families``: for each of ``inp["families"]`` (the SSM and hybrid smoke
+    models), its pod gradient and the ``auto``, ``ea``, ``partial``,
+    ``baseline``, ``sharded0`` and ``shard_map`` steps, as above;
+  * ``int8``: the dense model with int8 Adam states: one ``auto`` step from
+    the reference's int8 state; ``update``: Adam on the rank's shards of
+    the reference's state after that step against Adam on the whole leaves
+    (the same gradient and clip), the rank's ``QLeaf``s and parameters
+    against their shards of the whole's, bit for bit; ``ckpt``: the
+    reference's state after its step saved from the shards (for the test
+    process's restore onto one device), and a restart replayed.
 """
 
 import dataclasses
+import os
 
 
 def run(rank, world, device, inp, ckpt_dir):
@@ -62,6 +73,11 @@ def run(rank, world, device, inp, ckpt_dir):
         (path, gather_leaf(g, tree_util.get(specs["params"], path), mesh))
         for path, g in tree_util.leaves(grads))}
 
+    for arch, fam in inp["families"].items():
+        out.setdefault("families", {})[arch] = _family(arch, fam, inp, mesh, opt, fed, a,
+                                                      device, rank)
+    out["int8"] = _int8(inp, mesh, fed, a, device, rank, os.path.join(ckpt_dir, "int8"))
+
     run_step("auto", inp["init"], inp["batches"][0])
     run_step("ea", inp["init"], inp["batches"][0],
              fed_cfg=dataclasses.replace(fed, recon_mode="ea", use_kernels=True))
@@ -91,6 +107,128 @@ def run(rank, world, device, inp, ckpt_dir):
     return out
 
 
+def _step(name, out, cfg, opt, fed, mesh, state, batch, device, a, rank, impl="auto"):
+    """One in-pod step of ``cfg`` from the whole ``state``: its loss, the
+    rank's residual, the gradient rows it sent (``blocks``: its rows of the
+    pod's gradient plus its carry) and (rank 0) the gathered state go into
+    ``out[name]``; returns the rank's new state and the specs."""
+    from repro_torch.runtime import steps
+
+    whole, specs = steps.state_specs(cfg, opt, fed, mesh, impl)
+    fn = steps.make_train_step(cfg, opt, fed, mesh, impl=impl, device=device, a=a)
+    seen, pod_allreduce = {}, steps.fedqcs_pod_allreduce
+
+    def capture(blocks, residual, *args, **kw):
+        seen["blocks"] = blocks + residual
+        return pod_allreduce(blocks, residual, *args, **kw)
+
+    steps.fedqcs_pod_allreduce = capture
+    try:
+        new, m = fn(steps.shard_state(state, specs, mesh), batch)
+    finally:
+        steps.fedqcs_pod_allreduce = pod_allreduce
+    gathered = steps.gather_state(new, specs, mesh)
+    out[name] = {"loss": float(m["loss"]), "residual": new.get("residual"),
+                 "blocks": seen.get("blocks"), "state": gathered if rank == 0 else None}
+    return new, specs
+
+
+def _pod_grads(cfg, opt, fed, mesh, params, batch):
+    """The pod's loss and gradient at the whole ``params``, gathered."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models.sharding import gather_leaf
+    from repro_torch.runtime import steps
+
+    _, specs = steps.state_specs(cfg, opt, fed, mesh)
+    local = steps.shard_state(params, specs["params"], mesh)
+    loss, grads = steps.pod_value_and_grad(local, batch, cfg, mesh)
+    return {"loss": float(loss), "grads": tree_util.unflatten(
+        (path, gather_leaf(g, tree_util.get(specs["params"], path), mesh))
+        for path, g in tree_util.leaves(grads))}
+
+
+def _family(arch, fam, inp, mesh, opt, fed, a, device, rank):
+    """The SSM or hybrid smoke model's scenarios (see the module docstring)."""
+    import torch
+
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(arch)
+    batch = inp["batches"][0]
+    out = {"grads": _pod_grads(cfg, opt, fed, mesh, fam["init"]["params"], batch)}
+    def run(name, state, fed_cfg=fed, **kw):
+        _step(name, out, cfg, opt, fed_cfg, mesh, state, batch, device, a, rank, **kw)
+
+    run("auto", fam["init"])
+    run("ea", fam["init"], fed_cfg=dataclasses.replace(fed, recon_mode="ea", use_kernels=True))
+    run("partial", dict(fam["init"], participating=torch.tensor([1.0, 0.0])))
+    run("baseline", {k: v for k, v in fam["init"].items()
+                     if k not in ("residual", "participating")}, fed_cfg=None)
+    run("sharded0", fam["sharded_init"], impl="auto_sharded")
+    run("shard_map", fam["init"], impl="shard_map")
+    return out
+
+
+def _int8(inp, mesh, fed, a, device, rank, ckpt_dir):
+    """The dense model's int8 scenarios (see the module docstring)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models.sharding import local_shard
+    from repro_torch.optim import adam
+    from repro_torch.runtime import steps
+
+    cfg = smoke_config("qwen3-0.6b")
+    opt = adam.OptConfig(**inp["opt_kw"], state_dtype="int8")
+    batches, after = inp["batches"], inp["int8_after"]
+    out = {}
+    _step("step", out, cfg, opt, fed, mesh, inp["int8_init"], batches[0], device, a, rank)
+
+    # Adam on the rank's shards against Adam on the whole leaves
+    whole, specs = steps.state_specs(cfg, opt, fed, mesh)
+    grads = _pod_grads(cfg, opt, fed, mesh, after["params"], batches[1])["grads"]
+    norm = torch.sum(torch.stack([torch.sum(g * g) for _, g in tree_util.leaves(grads)]))
+    norm_sq = lambda _: norm  # noqa: E731  (one clip for both)
+    step = int(after["step"])
+    want = adam.update(opt, grads, after["opt"], after["params"], step, norm_sq=norm_sq)
+    local = steps.shard_state(after, specs, mesh)
+    got = adam.update(opt, steps.shard_state(grads, specs["params"], mesh), local["opt"],
+                      local["params"], step, norm_sq=norm_sq,
+                      shards=steps.opt_shards(cfg, mesh))
+    sizes, c = mesh.shape, mesh.coords()
+    checked, differ = 0, []
+    for tree, spec_tree, mine, name in ((want[0], specs["params"], got[0], "params"),
+                                        (want[1], specs["opt"], got[1], "opt")):
+        for path, leaf in tree_util.leaves(tree):
+            cut = local_shard(leaf, tree_util.get(spec_tree, path), sizes, c)
+            have = tree_util.get(mine, path)
+            pairs = zip(cut, have) if isinstance(cut, tuple) else [(cut, have)]
+            checked += 1
+            if not all(torch.equal(x, y) for x, y in pairs):
+                differ.append((name,) + path)
+    out["update"] = {"leaves": checked, "differ": differ}
+    out["scale_lengths"] = sorted({int(q.scale.numel()) for _, q in tree_util.leaves(
+        got[1]["m"])})
+
+    # checkpoints: the reference's state after its step; a restart
+    ckpt = Checkpointer(ckpt_dir, keep=4, async_save=False)
+    ckpt.save(1, steps.shard_state(after, specs, mesh), specs=specs, mesh=mesh)
+    fn = steps.make_train_step(cfg, opt, fed, mesh, device=device, a=a)
+    state, _ = fn(steps.shard_state(after, specs, mesh), batches[1])
+    ckpt.save(2, state, specs=specs, mesh=mesh)
+    cont, _ = fn(state, batches[0])
+    torch.distributed.barrier()
+    restored, at = ckpt.restore(whole, step=2, specs=specs, mesh=mesh, device=device)
+    replay, _ = fn(restored, batches[0])
+    flat = lambda t: [x for _, v in tree_util.leaves(t)  # noqa: E731
+                      for x in (v if isinstance(v, tuple) else (v,))]
+    out["ckpt"] = {"step": at, "same": all(torch.equal(x, y)
+                                           for x, y in zip(flat(cont), flat(replay)))}
+    return out
+
+
 def fail_on_rank_3(rank, world, device):
     """Rank 3 raises; the others wait in a barrier until the world stops."""
     import torch.distributed as dist
@@ -100,10 +238,11 @@ def fail_on_rank_3(rank, world, device):
     dist.barrier()
 
 
-def one_step(rank, world, device, impl, fed_kw):
-    """One step of the smoke model on the (2, 2, 2) mesh from seed 0's
-    state (``fed_kw`` None: the baseline): the loss, this rank's residual
-    and the encoder launches on the host, rank 0's gathered parameters."""
+def one_step(rank, world, device, impl, fed_kw, arch="qwen3-0.6b", state_dtype="float32"):
+    """One step of ``arch``'s smoke model on the (2, 2, 2) mesh from seed
+    0's state (``fed_kw`` None: the baseline; ``state_dtype``: Adam's
+    moments): the loss, this rank's residual, the gradient rows it sent and
+    the encoder launches on the host, rank 0's gathered parameters."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.core.compression import FedQCSConfig
     from repro_torch.data.synthetic import TokenDataset
@@ -112,20 +251,30 @@ def one_step(rank, world, device, impl, fed_kw):
     from repro_torch.optim.adam import OptConfig
     from repro_torch.runtime import steps
 
-    cfg = smoke_config("qwen3-0.6b")
-    opt = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100)
+    cfg = smoke_config(arch)
+    opt = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100, state_dtype=state_dtype)
     fed = None if fed_kw is None else FedQCSConfig(**fed_kw)
     mesh = make_debug_mesh(2, 2, 2)
     state = steps.init_train_state(cfg, opt, fed, 0, mesh=mesh, impl=impl, device=device)
     fn = steps.make_train_step(cfg, opt, fed, mesh, impl=impl, device=device)
     bqcs_encode_fused.launches = 0
-    new, m = fn(state, TokenDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(
-        0, device=device))
+    seen, pod_allreduce = {}, steps.fedqcs_pod_allreduce
+
+    def capture(blocks, residual, *args, **kw):
+        seen["blocks"] = blocks + residual
+        return pod_allreduce(blocks, residual, *args, **kw)
+
+    steps.fedqcs_pod_allreduce = capture
+    try:
+        new, m = fn(state, TokenDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(
+            0, device=device))
+    finally:
+        steps.fedqcs_pod_allreduce = pod_allreduce
     params = steps.gather_state(new["params"], steps.state_specs(cfg, opt, fed, mesh, impl)[1]
                                 ["params"], mesh)
     to_host = lambda t: None if t is None else t.cpu()
     return {"loss": float(m["loss"]), "residual": to_host(new.get("residual")),
-            "launches": bqcs_encode_fused.launches,
+            "blocks": to_host(seen.get("blocks")), "launches": bqcs_encode_fused.launches,
             "params": _host_tree(params) if rank == 0 else None}
 
 

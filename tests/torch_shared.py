@@ -1,9 +1,12 @@
-"""A result computed once for a whole pytest run and shared by its xdist
-workers (the port's parity tests keep their reference runs here)."""
+"""What the port's parity tests share: a result computed once for a whole
+pytest run and shared by its xdist workers (the reference runs), and the
+one-torch-thread fixture."""
 
 import fcntl
 import os
 import pickle
+
+import pytest
 
 
 def shared(tmp_path_factory, name, compute):
@@ -22,3 +25,16 @@ def shared(tmp_path_factory, name, compute):
             tmp.write_bytes(pickle.dumps(compute()))
             tmp.rename(path)
         return pickle.loads(path.read_bytes())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread under several pytest workers: the port's tests run
+    many small ops, and a thread pool a worker oversubscribes the cores.
+    A module takes it by importing it."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

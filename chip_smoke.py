@@ -214,19 +214,27 @@ Phases (any failure raises and the script exits non-zero):
     ``auto_sharded`` AE step at INPOD_SHARDED_LAYERS layers against the
     same 8-rank program with the plain versions (aggregate NMSE <= 1e-3),
     one ``auto`` AE and one ``auto`` EA step at INPOD_LAYERS layers.
-    Mamba2-1.3B (12 of 48 layers) and Zamba2-2.7B (6 of 54: one group and
-    its shared block): one ``auto`` AE step each; Mamba2-1.3B: one
+    Mamba2-1.3B (INPOD_SSM_LAYERS of 48 layers) and Zamba2-2.7B (6 of 54:
+    one group and its shared block): one ``auto`` AE step each; Mamba2-1.3B: one
     ``auto`` EA step with int8 Adam states, every rank's QLeafs after one
     more Adam update on its shards the shards of the update on the whole
-    leaves, bit for bit.  The ``auto`` steps: the world's gradient rows
-    against one process's (within INPOD_BF16_FLOORS x one process's own
-    bf16-to-fp32 NMSE) and the world's exchange and decode of one
-    process's rows against one process's aggregate (NMSE <= 1e-3).  Each
-    step: the loss against one process's (1e-3 relative), each rank's
-    launches (1 encoder, 15 step kernel), rank 0's wall, each rank's peak
-    and the card's memory in use.  [time] of the three kernels alone at a
-    rank's rows: Qwen3-0.6B's full-depth mesh (584,448), and each family
-    model's at its depth (Zamba2-2.7B runs AE only: no ``qgamp_step``).
+    leaves, bit for bit.  Whisper-base at full width and depth (6 + 6
+    layers, its 51,865-row tied embedding held whole over ``model``; 1,500
+    frames beside 64 text tokens): one ``auto`` AE and one ``auto`` EA
+    step.  Qwen3-MoE-235B-A22B, DeepSeek-V3 (MLA, MoE, MTP) and Qwen2-VL-7B
+    at their smoke configs (fp32; their full widths do not fit eight ranks
+    on one card): one ``auto`` AE step each, which checks the program and
+    is neither timed nor counted in the JSON.  The ``auto`` steps: the
+    world's gradient rows against one process's (within INPOD_BF16_FLOORS
+    x one process's own bf16-to-fp32 NMSE; INPOD_FP32_ROWS for an fp32
+    model) and the world's exchange and decode of one process's rows
+    against one process's aggregate (NMSE <= 1e-3).  Each step: the loss
+    against one process's (1e-3 relative), each rank's launches (1
+    encoder, 15 step kernel), rank 0's wall, each rank's peak and the
+    card's memory in use.  [time] of the three kernels alone at a rank's
+    rows: Qwen3-0.6B's full-depth mesh (584,448), and each full-width
+    family model's at its depth (Zamba2-2.7B runs AE only: no
+    ``qgamp_step``).
  17. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
@@ -241,6 +249,12 @@ Phases (any failure raises and the script exits non-zero):
 
 ``python3 chip_smoke.py --levels 4,5,6,7`` runs phases 1-2 and then the
 [levels] sweep of the bisection's pass size (``phase_levels``), and stops.
+``python3 chip_smoke.py --inpod`` runs the build and [inpod] alone, and
+stops.  ``python3 chip_smoke.py --inpod-wide`` runs the build and
+[inpod-wide] (``phase_inpod_wide``): INPOD_WIDE's model at full width on
+[inpod]'s eight ranks, one ``auto`` AE step with int8, then fp32, Adam
+moments, and each rank's peak or where one ran out of device memory; and
+stops.
 ``python3 chip_smoke.py --against DIR`` runs phases 1-2 and then
 [against] (``phase_against``): the kernels this tree shares with the
 checkout at DIR, through this tree's wrappers with DIR's kernel library and
@@ -2257,7 +2271,8 @@ def _round_device_ms(method, cfg, dev, steps: int, run_kw: dict) -> list:
     kernel on the device's clock; a device event belongs to the round whose
     window (the union of the two) holds its start, so no event is lost to a
     skew between the clocks, and the evaluation between rounds falls in no
-    round, as in the round wall."""
+    round, as in the round wall.  The trace starts at the first round, so
+    the engine's set-up (data, A, parameters) is neither traced nor parsed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2266,18 +2281,23 @@ def _round_device_ms(method, cfg, dev, steps: int, run_kw: dict) -> list:
     from repro_torch.paper.mlp import run_federated
 
     run_round = CohortEngine.run_round
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def traced(self):
+        if prof.profiler is None:
+            torch.cuda.synchronize()
+            prof.start()
         with record_function(ROUND_RANGE):
             return run_round(self)
 
     CohortEngine.run_round = traced
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_federated(method, steps=steps, device=dev, fed_cfg=cfg, **run_kw)
-            torch.cuda.synchronize()
+        run_federated(method, steps=steps, device=dev, fed_cfg=cfg, **run_kw)
+        torch.cuda.synchronize()
     finally:
         CohortEngine.run_round = run_round
+        if prof.profiler is not None:
+            prof.stop()
     events = prof.events()
     host, device = ([(e.time_range.start, e.time_range.end) for e in events
                      if e.name == ROUND_RANGE and (e.device_type == DeviceType.CPU) == on_host]
@@ -3393,8 +3413,9 @@ def phase_train(dev):
 # 48: Qwen3-0.6B's EA step peaked at 42.5 GiB for 596M scalars (~71 bytes a
 # scalar), so 48 layers (1.34B) would need ~89 GiB; 24 (0.72B, ~51 GiB) until
 # [inpod] came, then 12 (0.41B), then 2 (0.15B) when [inpod] took the SSM and
-# hybrid families (Mamba2-1.3B at 12 layers there), so that the script keeps
-# to its time limit.
+# hybrid families (Mamba2-1.3B at 12 layers there, INPOD_SSM_LAYERS since it
+# took the MoE, VLM and audio families too), so that the script keeps to its
+# time limit.
 # 2 pods, the launcher's batch 16 x seq 64 (the SSD pads it to one chunk of
 # 256) and FedQCS point, weights drawn on the card (card_params, seed 0).
 TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, PLAIN_CHUNK_ROWS = "mamba2-1.3b", 2, 1 << 18
@@ -4934,32 +4955,64 @@ def phase_serve(dev, smi) -> dict:
 # (launch/mesh.py, models/sharding.py, runtime/steps.py's in-pod program):
 # one process per device, eight gloo ranks sharing the one card
 # (launch/spawn.py; NCCL refuses two ranks on one card, so the collectives
-# run on host copies).  [train]'s batch, FedQCS point and optimizer, every
-# model at full width:
-#   * Qwen3-0.6B, depth cut to INPOD_LAYERS (auto) and INPOD_SHARDED_LAYERS
-#     (auto_sharded, whose rank rows hold the MLP's wi/wg whole: the
-#     reference's rules replicate them): eight ranks at 28 layers pass the
-#     card's 80 GB (auto_sharded ran out of memory at 14 layers, with 6.1
-#     GiB a rank allocated); 14 and 8 until the SSM and hybrid families
-#     came, then 4 and 2 (the script's time limit);
-#   * Mamba2-1.3B at 12 of 48 layers, and Zamba2-2.7B at 6 of
-#     54 (one group and its shared block), one auto AE step each, and one
-#     auto EA step of Mamba2-1.3B with int8 Adam states (INPOD_FAMILY_RUNS):
-#     the depths keep the whole script inside its time limit.
+# run on host copies).  [train]'s batch, FedQCS point and optimizer:
+#   * Qwen3-0.6B at full width, depth cut to INPOD_LAYERS (auto) and
+#     INPOD_SHARDED_LAYERS (auto_sharded, whose rank rows hold the MLP's
+#     wi/wg whole: the reference's rules replicate them): eight ranks at 28
+#     layers pass the card's 80 GB (auto_sharded ran out of memory at 14
+#     layers, with 6.1 GiB a rank allocated); 14 and 8 until the SSM and
+#     hybrid families came, then 4 and 2 (the script's time limit);
+#   * the other families' models (inpod_family_runs): Mamba2-1.3B at
+#     INPOD_SSM_LAYERS of 48 layers (12 until the script passed its 1200 s
+#     limit with the MoE, VLM and audio families beside it) and Zamba2-2.7B at 6 of 54 (one group and its shared
+#     block) at full width, Whisper-base at full width and depth (6 + 6
+#     layers; 1,500 frames beside the 64 text tokens); the MoE family
+#     (Qwen3-MoE-235B-A22B; DeepSeek-V3 with MLA and MTP) and the VLM
+#     (Qwen2-VL-7B) at their smoke configs (fp32), which check the program
+#     and measure nothing: at full width eight ranks of one card cannot
+#     hold them (``--inpod-wide`` tries Qwen2-VL-7B at one layer).
 # Eight ranks time-slicing one card say that the program runs on the
 # device, not how fast it would run on eight.
-INPOD_MESH, INPOD_LAYERS, INPOD_SHARDED_LAYERS = (2, 2, 2), 4, 2
+INPOD_MESH, INPOD_LAYERS, INPOD_SHARDED_LAYERS, INPOD_SSM_LAYERS = (2, 2, 2), 4, 2, 4
 INPOD_LOSS_TOL = 1e-3  # relative: bf16 products and sums in another order
 # the world's bf16 gradient rows against one process's, in units of one
 # process's own bf16 rows' NMSE to its fp32 rows (two independent bf16
 # errors: 2 expected)
 INPOD_BF16_FLOORS = 4.0
+# an fp32 model's: the same products summed in another order
+INPOD_FP32_ROWS = 1e-8
 INPOD_ENCODE = f"bqcs_encode_fused[N={TRAIN_N}, a rank's rows]"
 INPOD_GAMP = f"gamp_step[N={TRAIN_N}, a rank's rows]"
 INPOD_QGAMP = f"qgamp_step[N={TRAIN_N}, a rank's rows]"
-# (label, arch, layers): the SSM and hybrid families' models
-INPOD_FAMILY_RUNS = (("Mamba2-1.3B", "mamba2-1.3b", 12), ("Zamba2-2.7B", "zamba2-2.7b", 6))
-INPOD_INT8 = "Mamba2-1.3B"  # the model of the int8 step (EA: qgamp_step at its rows)
+INPOD_FRAMES = 1500  # Whisper's 30 s window ([serve] (f)'s)
+INPOD_WIDE = ("qwen2-vl-7b", 1)  # --inpod-wide's model: (arch, layers) at full width
+
+
+def inpod_family_runs():
+    """[inpod]'s runs of the other families: (full width, smoke width),
+    each a tuple of (label, config, steps), a step (recon mode, Adam
+    moment dtype).  A full-width run's kernels are timed at its rank rows
+    and carry the JSON's entries; a smoke-width run checks the program."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config, smoke_config
+
+    def cut(arch, layers):
+        return dc.replace(get_config(arch), n_layers=layers)
+
+    ae = (("ae", "float32"),)
+    full = (("Mamba2-1.3B", cut("mamba2-1.3b", INPOD_SSM_LAYERS), ae + (("ea", "int8"),)),
+            ("Zamba2-2.7B", cut("zamba2-2.7b", 6), ae),
+            ("Whisper-base", cut("whisper-base", 6), ae + (("ea", "float32"),)))
+    smoke = tuple((label, smoke_config(arch), ae) for label, arch in (
+        ("Qwen3-MoE smoke", "qwen3-moe-235b-a22b"), ("DeepSeek-V3 smoke", "deepseek-v3-671b"),
+        ("Qwen2-VL smoke", "qwen2-vl-7b")))
+    return full, smoke
+
+
+def inpod_label(name: str, mode: str, state_dtype: str) -> str:
+    """A family run's label: the model, ``auto``, the mode, int8 moments."""
+    return f"{name} auto {mode.upper()}" + (" int8" if state_dtype == "int8" else "")
 
 
 def inpod_kernel(kind: str, model: str = "") -> str:
@@ -4969,6 +5022,26 @@ def inpod_kernel(kind: str, model: str = "") -> str:
         return {"encode": INPOD_ENCODE, "gamp": INPOD_GAMP, "qgamp": INPOD_QGAMP}[kind]
     base = {"encode": "bqcs_encode_fused", "gamp": "gamp_step", "qgamp": "qgamp_step"}[kind]
     return f"{base}[N={TRAIN_N}, a {model} rank's rows]"
+
+
+def inpod_batch(cfg, dev):
+    """[train]'s batch (16 x 64 token ids, seed 0's first) for ``cfg`` on
+    ``dev``, with :func:`serve_prompt`'s inputs of the audio and VLM
+    families: Whisper's INPOD_FRAMES frame embeddings beside its 64 text
+    tokens; the VLM's first quarter of the sequence as patch embeddings,
+    with their M-RoPE streams, before 48 text tokens."""
+    from repro_torch.data.synthetic import TokenDataset
+
+    batch = TokenDataset(cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0).get_batch(
+        0, device=dev)
+    if cfg.family == "audio":
+        batch.update(serve_prompt(cfg, TRAIN_BATCH, 0, INPOD_FRAMES, dev))
+    if cfg.family == "vlm":
+        sv = TRAIN_SEQ // 4
+        batch = {k: v[:, sv:] for k, v in batch.items()}
+        extra = serve_prompt(cfg, TRAIN_BATCH, sv, TRAIN_SEQ - sv, dev)
+        batch.update(patches=extra["patches"], positions=extra["positions"])
+    return batch
 
 
 def inpod_int8_check(state, cfg, opt, fed, mesh, rank, dev):
@@ -5012,8 +5085,8 @@ def inpod_int8_check(state, cfg, opt, fed, mesh, rank, dev):
 
 
 def inpod_rank(rank, world, dev, spec):
-    """One rank of [inpod]'s world: ``spec`` names the runs ((label, arch,
-    layers, impl, mode, state dtype)) and the one-process aggregates' files.
+    """One rank of [inpod]'s world: ``spec`` names the runs ((label, config,
+    impl, mode, state dtype)) and the one-process aggregates' files.
     Returns, per run: loss, rank 0's step wall (after a barrier, ending in a
     device sync), launches, peak device memory, and the sums behind the
     NMSEs; the int8 run, its shards' check."""
@@ -5023,8 +5096,6 @@ def inpod_rank(rank, world, dev, spec):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs.registry import get_config
-    from repro_torch.data.synthetic import TokenDataset
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.runtime import collectives, steps
 
@@ -5058,10 +5129,8 @@ def inpod_rank(rank, world, dev, spec):
     steps.fedqcs_pod_allreduce = capture
     dist.barrier()
     out = {"coords": c, "card_used_after_init": device_used()}
-    for label, arch, layers, impl, mode, state_dtype in spec["runs"]:
-        cfg = dc.replace(get_config(arch), n_layers=layers)
-        batch = TokenDataset(cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                             seed=0).get_batch(0, device=dev)
+    for label, cfg, impl, mode, state_dtype in spec["runs"]:
+        batch = inpod_batch(cfg, dev)
         fed = train_fed(recon_mode=mode)
         opt = dc.replace(train_opt(), state_dtype=state_dtype)
         state = steps.init_train_state(cfg, opt, fed, 0, mesh=mesh, impl=impl, device=dev)
@@ -5140,14 +5209,13 @@ def phase_inpod(dev):
     two-pod step's losses and decoded aggregates (AE, EA) at INPOD_LAYERS
     layers from seed 0's parameters and batch 0, written to
     ``build/inpod/`` for the ranks, and the loss at INPOD_SHARDED_LAYERS
-    layers; the same for INPOD_FAMILY_RUNS' models at their depths (AE;
-    EA too for INPOD_INT8), with [time] of the kernels at their rank
-    (0, 0, 0)'s rows.  Then the eight ranks: one ``auto_sharded`` AE step
-    (against the same program with the plain versions, their encode and
-    decode one rank at a time), one ``auto`` AE and one ``auto`` EA step
-    (against the one-process aggregate: the same global blocking), one
-    ``auto`` AE step of each family model, and one ``auto`` EA step of
-    INPOD_INT8 with int8 Adam states (its QLeafs held to the whole leaves'
+    layers; the same for :func:`inpod_family_runs`' models and steps,
+    with [time] of the kernels at a full-width model's rank (0, 0, 0)'s
+    rows.  Then the eight ranks: one ``auto_sharded`` AE step (against the
+    same program with the plain versions, their encode and decode one rank
+    at a time), one ``auto`` AE and one ``auto`` EA step (against the
+    one-process aggregate: the same global blocking), and each family
+    run's steps (an int8 one's QLeafs held to the whole leaves'
     quantization, bit for bit).  Each step: rank 0's wall, each rank's
     launches (1 encoder, 15 step kernel) and peak memory, the card's
     memory in use, the loss against the one-process loss.  Returns
@@ -5161,7 +5229,6 @@ def phase_inpod(dev):
 
     from repro_torch import tree as tree_util
     from repro_torch.configs.registry import get_config
-    from repro_torch.data.synthetic import TokenDataset
     from repro_torch.launch.spawn import run_world
     from repro_torch.models import model as model_api
     from repro_torch.runtime import steps
@@ -5174,8 +5241,7 @@ def phase_inpod(dev):
     def pod_grid(cfg, fp32=False):
         """The one-process step's loss and pod grids of ``cfg`` (``fp32``:
         seed 0's bf16 weights cast up, computed in fp32)."""
-        batch = TokenDataset(cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                             seed=0).get_batch(0, device=dev)
+        batch = inpod_batch(cfg, dev)
         params = model_api.init_params(cfg, seed=0, device=dev)
         if fp32:
             cfg = dc.replace(cfg, dtype="float32")
@@ -5222,15 +5288,18 @@ def phase_inpod(dev):
     out_dir = ROOT / "build" / "inpod"
     out_dir.mkdir(parents=True, exist_ok=True)
     part = torch.ones((pods,), device=dev)
-    want_loss, floors, files = {}, {}, {}
+    want_loss, limits, files = {}, {}, {}
 
     def references(tag, cfg, labels):
-        """``labels``' one-process loss, bf16 floor and aggregate files, from
-        ``cfg``'s pod grids; returns the bf16 grids."""
-        blocks32 = pod_grid(cfg, fp32=True)[1]
+        """``labels``' one-process loss, limit on the world's gradient rows
+        and aggregate files, from ``cfg``'s pod grids; returns the grids.
+        The limit: INPOD_BF16_FLOORS x one process's own bf16 rows' NMSE to
+        its fp32 rows (a bf16 model), INPOD_FP32_ROWS (an fp32 one)."""
         loss, blocks = pod_grid(cfg)
-        floor = nmse(blocks, blocks32)  # one process's own bf16 rows against fp32 ones
-        del blocks32
+        if cfg.dtype == "float32":
+            limit = INPOD_FP32_ROWS
+        else:
+            limit = INPOD_BF16_FLOORS * nmse(blocks, pod_grid(cfg, fp32=True)[1])
         torch.cuda.empty_cache()
         np.save(out_dir / f"blocks_{tag}.npy", blocks.cpu().numpy())
         for label, mode in labels:
@@ -5239,35 +5308,35 @@ def phase_inpod(dev):
             files[label] = {"blocks": str(out_dir / f"blocks_{tag}.npy"),
                             "ghat": str(out_dir / f"ghat_{tag}_{mode}.npy")}
             np.save(files[label]["ghat"], ghat.cpu().numpy())
-            want_loss[label], floors[label] = loss, floor
+            want_loss[label], limits[label] = loss, limit
             del ghat
             torch.cuda.empty_cache()
         return blocks
 
-    references("qwen", dc.replace(full, n_layers=INPOD_LAYERS),
-               (("auto AE", "ae"), ("auto EA", "ea")))
-    torch.cuda.empty_cache()
-    runs = [("auto_sharded AE", TRAIN_ARCH, INPOD_SHARDED_LAYERS, "auto_sharded", "ae",
-             "float32"),
-            ("auto AE", TRAIN_ARCH, INPOD_LAYERS, "auto", "ae", "float32"),
-            ("auto EA", TRAIN_ARCH, INPOD_LAYERS, "auto", "ea", "float32")]
-    models = {"auto_sharded AE": "", "auto AE": "", "auto EA": ""}
-    for name, arch, layers in INPOD_FAMILY_RUNS:
-        labels = [(f"{name} auto AE", "ae")]
-        runs.append((f"{name} auto AE", arch, layers, "auto", "ae", "float32"))
-        if name == INPOD_INT8:
-            labels.append((f"{name} auto EA int8", "ea"))
-            runs.append((f"{name} auto EA int8", arch, layers, "auto", "ea", "int8"))
-        blocks = references(name, dc.replace(get_config(arch), n_layers=layers), labels)
-        time_rank_rows(blocks, name, ("encode", "gamp", "qgamp") if name == INPOD_INT8
-                       else ("encode", "gamp"))
-        models.update((label, name) for label, _ in labels)
-        del blocks
-        torch.cuda.empty_cache()
     cut = dc.replace(full, n_layers=INPOD_SHARDED_LAYERS)
+    qwen = dc.replace(full, n_layers=INPOD_LAYERS)
+    references("qwen", qwen, (("auto AE", "ae"), ("auto EA", "ea")))
+    torch.cuda.empty_cache()
+    runs = [("auto_sharded AE", cut, "auto_sharded", "ae", "float32"),
+            ("auto AE", qwen, "auto", "ae", "float32"),
+            ("auto EA", qwen, "auto", "ea", "float32")]
+    # each run's model in the JSON's entries (None: a smoke-width run, in none)
+    models = {"auto_sharded AE": "", "auto AE": "", "auto EA": ""}
+    full_width, smoke_width = inpod_family_runs()
+    for timed, group in ((True, full_width), (False, smoke_width)):
+        for name, cfg, modes in group:
+            labels = [(inpod_label(name, mode, dt), mode) for mode, dt in modes]
+            runs += [(label, cfg, "auto", mode, dt)
+                     for (label, _), (mode, dt) in zip(labels, modes)]
+            blocks = references(name, cfg, labels)
+            if timed:
+                time_rank_rows(blocks, name, ("encode", "gamp") + (
+                    ("qgamp",) if any(mode == "ea" for mode, _ in modes) else ()))
+            models.update((label, name if timed else None) for label, _ in labels)
+            del blocks
+            torch.cuda.empty_cache()
     params = model_api.init_params(cut, seed=0, device=dev)
-    batch = TokenDataset(full.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                         seed=0).get_batch(0, device=dev)
+    batch = inpod_batch(full, dev)
     with torch.no_grad():
         want_loss["auto_sharded AE"] = float(torch.stack([
             model_api.train_loss(params, steps._pod_batch(batch, pods, p), cut)
@@ -5301,7 +5370,7 @@ def phase_inpod(dev):
     for f in {f for pair in files.values() for f in pair.values()}:
         Path(f).unlink()
     launches = {name: 0 for name in times}
-    for label, arch, layers, impl, mode, state_dtype in runs:
+    for label, cfg, impl, mode, state_dtype in runs:
         recs = [r[label] for r in ranks]
         step_kernel = "qgamp" if mode == "ea" else "gamp"
         want = dict(encode=1, gamp=0, qgamp=0, topk=0, staged=0)
@@ -5309,10 +5378,11 @@ def phase_inpod(dev):
         for r, rec in enumerate(recs):
             check(rec["launches"] == want,
                   f"[inpod] {label} rank {r}: launches {rec['launches']}, want {want}")
-        launches[inpod_kernel("encode", models[label])] += sum(
-            rec["launches"]["encode"] for rec in recs)
-        launches[inpod_kernel(step_kernel, models[label])] += sum(
-            rec["launches"][step_kernel] for rec in recs)
+        if models[label] is not None:
+            launches[inpod_kernel("encode", models[label])] += sum(
+                rec["launches"]["encode"] for rec in recs)
+            launches[inpod_kernel(step_kernel, models[label])] += sum(
+                rec["launches"][step_kernel] for rec in recs)
         losses = {rec["loss"] for rec in recs}
         check(len(losses) == 1, f"[inpod] {label}: the ranks' losses differ: {sorted(losses)}")
         loss = recs[0]["loss"]
@@ -5330,16 +5400,18 @@ def phase_inpod(dev):
 
         e = nmse_of(None)
         sharded = impl == "auto_sharded"
-        floor = floors.get(label)
+        limit = limits.get(label)
         eb, es = (None, None) if sharded else (nmse_of("blocks"), nmse_of("step"))
         against = ("the same 8-rank program with the plain versions" if sharded else
                    f"one process's aggregate, from one process's rows (the world's own "
-                   f"gradient rows: NMSE {eb:.3g} to one process's, <= {INPOD_BF16_FLOORS:g} x "
-                   f"{floor:.3g}, one process's bf16 rows to its fp32 rows; the world's "
-                   f"aggregate {es:.3g} to one process's: top-S picks that part at bf16's "
-                   f"rounding)")
+                   f"gradient rows: NMSE {eb:.3g} to one process's, <= {limit:.3g}: "
+                   + (f"{INPOD_FP32_ROWS:g}, an fp32 model" if cfg.dtype == "float32" else
+                      f"{INPOD_BF16_FLOORS:g} x one process's bf16 rows' NMSE to its fp32 "
+                      f"rows") + f"; the world's aggregate {es:.3g} to one process's: top-S "
+                   f"picks that part at the gradient's rounding)")
         peaks = [rec["peak"] / 2**30 for rec in recs]
-        print(f"[inpod] {label} ({arch}, {layers} layers, {state_dtype} moments, "
+        print(f"[inpod] {label} ({cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.dtype}, {state_dtype} moments, "
               f"{recs[0]['rows']:,} block rows a rank): loss "
               f"{loss:.6f} (one process {want_loss[label]:.6f}, gap {gap:.3g} <= "
               f"{INPOD_LOSS_TOL:g} relative); aggregate NMSE {e:.3g} against {against} "
@@ -5349,13 +5421,12 @@ def phase_inpod(dev):
               f"{sum(rec['reserved'] for rec in recs) / 2**30:.3f} GiB; the card in use after "
               f"the step {max(rec['card_used'] for rec in recs) / 2**30:.3f} GiB")
         check(e <= 1e-3, f"[inpod] {label}: aggregate NMSE {e:.3g} against {against}")
-        check(sharded or eb <= INPOD_BF16_FLOORS * floor,
+        check(sharded or eb <= limit,
               f"[inpod] {label}: the pod's gradient rows NMSE {eb} against one process, "
-              f"past {INPOD_BF16_FLOORS} x {floor}")
+              f"past {limit}")
         if state_dtype == "int8":
             checked, differ = recs[0]["int8"]
-            n_leaves = len(tree_util.leaves(model_api.init_params(
-                dc.replace(get_config(arch), n_layers=layers), device="meta")))
+            n_leaves = len(tree_util.leaves(model_api.init_params(cfg, device="meta")))
             check(checked == n_leaves and not differ,
                   f"[inpod] {label}: {len(differ)} of {checked} leaves' QLeafs or parameters "
                   f"differ from the whole leaves' Adam update: {differ}")
@@ -5366,6 +5437,93 @@ def phase_inpod(dev):
     print(f"[inpod] seconds: one-process references and [time] {t_ref:.1f}, the world "
           f"(spawn, init, steps) {t_world:.1f}")
     return launches, errs, times
+
+
+def inpod_wide_rank(rank, world, dev, cfg, state_dtype):
+    """One rank of [inpod-wide]: one ``auto`` AE step of ``cfg`` from seed
+    0's state with ``state_dtype`` Adam moments: the loss, rank 0's wall,
+    this rank's peak and the card's memory in use.  Out of device memory,
+    the rank raises with its peak then and the card's use (the world
+    stops)."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import steps
+
+    mesh = make_debug_mesh(*INPOD_MESH)
+    fed, opt = train_fed(recon_mode="ae"), dc.replace(train_opt(), state_dtype=state_dtype)
+
+    def card_used():
+        free, total = torch.cuda.mem_get_info(dev)
+        return (total - free) / 2**30
+
+    try:
+        batch = inpod_batch(cfg, dev)
+        state = steps.init_train_state(cfg, opt, fed, 0, mesh=mesh, impl="auto", device=dev)
+        fn = steps.make_train_step(cfg, opt, fed, mesh, impl="auto", device=dev)
+        torch.cuda.synchronize()
+        after_init = torch.cuda.max_memory_allocated(dev) / 2**30
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, m = fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as err:
+        raise RuntimeError(
+            f"INPOD-WIDE rank {rank} ran out of device memory: its peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB allocated, the card "
+            f"{card_used():.3f} GiB in use; {str(err).splitlines()[0]}") from None
+    return {"loss": loss, "wall_ms": 1e3 * (time.perf_counter() - t0),
+            "peak": torch.cuda.max_memory_allocated(dev) / 2**30, "after_init": after_init,
+            "card_used": card_used(), "rows": int(state["residual"].shape[1])}
+
+
+def phase_inpod_wide(dev):
+    """[inpod-wide]: INPOD_WIDE's model at full width on the eight ranks of
+    [inpod]'s world, one ``auto`` AE step with int8 Adam moments, then
+    with fp32 ones: each rank's peak, or the rank that ran out of device
+    memory with its peak then.  Stops at the first that does not fit."""
+    import dataclasses as dc
+    import math
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.spawn import run_world
+    from repro_torch.models.sharding import spec_axes
+    from repro_torch.runtime import steps
+
+    arch, layers = INPOD_WIDE
+    cfg = dc.replace(get_config(arch), n_layers=layers)
+    mesh = make_debug_mesh(*INPOD_MESH)  # outside a world: its shape only
+    held = sum(leaf.numel() // math.prod(mesh.shape[a] for e in spec for a in spec_axes(e))
+               for _, spec, leaf in steps._check_inpod(cfg, None, mesh))
+    head = (f"[inpod-wide] {cfg.name} at full width, {layers} of {get_config(arch).n_layers} "
+            f"layers, {held:,} parameters held a rank")
+    for state_dtype in ("int8", "float32"):
+        t0 = time.perf_counter()
+        try:
+            ranks = run_world(inpod_wide_rank, math.prod(INPOD_MESH), args=(cfg, state_dtype),
+                              device="cuda")
+        except RuntimeError as err:
+            why = [line for line in str(err).splitlines()
+                   if line.startswith("RuntimeError: INPOD-WIDE")]
+            if not why:
+                raise
+            print(f"{head}, {state_dtype} moments: does not fit eight ranks on one card: "
+                  f"{why[0].split(': ', 1)[1]} ({time.perf_counter() - t0:.1f} s)")
+            return
+        peaks = [r["peak"] for r in ranks]
+        check(len({r["loss"] for r in ranks}) == 1 and math.isfinite(ranks[0]["loss"]),
+              f"[inpod-wide] the ranks' losses: {[r['loss'] for r in ranks]}")
+        print(f"{head}, {state_dtype} moments: {ranks[0]['rows']:,} block rows a rank; loss "
+              f"{ranks[0]['loss']:.6f}; rank 0's step wall {ranks[0]['wall_ms']:.1f} ms; "
+              f"max_memory_allocated a rank GiB {[round(v, 3) for v in peaks]} (after init "
+              f"{ranks[0]['after_init']:.3f}), sum {sum(peaks):.3f}; the card in use after "
+              f"the step {max(r['card_used'] for r in ranks):.3f} GiB "
+              f"({time.perf_counter() - t0:.1f} s)")
 
 
 # JSON name -> (source, the Pallas site it replaces, phase_kernels key)
@@ -5414,6 +5572,12 @@ KERNELS = {
                                             "encode_rank_zamba2"),
     inpod_kernel("gamp", "Zamba2-2.7B"): ("gamp_step.cu", "gamp_step.py:108",
                                           "gamp_rank_zamba2"),
+    inpod_kernel("encode", "Whisper-base"): ("bqcs_encode_fused.cu", "bqcs_encode_fused.py:194",
+                                             "encode_rank_whisper"),
+    inpod_kernel("gamp", "Whisper-base"): ("gamp_step.cu", "gamp_step.py:108",
+                                           "gamp_rank_whisper"),
+    inpod_kernel("qgamp", "Whisper-base"): ("qgamp_step.cu", "qgamp_step.py:180",
+                                            "qgamp_rank_whisper"),
 }
 
 
@@ -5443,6 +5607,9 @@ def main() -> int:
                         "the [kernels] phase, and stop")
     parser.add_argument("--inpod", action="store_true", help="run the build and the [inpod] "
                         "phase alone, and stop")
+    parser.add_argument("--inpod-wide", action="store_true", help="try INPOD_WIDE's model at "
+                        "full width on [inpod]'s eight ranks (its peak, or where it runs out of "
+                        "device memory), and stop")
     args = parser.parse_args()
     try:
         import torch
@@ -5461,6 +5628,10 @@ def main() -> int:
     dev = entry_device("cuda")
     t0 = time.perf_counter()
     name, smi = phase_device()
+    if args.inpod_wide:
+        phase_inpod_wide(dev)
+        print(f"[done] [inpod-wide] in {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.inpod:
         phase_inpod(dev)
         print(f"[done] the [inpod] phase passed in {time.perf_counter() - t0:.1f} s")

@@ -8,11 +8,13 @@ PyTorch port (the counterpart of ``examples/distributed_train.py``).
 Runs the reduced config of the chosen architecture on the reference's
 (pod=2, data=2, model=2) mesh: eight processes, one a device
 (``repro_torch.launch.spawn.run_world``: gloo; ``--device cpu``, or every
-rank on the card, default ``cuda``), rank 0 printing.  The MoE, MLA and
-VLM archs, which the in-pod program does not run yet (ROADMAP.md item
-10d), run on a (pod=2, data=1, model=1) mesh in one process instead.
-With: FedQCS compressed cross-pod reduction at the reference's point, a
-checkpoint every 10 steps (gathered from the ranks' shards), optional
+rank on the card, default ``cuda``), rank 0 printing: every arch.  The
+token data has neither frames nor patch embeddings: the audio arch raises
+ValueError before the world starts, and the VLM's ranks raise KeyError
+(``patches``) at their first step; the reference's example fails on the
+same missing keys.  With: FedQCS
+compressed cross-pod reduction at the reference's point, a checkpoint
+every 10 steps (gathered from the ranks' shards), optional
 pod-failure injection (pod 1 leaves ``state["participating"]`` for 5
 steps; the step goes on with the surviving pod's gradient, the dead pod's
 residual keeping its full carry), and exact restart: a rerun resumes from
@@ -29,7 +31,6 @@ import sys
 
 import torch
 
-from repro_torch import entry_device
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import smoke_config
@@ -55,11 +56,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = entry_device(args.device)
-    if smoke_config(args.arch).family not in steps.INPOD_FAMILIES:
-        print(f"[mesh] {args.arch}: (2, 1, 1) in one process (its in-pod layout: "
-              f"ROADMAP.md {steps.ITEM_FAMILIES})")
-        return _train(args, make_debug_mesh(2, 1, 1), dev)
+    if smoke_config(args.arch).family == "audio":
+        raise ValueError(f"--arch {args.arch}: the audio family trains on frame embeddings "
+                         "('frames'), which the example's token data does not have")
     here = os.path.dirname(os.path.abspath(__file__))
     if here not in sys.path:  # the ranks import this file by its module name
         sys.path.insert(0, here)
@@ -72,8 +71,8 @@ def _rank(rank, world, dev, args):
 
 
 def _train(args, mesh, dev):
-    """The example's loop on ``mesh`` (an in-pod mesh: this rank's part)."""
-    say = print if mesh.rank in (None, 0) else (lambda *a, **k: None)
+    """The example's loop on this rank's part of the in-pod ``mesh``."""
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
     cfg = smoke_config(args.arch)
     fed = None if args.no_fedqcs else FedQCSConfig(
         block_size=255, reduction_ratio=3, bits=3, s_ratio=0.05,
@@ -84,7 +83,7 @@ def _train(args, mesh, dev):
     ckpt = Checkpointer(args.ckpt_dir, keep=2)
 
     state = steps.init_train_state(cfg, opt, fed, 0, n_pods=2, mesh=mesh, device=dev)
-    whole, specs = steps.state_specs(cfg, opt, fed, mesh) if mesh.inpod else (state, None)
+    whole, specs = steps.state_specs(cfg, opt, fed, mesh)
     start = 0
     if ckpt.latest_step() is not None:
         state, done = ckpt.restore(whole, specs=specs, mesh=mesh, device=dev)
@@ -112,10 +111,9 @@ def _train(args, mesh, dev):
             ckpt.save(t, state, specs=specs, mesh=mesh)
     ckpt.wait()
     say("done; checkpoints in", args.ckpt_dir, flush=True)
-    if mesh.inpod:
-        state = steps.gather_state(state, specs, mesh)
-        if mesh.rank != 0:
-            return None
+    state = steps.gather_state(state, specs, mesh)
+    if mesh.rank != 0:
+        return None
     return tree_util.tree_map(
         lambda v: type(v)(*(x.cpu() for x in v)) if isinstance(v, tuple) else v.cpu(), state)
 

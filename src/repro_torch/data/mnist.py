@@ -14,6 +14,7 @@ label vector returned here.
 
 from __future__ import annotations
 
+import functools
 import gzip
 import os
 import struct
@@ -48,11 +49,8 @@ def _load_real(root: str):
             xte.astype(np.float32), yte.astype(np.int32))
 
 
-def _synth(seed: int = 0):
-    """Class-conditional surrogate, tuned so a 784-20-10 MLP needs a few
-    hundred Adam steps to separate the classes (like real MNIST) rather than
-    a handful -- per-class signal lives in a low-dim subspace under heavy
-    pixel noise."""
+@functools.lru_cache(maxsize=1)
+def _synth_arrays(seed: int):
     rng = np.random.default_rng(seed)
     protos = rng.normal(0.35, 0.18, (N_CLASSES, DIM)).clip(0, 1).astype(np.float32)
 
@@ -64,6 +62,15 @@ def _synth(seed: int = 0):
     xtr, ytr = make(N_TRAIN)
     xte, yte = make(N_TEST)
     return xtr, ytr, xte, yte
+
+
+def _synth(seed: int = 0):
+    """Class-conditional surrogate, tuned so a 784-20-10 MLP needs a few
+    hundred Adam steps to separate the classes (like real MNIST) rather than
+    a handful -- per-class signal lives in a low-dim subspace under heavy
+    pixel noise.  Drawn once a process for the last seed asked; each call
+    gets its own copies."""
+    return tuple(a.copy() for a in _synth_arrays(seed))
 
 
 def load(seed: int = 0):

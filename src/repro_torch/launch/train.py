@@ -5,17 +5,20 @@
 
 Pod mode wires together the config registry, the synthetic token data, the
 FedQCS train step (``impl="auto"``), checkpointing with resume from the
-latest checkpoint, and periodic loss logs.  The dense, SSM and hybrid
-families run on the reference's ``(pods, 2, 2)`` mesh: ``pods * 4``
-processes, one per device (``launch/spawn.py``: gloo; ``--device cpu`` or,
-on a card, every rank on ``cuda:(rank % device_count)``), rank 0 printing;
-``--int8-opt-state`` keeps int8 moments on each rank's shards.  The MoE,
-MLA and VLM families keep a ``(pods, 1, 1)`` mesh in one process (the
-``--pods`` pods simulated on one device).  The FedQCS point is the
-reference's: N = 255, ``--R``, ``--Q``, ``--s-ratio``, 15 scalar-variance
-GAMP iterations.  ``--device`` defaults to ``cuda``.
+latest checkpoint, and periodic loss logs.  Every arch it trains runs on
+the reference's ``(pods, 2, 2)`` mesh: ``pods * 4`` processes, one per
+device (``launch/spawn.py``: gloo; ``--device cpu`` or, on a card, every
+rank on ``cuda:(rank % device_count)``), rank 0 printing; the dense, MoE
+(with MLA and MTP), VLM, SSM and hybrid families alike;
+``--int8-opt-state`` keeps int8 moments on each rank's shards.  The token
+data has neither frames nor patch embeddings: the audio family raises
+ValueError before the world starts, and the VLM's ranks raise KeyError
+(``patches``) at their first step; the reference's pod mode fails on the
+same missing keys.  The FedQCS point is
+the reference's: N = 255, ``--R``, ``--Q``, ``--s-ratio``, 15
+scalar-variance GAMP iterations.  ``--device`` defaults to ``cuda``.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --smoke \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --smoke \
         --fedqcs --pods 2 --int8-opt-state --steps 3 --device cpu
 
 Cohort mode (``--fed-cohort``) replaces the pod collective with the
@@ -141,24 +144,15 @@ def main(argv=None):
                          "('frames'), which the launcher's token data does not have")
     if args.production_mesh:
         make_production_mesh(multi_pod=args.pods > 1)  # raises: not in the slice
-    if cfg.family in steps.INPOD_FAMILIES:
-        # the reference's (pods, 2, 2) mesh: one process per device
-        run_world(_pod_rank, args.pods * 2 * 2, args=(args,), device=args.device)
-        return
-    print(f"[train] the {cfg.family} family runs on a (pods, 1, 1) mesh in one process "
-          f"(its in-pod layout: ROADMAP.md {steps.ITEM_FAMILIES})")
-    _train(args, cfg, make_debug_mesh(args.pods, 1, 1), entry_device(args.device))
+    # the reference's (pods, 2, 2) mesh: one process per device
+    run_world(_pod_rank, args.pods * 2 * 2, args=(args,), device=args.device)
 
 
 def _pod_rank(rank: int, world: int, device, args) -> None:
-    """One rank of pod mode's world: the in-pod step (dense, SSM, hybrid)."""
+    """One rank of pod mode's world: the loop on its part of the (pods, 2,
+    2) mesh (rank 0 prints)."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    _train(args, cfg, make_debug_mesh(args.pods, 2, 2), device)
-
-
-def _train(args, cfg, mesh, device) -> None:
-    """Pod mode's loop on ``mesh`` (an in-pod mesh: this rank's part; rank
-    0 prints)."""
+    mesh = make_debug_mesh(args.pods, 2, 2)
     fed = (
         FedQCSConfig(block_size=255, reduction_ratio=args.R, bits=args.Q,
                      s_ratio=args.s_ratio, gamp_iters=15, gamp_variance_mode="scalar")
@@ -169,12 +163,10 @@ def _train(args, cfg, mesh, device) -> None:
                     decay_steps=max(args.steps, 100),
                     state_dtype="int8" if args.int8_opt_state else "float32")
     ds = TokenDataset(cfg.vocab_size, batch=args.batch, seq=args.seq, seed=0)
-    say = print if mesh.rank in (None, 0) else (lambda *a, **k: None)
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
 
-    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=args.pods, mesh=mesh,
-                                   device=device)
-    whole, specs = (steps.state_specs(cfg, opt, fed, mesh) if mesh.inpod
-                    else (state, None))
+    state = steps.init_train_state(cfg, opt, fed, 0, mesh=mesh, device=device)
+    whole, specs = steps.state_specs(cfg, opt, fed, mesh)
     n_params = sum(int(p.numel()) for _, p in tree_util.leaves(whole["params"]))
     say(f"[train] arch={cfg.name} params={n_params:,} mesh={mesh.shape} "
         f"fedqcs={'on' if fed else 'off'}"

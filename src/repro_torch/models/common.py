@@ -21,8 +21,9 @@ query heads' KV groups) and ``wo`` by row, the MLP's wi/wg by column and
 wo by row, the embedding and the head by vocabulary row; every weight's
 d_model dimension gathered over ``data`` as it is used.  The
 cross-entropy is vocab-parallel and the loss the mean over the pod's
-tokens.  These blocks serve every family the in-pod program runs (dense,
-and the hybrid's shared block).
+tokens; a vocabulary the ``model`` axis does not divide keeps its table
+whole over ``model`` (its sanitized spec), and every rank then takes the
+whole rows.  These blocks serve every family the in-pod program runs.
 """
 
 from __future__ import annotations
@@ -327,12 +328,14 @@ def init_embed(key: torch.Tensor, cfg: ModelConfig) -> dict:
 
 def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The tokens' rows.  In-pod: the rank's vocabulary rows look up the
-    tokens they hold, and the rows are summed over ``model``."""
+    tokens they hold, and the rows are summed over ``model``; a table held
+    whole over ``model`` (a vocabulary the axis does not divide: its
+    sanitized spec) looks up every token on each rank, with no sum."""
     # F.embedding: its backward on the card sums each token's rows in a
     # fixed order (a replayed step is bit-identical)
     table = fsdp(p["embed"], 1, cfg.d_model)
     ip = current_inpod()
-    if ip is None:
+    if ip is None or ip.vocab_whole:
         return cs(F.embedding(tokens, table), "batch", "seq", "dmodel")
     local = tokens - ip.vocab_start(table.shape[0])
     inside = (local >= 0) & (local < table.shape[0])
@@ -342,35 +345,48 @@ def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 
 def logits_from(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The logits (in-pod: of the rank's vocabulary rows)."""
-    x = tp_enter(x)
+    """The logits (in-pod: of the rank's vocabulary rows, whose partial
+    gradient of ``x`` is summed over ``model``; every row where the table
+    is held whole over ``model``)."""
     d = cfg.d_model
-    out = x @ fsdp(p["embed"], 1, d).T if cfg.tie_embeddings else x @ fsdp(p["lm_head"], 0, d)
-    return cs(out, "batch", "seq", "vocab")
+    ip = current_inpod()
+    if ip is None or not ip.vocab_whole:
+        x = tp_enter(x)
+    w = fsdp(p["embed"], 1, d).T if cfg.tie_embeddings else fsdp(p["lm_head"], 0, d)
+    return cs(x @ w, "batch", "seq", "vocab")
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
-    """Mean token cross-entropy.  The exp() intermediate stays in the
-    logits dtype; the row max and the probability sum run fp32."""
-    if current_inpod() is not None:
-        return _vocab_parallel_cross_entropy(logits, labels, mask)
+def _row_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's log-sum-exp minus its target logit (fp32; the exp()
+    intermediate in the logits dtype)."""
     m = torch.amax(logits.float(), dim=-1)
     p = torch.exp(logits - m[..., None].to(logits.dtype))
     lse = torch.log(torch.sum(p, dim=-1, dtype=torch.float32)) + m
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - gold.float()
+    return lse - gold.float()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean token cross-entropy.  The exp() intermediate stays in the
+    logits dtype; the row max and the probability sum run fp32.  In-pod:
+    the mean over the pod's tokens, vocab-parallel unless the tables are
+    held whole over ``model``."""
+    ip = current_inpod()
+    if ip is not None:
+        if ip.vocab_whole:
+            return _pod_mean(_row_nll(logits, labels), mask, ip)
+        return _pod_mean(_vocab_parallel_nll(logits, labels, ip), mask, ip)
+    nll = _row_nll(logits, labels)
     if mask is not None:
         nll = nll * mask
         return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
 
 
-def _vocab_parallel_cross_entropy(logits, labels, mask) -> torch.Tensor:
-    """The in-pod cross-entropy over the rank's vocabulary rows: the row
+def _vocab_parallel_nll(logits, labels, ip) -> torch.Tensor:
+    """Each row's cross-entropy from the rank's vocabulary rows: the row
     max, the probability sum and the target's logit reduced over
-    ``model``; the loss the mean over the pod's tokens (the sum and the
-    count reduced over ``data``)."""
-    ip = current_inpod()
+    ``model``."""
     group = ip.group("model")
     m = all_reduce(torch.amax(logits.float(), dim=-1), group, op="max")
     p = torch.exp(logits - m[..., None].to(logits.dtype))
@@ -379,7 +395,12 @@ def _vocab_parallel_cross_entropy(logits, labels, mask) -> torch.Tensor:
     inside = (local >= 0) & (local < logits.shape[-1])
     gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0].float()
     gold = cs(torch.where(inside, gold, torch.zeros_like(gold)), reduce="model")
-    nll = lse - gold
+    return lse - gold
+
+
+def _pod_mean(nll, mask, ip) -> torch.Tensor:
+    """The mean over the pod's tokens: the sum and the count reduced over
+    ``data``."""
     if mask is not None:
         count = torch.sum(mask)
         total = torch.sum(nll * mask)

@@ -11,6 +11,11 @@ The tree is ``dec_layers`` (``cross_attn``, ``ln1``, ``ln2``, ``ln_x``,
 serve cache is the decoder's self-attention ``k``/``v`` (L, B, Smax, KVH,
 dh) and the cross K/V ``cross_k``/``cross_v`` (L, B, S_enc, KVH, dh) that
 prefill computes once from the encoder's output.
+
+On an in-pod mesh the layers are ``models/common.py``'s: attention on the
+rank's heads (the cross-attention's K/V too, from its wk/wv columns), the
+GELU MLP column-parallel (``mlp/wi``) and row-parallel (``mlp/wo``), the
+norms replicated; the frames are split over (pod, data) with the tokens.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     unstack_layers,
 )
+from repro_torch.models.sharding import fsdp, tp_enter
 
 
 def _angles(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -106,10 +112,14 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 
 def _cross_kv(lp: dict, enc_out: torch.Tensor, cfg: ModelConfig):
-    b, s, _ = enc_out.shape
+    """The cross-attention's K/V (B, S_enc, KVH, dh) of the encoder's output
+    (in-pod: the rank's KV heads; the output enters the tensor-parallel
+    region, its gradient summed over ``model``)."""
+    b, s, d = enc_out.shape
     dh = cfg.head_dim
-    k = (enc_out @ lp["cross_attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
-    v = (enc_out @ lp["cross_attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    enc_out = tp_enter(enc_out)
+    k = (enc_out @ fsdp(lp["cross_attn"]["wk"], 0, d)).reshape(b, s, -1, dh)
+    v = (enc_out @ fsdp(lp["cross_attn"]["wv"], 0, d)).reshape(b, s, -1, dh)
     return k, v
 
 

@@ -6,6 +6,13 @@ the shared rope key ``kr`` as the cache -- (rank + rope) values a token
 instead of 2 H dh -- and absorbs the up-projections into the query and
 output transforms, so attention contracts against the latent directly.
 Both paths keep the reference's fp32 score scale and its ``-1e30`` mask.
+
+On an in-pod mesh (the train path) the down-projections ``w_dq``,
+``w_dkv`` and ``w_kr`` are gathered over ``data`` and every rank computes
+the latents; the latents enter the tensor-parallel region (``tp_enter``:
+their gradient, partial over the rank's heads, is summed over ``model``);
+the up-projections ``w_uq``, ``w_uk`` and ``w_uv`` hold the rank's heads'
+columns and ``wo`` its rows, the output summed over ``model``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from repro_torch.models.common import (
     update_slot,
     valid_slots,
 )
-from repro_torch.models.sharding import cs
+from repro_torch.models.sharding import cs, fsdp, tp_enter
 
 _MASKED = -1e30
 
@@ -57,32 +64,38 @@ def _sqrt_dk(cfg: ModelConfig) -> np.float32:
 
 
 def _queries(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    b, s, _ = x.shape
+    """(q_nope, rotated q_rope), each (B, S, H, *): in-pod the rank's heads,
+    from the normed query latent entering the tensor-parallel region."""
+    b, s, d = x.shape
     qk_nope, qk_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = rms_norm(x @ p["w_dq"], p["q_norm_lr"], cfg.norm_eps)
-    q = (cq @ p["w_uq"]).reshape(b, s, cfg.n_heads, qk_nope + qk_rope)
+    cq = tp_enter(rms_norm(x @ fsdp(p["w_dq"], 0, d), p["q_norm_lr"], cfg.norm_eps))
+    q = (cq @ p["w_uq"]).reshape(b, s, -1, qk_nope + qk_rope)
     return q[..., :qk_nope], apply_rope(q[..., qk_nope:], positions, cfg.rope_theta)
 
 
 def latents(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> dict:
     """The layer's cache entries for ``x``: ``ckv`` (B, S, r), the normed
-    latent, and ``kr`` (B, S, rope), the rotated shared key."""
-    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm_lr"], cfg.norm_eps)
-    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    latent, and ``kr`` (B, S, rope), the rotated shared key (in-pod: the
+    down-projections gathered over ``data``, every rank computing both)."""
+    d = x.shape[-1]
+    ckv = rms_norm(x @ fsdp(p["w_dkv"], 0, d), p["kv_norm_lr"], cfg.norm_eps)
+    kr = apply_rope((x @ fsdp(p["w_kr"], 0, d))[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0]
     return {"ckv": ckv, "kr": kr}
 
 
 def mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Full-sequence causal MLA (the decompressed path): ``(out, latents)``
     -- prefill keeps the latents as the cache."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
+    b, s, d = x.shape
     qk_nope, qk_rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _queries(p, x, positions, cfg)
+    h = q_nope.shape[2]  # the heads this rank holds
     lat = latents(p, x, positions, cfg)
-    k_nope = (lat["ckv"] @ p["w_uk"]).reshape(b, s, h, qk_nope)
-    v = (lat["ckv"] @ p["w_uv"]).reshape(b, s, h, dv)
-    k_rope = lat["kr"][:, :, None, :].expand(b, s, h, qk_rope)
+    ckv, kr = tp_enter(lat["ckv"]), tp_enter(lat["kr"])
+    k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, qk_nope)
+    v = (ckv @ p["w_uv"]).reshape(b, s, h, dv)
+    k_rope = kr[:, :, None, :].expand(b, s, h, qk_rope)
     q = cs(torch.cat([q_nope, q_rope], dim=-1), "batch", "seq", "heads", None)
     kk = cs(torch.cat([k_nope, k_rope], dim=-1), "batch", "seq", "heads", None)
     inv_sqrt_dk = float(np.float32(1.0) / _sqrt_dk(cfg))
@@ -91,7 +104,7 @@ def mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfi
     scores = torch.where(mask[None, None], scores, torch.tensor(_MASKED, device=x.device))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(b, s, h * dv)
-    return cs(out @ p["wo"], "batch", "seq", "dmodel"), lat
+    return cs(out @ fsdp(p["wo"], 1, d), "batch", "seq", "dmodel", reduce="model"), lat
 
 
 def apply_mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):

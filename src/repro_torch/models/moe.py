@@ -24,6 +24,9 @@ one does:
     sorted (ascending expert) order.  The port gathers each token's k
     contributions in that order and adds them one after another: the same
     sums, and no atomics on the card (a replayed step is bit-identical).
+
+On an in-pod mesh every rank dispatches the pod's pairs with the pod's
+capacity and runs its share of the experts (:func:`apply_moe`).
 """
 
 from __future__ import annotations
@@ -34,7 +37,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch import prng
 from repro_torch.models.common import apply_mlp, dense_init, dtype_of, init_mlp
-from repro_torch.models.sharding import cs
+from repro_torch.models.sharding import (
+    all_gather,
+    cs,
+    current_inpod,
+    fsdp,
+    own_experts,
+    tp_enter,
+)
 
 
 def init_moe(key: torch.Tensor, cfg: ModelConfig) -> dict:
@@ -91,29 +101,71 @@ def dispatch(topi: torch.Tensor, cap: int, n_experts: int):
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D): route, dispatch, the expert GEMMs, the
-    weighted combine (+ the shared expert)."""
+    weighted combine (+ the shared expert).
+
+    In-pod, the reference's global program over the pod's tokens (the
+    baseline's over the whole batch's: the in-pod context's
+    ``dispatch_axes``).  Each rank routes its own tokens; the expert ids
+    are gathered over those axes, so every rank sorts the pod's (token,
+    choice) pairs in the reference's order with the reference's capacity
+    of the pod's T tokens: the same pairs are kept or dropped.  The rank
+    runs its ``E / model`` experts on its own tokens' pairs: within an
+    expert those sit side by side in the sorted order, so its buffer holds,
+    an expert, as many slots as the most its tokens keep in one of its
+    experts (outside the mesh: the capacity).  ``experts/wi|wg`` are split
+    over ``model`` by expert; ``experts/wo`` falls under the reference's
+    ``wo$`` rule, split over its ff rows, and the rank's experts' rows come
+    from the other ``model`` ranks (:func:`own_experts`).  The rank
+    combines for its own tokens and sums the experts' contributions over
+    ``model``.  A token's k contributions land on their experts' ranks, so
+    the sum over ``model`` adds them in another order than the reference's
+    scatter-add: the same to the last bit at k = 2 in fp32.  The router and
+    the tokens enter the tensor-parallel region (``tp_enter``): the combine
+    weights' gradient is each rank's experts'."""
+    ip = current_inpod()
     b, s, d = x.shape
     t, k, e = b * s, cfg.n_experts_per_tok, cfg.n_experts
-    cap = capacity(t, cfg)
-    xt = x.reshape(t, d)
-    topw, topi = route(p, xt, cfg)
-    order, _, st, dest = dispatch(topi, cap, e)
-    sw = topw.reshape(-1).to(x.dtype)[order]
-
-    buf = xt.new_zeros((e * cap + 1, d)).index_put((dest,), xt[st])
-    h = cs(buf[: e * cap].reshape(e, cap, d), "experts", None, None)
+    xt = tp_enter(x).reshape(t, d)
+    topw, topi = route({"router": tp_enter(fsdp(p["router"], 0, d))}, xt, cfg)
+    index, el, m = 0, e, 0  # this rank's token shard, its experts' count and first
+    if ip is not None:
+        for axis in ip.dispatch_axes:
+            index = index * ip.sizes[axis] + ip.coords[axis]
+        for axis in reversed(ip.dispatch_axes):  # the minor axis first: the batch's order
+            if ip.sizes[axis] > 1:
+                topi = all_gather(topi, ip.group(axis)).reshape(-1, k)
+        el, m = e // ip.sizes["model"], ip.coords["model"] * (e // ip.sizes["model"])
+    cap = capacity(topi.shape[0], cfg)
+    order, se, st, dest = dispatch(topi, cap, e)
+    first = index * t
+    # the sorted pairs of this rank's tokens, each token's k in ascending
+    # expert order; their place in their expert's group (>= cap: dropped)
+    pairs = torch.argsort(st, stable=True).reshape(-1, k)[first:first + t]
+    ids = se[pairs]
+    pos = dest[pairs] - ids * cap
+    mine = (pos < cap) & (ids >= m) & (ids < m + el)
+    slots = cap
+    if ip is not None:  # from the first slot this rank's tokens take in the expert
+        pos = pos - torch.bincount(topi[:first].reshape(-1), minlength=e)[ids]
+        slots = int(torch.amax(torch.where(mine, pos + 1, 0))) if t else 0
+    # a pair of another rank's expert (or dropped) -> the trash slot
+    slot = torch.where(mine, (ids - m) * slots + pos, el * slots)
+    rows = xt[:, None].expand(t, k, d).reshape(t * k, d)
+    buf = xt.new_zeros((el * slots + 1, d)).index_put((slot.reshape(-1),), rows)
+    h = cs(buf[: el * slots].reshape(el, slots, d), "experts", None, None)
     ex = p["experts"]
-    act = torch.matmul(h, ex["wi"]) * F.silu(torch.matmul(h, ex["wg"]))
+    act = torch.matmul(h, fsdp(ex["wi"], 1, d)) * F.silu(torch.matmul(h, fsdp(ex["wg"], 1, d)))
     act = cs(act, "experts", None, None)
-    out = torch.matmul(act, ex["wo"])
-    out_buf = torch.cat([out.reshape(e * cap, d), out.new_zeros((1, d))], dim=0)
-    ys = out_buf[dest] * sw[:, None]  # (T*k, D), sorted by expert
+    out = torch.matmul(act, fsdp(own_experts(ex["wo"]), 2, d))
+    out_buf = torch.cat([out.reshape(el * slots, d), out.new_zeros((1, d))], dim=0)
+    sw = topw.reshape(-1).to(x.dtype)[order[pairs] - first * k]  # (t, k)
     # each token's k contributions in sorted (ascending expert) order, added
     # one after another from zero: the reference's scatter-add sums
-    by_token = ys[torch.argsort(st, stable=True)].reshape(t, k, d)
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    contrib = out_buf[slot] * sw[..., None]
+    y = torch.zeros_like(contrib[:, 0])
     for j in range(k):
-        y = y + by_token[:, j]
+        y = y + contrib[:, j]
+    y = cs(y, reduce="model")
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x).reshape(t, d)
     return cs(y.reshape(b, s, d), "batch", "seq", "dmodel")

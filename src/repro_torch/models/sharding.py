@@ -21,6 +21,9 @@ the reference's constraints resolve into, as autograd functions:
     takes its heads' columns);
   * :func:`model_columns`: a rank's columns of a weight the rules
     replicate (the dense MLP's wi and wg: no rule names ``ffn/wi``);
+  * :func:`own_experts`: the rank's experts of a stack split over
+    ``model`` along its ff rows, whole (an all-to-all over ``model``; its
+    backward sends each part's gradient back);
   * :func:`tp_enter`: the identity, with an all-reduce over ``model`` in
     the backward (Megatron's copy at a tensor-parallel region's entry), for
     an activation or a replicated weight the rank uses on its heads only;
@@ -240,6 +243,21 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out.view(x.dtype).reshape((world,) + tuple(x.shape))
 
 
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """(world, ...) on each rank -> (world, ...): part j goes to the
+    group's rank j, and part j of the result came from rank j.  The bytes
+    travel as they are (any dtype)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    send = x.detach().contiguous().reshape(world, -1).view(torch.uint8)
+    if _on_host(x, group):
+        send = send.cpu()
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group)
+    return out.to(x.device).view(x.dtype).reshape(x.shape)
+
+
 class _Gather(torch.autograd.Function):
     """The shards of the group's ranks concatenated along ``dim``; the
     backward sums the gradient over the ranks and keeps this rank's part."""
@@ -256,6 +274,23 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         total = all_reduce(g, ctx.group)
         return total.chunk(ctx.world, dim=ctx.dim)[ctx.rank].contiguous(), None, None
+
+
+class _Swap(torch.autograd.Function):
+    """(E, f, ...) -- every expert's part j of its rows on rank j -- to
+    (E / world, world * f, ...): this rank's experts with all the ranks'
+    parts; the backward sends each part's gradient back to its rank."""
+
+    @staticmethod
+    def forward(ctx, w, group, world):
+        ctx.group, ctx.world = group, world
+        parts = all_to_all(w.reshape((world, w.shape[0] // world) + w.shape[1:]), group)
+        return parts.transpose(0, 1).flatten(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = g.unflatten(1, (ctx.world, g.shape[1] // ctx.world)).transpose(0, 1)
+        return all_to_all(parts, ctx.group).flatten(0, 1), None, None
 
 
 class _Copy(torch.autograd.Function):
@@ -304,12 +339,20 @@ class _ReduceBoth(torch.autograd.Function):
 
 class InPod:
     """One rank of an in-pod mesh: its coordinates, the axis sizes and the
-    process groups its layers' collectives run over."""
+    process groups its layers' collectives run over.  ``vocab_whole``:
+    the vocabulary tables are held whole over ``model`` (their sanitized
+    spec, where the axis does not divide the vocabulary), so every rank
+    takes every row.  ``dispatch_axes``: the mesh axes whose ranks' tokens
+    one MoE dispatch covers (major first): the pod's, ``("data",)``, in a
+    FedQCS step (the reference's per-pod program); the whole batch's,
+    ``("pod", "data")``, in the baseline (its one global program)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, vocab_whole: bool, dispatch_axes: Tuple[str, ...]):
         self.mesh = mesh
         self.sizes = dict(mesh.shape)
         self.coords = mesh.coords()
+        self.vocab_whole = vocab_whole
+        self.dispatch_axes = dispatch_axes
 
     def group(self, axes):
         return self.mesh.group(axes)
@@ -369,6 +412,20 @@ def model_columns(w: torch.Tensor, width: int) -> torch.Tensor:
     if ip is None or w.shape[-1] == width:
         return w
     return tp_enter(w).narrow(-1, ip.coords["model"] * width, width)
+
+
+def own_experts(w: torch.Tensor) -> torch.Tensor:
+    """The rank's ``E / model`` experts of an (E, ff, ...) stack whose ff
+    rows are split over ``model`` (``experts/wo``, under the reference's
+    ``wo$`` rule), with their ff rows whole: each rank sends every other
+    rank the part of its rows that rank's experts need, and nothing else.
+    The backward sends each part's gradient back (no sum: one rank uses
+    each entry).  Outside an in-pod context, or with one ``model`` rank,
+    ``w`` holds every expert whole and passes as it is."""
+    ip = _inpod
+    if ip is None or ip.sizes["model"] == 1:
+        return w
+    return _Swap.apply(w, ip.group("model"), ip.sizes["model"])
 
 
 def tp_enter(x: torch.Tensor) -> torch.Tensor:

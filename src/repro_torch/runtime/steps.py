@@ -22,8 +22,9 @@ fedqcs_pod_allreduce` (the packed words gathered, or the dequantized sums
     the parameters stay identical across pods without a broadcast.
 
 On an in-pod mesh (``data * model > 1``: one process per device,
-``launch/mesh.py``) the dense, SSM and hybrid families' step is the
-reference's "2D FSDP x TP" program on each rank (``models/sharding.py``):
+``launch/mesh.py``) every family's step is the reference's "2D FSDP x
+TP" program on each rank (``models/sharding.py``; the leaves placed by
+their sanitized specs):
 the rank's shards of the parameters, moments (fp32, or int8 ``QLeaf``s
 whose 256-entry blocks run over the whole leaf: ``optim/adam.py``'s
 :class:`~repro_torch.optim.adam.Shard`) and residual, its share of the
@@ -40,7 +41,9 @@ exchange over the ranks that share its in-pod position:
     leaf by leaf (no rank holds the pod's whole gradient).  They differ in
     the wire only: ``auto`` sums the dequantized observations (AE) or
     gathers the packed words (EA); ``shard_map`` takes the config's wire.
-  * the baseline: the pod's gradient averaged over the pods.
+  * the baseline: the pod's gradient averaged over the pods (an MoE
+    layer dispatches over the whole batch, as the reference's one
+    program does).
 
 The steps run on the device the state lives on; the FedQCS codec is made
 on ``device``.  The serve steps :func:`make_prefill_step` and
@@ -378,37 +381,37 @@ def make_train_step(
 # the in-pod program: one process per device of a (pod, data, model) mesh
 # ---------------------------------------------------------------------------
 
-ITEM_FAMILIES = "item 10d"  # the other families on the in-pod mesh
-INPOD_FAMILIES = ("dense", "ssm", "hybrid")
-_OTHER_LAYERS = {  # what each other family's in-pod layout needs
-    "moe": "expert parallelism over the experts/* rules; MLA's w_dkv/w_uk rules",
-    "vlm": "M-RoPE and the patch prefix",
-    "audio": "the encoder-decoder and its sanitized specs",
-}
+ITEM_WIDE_MODEL_AXIS = "item 10g"  # counts only the production mesh's 16-way axis meets
+_VOCAB_TABLES = ("embed", "lm_head")  # held whole over model where it does not divide V
 
 
 def _check_inpod(cfg: ModelConfig, opt_cfg: Optional[adam.OptConfig], mesh) -> list:
-    """Raises for what the in-pod program does not run; returns the
-    parameters' (path, spec, meta leaf) items."""
-    if cfg.family not in INPOD_FAMILIES:
-        what = _OTHER_LAYERS.get(cfg.family, "its layers")
-        raise not_in_slice(f"the {cfg.family} family on an in-pod mesh ({what}; the in-pod "
-                           f"program runs the {', '.join(INPOD_FAMILIES)} families)",
-                           ITEM_FAMILIES)
+    """Returns the parameters' (path, sanitized spec, meta leaf) items: a
+    leaf dimension the mesh does not divide is held whole along that axis
+    (the reference's ``sanitize_spec``), which the layers take for the
+    vocabulary tables (``models/common.py``).  Raises for a head or expert
+    count, or another leaf dimension, that the ``model`` axis does not
+    divide."""
     model = mesh.shape["model"]
-    heads = [("query", cfg.n_heads), ("KV", cfg.n_kv_heads)]
+    counts = [("query", cfg.n_heads), ("KV", cfg.n_kv_heads)]
     if cfg.family in ("ssm", "hybrid"):
-        heads.append(("SSM", cfg.ssm_heads))
-    for kind, count in heads:
+        counts.append(("SSM", cfg.ssm_heads))
+    for kind, count in counts:
         if count % model:
             raise not_in_slice(f"{count} {kind} heads over a {model}-way model axis",
-                               ITEM_FAMILIES)
-    items = _param_spec_items(abstract_params(cfg), mesh)
-    rules = param_specs(abstract_params(cfg), axis_sizes=dict(mesh.shape))
+                               ITEM_WIDE_MODEL_AXIS)
+    if cfg.is_moe and cfg.n_experts % model:
+        raise not_in_slice(f"{cfg.n_experts} experts over a {model}-way model axis",
+                           ITEM_WIDE_MODEL_AXIS)
+    params = abstract_params(cfg)
+    items = _param_spec_items(params, mesh)
+    rules = param_specs(params, axis_sizes=dict(mesh.shape))
     for path, spec, _ in items:
-        if spec != tuple(tree_util.get(rules, path)):
-            raise not_in_slice(f"params{tree_util.keystr(path)}: a dimension the mesh "
-                               f"{mesh.shape} does not divide", ITEM_FAMILIES)
+        dropped = {a for want, got in zip(tree_util.get(rules, path), spec) if got is None
+                   for a in spec_axes(want)}
+        if "model" in dropped and path[-1] not in _VOCAB_TABLES:
+            raise not_in_slice(f"params{tree_util.keystr(path)}: a dimension the {model}-way "
+                               "model axis does not divide", ITEM_WIDE_MODEL_AXIS)
     return items
 
 
@@ -562,16 +565,21 @@ class _PodRows:
         return tree_util.unflatten(out)
 
 
-def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None):
+def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None,
+                       dispatch_axes=("data",)):
     """An in-pod rank's (pod loss, gradient shards): the loss is the mean
     over the pod's tokens (the same on the pod's ranks) and each leaf's
     gradient is the rank's shard of the pod's gradient.  ``batch`` is the
-    whole batch; ``params`` the rank's shards.  The layers' collectives
-    leave every gradient whole over ``model`` (``models/sharding.py``); a
-    leaf ``data`` does not split holds the rank's tokens' part, summed over
-    ``data`` here (once, however many times the leaf was used)."""
+    whole batch; ``params`` the rank's shards; ``dispatch_axes`` the
+    tokens one MoE dispatch covers (:class:`InPod`).  The layers'
+    collectives leave every gradient whole over ``model``
+    (``models/sharding.py``); a leaf ``data`` does not split holds the
+    rank's tokens' part, summed over ``data`` here (once, however many
+    times the leaf was used)."""
     items = items if items is not None else _check_inpod(cfg, None, mesh)
-    with use_inpod(InPod(mesh)):
+    vocab_whole = any(path[-1] in _VOCAB_TABLES and "model" not in sum(map(spec_axes, spec), ())
+                      for path, spec, _ in items)  # the tables' sanitized specs
+    with use_inpod(InPod(mesh, vocab_whole, dispatch_axes)):
         loss, grads = value_and_grad(params, local_batch(batch, mesh), cfg)
     out = []
     for path, spec, _ in items:
@@ -597,8 +605,8 @@ def _make_inpod_step(cfg, opt_cfg, fed_cfg, mesh, impl, device, a):
                        if not any(ax in spec_axes(e) for e in spec))
              for path, spec, _ in items}
 
-    def grads_of(state, batch):
-        return pod_value_and_grad(state["params"], batch, cfg, mesh, items)
+    def grads_of(state, batch, dispatch_axes=("data",)):
+        return pod_value_and_grad(state["params"], batch, cfg, mesh, items, dispatch_axes)
 
     def norm_sq(grads):
         leaves = tree_util.leaves_in_order(grads)
@@ -618,8 +626,8 @@ def _make_inpod_step(cfg, opt_cfg, fed_cfg, mesh, impl, device, a):
                 **extra}, {"loss": loss}
 
     if fed_cfg is None:
-        def base_step(state, batch):
-            loss, grads = grads_of(state, batch)
+        def base_step(state, batch):  # the whole batch's program, as the reference's
+            loss, grads = grads_of(state, batch, ("pod", "data"))
             if pods > 1:
                 grads = tree_util.tree_map(
                     lambda g: (all_reduce(g.float(), pod_group) / pods).to(g.dtype), grads)

@@ -1049,6 +1049,53 @@ def test_inpod_family_step_on_the_card_matches_the_cpu(cuda, arch, state_dtype):
     assert worst <= 2 * 3e-3, worst
 
 
+def test_inpod_whisper_step_on_the_card_matches_one_process(cuda):
+    """Whisper-base's smoke model (the audio family: frames split over
+    (pod, data) with the tokens, cross-attention on the rank's heads) on
+    the (2, 2, 2) world of eight ranks on the card against one process's
+    two-pod ``auto`` step on the card, both from seed 0 on
+    ``torch_inpod_worker.family_batch``: each rank launches the encoder
+    once; the loss within 1e-5; each rank's residual against its rows of
+    one process's pod residual to ``tests/test_torch_families.py``'s
+    contract (the kept sets equal, each unkept entry within 1e-5 beyond
+    the two gradients' gap there); the parameters within 2 lr."""
+    import torch_inpod_worker
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.compression import FedQCSConfig
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.launch.spawn import run_world
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    arch = "whisper-base"
+    world = run_world(torch_inpod_worker.one_step, 8, args=("auto", _STEP_FED, arch),
+                      device="cuda", timeout_s=300)
+    assert all(r["launches"] == 1 for r in world)
+    cfg, fed = smoke_config(arch), FedQCSConfig(**_STEP_FED)
+    opt = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=100)
+    batch = {k: v.cuda() for k, v in torch_inpod_worker.family_batch(cfg).items()}
+    state = steps.init_train_state(cfg, opt, fed, 0, n_pods=2, device="cuda")
+    blocks = steps.pod_blocks(state["params"], batch, cfg, 2, fed.block_size, "cuda")[1].cpu()
+    new, m = steps.make_train_step(cfg, opt, fed, make_single_device_mesh(),
+                                   device="cuda")(state, batch)
+    residual = new["residual"].cpu()
+    rows = world[0]["residual"].shape[1]
+    for rank, got in enumerate(world):
+        assert abs(got["loss"] - float(m["loss"])) <= 1e-5
+        pod, r = divmod(rank, 4)
+        ref = residual[pod, r * rows:(r + 1) * rows]
+        res = got["residual"][0]
+        assert torch.equal(res == 0, ref == 0), rank
+        gap = torch.abs(got["blocks"] - blocks[pod, r * rows:(r + 1) * rows])
+        unkept = ref != 0
+        assert bool(torch.all(torch.abs(res - ref)[unkept] <= 1e-5 + gap[unkept])), rank
+    worst = max(float(torch.max(torch.abs(p - tree_util.get(new["params"], path).cpu())))
+                for path, p in tree_util.leaves(world[0]["params"]))
+    assert worst <= 2 * 3e-3, worst
+
+
 # The transformer family's MoE, MLA (+MTP) and VLM smoke configs and the
 # SSM, hybrid and audio families' on the card against the same model on the
 # CPU, both fp32 (TF32 off): the loss within 1e-5, every gradient leaf,

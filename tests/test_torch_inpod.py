@@ -61,6 +61,7 @@ from repro_torch.core.compression import FedQCSConfig  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch.spawn import run_world  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models.sharding import local_shard  # noqa: E402
 from repro_torch.optim.adam import OptConfig  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
 from test_torch_families import _assert_grads_close, _grads64  # noqa: E402
@@ -74,8 +75,25 @@ FED_KW = dict(block_size=256, reduction_ratio=2, bits=4, s_ratio=0.08, gamp_iter
 OPT_KW = dict(lr=3e-3, warmup_steps=2, decay_steps=100)
 LR = OPT_KW["lr"]
 MESH = {"pod": 2, "data": 2, "model": 2}
-FAMILIES = ("mamba2-1.3b", "zamba2-2.7b")
 STEPS = ("auto", "ea", "partial", "baseline", "sharded0")
+MOE = "qwen3-moe-235b-a22b"
+# label -> (arch, the smoke config's changes, the world's scenarios: each
+# held against the reference's step, but shard_map (against the world's
+# auto) and ckpt (a restart))
+RUNS = {
+    "mamba2-1.3b": ("mamba2-1.3b", {}, STEPS + ("shard_map",)),
+    "zamba2-2.7b": ("zamba2-2.7b", {}, STEPS + ("shard_map",)),
+    MOE: (MOE, {}, STEPS + ("int8", "shard_map", "ckpt")),
+    # experts overflow: the pod's dispatch keeps other pairs than a rank's alone
+    "moe-capacity-0.5": (MOE, {"capacity_factor": 0.5}, ("auto",)),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}, ("auto", "ea")),
+    "qwen2-vl-7b": ("qwen2-vl-7b", {}, ("auto", "ea")),
+    "whisper-base": ("whisper-base", {}, ("auto", "ea")),
+    # an odd vocabulary: the tied embedding held whole over model
+    "whisper-vocab-257": ("whisper-base", {"vocab_size": 257}, ("auto",)),
+}
+FAMILIES = ("mamba2-1.3b", "zamba2-2.7b")
+LATER = tuple(label for label in RUNS if label not in FAMILIES)
 
 
 def _np(tree):
@@ -153,37 +171,68 @@ def _stepper(cfg, opt, mesh, fed):
     return step
 
 
-def _family_inits(arch):
-    """The reference's initial states of the SSM or hybrid smoke model:
-    ``impl="auto"``'s and ``"auto_sharded"``'s."""
-    cfg, fed = jreg.smoke_config(arch), jcomp.FedQCSConfig(**FED_KW)
-    opt = jadam.OptConfig(**OPT_KW)
-    return (jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2),
-            jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2,
-                                    mesh=j_debug_mesh(2, 2, 2), impl="auto_sharded"))
+def _config(label, package=jreg):
+    arch, overrides, _ = RUNS[label]
+    return dataclasses.replace(package.smoke_config(arch), **overrides)
 
 
-def _reference_family(arch):
-    """The SSM or hybrid smoke model's 2 x 2 x 2 steps and pod gradients."""
-    cfg, fed = jreg.smoke_config(arch), jcomp.FedQCSConfig(**FED_KW)
+def _batch(label):
+    """The label's batch for the reference (``torch_inpod_worker.family_batch``,
+    its ids as int32)."""
+    batch = torch_inpod_worker.family_batch(_config(label, registry))
+    return {k: v.numpy().astype(np.int32 if v.dtype == torch.int64 else np.float32)
+            for k, v in batch.items()}
+
+
+def _pod_share(batch, pod):
+    """Pod ``pod``'s 8 rows (the VLM's (3, B, S) positions along B)."""
+    return {k: v[:, 8 * pod:8 * pod + 8] if k == "positions" else v[8 * pod:8 * pod + 8]
+            for k, v in batch.items()}
+
+
+def _family_init(label, name="auto"):
+    """The reference's initial state of the label's smoke model that
+    scenario ``name`` starts from: ``impl="auto"``'s, ``"auto_sharded"``'s
+    (``sharded0``) or the int8 moments' (``int8``)."""
+    cfg, fed = _config(label), jcomp.FedQCSConfig(**FED_KW)
     opt = jadam.OptConfig(**OPT_KW)
-    batch = JDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(0)
-    init, sharded = _family_inits(arch)
-    run = _stepper(cfg, opt, j_debug_mesh(2, 2, 2), fed)
-    step = lambda state, fed_cfg=fed, impl="auto": run(state, batch, fed_cfg, impl)  # noqa
+    if name == "sharded0":
+        return jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2,
+                                       mesh=j_debug_mesh(2, 2, 2), impl="auto_sharded")
+    if name == "int8":
+        opt = dataclasses.replace(opt, state_dtype="int8")
+    return jsteps.init_train_state(cfg, opt, fed, jax.random.PRNGKey(0), n_pods=2)
+
+
+def _reference_step(label, name):
+    """The reference's 2 x 2 x 2 step ``name`` of the label's smoke model
+    from its initial state: (the new state, the loss)."""
+    cfg, fed = _config(label), jcomp.FedQCSConfig(**FED_KW)
+    opt = jadam.OptConfig(**OPT_KW)
+    init = _family_init(label, name)
+    kw = {}
+    if name == "ea":
+        fed = dataclasses.replace(fed, recon_mode="ea", use_kernels=True)
+    elif name == "partial":
+        init = dict(init, participating=jax.numpy.asarray([1.0, 0.0]))
+    elif name == "baseline":
+        init, fed = {k: v for k, v in init.items() if k not in ("residual", "participating")}, None
+    elif name == "sharded0":
+        kw["impl"] = "auto_sharded"
+    elif name == "int8":
+        opt = dataclasses.replace(opt, state_dtype="int8")
+    return _stepper(cfg, opt, j_debug_mesh(2, 2, 2), fed)(init, _batch(label), **kw)
+
+
+def _reference_grads(label):
+    """The label's smoke model's initial parameters, pods' batches and pod
+    gradients (the reference's, jitted)."""
+    cfg = _config(label)
+    init = _family_init(label)
     grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jmodel.train_loss(p, b, cfg)))
-    pods = [{k: v[8 * p:8 * p + 8] for k, v in batch.items()} for p in range(2)]
-    return {
-        "init": _np(init),
-        "auto": step(init),
-        "ea": step(init, dataclasses.replace(fed, recon_mode="ea", use_kernels=True)),
-        "partial": step(dict(init, participating=jax.numpy.asarray([1.0, 0.0]))),
-        "baseline": step({k: v for k, v in init.items()
-                          if k not in ("residual", "participating")}, None),
-        "sharded0": step(sharded, impl="auto_sharded"),
-        "pods": [_np(b) for b in pods],
-        "grads": [_np(grad_fn(init["params"], b)) for b in pods],
-    }
+    pods = [_pod_share(_batch(label), p) for p in range(2)]
+    return {"init": _np(init), "pods": pods,
+            "grads": [_np(grad_fn(init["params"], b)) for b in pods]}
 
 
 def _port(ref, ref8):
@@ -191,16 +240,14 @@ def _port(ref, ref8):
     of their checkpoint onto one device and a step there, and the restore
     of their int8 checkpoint.  The families' scenarios start from the
     reference's initial states (their steps are held against
-    :func:`_reference_family`'s, computed apart)."""
+    :func:`_reference_step`'s, computed apart)."""
     t = lambda b: {k: torch.tensor(np.asarray(v, np.int64)) for k, v in b.items()}
     inp = {"fed_kw": FED_KW, "opt_kw": OPT_KW, "a": torch.tensor(ref["a"]),
            "init": _port_state(ref["init"]), "batches": [t(b) for b in ref["batches"]],
            "sharded_init": _port_state(ref["sharded_init"]),
            "sharded_after": _port_state(ref["sharded0"][0]),
            "auto_after": _port_state(ref["auto"][0]),
-           "families": {arch: dict(zip(("init", "sharded_init"),
-                                       (_port_state(_np(s)) for s in _family_inits(arch))))
-                        for arch in FAMILIES},
+           "families": {label: _port_family(label) for label in RUNS},
            "int8_init": _port_state(ref8["init"]),
            "int8_after": _port_state(ref8["step"][0])}
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -220,6 +267,19 @@ def _port(ref, ref8):
             "elastic": (new, float(m["loss"])), "int8_restored": int8}
 
 
+def _port_family(label):
+    """The world's input for the label: its arch, config changes, batch,
+    scenarios and the reference's initial states."""
+    arch, overrides, names = RUNS[label]
+    fam = {"arch": arch, "overrides": overrides, "scenarios": names,
+           "batch": torch_inpod_worker.family_batch(_config(label, registry)),
+           "init": _port_state(_np(_family_init(label)))}
+    for name, key in (("sharded0", "sharded_init"), ("int8", "int8_init")):
+        if name in names:
+            fam[key] = _port_state(_np(_family_init(label, name)))
+    return fam
+
+
 # Each reference run is shared on its own, so that the xdist workers that
 # reach this module compute them side by side; the world waits for the
 # dense and int8 ones (it replays their states).
@@ -235,8 +295,15 @@ def reference_int8(tmp_path_factory):
     return shared(tmp_path_factory, "inpod_reference_int8", _reference_int8)
 
 
-def _family_reference(tmp_path_factory, arch):
-    return shared(tmp_path_factory, f"inpod_reference_{arch}", lambda: _reference_family(arch))
+def _family_reference(tmp_path_factory, label, name=None):
+    """The reference's step ``name`` of the label (without one: its pod
+    gradients), each shared on its own, so that the workers compute a
+    label's runs side by side."""
+    if name is None:
+        return shared(tmp_path_factory, f"inpod_reference_{label}_grads",
+                      lambda: _reference_grads(label))
+    return shared(tmp_path_factory, f"inpod_reference_{label}_{name}",
+                  lambda: _reference_step(label, name))
 
 
 @pytest.fixture(scope="module")
@@ -356,47 +423,139 @@ def test_shard_map_matches_auto(runs):
 
 
 @pytest.fixture(params=FAMILIES)
-def family(request, tmp_path_factory):
-    """(arch, the reference's runs of its smoke model, the world's ranks'
-    records of it); the reference first, so that workers compute the
-    families' runs side by side."""
-    arch = request.param
-    ref = _family_reference(tmp_path_factory, arch)
+def family(request):
+    return request.param
+
+
+def _family_runs(label, tmp_path_factory, request, name=None):
+    """(the reference's step ``name`` of the label -- without one, its pod
+    gradients --, the world's ranks' records of the label, their
+    coordinates); the reference first, so that workers compute the labels'
+    runs side by side."""
+    want = _family_reference(tmp_path_factory, label, name)
+    return (want,) + _records(request, label)
+
+
+def _records(request, label):
     ranks = request.getfixturevalue("port")["ranks"]
-    return arch, ref, [out["families"][arch] for out in ranks], [out["coords"] for out in ranks]
+    return [out["families"][label] for out in ranks], [out["coords"] for out in ranks]
 
 
-def test_family_pod_gradient_matches_reference(family, tmp_path_factory):
+def test_family_pod_gradient_matches_reference(family, tmp_path_factory, request):
     """Each pod's loss and gradient, gathered from its four ranks: the
     Mamba blocks run on each rank's SSM heads (the projections onto its
     in_proj columns gathered over ``model``, conv_w gathered whole, the
     shared B/C group's gradient summed over the heads' ranks, the gated
     norm over every head), Zamba2's shared block once a group."""
-    arch, ref, recs, _ = family
-    cfg = jreg.smoke_config(arch)
+    ref, recs, _ = _family_runs(family, tmp_path_factory, request)
+    cfg = jreg.smoke_config(family)
     for pod, rank in ((0, 0), (1, 4)):
         want_loss, want_grads = ref["grads"][pod]
         got = recs[rank]["grads"]
         assert abs(got["loss"] - float(want_loss)) <= 1e-5
         exact = lambda: shared(  # noqa: E731
-            tmp_path_factory, f"inpod_grads64_{arch}_{pod}",
+            tmp_path_factory, f"inpod_grads64_{family}_{pod}",
             lambda: _grads64(cfg, ref["init"]["params"], ref["pods"][pod]))
         _assert_grads_close(got["grads"], want_grads, exact)
 
 
 @pytest.mark.parametrize("name", STEPS)
-def test_family_step_matches_reference(family, name):
+def test_family_step_matches_reference(family, name, tmp_path_factory, request):
     """The SSM and hybrid smoke models' ``auto`` AE and EA, dead-pod,
     baseline and ``auto_sharded`` steps on the world, to the dense
     family's contracts, the residual to ``tests/test_torch_families.py``'s
     (Zamba2's gradient sits on fp32's floor: its leaves differ from the
     reference's by more than 1e-5 where they are large)."""
-    _, ref, recs, coords = family
-    _check_world_step(name, *ref[name], [rec[name] for rec in recs], coords, beyond_gap=True)
+    (want_state, want_loss), recs, coords = _family_runs(family, tmp_path_factory, request, name)
+    _check_world_step(name, want_state, want_loss, [rec[name] for rec in recs], coords,
+                      beyond_gap=True)
 
 
-def test_family_shard_map_matches_auto(family):
-    _check_shard_map(family[2])
+def test_family_shard_map_matches_auto(family, request):
+    _check_shard_map(_records(request, family)[0])
+
+
+# ---------------------------------------------------------------------------
+# the MoE (with MLA and MTP), VLM and audio families
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("label", LATER)
+def test_later_family_pod_gradient_matches_reference(label, tmp_path_factory, request):
+    """Each pod's loss and gradient, gathered from its four ranks, to the
+    dense family's contract (rtol 1e-4 / atol 1e-6): the MoE's router
+    gathered over ``data``, the pod's (token, choice) pairs dispatched on
+    every rank with the pod's capacity, the rank's experts (their ``wo``
+    gathered whole over ``model``), the shared expert and DeepSeek's
+    first dense layer; MLA's latents on the rank's heads, MTP's block;
+    Qwen2-VL's M-RoPE streams, patch prefix and qkv biases; Whisper's
+    encoder, cross-attention on the rank's heads and its tied embedding
+    (held whole over ``model`` at vocab 257)."""
+    ref, recs, _ = _family_runs(label, tmp_path_factory, request)
+    for pod, rank in ((0, 0), (1, 4)):
+        want_loss, want_grads = ref["grads"][pod]
+        got = recs[rank]["grads"]
+        assert abs(got["loss"] - float(want_loss)) <= 1e-5
+        _assert_grads_close(got["grads"], want_grads, None)
+
+
+@pytest.mark.parametrize("label,name", [
+    pytest.param(label, name, id=f"{label}-{name}") for label in LATER
+    for name in RUNS[label][2] if name not in ("shard_map", "ckpt")])
+def test_later_family_step_matches_reference(label, name, tmp_path_factory, request):
+    """The labels' steps on the world against the reference's 2 x 2 x 2
+    steps, to the dense family's contracts: the loss within 1e-5, each
+    rank's residual against its shard of the reference's within atol 1e-5,
+    the gathered parameters within 2 lr (int8: the moments' codes within
+    one step of the reference's, their scales rtol 1e-5).  The MoE's
+    combine sums a token's experts over ``model`` in another order than
+    the reference's scatter-add: the same sum at k = 2 in fp32."""
+    (want_state, want_loss), recs, coords = _family_runs(label, tmp_path_factory, request, name)
+    _check_world_step(name, want_state, want_loss, [rec[name] for rec in recs], coords)
+    if name == "int8":
+        _check_qleafs(recs[0][name]["state"]["opt"], want_state["opt"])
+
+
+def test_moe_shard_map_matches_auto(request):
+    _check_shard_map(_records(request, MOE)[0])
+
+
+def test_moe_checkpoint_restart_is_exact(port):
+    """The MoE smoke model's state saved from the shards after a step (the
+    expert stacks gathered), restored into the shards and replayed:
+    bit-identical to the run that went on."""
+    assert all(out["families"][MOE]["ckpt"] == {"step": 2, "same": True}
+               for out in port["ranks"])
+
+
+def test_capacity_half_overflows_so_a_rank_local_dispatch_would_differ(monkeypatch):
+    """The overflow case's premise: at capacity_factor 0.5 a pod's dispatch
+    drops (token, choice) pairs in every MoE layer, and each data rank's
+    half of the pod's tokens dispatched alone (its capacity from its own
+    tokens) would keep another set of pairs."""
+    from repro_torch.models import moe
+
+    cfg = _config("moe-capacity-0.5", registry)
+    seen, dispatch = [], moe.dispatch
+    monkeypatch.setattr(moe, "dispatch", lambda topi, cap, e: seen.append((topi, cap)) or
+                        dispatch(topi, cap, e))
+    batch = torch_inpod_worker.family_batch(cfg)
+    with torch.no_grad():
+        tmodel.train_loss(tmodel.init_params(cfg, 0, "cpu"), steps._pod_batch(batch, 2, 0), cfg)
+
+    def kept(topi, cap, first=0):
+        _, se, st, dest = dispatch(topi, cap, cfg.n_experts)
+        return {(int(t) + first, int(x)) for t, x, d in zip(st, se, dest)
+                if d < cfg.n_experts * cap}
+
+    assert len(seen) == cfg.n_layers
+    for topi, cap in seen:
+        pod = kept(topi, cap)
+        assert len(pod) < topi.numel()
+        half = topi.shape[0] // 2
+        alone = set().union(*(kept(topi[h * half:(h + 1) * half], moe.capacity(half, cfg),
+                                   h * half) for h in range(2)))
+        assert alone != pod
 
 
 # ---------------------------------------------------------------------------
@@ -416,8 +575,13 @@ def test_int8_step_matches_reference(reference_int8, port):
     want_state, want_loss = reference_int8["step"]
     _check_world_step("auto", want_state, want_loss, [out["int8"]["step"] for out in ranks],
                       [out["coords"] for out in ranks])
-    got = ranks[0]["int8"]["step"]["state"]["opt"]
-    want = _paths(want_state["opt"])
+    _check_qleafs(ranks[0]["int8"]["step"]["state"]["opt"], want_state["opt"])
+
+
+def _check_qleafs(got, want):
+    """The gathered int8 moments ``got`` against the reference's ``want``:
+    codes within one step, scales rtol 1e-5, some codes moved."""
+    want = _paths(want)
     moved = 0
     for path, q in _qleaves(got):
         wq, ws = np.asarray(want[path + ("q",)]), np.asarray(want[path + ("scale",)])
@@ -551,18 +715,18 @@ _CFG, _OPT, _FED = registry.smoke_config(ARCH), OptConfig(**OPT_KW), FedQCSConfi
 
 
 def _inpod_state(arch, opt=_OPT):
-    """Rank 0's in-pod state of ``arch``'s smoke model (a mesh made outside
-    its world holds rank 0's place)."""
-    return steps.init_train_state(registry.smoke_config(arch), opt, _FED, mesh=tmesh.Mesh(MESH),
-                                  device="cpu")
+    """(the config, its optimizer, rank 0's in-pod state) of ``arch``'s
+    smoke model (a mesh made outside its world holds rank 0's place)."""
+    cfg = registry.smoke_config(arch)
+    return cfg, opt, steps.init_train_state(cfg, opt, _FED, mesh=tmesh.Mesh(MESH), device="cpu")
 
 
 @pytest.mark.parametrize("route,item", [
-    pytest.param(lambda: _inpod_state("qwen3-moe-235b-a22b"), "item 10d", id="moe-family"),
+    pytest.param(lambda: _inpod_state(MOE), None, id="moe-family"),
     pytest.param(lambda: _inpod_state("mamba2-1.3b"), None, id="ssm-family"),
     pytest.param(lambda: _inpod_state("zamba2-2.7b"), None, id="hybrid-family"),
-    pytest.param(lambda: _inpod_state("qwen2-vl-7b"), "item 10d", id="vlm-family"),
-    pytest.param(lambda: _inpod_state("whisper-base"), "item 10d", id="audio-family"),
+    pytest.param(lambda: _inpod_state("qwen2-vl-7b"), None, id="vlm-family"),
+    pytest.param(lambda: _inpod_state("whisper-base"), None, id="audio-family"),
     pytest.param(lambda: _inpod_state(ARCH, dataclasses.replace(_OPT, state_dtype="int8")),
                  None, id="int8-adam"),
     pytest.param(lambda: steps.make_decode_step(_CFG, tmesh.Mesh(MESH)), "item 10c",
@@ -573,16 +737,29 @@ def _inpod_state(arch, opt=_OPT):
                  id="production-mesh"),
     pytest.param(lambda: steps.make_train_step(_CFG, _OPT, _FED, tmesh.Mesh(MESH)),
                  (RuntimeError, "run_world"), id="mesh-without-its-world"),
+    pytest.param(lambda: steps.init_train_state(
+        dataclasses.replace(registry.smoke_config(MOE), n_experts=7), _OPT, _FED,
+        mesh=tmesh.Mesh(MESH), device="cpu"), "item 10g", id="experts-the-axis-does-not-divide"),
+    pytest.param(lambda: steps.init_train_state(
+        dataclasses.replace(_CFG, n_heads=3, n_kv_heads=1), _OPT, _FED, mesh=tmesh.Mesh(MESH),
+        device="cpu"), "item 10g", id="heads-the-axis-does-not-divide"),
 ])
 def test_routes_outside_the_slice_raise(route, item):
     """Each route the in-pod slice does not run raises
     ``NotImplementedError`` naming its ROADMAP.md item; an in-pod mesh made
     outside its world has no groups and says how to start one.  The routes
-    this slice ported (``item`` None: the SSM and hybrid families, int8
-    Adam states) run: rank 0's state holds its shards (a quarter of the
-    Mamba ``in_proj``) and an int8 moment the whole leaf's block scales."""
+    the in-pod program runs (``item`` None: every family, int8 Adam states)
+    run: rank 0's state holds each leaf's shard by its sanitized spec (a
+    quarter of the Mamba ``in_proj``, of the MoE's expert stacks) and an
+    int8 moment the whole leaf's block scales."""
     if item is None:
-        state = route()
+        cfg, opt, state = route()
+        mesh = tmesh.Mesh(MESH)
+        whole, specs = steps.state_specs(cfg, opt, _FED, mesh)
+        for path, p in tree_util.leaves(state["params"]):
+            want = local_shard(tree_util.get(whole["params"], path),
+                               tree_util.get(specs["params"], path), mesh.shape, mesh.coords(0))
+            assert p.shape == want.shape, path
         for path, m in tree_util.leaves(state["opt"]["m"]):
             p = tree_util.get(state["params"], path)
             if isinstance(m, tuple):
@@ -590,35 +767,39 @@ def test_routes_outside_the_slice_raise(route, item):
                 assert m.scale.numel() >= -(-p.numel() // 256)
             else:
                 assert m.shape == p.shape
-        if "layers" in state["params"] and "in_proj" in state["params"]["layers"]:
-            cfg = registry.smoke_config("mamba2-1.3b")
-            whole = tmodel.init_params(cfg, device="meta")["layers"]["in_proj"]
-            assert state["params"]["layers"]["in_proj"].numel() * 4 == whole.numel()
+        experts = state["params"].get("layers", {}).get("ffn", {}).get("experts", {})
+        for name, v in experts.items():  # the expert stacks: a quarter a rank
+            whole_leaf = tree_util.get(whole["params"], ("layers", "ffn", "experts", name))
+            assert 4 * v.numel() == whole_leaf.numel(), name
         return
     err, match = item if isinstance(item, tuple) else (NotImplementedError, item)
     with pytest.raises(err, match=match):
         route()
 
 
-@pytest.mark.parametrize("arch,world", [("qwen3-0.6b", 8), ("mamba2-1.3b", 8),
-                                        ("zamba2-2.7b", 8), ("qwen3-moe-235b-a22b", None)])
-def test_launcher_pod_mode_picks_the_mesh(arch, world, monkeypatch, capsys):
-    """Pod mode spawns the reference's (pods, 2, 2) world for the dense, SSM
-    and hybrid families and keeps (pods, 1, 1) in one process for the
-    others, naming their item."""
+@pytest.mark.parametrize("arch,world", [
+    ("qwen3-0.6b", 8), ("mamba2-1.3b", 8), ("zamba2-2.7b", 8),
+    # the id it had while this arch ran on (pods, 1, 1) in one process
+    pytest.param(MOE, 8, id=f"{MOE}-None"),
+    ("qwen2-vl-7b", 8), ("deepseek-v3-671b", 8), ("whisper-base", ValueError),
+])
+def test_launcher_pod_mode_picks_the_mesh(arch, world, monkeypatch):
+    """Pod mode spawns the reference's (pods, 2, 2) world of pods x 4 ranks
+    for every arch it trains; the audio arch raises ValueError (its token
+    data has no frames, as in the reference's pod mode)."""
     from repro_torch.launch import train as tlaunch
 
     seen = {}
     monkeypatch.setattr(tlaunch, "run_world", lambda fn, n, **kw: seen.update(world=n))
-    monkeypatch.setattr(tlaunch, "_train", lambda args, cfg, mesh, dev: seen.update(
-        mesh=dict(mesh.shape)))
-    tlaunch.main(["--arch", arch, "--smoke", "--fedqcs", "--pods", "2", "--device", "cpu",
-                  "--int8-opt-state"])
-    if world:
-        assert seen == {"world": world}
-    else:
-        assert seen == {"mesh": {"pod": 2, "data": 1, "model": 1}}
-        assert "item 10d" in capsys.readouterr().out
+    argv = ["--arch", arch, "--smoke", "--fedqcs", "--pods", "2", "--device", "cpu",
+            "--int8-opt-state"]
+    if world is ValueError:
+        with pytest.raises(ValueError, match="frames"):
+            tlaunch.main(argv)
+        assert seen == {}
+        return
+    tlaunch.main(argv)
+    assert seen == {"world": world}
 
 
 def test_spawned_rank_that_raises_makes_the_parent_raise():

@@ -437,13 +437,15 @@ def test_serve_example_on_the_cpu(capsys):
         assert f"{arch}: decoded (2, 5) tokens" in capsys.readouterr().out
 
 
-def test_launcher_pod_mode_on_the_moe_family(tmp_path, capsys):
+def test_launcher_pod_mode_on_the_moe_family(tmp_path, capfd):
     """``python -m repro_torch.launch.train --arch qwen3-moe-235b-a22b
-    --smoke --fedqcs``, 2 pods, 2 steps, on the CPU."""
+    --smoke --fedqcs``, 2 pods, 2 steps, on the CPU: the reference's (2, 2,
+    2) world (rank 0 prints: its lines reach the file descriptor)."""
     tlaunch.main(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--fedqcs", "--pods", "2",
                   "--device", "cpu", "--steps", "2", "--log-every", "1", "--batch", "4",
                   "--seq", "16", "--ckpt-dir", str(tmp_path)])
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
+    assert "mesh={'pod': 2, 'data': 2, 'model': 2}" in out
     assert "[train] done" in out and out.count("loss") == 2
     losses = [float(line.split("loss")[1].split()[0]) for line in out.splitlines()
               if line.startswith("step")]

@@ -20,9 +20,11 @@ Scenarios (``inp`` is the test process's input dict):
     from the shards (rank 0 writes), a step from the initial state saved
     and continued one more step, then restored from its checkpoint and
     replayed;
-  * ``families``: for each of ``inp["families"]`` (the SSM and hybrid smoke
-    models), its pod gradient and the ``auto``, ``ea``, ``partial``,
-    ``baseline``, ``sharded0`` and ``shard_map`` steps, as above;
+  * ``families``: for each of ``inp["families"]`` (a smoke model of the
+    SSM, hybrid, MoE, MLA, VLM or audio family, its config's changes, its
+    batch and its scenarios), its pod gradient and the steps it names as
+    above (``int8``: an ``auto`` step with int8 moments; ``ckpt``: a
+    restart replayed);
   * ``int8``: the dense model with int8 Adam states: one ``auto`` step from
     the reference's int8 state; ``update``: Adam on the rank's shards of
     the reference's state after that step against Adam on the whole leaves
@@ -73,9 +75,9 @@ def run(rank, world, device, inp, ckpt_dir):
         (path, gather_leaf(g, tree_util.get(specs["params"], path), mesh))
         for path, g in tree_util.leaves(grads))}
 
-    for arch, fam in inp["families"].items():
-        out.setdefault("families", {})[arch] = _family(arch, fam, inp, mesh, opt, fed, a,
-                                                      device, rank)
+    out["families"] = {label: _family(label, fam, inp, mesh, opt, fed, a, device, rank,
+                                      ckpt_dir)
+                       for label, fam in inp["families"].items()}
     out["int8"] = _int8(inp, mesh, fed, a, device, rank, os.path.join(ckpt_dir, "int8"))
 
     run_step("auto", inp["init"], inp["batches"][0])
@@ -94,17 +96,32 @@ def run(rank, world, device, inp, ckpt_dir):
     # checkpoints: the reference's state saved from the shards; a restart
     ckpt = Checkpointer(ckpt_dir, keep=4, async_save=False)
     ckpt.save(1, steps.shard_state(inp["auto_after"], specs, mesh), specs=specs, mesh=mesh)
-    fn = steps.make_train_step(cfg, opt, fed, mesh, device=device, a=a)
-    state, _ = fn(steps.shard_state(inp["init"], specs, mesh), inp["batches"][0])
-    ckpt.save(2, state, specs=specs, mesh=mesh)
-    cont, _ = fn(state, inp["batches"][1])
-    torch.distributed.barrier()
-    whole = steps.state_specs(cfg, opt, fed, mesh)[0]
-    restored, step = ckpt.restore(whole, step=2, specs=specs, mesh=mesh, device=device)
-    replay, _ = fn(restored, inp["batches"][1])
-    out["ckpt"] = {"step": step, "same": all(
-        torch.equal(x, tree_util.get(replay, path)) for path, x in tree_util.leaves(cont))}
+    out["ckpt"] = _restart(ckpt, cfg, opt, fed, mesh, inp["init"], inp["batches"], device, a)
     return out
+
+
+def _restart(ckpt, cfg, opt, fed, mesh, state, batches, device, a):
+    """The whole ``state``'s shards stepped on ``batches[0]`` and saved as
+    step 2, then stepped on ``batches[1]``; the save restored into the
+    shards and replayed on ``batches[1]``: the step restored and whether
+    the replay is the run that went on, bit for bit (a ``QLeaf`` field by
+    field)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.runtime import steps
+
+    whole, specs = steps.state_specs(cfg, opt, fed, mesh)
+    fn = steps.make_train_step(cfg, opt, fed, mesh, device=device, a=a)
+    state, _ = fn(steps.shard_state(state, specs, mesh), batches[0])
+    ckpt.save(2, state, specs=specs, mesh=mesh)
+    cont, _ = fn(state, batches[1])
+    torch.distributed.barrier()
+    restored, at = ckpt.restore(whole, step=2, specs=specs, mesh=mesh, device=device)
+    replay, _ = fn(restored, batches[1])
+    flat = lambda t: [x for _, v in tree_util.leaves(t)  # noqa: E731
+                      for x in (v if isinstance(v, tuple) else (v,))]
+    return {"step": at, "same": all(torch.equal(x, y) for x, y in zip(flat(cont), flat(replay)))}
 
 
 def _step(name, out, cfg, opt, fed, mesh, state, batch, device, a, rank, impl="auto"):
@@ -147,25 +164,41 @@ def _pod_grads(cfg, opt, fed, mesh, params, batch):
         for path, g in tree_util.leaves(grads))}
 
 
-def _family(arch, fam, inp, mesh, opt, fed, a, device, rank):
-    """The SSM or hybrid smoke model's scenarios (see the module docstring)."""
+def _family(label, fam, inp, mesh, opt, fed, a, device, rank, ckpt_dir):
+    """One smoke model's scenarios (see the module docstring): ``fam`` holds
+    its ``arch``, the smoke config's ``overrides``, its ``batch``, its
+    ``scenarios`` and the whole states they start from (``init``;
+    ``sharded_init``, ``int8_init`` where named)."""
     import torch
 
+    from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.registry import smoke_config
 
-    cfg = smoke_config(arch)
-    batch = inp["batches"][0]
-    out = {"grads": _pod_grads(cfg, opt, fed, mesh, fam["init"]["params"], batch)}
-    def run(name, state, fed_cfg=fed, **kw):
-        _step(name, out, cfg, opt, fed_cfg, mesh, state, batch, device, a, rank, **kw)
-
-    run("auto", fam["init"])
-    run("ea", fam["init"], fed_cfg=dataclasses.replace(fed, recon_mode="ea", use_kernels=True))
-    run("partial", dict(fam["init"], participating=torch.tensor([1.0, 0.0])))
-    run("baseline", {k: v for k, v in fam["init"].items()
-                     if k not in ("residual", "participating")}, fed_cfg=None)
-    run("sharded0", fam["sharded_init"], impl="auto_sharded")
-    run("shard_map", fam["init"], impl="shard_map")
+    cfg = dataclasses.replace(smoke_config(fam["arch"]), **fam["overrides"])
+    batch = fam["batch"]
+    init = fam["init"]
+    out = {"grads": _pod_grads(cfg, opt, fed, mesh, init["params"], batch)}
+    runs = {  # scenario -> (the whole state it starts from, _step's arguments)
+        "auto": lambda: (init, {}),
+        "ea": lambda: (init, {"fed": dataclasses.replace(fed, recon_mode="ea",
+                                                         use_kernels=True)}),
+        "partial": lambda: (dict(init, participating=torch.tensor([1.0, 0.0])), {}),
+        "baseline": lambda: ({k: v for k, v in init.items()
+                              if k not in ("residual", "participating")}, {"fed": None}),
+        "sharded0": lambda: (fam["sharded_init"], {"impl": "auto_sharded"}),
+        "shard_map": lambda: (init, {"impl": "shard_map"}),
+        "int8": lambda: (fam["int8_init"],
+                         {"opt": dataclasses.replace(opt, state_dtype="int8")}),
+    }
+    for name in fam["scenarios"]:
+        if name == "ckpt":
+            ckpt = Checkpointer(os.path.join(ckpt_dir, label), keep=4, async_save=False)
+            out["ckpt"] = _restart(ckpt, cfg, opt, fed, mesh, init, [batch, batch], device, a)
+            continue
+        state, kw = runs[name]()
+        kw = {"opt": opt, "fed": fed, **kw}
+        _step(name, out, cfg, kw.pop("opt"), kw.pop("fed"), mesh, state, batch, device, a, rank,
+              **kw)
     return out
 
 
@@ -187,7 +220,7 @@ def _int8(inp, mesh, fed, a, device, rank, ckpt_dir):
     _step("step", out, cfg, opt, fed, mesh, inp["int8_init"], batches[0], device, a, rank)
 
     # Adam on the rank's shards against Adam on the whole leaves
-    whole, specs = steps.state_specs(cfg, opt, fed, mesh)
+    _, specs = steps.state_specs(cfg, opt, fed, mesh)
     grads = _pod_grads(cfg, opt, fed, mesh, after["params"], batches[1])["grads"]
     norm = torch.sum(torch.stack([torch.sum(g * g) for _, g in tree_util.leaves(grads)]))
     norm_sq = lambda _: norm  # noqa: E731  (one clip for both)
@@ -215,17 +248,7 @@ def _int8(inp, mesh, fed, a, device, rank, ckpt_dir):
     # checkpoints: the reference's state after its step; a restart
     ckpt = Checkpointer(ckpt_dir, keep=4, async_save=False)
     ckpt.save(1, steps.shard_state(after, specs, mesh), specs=specs, mesh=mesh)
-    fn = steps.make_train_step(cfg, opt, fed, mesh, device=device, a=a)
-    state, _ = fn(steps.shard_state(after, specs, mesh), batches[1])
-    ckpt.save(2, state, specs=specs, mesh=mesh)
-    cont, _ = fn(state, batches[0])
-    torch.distributed.barrier()
-    restored, at = ckpt.restore(whole, step=2, specs=specs, mesh=mesh, device=device)
-    replay, _ = fn(restored, batches[0])
-    flat = lambda t: [x for _, v in tree_util.leaves(t)  # noqa: E731
-                      for x in (v if isinstance(v, tuple) else (v,))]
-    out["ckpt"] = {"step": at, "same": all(torch.equal(x, y)
-                                           for x, y in zip(flat(cont), flat(replay)))}
+    out["ckpt"] = _restart(ckpt, cfg, opt, fed, mesh, after, batches[::-1], device, a)
     return out
 
 
@@ -238,14 +261,44 @@ def fail_on_rank_3(rank, world, device):
     dist.barrier()
 
 
+def family_batch(cfg):
+    """The 16 rows of a smoke model's train batch the in-pod tests take, on
+    the CPU: the token data's 16 x 32 (seed 7's first batch); the VLM's 24
+    text tokens after 8 patch embeddings, with M-RoPE streams (t; h and w
+    over a 2 x 4 patch grid, then the text's shared positions); Whisper's
+    24 frames and 12 text tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import TokenDataset
+
+    if cfg.family not in ("vlm", "audio"):
+        return TokenDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(0, device="cpu")
+    rng = np.random.default_rng(11)
+    b, st, extra = (16, 24, 8) if cfg.family == "vlm" else (16, 12, 24)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, st)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, st))}
+    rows = (rng.normal(size=(b, extra, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rows
+    else:
+        batch["patches"] = rows
+        text = np.arange(st) + 4
+        streams = np.stack([np.r_[np.zeros(extra), text], np.r_[np.arange(extra) // 4, text],
+                            np.r_[np.arange(extra) % 4, text]]).astype(np.int64)
+        batch["positions"] = np.broadcast_to(streams[:, None], (3, b, extra + st))
+    return {k: torch.tensor(np.array(v, np.int64 if v.dtype.kind in "iu" else np.float32))
+            for k, v in batch.items()}
+
+
 def one_step(rank, world, device, impl, fed_kw, arch="qwen3-0.6b", state_dtype="float32"):
     """One step of ``arch``'s smoke model on the (2, 2, 2) mesh from seed
     0's state (``fed_kw`` None: the baseline; ``state_dtype``: Adam's
-    moments): the loss, this rank's residual, the gradient rows it sent and
-    the encoder launches on the host, rank 0's gathered parameters."""
+    moments) on :func:`family_batch`: the loss, this rank's residual, the
+    gradient rows it sent and the encoder launches on the host, rank 0's
+    gathered parameters."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.core.compression import FedQCSConfig
-    from repro_torch.data.synthetic import TokenDataset
     from repro_torch.kernels import bqcs_encode_fused
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.optim.adam import OptConfig
@@ -266,8 +319,7 @@ def one_step(rank, world, device, impl, fed_kw, arch="qwen3-0.6b", state_dtype="
 
     steps.fedqcs_pod_allreduce = capture
     try:
-        new, m = fn(state, TokenDataset(cfg.vocab_size, batch=16, seq=32, seed=7).get_batch(
-            0, device=device))
+        new, m = fn(state, {k: v.to(device) for k, v in family_batch(cfg).items()})
     finally:
         steps.fedqcs_pod_allreduce = pod_allreduce
     params = steps.gather_state(new["params"], steps.state_specs(cfg, opt, fed, mesh, impl)[1]

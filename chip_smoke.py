@@ -234,7 +234,22 @@ Phases (any failure raises and the script exits non-zero):
     card's memory in use.  [time] of the three kernels alone at a rank's
     rows: Qwen3-0.6B's full-depth mesh (584,448), and each full-width
     family model's at its depth (Zamba2-2.7B runs AE only: no
-    ``qgamp_step``).
+    ``qgamp_step``).  Then the serve steps on the same world (the in-pod
+    ``make_prefill_step`` / ``make_decode_step``: prefill over (pod, data)
+    with heads over ``model``, split-KV decode over ``model``):
+    Qwen3-0.6B at full width and depth, bf16, seed 0's weights, a prompt
+    of 8 x 2048 into 2112 slots (1056 a ``model`` rank), 32 donated
+    decode steps teacher-forced with one process's greedy tokens; before
+    the world one process runs the same on the card in bf16 and its fp32
+    cast.  The world's prefill logits, decode logits and each rank's cache
+    shard against one process's: NMSE within INPOD_BF16_FLOORS x one
+    process's own bf16-to-fp32 NMSE of each; its greedy tokens (every
+    rank of a row alike) equal to one process's but at a near tie (the
+    margin within INPOD_BF16_FLOORS x that row's bf16-to-fp32 gap); rank
+    0's prefill wall and decode ms a token, each rank's peak, the card's
+    memory in use.  The dense, MoE, MLA and VLM smoke configs (fp32, 8 x
+    6 into 16 slots, 5 steps from slot 6: ``model`` rank 0's slots, then
+    rank 1's) against one process, max abs within 1e-4.
  17. [time] Times with CUDA events (warm-up, then many back-to-back launches
     queued behind a sleep kernel so host launch cost stays out): each kernel,
     its plain version, and where one exists the PyTorch call for the same
@@ -4986,6 +5001,18 @@ INPOD_GAMP = f"gamp_step[N={TRAIN_N}, a rank's rows]"
 INPOD_QGAMP = f"qgamp_step[N={TRAIN_N}, a rank's rows]"
 INPOD_FRAMES = 1500  # Whisper's 30 s window ([serve] (f)'s)
 INPOD_WIDE = ("qwen2-vl-7b", 1)  # --inpod-wide's model: (arch, layers) at full width
+# [inpod]'s serve runs (the in-pod make_prefill_step / make_decode_step):
+# Qwen3-0.6B at full width and depth, bf16, seed 0's weights: a prompt of
+# B x S (two rows a rank over (pod, data)), a cache of S + ROOM slots
+# (1056 a model rank), STEPS greedy decode steps teacher-forced with one
+# process's tokens; then the smoke configs, fp32: B x S_SMOKE into
+# SMAX_SMOKE slots, STEPS_SMOKE steps from slot S_SMOKE (model rank 0's
+# slots, then rank 1's first and later ones)
+INPOD_SERVE_ARCH, INPOD_SERVE_B, INPOD_SERVE_S, INPOD_SERVE_ROOM, INPOD_SERVE_STEPS = (
+    "qwen3-0.6b", 8, 2048, 64, 32)
+INPOD_SERVE_SMOKE = ("qwen3-0.6b", "qwen3-moe-235b-a22b", "deepseek-v3-671b", "qwen2-vl-7b")
+INPOD_SERVE_S_SMOKE, INPOD_SERVE_SMAX_SMOKE, INPOD_SERVE_STEPS_SMOKE = 6, 16, 5
+INPOD_SERVE_FP32_TOL = 1e-4  # max abs: an fp32 model's products summed in another order
 
 
 def inpod_family_runs():
@@ -5198,10 +5225,299 @@ def inpod_rank(rank, world, dev, spec):
         del fn, ghat, blocks, batch
         torch.cuda.empty_cache()
     steps.fedqcs_pod_allreduce = pod_allreduce
+    out["serve"] = inpod_serve_rank(rank, mesh, dev, spec["serve"])
     return out
 
 
-def phase_inpod(dev):
+def inpod_serve_prompt(cfg, b: int, s: int, dev) -> dict:
+    """[inpod]'s serve prompt of ``s`` positions (:func:`serve_prompt`,
+    the same draw in every process; the VLM: 2 patch embeddings first)."""
+    sv = 2 if cfg.family == "vlm" else 0
+    return serve_prompt(cfg, b, sv, s - sv, dev)
+
+
+def inpod_serve_run(cfg, params, prompt, smax, mesh, dev, tokens=None, n=0, timed=False):
+    """The serve steps of ``cfg`` on ``mesh`` (None: one process): the
+    prefill into ``smax`` slots, then one donated decode step a row of
+    ``tokens`` (teacher-forced) at the positions after the prompt -- or,
+    with ``tokens`` None, ``n`` greedy steps (one process).  Returns (the
+    greedy tokens -- of the prefill, then of each step (n + 1, B, 1);
+    teacher-forced, of each step (steps, B, 1), in-pod the rank's rows
+    --, prefill logits, each step's
+    logits, the cache after the last step, the prefill's wall ms, each
+    step's ms); ``timed``: each call between a barrier (in-pod) and a
+    device sync."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.sharding import greedy_tokens
+    from repro_torch.runtime import steps
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        if timed and mesh is not None:
+            dist.barrier()
+
+    prefill = steps.make_prefill_step(cfg, mesh)
+    decode = steps.make_decode_step(cfg, mesh, donate=True)
+    s = prompt["tokens"].shape[1] + (prompt["patches"].shape[1] if "patches" in prompt else 0)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt, smax)
+    torch.cuda.synchronize(dev)
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    toks = [greedy_tokens(logits[:, -1])[:, None]] if tokens is None else []
+    outs, ms = [], []
+    for t in range(n if tokens is None else len(tokens)):
+        sync()
+        t0 = time.perf_counter()
+        nxt, lo, cache = decode(params, cache, toks[-1] if tokens is None else tokens[t], s + t)
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(lo)
+        toks.append(nxt)
+    return torch.stack(toks), logits, torch.stack(outs), cache, pre_ms, ms
+
+
+def inpod_serve_rank(rank, mesh, dev, spec):
+    """[inpod]'s serve runs on this rank (see INPOD_SERVE_*): the full-width
+    model, then each smoke config, from the files of one process's runs:
+    each run's sums behind the NMSEs (the rank's logits and cache shard
+    against its shards of one process's), its next tokens, rank 0's walls,
+    the rank's peak."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import model as model_api
+    from repro_torch.models.sharding import local_shard, shard_cache
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    c = mesh.coords()
+
+    def shards(cfg, params):
+        _, specs = steps.state_specs(cfg, OptConfig(), None, mesh)
+        return steps.shard_state(params, specs["params"], mesh)
+
+    def compare(cfg, got, files):
+        """(err, energy, max abs) of the rank's outputs against its shards
+        of one process's: prefill logits, decode logits, final cache."""
+        ref = torch.load(files, mmap=True, weights_only=True)
+        logits, dec, cache = got
+        pre, dspec = (steps.serve_specs(cfg, mesh, kind)["logits"] for kind in ("prefill",
+                                                                                "decode"))
+        out = {}
+        pairs = {"prefill": (logits, local_shard(ref["prefill"], pre, mesh.shape, c)),
+                 "decode": (dec, local_shard(ref["decode"], (None,) + dspec, mesh.shape, c)),
+                 "cache": (torch.cat([v.reshape(-1) for v in cache.values()]),
+                           torch.cat([v.reshape(-1) for v in shard_cache(
+                               {k: ref[k] for k in cache}, mesh).values()]))}
+        for key, (g, w) in pairs.items():
+            g, w = g.float(), w.to(dev).float()
+            out[key] = (float(torch.sum((g - w) ** 2)), float(torch.sum(w * w)),
+                        float(torch.max(torch.abs(g - w))))
+        return out
+
+    torch.cuda.empty_cache()
+    res = {}
+    t0 = time.perf_counter()
+    cfg = get_config(INPOD_SERVE_ARCH)
+    whole = torch.load(spec["params"], mmap=True, weights_only=True)  # one process's
+    params = tree_util.tree_map(lambda v: v.to(dev), shards(cfg, whole))
+    del whole
+    prompt = inpod_serve_prompt(cfg, INPOD_SERVE_B, INPOD_SERVE_S, dev)
+    tokens = torch.load(spec["tokens"], weights_only=True).to(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    got = inpod_serve_run(cfg, params, prompt, INPOD_SERVE_S + INPOD_SERVE_ROOM, mesh, dev,
+                          tokens=tokens[:-1], timed=True)
+    free, total = torch.cuda.mem_get_info(dev)
+    rec = {"peak": torch.cuda.max_memory_allocated(dev), "card_used": total - free,
+           "pre_ms": got[4], "ms": got[5], "next": got[0].cpu(),
+           "shape": tuple(got[3]["k"].shape)}
+    del params, prompt
+    t2 = time.perf_counter()
+    rec.update(compare(cfg, got[1:4], spec["full"]))
+    rec["seconds"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    res["full"] = rec
+    del got
+    torch.cuda.empty_cache()
+    for arch in INPOD_SERVE_SMOKE:
+        cfg = smoke_config(arch)
+        params = shards(cfg, model_api.init_params(cfg, seed=0, device=dev))
+        prompt = inpod_serve_prompt(cfg, INPOD_SERVE_B, INPOD_SERVE_S_SMOKE, dev)
+        tokens = torch.load(spec[arch + " tokens"], weights_only=True).to(dev)
+        got = inpod_serve_run(cfg, params, prompt, INPOD_SERVE_SMAX_SMOKE, mesh, dev,
+                              tokens=tokens[:-1])
+        res[arch] = dict(compare(cfg, got[1:4], spec[arch]), next=got[0].cpu())
+        del params, got
+    dist.barrier()
+    return res
+
+
+def inpod_serve_report(ranks, serve, smi) -> None:
+    """[inpod]'s serve checks and lines: the world's logits and cache shards
+    against one process's (the full-width model: NMSE within its floors;
+    the smoke configs: max abs within INPOD_SERVE_FP32_TOL), its greedy
+    tokens (every ``model`` and pod rank alike; a token that differs from
+    one process's must be a near tie there), rank 0's walls, each rank's
+    peak and the card's memory in use."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(dict(zip(("pod", "data", "model"), INPOD_MESH)))
+    data = INPOD_MESH[1]
+
+    def world_tokens(key):
+        """The world's next tokens (steps, B): each data index's rows, the
+        same on every rank that shares it."""
+        rows = {}
+        for r, out in enumerate(ranks):
+            d = mesh.coords(r)["data"]
+            got = out["serve"][key]["next"][..., 0]
+            check(d not in rows or torch.equal(rows[d], got),
+                  f"[inpod] serve {key}: rank {r}'s tokens differ from another rank of its rows")
+            rows[d] = got
+        return torch.cat([rows[d] for d in range(data)], dim=1)
+
+    def agreement(key, want, logits, tol):
+        """The share of the world's tokens equal to one process's; a token
+        that differs must be a near tie in one process's logits: its
+        margin over the world's pick within ``tol`` (per step and row)."""
+        got = world_tokens(key)
+        want = want[1:, :, 0]
+        for t, b in torch.nonzero(got != want).tolist():
+            margin = float(logits[t, b, want[t, b]] - logits[t, b, got[t, b]])
+            limit = float(tol[t, b]) if torch.is_tensor(tol) else tol
+            check(margin <= limit, f"[inpod] serve {key}: step {t} row {b} took token "
+                  f"{int(got[t, b])} where one process took {int(want[t, b])}, margin "
+                  f"{margin:.4g} > {limit:.4g}: not a near tie")
+        return float((got == want).float().mean())
+
+    def sums(key, part):
+        err = sum(out["serve"][key][part][0] for out in ranks)
+        energy = sum(out["serve"][key][part][1] for out in ranks)
+        return err / max(energy, 1e-30), max(out["serve"][key][part][2] for out in ranks)
+
+    recs = [out["serve"]["full"] for out in ranks]
+    floors = serve["floors"]
+    rate = agreement("full", serve["tokens"], serve["decode"], serve["tie_tol"])
+    parts = {part: sums("full", part) for part in ("prefill", "decode", "cache")}
+    for part, (e, _) in parts.items():
+        check(e <= floors[part], f"[inpod] serve {INPOD_SERVE_ARCH}: {part} NMSE {e:.4g} "
+              f"against one process, past its floor {floors[part]:.4g}")
+    one_pre, one_ms = serve["one_ms"]
+    peaks = [rec["peak"] / 2**30 for rec in recs]
+    init_s, run_s, compare_s = recs[0]["seconds"]
+    ms = recs[0]["ms"]
+    print(f"[inpod] serve {INPOD_SERVE_ARCH} (full width, {INPOD_SERVE_B} x {INPOD_SERVE_S} "
+          f"prompt, bf16, seed 0's weights; cache shard {recs[0]['shape']} a rank of "
+          f"{INPOD_SERVE_S + INPOD_SERVE_ROOM} slots; {INPOD_SERVE_STEPS} donated decode steps "
+          f"teacher-forced with one process's tokens) on the (2, 2, 2) world: prefill wall "
+          f"{recs[0]['pre_ms']:.1f} ms (rank 0; one process {one_pre:.1f}); decode median "
+          f"{float(np.median(ms)):.1f} ms a token (min {min(ms):.1f}, max {max(ms):.1f}; one "
+          f"process {float(np.median(one_ms)):.3f}); max_memory_allocated a rank GiB "
+          f"{[round(v, 3) for v in peaks]}, sum {sum(peaks):.3f}; the card in use "
+          f"{max(rec['card_used'] for rec in recs) / 2**30:.3f} GiB; rank 0's seconds: "
+          f"shards {init_s:.1f}, prefill and decode {run_s:.1f}, checks {compare_s:.1f} | {smi}")
+    print(f"[inpod] serve {INPOD_SERVE_ARCH} against one process: NMSE "
+          + ", ".join(f"{part} {e:.4g} (floor {floors[part]:.4g}, max abs {m:.4g})"
+                      for part, (e, m) in parts.items())
+          + f" (floors: {INPOD_BF16_FLOORS:g} x one process's own bf16-to-fp32 NMSE); greedy "
+          f"tokens equal to one process's: {rate:.4f} of {INPOD_SERVE_STEPS} x "
+          f"{INPOD_SERVE_B} (a differing one a near tie)")
+    for arch in INPOD_SERVE_SMOKE:
+        rate = agreement(arch, serve[arch]["tokens"], serve[arch]["decode"],
+                         INPOD_SERVE_FP32_TOL)
+        worst = {part: sums(arch, part)[1] for part in ("prefill", "decode", "cache")}
+        check(max(worst.values()) <= INPOD_SERVE_FP32_TOL,
+              f"[inpod] serve {arch} smoke: max abs {worst} against one process")
+        print(f"[inpod] serve {arch} smoke (fp32, {INPOD_SERVE_B} x {INPOD_SERVE_S_SMOKE} into "
+              f"{INPOD_SERVE_SMAX_SMOKE} slots, {INPOD_SERVE_STEPS_SMOKE} steps from slot "
+              f"{INPOD_SERVE_S_SMOKE}: model rank 0's, then rank 1's): max abs against one "
+              f"process " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+              + f" (<= {INPOD_SERVE_FP32_TOL:g}); greedy tokens equal: {rate:.4f}")
+
+
+def inpod_serve_references(dev, out_dir) -> dict:
+    """One process's serve runs on the card, written to ``out_dir`` for the
+    ranks (their prompts are the same draws): the full-width model in
+    bf16 -- its greedy tokens, prefill and decode logits and final cache
+    -- and, teacher-forced with the same tokens, its fp32 cast, whose gaps
+    make the world's floors (INPOD_BF16_FLOORS x one process's own
+    bf16-to-fp32 NMSE, per output); each smoke config in fp32.  Returns
+    the files, the floors, and the logits the tie rule reads."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import model as model_api
+
+    out = {"files": {}}
+    cfg = get_config(INPOD_SERVE_ARCH)
+    smax = INPOD_SERVE_S + INPOD_SERVE_ROOM
+    params = model_api.init_params(cfg, seed=0, device=dev)
+    prompt = inpod_serve_prompt(cfg, INPOD_SERVE_B, INPOD_SERVE_S, dev)
+    toks, logits, dec, cache, pre_ms, ms = inpod_serve_run(cfg, params, prompt, smax, None,
+                                                           dev, n=INPOD_SERVE_STEPS)
+    files = out["files"]
+    files["params"] = str(out_dir / "serve_params.pt")  # the ranks cut their shards from it
+    torch.save(tree_util.tree_map(lambda p: p.cpu(), params), files["params"])
+    files["tokens"] = str(out_dir / "serve_tokens.pt")
+    torch.save(toks.cpu(), files["tokens"])
+    files["full"] = str(out_dir / "serve_full.pt")
+    torch.save({"prefill": logits.cpu(), "decode": dec.cpu(),
+                **{k: v.cpu() for k, v in cache.items()}}, files["full"])
+    del cache
+    torch.cuda.empty_cache()
+    cfg32 = dc.replace(cfg, dtype="float32")
+    params32 = tree_util.tree_map(lambda p: p.float(), params)
+    del params
+    _, logits32, dec32, cache32, _, _ = inpod_serve_run(cfg32, params32, prompt, smax, None,
+                                                        dev, tokens=toks[:-1])
+    del params32
+    bf = torch.load(files["full"], mmap=True, weights_only=True)
+    cache_bf = torch.cat([bf[k].reshape(-1) for k in cache32])
+    out["floors"] = {
+        "prefill": INPOD_BF16_FLOORS * nmse(logits.float(), logits32),
+        "decode": INPOD_BF16_FLOORS * nmse(dec.float(), dec32),
+        "cache": INPOD_BF16_FLOORS * nmse(cache_bf.to(dev).float(), torch.cat(
+            [v.reshape(-1) for v in cache32.values()]))}
+    # the tie rule: a step's row whose top two differ by less than the
+    # floor's scale there (INPOD_BF16_FLOORS x one process's largest
+    # bf16-to-fp32 gap on the row) may go either way
+    out["decode"] = dec[:, :, -1].float().cpu()
+    out["tie_tol"] = (INPOD_BF16_FLOORS * torch.amax(torch.abs(dec.float() - dec32),
+                                                     dim=-1)[:, :, 0]).cpu()
+    out["tokens"] = toks.cpu()
+    out["one_ms"] = (pre_ms, ms)
+    del cache32, logits32, dec32, cache_bf, bf, dec, logits
+    torch.cuda.empty_cache()
+    for arch in INPOD_SERVE_SMOKE:
+        cfg = smoke_config(arch)
+        params = model_api.init_params(cfg, seed=0, device=dev)
+        prompt = inpod_serve_prompt(cfg, INPOD_SERVE_B, INPOD_SERVE_S_SMOKE, dev)
+        toks, logits, dec, cache, _, _ = inpod_serve_run(
+            cfg, params, prompt, INPOD_SERVE_SMAX_SMOKE, None, dev, n=INPOD_SERVE_STEPS_SMOKE)
+        files[arch + " tokens"] = str(out_dir / f"serve_tokens_{arch}.pt")
+        files[arch] = str(out_dir / f"serve_{arch}.pt")
+        torch.save(toks.cpu(), files[arch + " tokens"])
+        torch.save({"prefill": logits.cpu(), "decode": dec.cpu(),
+                    **{k: v.cpu() for k, v in cache.items()}}, files[arch])
+        out[arch] = {"decode": dec[:, :, -1].float().cpu(), "tokens": toks.cpu()}
+        del params, cache, logits, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_inpod(dev, smi):
     """[inpod] (see INPOD_*): first, alone on the card, [time] of the
     encoder and both step kernels at a rank's rows of Qwen3-0.6B's
     full-depth mesh (rank (0, 0, 0)'s: the first quarter of pod 0's grid of
@@ -5342,6 +5658,7 @@ def phase_inpod(dev):
             model_api.train_loss(params, steps._pod_batch(batch, pods, p), cut)
             for p in range(pods)]).mean())
     del params, batch
+    serve = inpod_serve_references(dev, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
@@ -5356,7 +5673,8 @@ def phase_inpod(dev):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # the ranks' allocators
     try:
         ranks = run_world(inpod_rank, world, args=({"runs": runs, "reference": files,
-                                                    "plain": ("auto_sharded AE",)},),
+                                                    "plain": ("auto_sharded AE",),
+                                                    "serve": serve["files"]},),
                           device="cuda")
     finally:
         if conf is None:
@@ -5367,8 +5685,10 @@ def phase_inpod(dev):
     print(f"[inpod] the card in use after the ranks' start: "
           f"{ranks[0]['card_used_after_init'] / 2**30:.3f} GiB (eight contexts and this "
           f"process)")
-    for f in {f for pair in files.values() for f in pair.values()}:
+    for f in {f for pair in files.values() for f in pair.values()} | set(
+            serve["files"].values()):
         Path(f).unlink()
+    inpod_serve_report(ranks, serve, smi)
     launches = {name: 0 for name in times}
     for label, cfg, impl, mode, state_dtype in runs:
         recs = [r[label] for r in ranks]
@@ -5633,7 +5953,7 @@ def main() -> int:
         print(f"[done] [inpod-wide] in {time.perf_counter() - t0:.1f} s")
         return 0
     if args.inpod:
-        phase_inpod(dev)
+        phase_inpod(dev, smi)
         print(f"[done] the [inpod] phase passed in {time.perf_counter() - t0:.1f} s")
         return 0
     k_in = phase_kernels(dev)
@@ -5676,7 +5996,7 @@ def main() -> int:
     cohort_launches, cohort_errs, cohort_times = timed("cohort", phase_cohort, dev)
     serve_launches = timed("serve", phase_serve, dev, smi)
     torch.cuda.empty_cache()
-    inpod_launches, inpod_errs, inpod_times = timed("inpod", phase_inpod, dev)
+    inpod_launches, inpod_errs, inpod_times = timed("inpod", phase_inpod, dev, smi)
     k_in.update({k: {"max_abs_err": v}
                  for k, v in {**train_errs, **cohort_errs, **inpod_errs}.items()})
     times = timed("time", phase_times, dev, k_in)

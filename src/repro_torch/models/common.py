@@ -15,15 +15,19 @@ M-RoPE.  Cross-attention (K/V from an encoder) and the ungated GELU MLP
 serve the audio family.
 
 On an in-pod mesh (``models/sharding.py``'s :func:`use_inpod`) the
-training path runs on the rank's shards, as the reference's rules lay them
-out: attention's wq/wk/wv split by head over ``model`` (a rank takes its
-query heads' KV groups) and ``wo`` by row, the MLP's wi/wg by column and
-wo by row, the embedding and the head by vocabulary row; every weight's
-d_model dimension gathered over ``data`` as it is used.  The
+training and serve paths run on the rank's shards, as the reference's
+rules lay them out: attention's wq/wk/wv split by head over ``model`` (a
+rank takes its query heads' KV groups) and ``wo`` by row, the MLP's wi/wg
+by column and wo by row, the embedding and the head by vocabulary row;
+every weight's d_model dimension gathered over ``data`` as it is used
+(without autograd, the activations instead where they are the smaller:
+``sharding.fsdp_mms``).  The
 cross-entropy is vocab-parallel and the loss the mean over the pod's
 tokens; a vocabulary the ``model`` axis does not divide keeps its table
 whole over ``model`` (its sanitized spec), and every rank then takes the
-whole rows.  These blocks serve every family the in-pod program runs.
+whole rows.  A decode step attends over the rank's cache slots with
+every query head and combines the ranks' partials over ``model``
+(split-KV).  These blocks serve every family the in-pod program runs.
 """
 
 from __future__ import annotations
@@ -43,8 +47,15 @@ from repro_torch.models.sharding import (
     batch_sum,
     cs,
     current_inpod,
-    fsdp,
+    fsdp_mm,
+    fsdp_mms,
+    fsdp_out,
+    fsdp_rows,
+    kv_slots,
     model_columns,
+    model_heads,
+    model_whole_parts,
+    split_kv_combine,
     tp_enter,
 )
 
@@ -152,16 +163,29 @@ def update_slot(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     ``jax.lax.dynamic_update_slice(buf, new, (0, pos, 0, ...))``, whose start
     index clamps to ``[0, Smax - s]`` (a ``pos`` past the end writes the
     last slot).  ``pos`` is an int or a 0-d tensor; nothing syncs with the
-    device."""
-    s, smax = new.shape[1], buf.shape[1]
-    start = torch.clamp(torch.as_tensor(pos, device=buf.device), 0, smax - s)
-    idx = start.to(torch.int64) + torch.arange(s, device=buf.device)
-    return buf.index_copy_(1, idx, new.to(buf.dtype))
+    device.  In-pod, ``buf`` is the rank's slots of the cache
+    (:func:`~repro_torch.models.sharding.kv_slots`): only the new entries
+    that fall in them are written."""
+    s, local = new.shape[1], buf.shape[1]
+    first, smax = kv_slots(local)
+    start = torch.clamp(torch.as_tensor(pos, device=buf.device), 0, smax - s).to(torch.int64)
+    if local == smax:
+        return buf.index_copy_(1, start + torch.arange(s, device=buf.device), new.to(buf.dtype))
+    for i in range(s):  # one slot at a time: a slot another rank owns keeps its value
+        at = start + i - first
+        inside = (at >= 0) & (at < local)
+        slot = torch.where(inside, at, 0).reshape(1)
+        keep = buf.index_select(1, slot)
+        buf.index_copy_(1, slot, torch.where(inside, new[:, i:i + 1].to(buf.dtype), keep))
+    return buf
 
 
-def valid_slots(smax: int, pos, device) -> torch.Tensor:
-    """(Smax,) bool: the cache slots ``<= pos`` (the unclamped ``pos``)."""
-    return torch.arange(smax, device=device) <= torch.as_tensor(pos, device=device)
+def valid_slots(local: int, pos, device) -> torch.Tensor:
+    """(local,) bool: the cache slots ``<= pos`` (the unclamped ``pos``) of
+    a cache of ``local`` slots (in-pod: the rank's)."""
+    first, _ = kv_slots(local)
+    return torch.arange(first, first + local, device=device) <= torch.as_tensor(pos,
+                                                                              device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -190,12 +214,15 @@ def init_attention(key: torch.Tensor, cfg: ModelConfig) -> dict:
     return p
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset=0,
-          kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, Sq, H, dh), k/v (B, Sk, KVH, dh) -> (B, Sq, H, dh).  The S x S
-    chain stays in the compute dtype; the row max and row sum run fp32.
-    ``q_offset``: the absolute position of q[0] (decode); ``kv_len_mask``:
-    (B, Sk) bool of the valid cache slots (decode)."""
+def _sdpa_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset=0,
+                kv_len_mask: Optional[torch.Tensor] = None):
+    """Attention's unnormalized parts: (m, l, out) -- the fp32 row max
+    (clamped at -1e30 for a row with no valid slot) and probability sum
+    (B, Sq, KVH, g), and ``sum p v`` (B, Sq, KVH, g, dh) in the compute
+    dtype.  q (B, Sq, H, dh), k/v (B, Sk, KVH, dh).  The S x S chain stays
+    in the compute dtype; the row max and row sum run fp32.  ``q_offset``:
+    the absolute position of q[0] (decode); ``kv_len_mask``: (B, Sk) bool
+    of the valid cache slots (decode)."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, dh)
@@ -212,9 +239,36 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_off
     p = torch.exp(scores - m.to(scores.dtype))
     l = torch.sum(p, dim=-1, dtype=torch.float32)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
-    denom = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
-    out = out / denom.to(out.dtype)
-    return out.reshape(b, sq, h, dh)
+    return m[..., 0].permute(0, 3, 1, 2), l.permute(0, 3, 1, 2), out
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset=0,
+          kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, Sq, H, dh), k/v (B, Sk, KVH, dh) -> (B, Sq, H, dh)
+    (:func:`_sdpa_parts`, divided by the clamped row sum in the compute
+    dtype)."""
+    _, l, out = _sdpa_parts(q, k, v, causal, q_offset, kv_len_mask)
+    out = out / torch.clamp(l, min=1e-30)[..., None].to(out.dtype)
+    return out.reshape(q.shape)
+
+
+def _split_kv_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
+                     cfg: ModelConfig):
+    """In-pod decode attention over the rank's cache slots: the rank's query
+    heads and new K/V gathered whole over ``model``, the new K/V written
+    into the slot ``pos`` where the rank owns it, every query head's
+    partials over the rank's slots combined over ``model``
+    (:func:`~repro_torch.models.sharding.split_kv_combine`); returns the
+    rank's own heads' output (B, 1, H / model, dh) and the cache."""
+    b, dt = q.shape[0], q.dtype
+    first, count = model_heads(cfg.n_heads)
+    q, k, v = model_whole_parts([q, k, v], 2)
+    ck = update_slot(cache["k"], k, pos)
+    cv = update_slot(cache["v"], v, pos)
+    valid = valid_slots(ck.shape[1], pos, q.device)[None].expand(b, -1)
+    m, l, out = _sdpa_parts(q, ck.to(dt), cv.to(dt), causal=False, kv_len_mask=valid)
+    out = split_kv_combine(m, l, out).to(dt).reshape(q.shape)
+    return out[:, :, first:first + count], {"k": ck, "v": cv}
 
 
 def _split_heads(x: torch.Tensor, dh: int) -> torch.Tensor:
@@ -240,18 +294,20 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
 
     In-pod: ``p`` holds the rank's heads (query heads ``m * H / model`` on
     and their KV groups; the qk-norm scales whole); ``out`` is summed over
-    ``model``."""
+    ``model``.  A decode's ``cache`` is the rank's slots of every KV head
+    (split-KV: :func:`_split_kv_decode`)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     d = cfg.d_model
     x = tp_enter(x)
-    q = x @ fsdp(p["wq"], 0, d)
+    if cross_kv is None:
+        q, k, v = fsdp_mms(x, [p["wq"], p["wk"], p["wv"]])
+    else:
+        q = fsdp_mm(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     q = _split_heads(q, dh)
     if cross_kv is None:
-        k = x @ fsdp(p["wk"], 0, d)
-        v = x @ fsdp(p["wv"], 0, d)
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
         k = _split_heads(k, dh)
@@ -266,7 +322,9 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
         q = rotate(q, positions, cfg)
         k = rotate(k, positions, cfg)
     q = cs(q, "batch", "seq", "heads", None)
-    if cache is not None and cross_kv is None:
+    if cache is not None and cross_kv is None and current_inpod() is not None:
+        out, kv = _split_kv_decode(q, k, v, cache, cache_pos, cfg)
+    elif cache is not None and cross_kv is None:
         ck = update_slot(cache["k"], k, cache_pos)
         cv = update_slot(cache["v"], v, cache_pos)
         kv = {"k": ck, "v": cv}
@@ -276,7 +334,7 @@ def apply_attention(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
         kv = {"k": k, "v": v}
         out = _sdpa(q, k, v, causal=causal)
     out = out.reshape(b, s, -1)
-    return cs(out @ fsdp(p["wo"], 1, d), "batch", "seq", "dmodel", reduce="model"), kv
+    return cs(fsdp_out(out, p["wo"], d), "batch", "seq", "dmodel", reduce="model"), kv
 
 
 # ---------------------------------------------------------------------------
@@ -301,14 +359,13 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     the rank takes those columns), the output summed over ``model``."""
     d = x.shape[-1]
     x = tp_enter(x)
-    wo = fsdp(p["wo"], 1, d)
-    h = x @ model_columns(fsdp(p["wi"], 0, d), wo.shape[0])
-    if "wg" in p:
-        h = F.silu(x @ model_columns(fsdp(p["wg"], 0, d), wo.shape[0])) * h
-    else:
-        h = F.gelu(h, approximate="tanh")
+    width = p["wo"].shape[0]  # the rank's ff rows of wo
+    gated = "wg" in p
+    hs = fsdp_mms(x, [model_columns(p["wi"], width)]
+                  + ([model_columns(p["wg"], width)] if gated else []))
+    h = F.silu(hs[1]) * hs[0] if gated else F.gelu(hs[0], approximate="tanh")
     h = cs(h, "batch", "seq", "ff")
-    return cs(h @ wo, "batch", "seq", "dmodel", reduce="model")
+    return cs(fsdp_out(h, p["wo"], d), "batch", "seq", "dmodel", reduce="model")
 
 
 # ---------------------------------------------------------------------------
@@ -333,13 +390,13 @@ def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     sanitized spec) looks up every token on each rank, with no sum."""
     # F.embedding: its backward on the card sums each token's rows in a
     # fixed order (a replayed step is bit-identical)
-    table = fsdp(p["embed"], 1, cfg.d_model)
+    table = p["embed"]
     ip = current_inpod()
     if ip is None or ip.vocab_whole:
-        return cs(F.embedding(tokens, table), "batch", "seq", "dmodel")
+        return cs(fsdp_rows(table, tokens, cfg.d_model), "batch", "seq", "dmodel")
     local = tokens - ip.vocab_start(table.shape[0])
     inside = (local >= 0) & (local < table.shape[0])
-    x = F.embedding(torch.where(inside, local, 0), table)
+    x = fsdp_rows(table, torch.where(inside, local, 0), cfg.d_model)
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
     return cs(x, "batch", "seq", "dmodel", reduce="model")
 
@@ -348,12 +405,11 @@ def logits_from(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The logits (in-pod: of the rank's vocabulary rows, whose partial
     gradient of ``x`` is summed over ``model``; every row where the table
     is held whole over ``model``)."""
-    d = cfg.d_model
     ip = current_inpod()
     if ip is None or not ip.vocab_whole:
         x = tp_enter(x)
-    w = fsdp(p["embed"], 1, d).T if cfg.tie_embeddings else fsdp(p["lm_head"], 0, d)
-    return cs(x @ w, "batch", "seq", "vocab")
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return cs(fsdp_mm(x, w), "batch", "seq", "vocab")
 
 
 def _row_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ On an in-pod mesh (the train path) the down-projections ``w_dq``,
 the latents; the latents enter the tensor-parallel region (``tp_enter``:
 their gradient, partial over the rank's heads, is summed over ``model``);
 the up-projections ``w_uq``, ``w_uk`` and ``w_uv`` hold the rank's heads'
-columns and ``wo`` its rows, the output summed over ``model``.
+columns and ``wo`` its rows, the output summed over ``model``.  The
+decode splits the latent cache's slots over ``model``
+(:func:`apply_mla_decode`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,17 @@ from repro_torch.models.common import (
     update_slot,
     valid_slots,
 )
-from repro_torch.models.sharding import cs, fsdp, tp_enter
+from repro_torch.models.sharding import (
+    cs,
+    current_inpod,
+    fsdp_mm,
+    fsdp_mms,
+    fsdp_out,
+    model_heads,
+    model_whole_parts,
+    split_kv_combine,
+    tp_enter,
+)
 
 _MASKED = -1e30
 
@@ -68,7 +80,7 @@ def _queries(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
     from the normed query latent entering the tensor-parallel region."""
     b, s, d = x.shape
     qk_nope, qk_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = tp_enter(rms_norm(x @ fsdp(p["w_dq"], 0, d), p["q_norm_lr"], cfg.norm_eps))
+    cq = tp_enter(rms_norm(fsdp_mm(x, p["w_dq"]), p["q_norm_lr"], cfg.norm_eps))
     q = (cq @ p["w_uq"]).reshape(b, s, -1, qk_nope + qk_rope)
     return q[..., :qk_nope], apply_rope(q[..., qk_nope:], positions, cfg.rope_theta)
 
@@ -77,10 +89,9 @@ def latents(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig)
     """The layer's cache entries for ``x``: ``ckv`` (B, S, r), the normed
     latent, and ``kr`` (B, S, rope), the rotated shared key (in-pod: the
     down-projections gathered over ``data``, every rank computing both)."""
-    d = x.shape[-1]
-    ckv = rms_norm(x @ fsdp(p["w_dkv"], 0, d), p["kv_norm_lr"], cfg.norm_eps)
-    kr = apply_rope((x @ fsdp(p["w_kr"], 0, d))[:, :, None, :], positions,
-                    cfg.rope_theta)[:, :, 0]
+    dkv, kr = fsdp_mms(x, [p["w_dkv"], p["w_kr"]])
+    ckv = rms_norm(dkv, p["kv_norm_lr"], cfg.norm_eps)
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return {"ckv": ckv, "kr": kr}
 
 
@@ -104,7 +115,7 @@ def mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfi
     scores = torch.where(mask[None, None], scores, torch.tensor(_MASKED, device=x.device))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(b, s, h * dv)
-    return cs(out @ fsdp(p["wo"], 1, d), "batch", "seq", "dmodel", reduce="model"), lat
+    return cs(fsdp_out(out, p["wo"], d), "batch", "seq", "dmodel", reduce="model"), lat
 
 
 def apply_mla_train(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
@@ -118,11 +129,19 @@ def apply_mla_decode(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
     ``{"ckv" (B, Smax, r), "kr" (B, Smax, rope)}``; the new latents are
     written into it at ``cache_pos`` in place (the reference's clamped
     ``dynamic_update_slice``) and attention runs over the slots
-    ``<= cache_pos``."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
+    ``<= cache_pos``.
+
+    In-pod the cache is the rank's slots (split-KV): every rank computes
+    the new latents and the one that owns slot ``cache_pos`` writes them;
+    the rank's heads' absorbed queries are gathered whole over ``model``,
+    every head's partials over the rank's slots are combined over
+    ``model`` (:func:`~repro_torch.models.sharding.split_kv_combine`), and
+    the rank's heads' latent context goes through their ``w_uv`` columns
+    and ``wo`` rows, the output summed over ``model``."""
+    b, s, d = x.shape
     qk_nope, dv, r = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
     q_nope, q_rope = _queries(p, x, positions, cfg)
+    h = q_nope.shape[2]  # the heads this rank holds
     new = latents(p, x, positions, cfg)
     ckv = update_slot(cache["ckv"], new["ckv"], cache_pos)
     kr = update_slot(cache["kr"], new["kr"], cache_pos)
@@ -130,11 +149,23 @@ def apply_mla_decode(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
     ckv_x, kr_x = ckv.to(x.dtype), kr.to(x.dtype)
     # absorb W_uk into the query: q_abs (B, 1, H, r)
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, p["w_uk"].reshape(r, h, qk_nope))
+    split = current_inpod() is not None
+    if split:
+        first, count = model_heads(cfg.n_heads)
+        both = model_whole_parts([torch.cat([q_abs, q_rope], dim=-1)], 2)[0]
+        q_abs, q_rope = both.split([r, q_rope.shape[-1]], dim=-1)
     scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, ckv_x)
               + torch.einsum("bqhd,bsd->bhqs", q_rope, kr_x)).float() / float(_sqrt_dk(cfg))
     valid = valid_slots(ckv.shape[1], cache_pos, x.device)
     scores = torch.where(valid, scores, torch.tensor(_MASKED, device=x.device))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckv_x)  # the latent context
+    if split:  # the rank's partials (a rank with no valid slot: m = -1e30, l = 0)
+        m = torch.amax(scores, dim=-1)
+        probs = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+        part = torch.einsum("bhqs,bsr->bqhr", probs.to(x.dtype), ckv_x)
+        ctx = split_kv_combine(m.transpose(1, 2), torch.sum(probs, dim=-1).transpose(1, 2), part)
+        ctx = ctx.to(x.dtype)[:, :, first:first + count]
+    else:
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckv_x)  # the latent context
     out = torch.einsum("bqhr,rhd->bqhd", ctx, p["w_uv"].reshape(r, h, dv)).reshape(b, s, h * dv)
-    return cs(out @ p["wo"], "batch", "seq", "dmodel"), out_cache
+    return cs(fsdp_out(out, p["wo"], d), "batch", "seq", "dmodel", reduce="model"), out_cache

@@ -19,10 +19,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import entry_device, prng
+from repro_torch import entry_device, not_in_slice, prng
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, sharding, ssm_lm, transformer
 from repro_torch.models.common import dtype_of, init_key
 
 
@@ -75,8 +75,28 @@ def train_loss(params, batch, cfg: ModelConfig):
     return _module(cfg).train_loss(params, batch, cfg)
 
 
-def init_cache(cfg: ModelConfig, batch: int, smax: int, device="cuda"):
-    return _module(cfg).init_cache(cfg, batch, smax, device)
+def init_cache(cfg: ModelConfig, batch: int, smax: int, device="cuda", mesh=None):
+    """Zeros of the family's decode cache for ``batch`` rows and ``smax``
+    slots; on an in-pod ``mesh``, of a rank's shard of it
+    (:func:`~repro_torch.models.sharding.cache_spec`: the rows over
+    ``data``, the slots over ``model``)."""
+    if mesh is None or not mesh.inpod:
+        return _module(cfg).init_cache(cfg, batch, smax, device)
+    check_mesh_serve(cfg)
+    whole = _module(cfg).init_cache(cfg, batch, smax, "meta")
+    dev = entry_device(device)
+    return tree_util.tree_map(lambda v: torch.zeros(v.shape, dtype=v.dtype, device=dev),
+                              sharding.shard_cache(whole, mesh))
+
+
+def check_mesh_serve(cfg: ModelConfig) -> None:
+    """Raises for a family whose serve steps do not run on an in-pod mesh
+    yet: the SSM and hybrid families' conv-window and state placement, and
+    the audio family's cross K/V."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise not_in_slice(f"the {cfg.family} family's serve steps on an in-pod mesh (its "
+                           "conv-window and SSM-state or cross-K/V placement)",
+                           "item 10c, second part")
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, inplace: bool = False):
@@ -86,11 +106,18 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, inplace: bool = Fa
 def prefill(params, batch, cfg: ModelConfig, smax: Optional[int] = None):
     """(last-position logits, the cache of the prompt).  The audio family
     decodes its BOS token into a self-attention cache of ``smax`` slots
-    (default: the frame count)."""
+    (default: the frame count); the others' caches get ``smax`` slots on
+    each self-attention leaf (default: the prompt's), as
+    :func:`grow_cache` makes them -- the transformer family's written
+    there directly, which on an in-pod mesh places each layer's K/V in
+    the rank's slots."""
     mod = _module(cfg)
     if cfg.family == "audio":
         return mod.prefill(params, batch, cfg, smax or batch["frames"].shape[1])
-    return mod.prefill(params, batch, cfg)
+    if mod is transformer:
+        return mod.prefill(params, batch, cfg, smax)
+    logits, cache = mod.prefill(params, batch, cfg)
+    return logits, (cache if smax is None else grow_cache(cache, smax))
 
 
 SLOT_LEAVES = ("k", "v", "ckv", "kr")  # cache leaves with a sequence-slot axis (dim 2)

@@ -39,6 +39,16 @@ done: every partial sum over ``model`` passes one of these functions on
 its way to the leaf.  Only the sum over the rank's tokens is left (over
 ``data``, for a leaf that ``data`` does not split: the step's).
 
+The serve steps run on the same layout: the prefill's batch over ``(pod,
+data)``, the decode cache's batch over ``data`` and its slots over
+``model`` (:func:`cache_spec`).  Without autograd a product with a weight
+sharded over ``data`` moves whichever is smaller, the weight or the
+activations (:func:`fsdp_mms`, :func:`fsdp_out`, :func:`fsdp_rows`): a
+decode step's few rows travel instead of the layer's weights.
+:func:`prompt_slots` places a prompt's K/V in the rank's slots,
+:func:`split_kv_combine` joins the ranks' partial attention over their
+slots, :func:`greedy_tokens` takes the argmax over the vocabulary shards.
+
 These act only while :func:`use_inpod` holds this rank's :class:`InPod`;
 without one (every single-process path) they are the identity.  A spec is
 a tuple with one entry a dimension: ``None``, a mesh axis name, or a tuple
@@ -345,7 +355,9 @@ class InPod:
     takes every row.  ``dispatch_axes``: the mesh axes whose ranks' tokens
     one MoE dispatch covers (major first): the pod's, ``("data",)``, in a
     FedQCS step (the reference's per-pod program); the whole batch's,
-    ``("pod", "data")``, in the baseline (its one global program)."""
+    ``("pod", "data")``, in the baseline and the prefill (their one global
+    program); in a decode step, whose rows are the cache's ``data`` share
+    (the same on every pod), the whole batch's again: ``("data",)``."""
 
     def __init__(self, mesh, vocab_whole: bool, dispatch_axes: Tuple[str, ...]):
         self.mesh = mesh
@@ -391,6 +403,76 @@ def fsdp(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
     return _Gather.apply(w, ip.group("data"), dim)
 
 
+def _moves_activations(x_numel: int, w_numel: int) -> bool:
+    """Whether a product with a weight sharded over ``data`` gathers the
+    activations instead of the weight: without autograd (the serve steps),
+    where they are the smaller (a decode step's few rows).  Every ``data``
+    rank of the product decides alike: their shapes are one."""
+    return not torch.is_grad_enabled() and x_numel < w_numel
+
+
+def fsdp_mms(x: torch.Tensor, ws) -> list:
+    """``x @ w`` for each weight of ``ws`` whose d_model rows (dim -2, as
+    wide as ``x``'s last dimension) may be a ``data`` shard: gathered over
+    ``data`` (:func:`fsdp`); or, where :func:`_moves_activations`, every
+    ``data`` rank's ``x`` gathered once, each rank's fp32 partial products
+    of its rows summed over ``data`` and rounded once (the weights stay)."""
+    ip, full = _inpod, x.shape[-1]
+    split = [w.shape[-2] != full for w in ws]
+    if ip is None or not any(split):
+        return [x @ w for w in ws]
+    if not _moves_activations(x.numel(), sum(w.numel() for w, sp in zip(ws, split) if sp)):
+        return [x @ fsdp(w, w.dim() - 2, full) for w in ws]
+    group, d = ip.group("data"), ip.coords["data"]
+    xs = all_gather(x, group)  # (data, ..., full): every data rank's rows
+    parts = [torch.matmul(xs.narrow(-1, d * w.shape[-2], w.shape[-2]).float(), w.float())
+             for w, sp in zip(ws, split) if sp]
+    sums = all_reduce(torch.cat(parts, dim=-1), group)[d].to(x.dtype).split(
+        [p.shape[-1] for p in parts], dim=-1)
+    it = iter(sums)
+    return [next(it) if sp else x @ w for w, sp in zip(ws, split)]
+
+
+def fsdp_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for one weight whose d_model rows may be a ``data`` shard
+    (:func:`fsdp_mms`)."""
+    return fsdp_mms(x, [w])[0]
+
+
+def fsdp_out(h: torch.Tensor, w: torch.Tensor, full: int) -> torch.Tensor:
+    """``h @ w`` for a weight whose d_model columns (dim -1, ``full`` wide)
+    may be a ``data`` shard: gathered over ``data``; or, where
+    :func:`_moves_activations`, every ``data`` rank's ``h`` gathered, the
+    rank's columns of each rank's product, and an all-to-all over ``data``
+    that brings each rank its rows' columns (the products as one rank's)."""
+    ip = _inpod
+    if ip is None or w.shape[-1] == full:
+        return h @ w
+    if not _moves_activations(h.numel(), w.numel()):
+        return h @ fsdp(w, w.dim() - 1, full)
+    group = ip.group("data")
+    cols = all_to_all(torch.matmul(all_gather(h, group), w), group)
+    return torch.cat(cols.unbind(0), dim=-1)
+
+
+def fsdp_rows(table: torch.Tensor, ids: torch.Tensor, full: int) -> torch.Tensor:
+    """The rows ``ids`` of an embedding table whose d_model columns
+    (``full`` wide) may be a ``data`` shard: the table gathered over
+    ``data``; or, where :func:`_moves_activations`, every ``data`` rank's
+    ids gathered, looked up in the rank's columns and sent back by an
+    all-to-all over ``data``."""
+    import torch.nn.functional as F
+
+    ip = _inpod
+    if ip is None or table.shape[-1] == full:
+        return F.embedding(ids, table)
+    if not _moves_activations(ids.numel() * full, table.numel()):
+        return F.embedding(ids, fsdp(table, 1, full))
+    group = ip.group("data")
+    cols = all_to_all(F.embedding(all_gather(ids, group), table), group)
+    return torch.cat(cols.unbind(0), dim=-1)
+
+
 def model_whole(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
     """A weight or an activation with its dimension ``dim`` (``full`` wide)
     whole over ``model``: a shard of it is gathered; the backward sums the
@@ -401,6 +483,19 @@ def model_whole(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
     if ip is None or w.shape[dim] == full:
         return w
     return _Gather.apply(w, ip.group("model"), dim % w.dim())
+
+
+def model_whole_parts(xs, dim: int) -> list:
+    """Each tensor of ``xs`` -- split over ``model`` along ``dim``, their
+    other dimensions alike -- whole, by one all-gather over ``model`` (no
+    backward: the decode's query heads and new K/V)."""
+    ip = _inpod
+    if ip is None or ip.sizes["model"] == 1:
+        return list(xs)
+    dim %= xs[0].dim()
+    parts = all_gather(torch.cat(xs, dim=dim), ip.group("model"))
+    return [torch.cat(part.unbind(0), dim=dim)
+            for part in parts.split([x.shape[dim] for x in xs], dim=dim + 1)]
 
 
 def model_columns(w: torch.Tensor, width: int) -> torch.Tensor:
@@ -504,3 +599,136 @@ def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
             if mesh.shape.get(a, 1) > 1:
                 x = torch.cat(all_gather(x, mesh.group(a)).unbind(0), dim=dim)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Serving on the mesh: the cache's placement, the split-KV combine, greedy.
+# ---------------------------------------------------------------------------
+
+
+def _even(dim: int, size: int) -> bool:
+    return dim % size == 0 and dim >= size
+
+
+def cache_spec(name: str, shape, sizes: dict) -> Spec:
+    """The reference's KV/state cache layout (its ``_cache_spec``) for the
+    leaf ``name`` of ``shape`` on a mesh of axis ``sizes``: batch over
+    ``data``, the sequence slots (split-KV decode) or the SSM heads / conv
+    channels over ``model``, each where the axis divides the dimension."""
+    data = lambda d: "data" if _even(d, sizes.get("data", 1)) else None  # noqa: E731
+    model = lambda d: "model" if _even(d, sizes.get("model", 1)) else None  # noqa: E731
+    if any(k in name for k in ("ckv", "kr")):  # (L, B, S, r)
+        return (None, data(shape[1]), model(shape[2]), None)
+    if "conv" in name:  # (L, B, K, C)
+        return (None, data(shape[1]), None, model(shape[3]))
+    if "ssm" in name or len(shape) == 5:  # (L, B, H, P, N); (L, B, S, KVH, dh)
+        return (None, data(shape[1]), model(shape[2]), None, None)
+    return (None,) * len(shape)
+
+
+def cache_specs(cache, sizes: dict):
+    """A cache tree's specs (:func:`cache_spec` of each leaf by its path)."""
+    return tree_util.unflatten(
+        (path, cache_spec(tree_util.slash(path).lower(), tuple(leaf.shape), sizes))
+        for path, leaf in tree_util.leaves_in_order(cache))
+
+
+def shard_cache(cache, mesh):
+    """This rank's shard of a whole cache (:func:`cache_specs`): the batch
+    rows of its ``data`` index and the contiguous slots ``[m * Smax /
+    model, (m + 1) * Smax / model)`` of its ``model`` index (a mesh made
+    outside its world: rank 0's)."""
+    specs = cache_specs(cache, mesh.shape)
+    coords = mesh.coords() if getattr(mesh, "rank", None) is not None else {}
+    return tree_util.unflatten(
+        (path, local_shard(leaf, tree_util.get(specs, path), mesh.shape, coords))
+        for path, leaf in tree_util.leaves_in_order(cache))
+
+
+def gather_cache(cache, specs, mesh):
+    """The whole cache from every rank's :func:`shard_cache` (a collective:
+    every rank calls it); ``specs``: :func:`cache_specs` of the whole
+    cache."""
+    return tree_util.unflatten((path, gather_leaf(leaf, tree_util.get(specs, path), mesh))
+                               for path, leaf in tree_util.leaves_in_order(cache))
+
+
+def kv_slots(local: int) -> Tuple[int, int]:
+    """(the first global slot, Smax) of a cache shard of ``local`` slots:
+    in-pod the slots are split over ``model`` (``(m * local, model *
+    local)``); outside, the shard is the whole cache."""
+    ip = _inpod
+    if ip is None:
+        return 0, local
+    return ip.coords["model"] * local, ip.sizes["model"] * local
+
+
+def prompt_slots(x: torch.Tensor, smax: Optional[int], heads: Optional[int] = None):
+    """A layer's prompt K/V (B, S, KVH, dh) -- or MLA latents (B, S, r) --
+    as its cache entry of ``smax`` slots (the prompt's, then zeros; None:
+    the prompt's S).  In-pod ``x`` is the prefill rank's: its batch rows
+    (over ``(pod, data)``) and, for K/V, its ``heads / model`` KV heads
+    (``heads``: the whole count); the entry is the rank's cache shard
+    (:func:`cache_spec`): every KV head gathered over ``model``, the rank's
+    ``smax / model`` slots, and the rows gathered over ``(pod, data)`` of
+    which it keeps its ``data`` share."""
+    s = x.shape[1]
+    smax = s if smax is None else smax
+    ip = _inpod
+    if ip is None:
+        if smax <= s:
+            return x
+        out = x.new_zeros((x.shape[0], smax) + tuple(x.shape[2:]))
+        out[:, :s] = x
+        return out
+    model = ip.sizes["model"]
+    if smax < s or smax % model:
+        raise ValueError(f"a cache of {smax} slots for a prompt of {s} on a {model}-way model "
+                         "axis: it needs at least the prompt's slots, a multiple of the axis")
+    if heads is not None:
+        x = model_whole(x, 2, heads)
+    local = smax // model
+    first = ip.coords["model"] * local
+    part = x.new_zeros((x.shape[0], local) + tuple(x.shape[2:]))
+    mine = x[:, first:first + local]
+    part[:, :mine.shape[1]] = mine
+    rows = gather_leaf(part, (("pod", "data"),), ip.mesh)
+    return local_shard(rows, ("data",), ip.sizes, ip.coords)
+
+
+def split_kv_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Attention over every ``model`` rank's cache slots from each rank's
+    partials over its own (flash-decoding's combine): ``m`` the fp32 row
+    maxima (a rank with no valid slot holds its clamp, -1e30), ``l`` the
+    fp32 probability sums with ``exp(s - m)``, ``o`` the unnormalized
+    outputs (..., d), ``m`` and ``l`` of ``o``'s leading shape.  Each
+    rank's share is weighted by ``exp(m - max over ranks)`` (0 for a
+    rank with no valid slot) and summed, from one all-gather over
+    ``model``; returns the fp32 output."""
+    ip = _inpod
+    if ip is None or ip.sizes["model"] == 1:
+        return o.float() / torch.clamp(l, min=1e-30)[..., None]
+    parts = all_gather(torch.cat([m[..., None], l[..., None], o.float()], dim=-1),
+                       ip.group("model"))
+    m, l, o = parts[..., 0], parts[..., 1], parts[..., 2:]
+    w = torch.exp(m - torch.amax(m, dim=0))
+    return torch.sum(o * w[..., None], dim=0) / torch.clamp(torch.sum(l * w, dim=0),
+                                                              min=1e-30)[..., None]
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits -> (B,) greedy ids, the lowest index winning a tie (the
+    reference's ``argmax``).  In-pod, ``logits`` holds the rank's
+    vocabulary columns (all of them where the table is held whole): each
+    rank's best is gathered over ``model`` and the lowest global index of
+    the best value wins."""
+    idx = torch.argmax(logits, dim=-1)
+    ip = _inpod
+    if ip is None or ip.vocab_whole or ip.sizes["model"] == 1:
+        return idx
+    best = torch.gather(logits, -1, idx[:, None])[:, 0]
+    both = all_gather(torch.stack([best.double(), (idx + ip.vocab_start(logits.shape[-1]))
+                                   .double()], dim=-1), ip.group("model"))  # exact in fp64
+    vals, ids = both[..., 0], both[..., 1]
+    return torch.amin(torch.where(vals == torch.amax(vals, dim=0), ids, float("inf")),
+                      dim=0).to(idx.dtype)

@@ -14,12 +14,14 @@ Serving: :func:`init_cache` (a GQA cache ``k``/``v`` (L, B, Smax, KVH, dh)
 or an MLA latent cache ``ckv``/``kr`` (L, B, Smax, *)), :func:`prefill`
 (last-position logits and the cache of the prompt, taken from each
 layer's forward pass) and :func:`decode_step` (one token; the new K/V or
-latents written at ``pos``).
+latents written at ``pos``).  On an in-pod mesh both run on the rank's
+cache shard: its ``data`` share of the batch, its ``model`` share of the
+slots (split-KV decode).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -45,6 +47,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mla import apply_mla_decode, init_mla, mla_train
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.sharding import prompt_slots
 
 
 # ---------------------------------------------------------------------------
@@ -116,14 +119,14 @@ def _layer_out(lp, x, cfg, positions, moe):
 
 
 def _run_stack(stack: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-               moe: bool, kvs: list = None):
-    """The stack's layers in order; with ``kvs``, each layer's K/V (or
-    latents) is appended to it."""
-    if kvs is None:
+               moe: bool, on_kv=None):
+    """The stack's layers in order; with ``on_kv``, each layer's K/V (or
+    latents) is passed to it."""
+    if on_kv is None:
         return run_layers(_layer_out, unstack_layers(stack), x, cfg, positions, moe)
     for lp in unstack_layers(stack):
         x, kv = _layer_fwd(lp, x, positions, cfg, moe)
-        kvs.append(kv)
+        on_kv(kv)
     return x
 
 
@@ -260,7 +263,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: Model
     or a 0-d tensor).  Returns (logits (B, 1, V), the cache with every
     layer's new K/V or latents at ``pos``).  ``inplace=True`` writes into
     ``cache`` itself (the serve step's donation); else a copy is written
-    and ``cache`` is left as it was."""
+    and ``cache`` is left as it was.  In-pod: the rank's cache shard, the
+    tokens of its rows, the logits of its vocabulary columns."""
     if not inplace:
         cache = tree_util.tree_map(torch.clone, cache)
     b = tokens.shape[0]
@@ -278,19 +282,30 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos, cfg: Model
     return logits_from(params["tok"], hidden, cfg), cache
 
 
-def prefill(params: dict, batch: dict, cfg: ModelConfig):
+def prefill(params: dict, batch: dict, cfg: ModelConfig, smax: Optional[int] = None):
     """Full-sequence prefill: (last-position logits (B, 1, V), the cache
-    of the whole input -- (L, B, S, ...) K/V or latents, S the prompt
-    (VLM: patches + text) length)."""
+    of the whole input -- (L, B, Smax, ...) K/V or latents, the prompt's
+    slots (VLM: patches + text) then zeros; ``smax`` None: the prompt's
+    length).  In-pod (the serve step's batch over ``(pod, data)``) each
+    layer's K/V go straight into the rank's cache shard
+    (:func:`~repro_torch.models.sharding.prompt_slots`: batch over
+    ``data``, slots over ``model``), and the logits are the rank's rows
+    and vocabulary columns."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params["tok"], tokens, cfg)
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     positions = _positions(batch, cfg, b, s, tokens.device)
+
     kvs = []
+
+    def keep(kv):  # the layer's cache entry, as soon as it is made
+        kvs.append({k: prompt_slots(v, smax, cfg.n_kv_heads if v.dim() == 4 else None)
+                    for k, v in kv.items()})
+
     for stack, moe in _stacks(params, cfg):
-        x = _run_stack(stack, x, positions, cfg, moe, kvs)
+        x = _run_stack(stack, x, positions, cfg, moe, keep)
     cache = {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
     del kvs
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -48,7 +48,11 @@ exchange over the ranks that share its in-pod position:
 The steps run on the device the state lives on; the FedQCS codec is made
 on ``device``.  The serve steps :func:`make_prefill_step` and
 :func:`make_decode_step` run the model's ``prefill`` and ``decode_step``
-under ``torch.inference_mode()``.
+under ``torch.inference_mode()``; on an in-pod mesh (the transformer
+family) each rank runs its shard of the reference's serve program: the
+prefill over its ``(pod, data)`` rows with heads over ``model``, the
+decode over its ``data`` rows and its ``model`` share of the cache's slots
+(split-KV).
 """
 
 from __future__ import annotations
@@ -72,7 +76,9 @@ from repro_torch.models import model as model_api
 from repro_torch.models.sharding import (
     InPod,
     all_reduce,
+    cache_spec,
     gather_leaf,
+    greedy_tokens,
     local_shard,
     param_specs,
     spec_axes,
@@ -565,6 +571,13 @@ class _PodRows:
         return tree_util.unflatten(out)
 
 
+def _vocab_whole(items) -> bool:
+    """Whether the vocabulary tables are held whole over ``model`` (their
+    sanitized specs dropped the axis)."""
+    return any(path[-1] in _VOCAB_TABLES and "model" not in sum(map(spec_axes, spec), ())
+               for path, spec, _ in items)
+
+
 def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None,
                        dispatch_axes=("data",)):
     """An in-pod rank's (pod loss, gradient shards): the loss is the mean
@@ -577,9 +590,7 @@ def pod_value_and_grad(params, batch, cfg: ModelConfig, mesh, items=None,
     rank's tokens' part, summed over ``data`` here (once, however many
     times the leaf was used)."""
     items = items if items is not None else _check_inpod(cfg, None, mesh)
-    vocab_whole = any(path[-1] in _VOCAB_TABLES and "model" not in sum(map(spec_axes, spec), ())
-                      for path, spec, _ in items)  # the tables' sanitized specs
-    with use_inpod(InPod(mesh, vocab_whole, dispatch_axes)):
+    with use_inpod(InPod(mesh, _vocab_whole(items), dispatch_axes)):
         loss, grads = value_and_grad(params, local_batch(batch, mesh), cfg)
     out = []
     for path, spec, _ in items:
@@ -681,22 +692,50 @@ def _make_inpod_step(cfg, opt_cfg, fed_cfg, mesh, impl, device, a):
 # ---------------------------------------------------------------------------
 
 
-def _serve_mesh(mesh) -> None:
-    if mesh is not None and mesh.inpod:
-        raise not_in_slice("the serve steps on an in-pod mesh (split-KV decode over 'model', "
-                           "tensor-parallel prefill, the cache placed)", "item 10c")
+def _serve_context(cfg: ModelConfig, mesh, dispatch_axes) -> Optional[InPod]:
+    """The rank's in-pod context of a serve step on ``mesh`` (None off the
+    mesh); raises for a family the in-pod serve steps do not run, and for a
+    mesh made outside its world."""
+    if mesh is None or not mesh.inpod:
+        return None
+    model_api.check_mesh_serve(cfg)
+    return InPod(mesh, _vocab_whole(_check_inpod(cfg, None, mesh)), dispatch_axes)
+
+
+def serve_specs(cfg: ModelConfig, mesh, kind: str) -> dict:
+    """The specs of an in-pod serve step's outputs (``kind``: ``prefill``
+    or ``decode``): ``logits`` (B, 1, V) -- the rows over ``(pod, data)``
+    (prefill) or ``data`` (decode), the vocabulary over ``model`` unless
+    the tables are held whole -- and the decode's ``next_tok`` (B, 1).
+    ``gather_leaf(out, spec, mesh)`` puts an output back together."""
+    vocab = None if _vocab_whole(_check_inpod(cfg, None, mesh)) else "model"
+    rows = ("pod", "data") if kind == "prefill" else "data"
+    return {"logits": (rows, None, vocab), "next_tok": (rows, None)}
 
 
 def make_prefill_step(cfg: ModelConfig, mesh):
-    """Returns ``prefill_fn(params, batch) -> (last-position logits, cache)``,
-    run under ``torch.inference_mode()``.  The audio family's cache has as
-    many self-attention slots as the prompt has frames."""
-    _serve_mesh(mesh)
+    """Returns ``prefill_fn(params, batch, smax=None) -> (last-position
+    logits, cache)``, run under ``torch.inference_mode()``: the cache has
+    ``smax`` slots on each self-attention leaf (None: the prompt's length;
+    the audio family's: its frame count).
 
-    def prefill_fn(params, batch):
-        smax = batch["frames"].shape[1] if cfg.family == "audio" else None
-        with torch.inference_mode():
-            return model_api.prefill(params, batch, cfg, smax)
+    On an in-pod mesh (the transformer family) ``params`` are the rank's
+    shards (:func:`shard_state` of the parameters) and ``batch`` the whole
+    prompt, of which the rank runs its rows over ``(pod, data)``
+    (:func:`local_batch`) -- the reference's one program over the batch
+    (an MoE layer dispatches the whole batch's tokens).  The logits are the
+    rank's rows and vocabulary columns; the cache is the rank's shard
+    (:func:`~repro_torch.models.sharding.cache_spec`: the rows of its
+    ``data`` share, the slots ``[m * smax / model, (m + 1) * smax /
+    model)``)."""
+    ip = _serve_context(cfg, mesh, ("pod", "data"))
+
+    def prefill_fn(params, batch, smax=None):
+        if cfg.family == "audio":
+            smax = smax or batch["frames"].shape[1]
+        with torch.inference_mode(), use_inpod(ip):
+            return model_api.prefill(params, batch if ip is None else local_batch(batch, mesh),
+                                     cfg, smax)
 
     return prefill_fn
 
@@ -707,15 +746,25 @@ def make_decode_step(cfg: ModelConfig, mesh, donate: bool = True):
     is the greedy token (the first index wins a tie).  ``donate=True``
     writes the new K/V (or SSM states) into ``cache`` itself and returns it (the
     counterpart of the reference's buffer donation); ``donate=False``
-    leaves ``cache`` as it was."""
-    _serve_mesh(mesh)
+    leaves ``cache`` as it was.
+
+    On an in-pod mesh (the transformer family) ``cache`` is the rank's
+    shard (:func:`make_prefill_step`'s, or ``model.init_cache(...,
+    mesh=)``) and ``tokens`` the whole (B, 1) or the rank's rows: the rank
+    decodes the rows of its ``data`` share (the same on every pod) over its
+    slots, every query head's partials combined over ``model`` (split-KV);
+    an MoE layer dispatches the step's B tokens.  ``next_tok`` is the
+    rank's rows (the same on every ``model`` rank), the logits its rows
+    and vocabulary columns, the cache its shard."""
+    ip = _serve_context(cfg, mesh, ("data",))
 
     def decode_fn(params, cache, tokens, pos):
-        with torch.inference_mode():
+        if ip is not None and tokens.shape[0] != next(iter(cache.values())).shape[1]:
+            tokens = tokens.chunk(mesh.shape["data"])[ip.coords["data"]]  # the rank's rows
+        with torch.inference_mode(), use_inpod(ip):
             logits, new_cache = model_api.decode_step(params, cache, tokens, pos, cfg,
                                                       inplace=donate)
-            next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        return next_tok, logits, new_cache
+            return greedy_tokens(logits[:, -1])[:, None], logits, new_cache
 
     return decode_fn
 
@@ -759,16 +808,9 @@ def batch_shardings(cfg: ModelConfig, shape: str, mesh):
 
 
 def _cache_spec(name: str, shp, mesh) -> tuple:
-    """The reference's KV/state cache layout: batch over ``data``, the
-    sequence (split-KV decode) or the SSM heads / conv channels over
-    ``model``.  Specs only: no serve step places a cache on an in-pod mesh
-    yet (item 10c)."""
-    data = lambda d: "data" if _even(d, mesh, ("data",)) else None
-    model = lambda d: "model" if _even(d, mesh, ("model",)) else None
-    if any(k in name for k in ("ckv", "kr")):  # (L, B, S, r)
-        return (None, data(shp[1]), model(shp[2]), None)
-    if "conv" in name:  # (L, B, K, C)
-        return (None, data(shp[1]), None, model(shp[3]))
-    if "ssm" in name or len(shp) == 5:  # (L, B, H, P, N); (L, B, S, KVH, dh)
-        return (None, data(shp[1]), model(shp[2]), None, None)
-    return (None,) * len(shp)
+    """The reference's KV/state cache layout
+    (:func:`~repro_torch.models.sharding.cache_spec`): batch over ``data``,
+    the sequence (split-KV decode) or the SSM heads / conv channels over
+    ``model``.  The in-pod serve steps place the transformer family's
+    cache by it."""
+    return cache_spec(name, shp, mesh.shape)

@@ -1096,6 +1096,61 @@ def test_inpod_whisper_step_on_the_card_matches_one_process(cuda):
     assert worst <= 2 * 3e-3, worst
 
 
+def test_inpod_serve_on_the_card_matches_one_process(cuda):
+    """The in-pod serve steps (prefill over (pod, data), split-KV decode
+    over ``model``) of the dense smoke model on the (2, 2, 2) world of
+    eight ranks on the card against one process's ``make_prefill_step`` /
+    ``make_decode_step`` on the card, both from seed 0 on
+    ``torch_inpod_worker.serve_batch``: 5 greedy steps from slot 6 of 16
+    (``model`` rank 0's slots, then rank 1's); every rank's greedy tokens
+    equal, its logits and cache shard within 1e-4 of its shards of one
+    process's (fp32 products summed in another order on the card)."""
+    import torch_inpod_worker as w
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.spawn import run_world
+    from repro_torch.models import model as model_api
+    from repro_torch.models.sharding import local_shard, shard_cache
+    from repro_torch.runtime import steps
+
+    arch = "qwen3-0.6b"
+    world = run_world(w.serve_world, 8, args=(arch,), device="cuda", timeout_s=300)
+    cfg = smoke_config(arch)
+    params = model_api.init_params(cfg, 0, "cuda")
+    batch = {k: v.cuda() for k, v in w.serve_batch(cfg).items()}
+    logits, cache = steps.make_prefill_step(cfg, None)(params, batch, w.SERVE_SMAX)
+    decode = steps.make_decode_step(cfg, None)
+    mesh = Mesh({"pod": 2, "data": 2, "model": 2})
+    specs = {kind: steps.serve_specs(cfg, mesh, kind) for kind in ("prefill", "decode")}
+
+    def close(got, want, what):
+        assert got.shape == want.shape, what
+        assert float(torch.max(torch.abs(got - want.cpu()))) <= 1e-4, what
+
+    for rank, out in enumerate(world):
+        mesh.rank = rank
+        c = mesh.coords()
+        close(out["logits"], local_shard(logits, specs["prefill"]["logits"], mesh.shape, c),
+              ("prefill", rank))
+        for k, v in shard_cache(cache, mesh).items():
+            close(out["cache"][k], v, ("prefill cache", k, rank))
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for t in range(w.SERVE_STEPS):
+        tok, lo, cache = decode(params, cache, tok, w.SERVE_S + t)
+        for rank, out in enumerate(world):
+            mesh.rank = rank
+            c = mesh.coords()
+            got = out["steps"][t]
+            want = local_shard(tok, specs["decode"]["next_tok"], mesh.shape, c)
+            assert torch.equal(got["next_tok"], want.cpu()), (t, rank)
+            close(got["logits"], local_shard(lo, specs["decode"]["logits"], mesh.shape, c),
+                  ("decode", t, rank))
+            for k, v in shard_cache(cache, mesh).items():
+                close(got["cache"][k], v, ("decode cache", t, k, rank))
+    assert all(out["donated_in_place"] and out["kept_left_cache"] for out in world)
+
+
 # The transformer family's MoE, MLA (+MTP) and VLM smoke configs and the
 # SSM, hybrid and audio families' on the card against the same model on the
 # CPU, both fp32 (TF32 off): the loss within 1e-5, every gradient leaf,

@@ -61,6 +61,7 @@ from repro_torch.core.compression import FedQCSConfig  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch.spawn import run_world  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models import sharding as tshard  # noqa: E402
 from repro_torch.models.sharding import local_shard  # noqa: E402
 from repro_torch.optim.adam import OptConfig  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
@@ -93,6 +94,7 @@ RUNS = {
     "whisper-vocab-257": ("whisper-base", {"vocab_size": 257}, ("auto",)),
 }
 FAMILIES = ("mamba2-1.3b", "zamba2-2.7b")
+SERVE = (ARCH, MOE, "deepseek-v3-671b", "qwen2-vl-7b")  # the in-pod serve steps' families
 LATER = tuple(label for label in RUNS if label not in FAMILIES)
 
 
@@ -249,7 +251,8 @@ def _port(ref, ref8):
            "auto_after": _port_state(ref["auto"][0]),
            "families": {label: _port_family(label) for label in RUNS},
            "int8_init": _port_state(ref8["init"]),
-           "int8_after": _port_state(ref8["step"][0])}
+           "int8_after": _port_state(ref8["step"][0]),
+           "serve": SERVE}
     with tempfile.TemporaryDirectory() as ckpt_dir:
         ranks = run_world(torch_inpod_worker.run, 8, args=(inp, ckpt_dir), device="cpu",
                           timeout_s=300)
@@ -665,6 +668,151 @@ def test_checkpoint_restores_onto_one_device(runs):
 
 
 # ---------------------------------------------------------------------------
+# the serve steps on the mesh (the transformer family)
+# ---------------------------------------------------------------------------
+
+
+def _serve_reference(arch):
+    """The reference's serve run of ``arch``'s smoke model on its 2 x 2 x 2
+    mesh: seed 0's parameters (eager, as the port draws them) placed by
+    ``sane_param_shardings``, the prompt over (pod, data), its prefill;
+    the prompt's cache grown to ``SERVE_SMAX`` slots and placed by
+    ``_cache_spec``, then ``SERVE_STEPS`` greedy decode steps (the tokens
+    replicated): the tokens fed, the logits and the cache after each."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    w = torch_inpod_worker
+    cfg = jreg.smoke_config(arch)
+    mesh = j_debug_mesh(2, 2, 2)
+    params = jmodel.init_params(cfg, jax.random.PRNGKey(0))
+    params = jax.device_put(params, jsteps.sane_param_shardings(params, mesh))
+    rows = ("pod", "data")
+    place = {"tokens": P(rows, None), "patches": P(rows, None, None),
+             "positions": P(None, rows, None)}
+    batch = {k: jax.device_put(v.numpy().astype(np.int32 if k != "patches" else np.float32),
+                               NamedSharding(mesh, place[k]))
+             for k, v in w.serve_batch(registry.smoke_config(arch)).items()}
+    logits, cache = jsteps.make_prefill_step(cfg, mesh)(params, batch)
+    out = {"logits": np.asarray(logits), "steps": []}
+    grown = {k: np.pad(np.asarray(v), [(0, 0), (0, 0), (0, w.SERVE_SMAX - v.shape[2])]
+                       + [(0, 0)] * (v.ndim - 3)) for k, v in cache.items()}
+    out["cache"] = grown
+    c = {k: jax.device_put(v, NamedSharding(mesh, jsteps._cache_spec(f"cache/{k}", v.shape,
+                                                                      mesh)))
+         for k, v in grown.items()}
+    decode = jsteps.make_decode_step(cfg, mesh, donate=False)
+    tok = np.argmax(out["logits"][:, -1], axis=-1).astype(np.int32)[:, None]
+    for t in range(w.SERVE_STEPS):
+        nxt, lo, c = decode(params, c, jax.device_put(tok, NamedSharding(mesh, P())),
+                            jax.numpy.int32(w.SERVE_S + t))
+        out["steps"].append({"tokens": tok, "next_tok": np.asarray(nxt),
+                             "logits": np.asarray(lo), "cache": _np(c)})
+        tok = np.asarray(nxt)
+    return out
+
+
+@pytest.fixture(params=SERVE)
+def serve_runs(request, tmp_path_factory):
+    """(the reference's serve run, the ranks' records, their coordinates,
+    the port's config) of one smoke model."""
+    arch = request.param
+    want = shared(tmp_path_factory, f"inpod_serve_reference_{arch}",
+                  lambda: _serve_reference(arch))
+    ranks = request.getfixturevalue("port")["ranks"]
+    return (want, [out["serve"][arch] for out in ranks], [out["coords"] for out in ranks],
+            registry.smoke_config(arch))
+
+
+def _assert_shard(got, whole, spec, c, what):
+    want = local_shard(torch.tensor(np.asarray(whole, np.float32)), spec, MESH, c)
+    assert tuple(got.shape) == tuple(want.shape), what
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5, err_msg=what)
+
+
+def _assert_cache_shards(got, whole, c, what):
+    """A rank's cache shard against its ``_cache_spec`` shard of the whole."""
+    for k, v in whole.items():
+        spec = steps._cache_spec(f"cache/{k}", v.shape, tmesh.Mesh(MESH))
+        _assert_shard(got[k], v, spec, c, f"{what}: {k}")
+
+
+def test_serve_prefill_matches_reference(serve_runs):
+    """The in-pod ``make_prefill_step`` (batch over (pod, data), heads over
+    ``model``; MoE: the whole batch's dispatch) against the reference's
+    2 x 2 x 2 prefill: each rank's last-position logits (its rows, its
+    vocabulary columns) within 1e-5, and each rank's cache of
+    ``SERVE_SMAX`` slots (every K/V head or the MLA latents; its ``data``
+    rows, its ``model`` slots) within 1e-5 of its ``_cache_spec`` shard of
+    the reference's grown cache, and the shards gathered back
+    (``gather_cache``) within 1e-5 of the whole."""
+    want, recs, coords, cfg = serve_runs
+    spec = steps.serve_specs(cfg, tmesh.Mesh(MESH), "prefill")["logits"]
+    for c, rec in zip(coords, recs):
+        _assert_shard(rec["logits"], want["logits"], spec, c, f"logits {c}")
+        _assert_cache_shards(rec["cache"], want["cache"], c, f"cache {c}")
+        for k, v in rec["whole_cache"].items():  # the shards gathered back
+            np.testing.assert_allclose(v.numpy(), want["cache"][k], rtol=0, atol=1e-5)
+
+
+def test_serve_decode_matches_reference(serve_runs):
+    """``SERVE_STEPS`` greedy in-pod decode steps (split-KV over ``model``)
+    against the reference's: slots 6 and 7 are ``model`` rank 0's (rank 1
+    holds none yet: its partials weigh 0), 8 is rank 1's first, 9 and 10
+    later.  At each: every rank's ``next_tok`` rows equal to the
+    reference's, its logits within 1e-5 and its cache shard within 1e-5
+    of the reference's cache's ``_cache_spec`` shard."""
+    want, recs, coords, cfg = serve_runs
+    specs = steps.serve_specs(cfg, tmesh.Mesh(MESH), "decode")
+    for t, ref in enumerate(want["steps"]):
+        for c, rec in zip(coords, recs):
+            got = rec["steps"][t]
+            mine = local_shard(torch.tensor(ref["next_tok"].astype(np.int64)),
+                               specs["next_tok"], MESH, c)
+            assert torch.equal(got["next_tok"], mine), (t, c)
+            _assert_shard(got["logits"], ref["logits"], specs["logits"], c, f"step {t} {c}")
+            _assert_cache_shards(got["cache"], ref["cache"], c, f"step {t} {c}")
+
+
+def test_serve_decode_donation(serve_runs):
+    """``donate=True`` writes the new slot into the rank's cache shard
+    itself; ``donate=False`` leaves it as it was and returns the same
+    values."""
+    for rec in serve_runs[1]:
+        assert rec["donated_in_place"] and rec["kept_left_cache"] and rec["kept_equals_donated"]
+
+
+def test_greedy_over_vocabulary_shards_takes_the_lowest_index(port):
+    """The decode's argmax over the ranks' vocabulary columns: the best
+    value wins, and of equal values the lowest global index (the
+    reference's ``argmax``), on every rank."""
+    assert all(out["greedy_ties"] == [3, 13, 9] for out in port["ranks"])
+
+
+def test_serve_cache_on_the_mesh_is_a_ranks_shard():
+    """``model.init_cache(..., mesh=)`` gives zeros of a rank's shard (rows
+    over ``data``, slots over ``model``); ``shard_cache`` cuts a whole
+    cache the same way; a single-process prefill into ``smax`` slots is
+    its prompt's cache grown to them."""
+    mesh = tmesh.Mesh(MESH)
+    for arch in (ARCH, "deepseek-v3-671b"):
+        cfg = registry.smoke_config(arch)
+        local = tmodel.init_cache(cfg, 8, 16, "cpu", mesh=mesh)
+        whole = tmodel.init_cache(cfg, 8, 16, "cpu")
+        for k, v in tshard.shard_cache(whole, mesh).items():
+            assert v.shape == local[k].shape and local[k].shape[1:3] == (4, 8), k
+            assert not local[k].any()
+    cfg = registry.smoke_config(ARCH)
+    params = tmodel.init_params(cfg, 0, "cpu")
+    batch = torch_inpod_worker.serve_batch(cfg)
+    prefill = steps.make_prefill_step(cfg, None)
+    logits, cache = prefill(params, batch, 16)
+    want_logits, want = prefill(params, batch)
+    assert torch.equal(logits, want_logits)
+    for k, v in tmodel.grow_cache(want, 16).items():
+        assert torch.equal(cache[k], v), k
+
+
+# ---------------------------------------------------------------------------
 # specs and geometry against the reference; the routes outside the slice
 # ---------------------------------------------------------------------------
 
@@ -729,10 +877,29 @@ def _inpod_state(arch, opt=_OPT):
     pytest.param(lambda: _inpod_state("whisper-base"), None, id="audio-family"),
     pytest.param(lambda: _inpod_state(ARCH, dataclasses.replace(_OPT, state_dtype="int8")),
                  None, id="int8-adam"),
-    pytest.param(lambda: steps.make_decode_step(_CFG, tmesh.Mesh(MESH)), "item 10c",
-                 id="decode-step"),
-    pytest.param(lambda: steps.make_prefill_step(_CFG, tmesh.Mesh(MESH)), "item 10c",
-                 id="prefill-step"),
+    pytest.param(lambda: steps.make_decode_step(registry.smoke_config("mamba2-1.3b"),
+                                                tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="decode-step"),
+    pytest.param(lambda: steps.make_prefill_step(registry.smoke_config("mamba2-1.3b"),
+                                                 tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="prefill-step"),
+    pytest.param(lambda: steps.make_decode_step(registry.smoke_config("zamba2-2.7b"),
+                                                tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="decode-step-hybrid"),
+    pytest.param(lambda: steps.make_prefill_step(registry.smoke_config("zamba2-2.7b"),
+                                                 tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="prefill-step-hybrid"),
+    pytest.param(lambda: steps.make_decode_step(registry.smoke_config("whisper-base"),
+                                                tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="decode-step-audio"),
+    pytest.param(lambda: steps.make_prefill_step(registry.smoke_config("whisper-base"),
+                                                 tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="prefill-step-audio"),
+    pytest.param(lambda: tmodel.init_cache(registry.smoke_config("mamba2-1.3b"), 8, 16, "cpu",
+                                           mesh=tmesh.Mesh(MESH)),
+                 "item 10c, second part", id="init-cache-ssm"),
+    pytest.param(lambda: steps.make_decode_step(_CFG, tmesh.Mesh(MESH)),
+                 (RuntimeError, "run_world"), id="serve-mesh-without-its-world"),
     pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True), "item 10g",
                  id="production-mesh"),
     pytest.param(lambda: steps.make_train_step(_CFG, _OPT, _FED, tmesh.Mesh(MESH)),

@@ -25,6 +25,14 @@ Scenarios (``inp`` is the test process's input dict):
     batch and its scenarios), its pod gradient and the steps it names as
     above (``int8``: an ``auto`` step with int8 moments; ``ckpt``: a
     restart replayed);
+  * ``serve``: for each of ``inp["serve"]``'s smoke models (seed 0's
+    parameters, :func:`serve_batch`'s prompt), the in-pod
+    ``make_prefill_step`` into a cache of ``SERVE_SMAX`` slots and
+    ``SERVE_STEPS`` greedy ``make_decode_step`` steps from it (the tokens
+    gathered over ``data`` between steps): the rank's logits, cache shard
+    (and the prefill's whole cache, gathered) and ``next_tok`` after each,
+    and the first step's donation (in place) beside ``donate=False`` (the
+    cache left as it was);
   * ``int8``: the dense model with int8 Adam states: one ``auto`` step from
     the reference's int8 state; ``update``: Adam on the rank's shards of
     the reference's state after that step against Adam on the whole leaves
@@ -79,6 +87,8 @@ def run(rank, world, device, inp, ckpt_dir):
                                       ckpt_dir)
                        for label, fam in inp["families"].items()}
     out["int8"] = _int8(inp, mesh, fed, a, device, rank, os.path.join(ckpt_dir, "int8"))
+    out["serve"] = {arch: serve(arch, mesh, device) for arch in inp["serve"]}
+    out["greedy_ties"] = greedy_ties(mesh)
 
     run_step("auto", inp["init"], inp["batches"][0])
     run_step("ea", inp["init"], inp["batches"][0],
@@ -334,3 +344,107 @@ def _host_tree(tree):
     from repro_torch import tree as tree_util
 
     return tree_util.unflatten((p, v.cpu()) for p, v in tree_util.leaves_in_order(tree))
+
+
+SERVE_B, SERVE_S, SERVE_SMAX, SERVE_STEPS = 8, 6, 16, 5  # decode at slots 6..10 of 16
+
+
+def serve_batch(cfg):
+    """The serve tests' prompt of a smoke model: 8 rows of 6 positions
+    (two rows a rank over (pod, data)), token ids from a seed; the VLM's 2
+    patch embeddings before 4 text tokens, with M-RoPE streams (t; h and w
+    over a 1 x 2 patch grid, then the text's shared positions)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    sv = 2 if cfg.family == "vlm" else 0
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_S - sv)))}
+    if sv:
+        batch["patches"] = torch.tensor(
+            (rng.normal(size=(SERVE_B, sv, cfg.d_model)) * 0.02).astype(np.float32))
+        text = np.arange(SERVE_S - sv) + 1
+        streams = np.stack([np.r_[np.zeros(sv), text], np.r_[np.zeros(sv), text],
+                            np.r_[np.arange(sv), text]]).astype(np.int64)
+        batch["positions"] = torch.tensor(np.broadcast_to(
+            streams[:, None], (3, SERVE_B, SERVE_S)).copy())
+    return batch
+
+
+def serve(arch, mesh, device):
+    """The rank's serve run of ``arch``'s smoke model (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import model as model_api
+    from repro_torch.models.sharding import cache_specs, gather_cache, gather_leaf
+    from repro_torch.optim.adam import OptConfig
+    from repro_torch.runtime import steps
+
+    cfg = smoke_config(arch)
+    _, specs = steps.state_specs(cfg, OptConfig(), None, mesh)
+    params = steps.shard_state(model_api.init_params(cfg, 0, device), specs["params"], mesh)
+    batch = {k: v.to(device) for k, v in serve_batch(cfg).items()}
+    logits, cache = steps.make_prefill_step(cfg, mesh)(params, batch, SERVE_SMAX)
+    clone = lambda c: tree_util.tree_map(torch.clone, c)  # noqa: E731
+    specs = cache_specs(model_api.init_cache(cfg, SERVE_B, SERVE_SMAX, "meta"), mesh.shape)
+    out = {"logits": logits, "cache": clone(cache), "steps": [],
+           "whole_cache": gather_cache(cache, specs, mesh)}
+    decode = steps.make_decode_step(cfg, mesh)
+    keep = steps.make_decode_step(cfg, mesh, donate=False)
+    spec = steps.serve_specs(cfg, mesh, "prefill")["logits"]
+    tok = torch.argmax(gather_leaf(logits, spec, mesh)[:, -1], dim=-1)[:, None]
+    for t in range(SERVE_STEPS):
+        pos = SERVE_S + t
+        if t == 0:
+            before = clone(cache)
+            _, _, kept = keep(params, cache, tok, pos)
+            out["kept_left_cache"] = all(torch.equal(cache[k], before[k]) for k in cache)
+        nxt, logits, new = decode(params, cache, tok, pos)
+        if t == 0:
+            out["donated_in_place"] = all(new[k] is cache[k] for k in cache)
+            out["kept_equals_donated"] = all(torch.equal(kept[k], new[k]) for k in new)
+        cache = new
+        out["steps"].append({"next_tok": nxt, "logits": logits, "cache": clone(cache)})
+        tok = gather_leaf(nxt, steps.serve_specs(cfg, mesh, "decode")["next_tok"], mesh)
+    return out
+
+
+def greedy_ties(mesh):
+    """``sharding.greedy_tokens`` over this rank's 8 vocabulary columns of
+    16: row 0's best value sits at local column 3 of both ``model`` ranks
+    (global 3 and 11), row 1's best on rank 1 only (global 13), row 2
+    ties within rank 1 (global 9 and 10): returns the ids on this rank."""
+    import torch
+
+    from repro_torch.models.sharding import InPod, greedy_tokens, use_inpod
+
+    m = mesh.coords()["model"]
+    logits = torch.zeros(3, 8)
+    logits[0, 3] = 2.0
+    logits[1, 5] = 1.0 + m
+    if m:
+        logits[2, 1] = logits[2, 2] = 4.0
+    with use_inpod(InPod(mesh, False, ("data",))):
+        return greedy_tokens(logits).tolist()
+
+
+def serve_world(rank, world, device, arch):
+    """:func:`serve` of ``arch`` on the (2, 2, 2) mesh as a world's rank
+    body, its tensors moved to the host, with the rank's coordinates."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(2, 2, 2)
+
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [host(v) for v in x]
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    return dict(host(serve(arch, mesh, device)), coords=mesh.coords())
